@@ -1,0 +1,102 @@
+"""The CUDA kernels against their plain versions, on the GPU.
+
+A CUDA kernel has no CPU mode, so these tests skip where there is no GPU
+(they run on the card with ``python -m pytest -q -m cuda tests/test_torch_cuda.py``).
+Tolerance: bitwise, as for the CPU parity tests.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core import (  # noqa: E402
+    EngineConfig, build_network, make_simulation, mam_benchmark_spec,
+)
+from repro_torch.core.neuron import LIFParams  # noqa: E402
+from repro_torch.kernels import cuda  # noqa: E402
+from repro_torch.kernels import lif_update as lif  # noqa: E402
+from repro_torch.kernels import spike_deliver as dlv  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the GPU")
+    return torch.device("cuda")
+
+
+def test_lif_update_kernel_matches_plain(dev):
+    rng = np.random.default_rng(0)
+    n = 100_003
+    p = LIFParams()
+    kw = dict(p11=p.p11, p21=p.p21, p22=p.p22, v_th=p.v_th_mv,
+              v_reset=p.v_reset_mv, t_ref_steps=p.t_ref_steps)
+    xs = [torch.from_numpy(x).to(dev) for x in (
+        rng.normal(13.0, 3.0, n).astype(np.float32),
+        rng.normal(0.0, 300.0, n).astype(np.float32),
+        rng.integers(-1, 5, n).astype(np.int32),
+        rng.normal(0.0, 250.0, n).astype(np.float32),
+        rng.random(n) < 0.9)]
+    before = cuda.launches["lif_update"]
+    got = lif.lif_update_cuda(*xs, **kw)
+    torch.cuda.synchronize()
+    assert cuda.launches["lif_update"] == before + 1
+    for g, w in zip(got, lif.lif_update_plain(*xs, **kw)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("delay_dtype", [np.int8, np.int32])
+@pytest.mark.parametrize("per_area", [False, True])
+def test_spike_deliver_kernel_matches_plain(dev, delay_dtype, per_area):
+    rng = np.random.default_rng(1)
+    a, n, k, lo, span = 3, 1000, 333, 10, 91
+    spikes = torch.from_numpy((rng.random(a * n) < 0.05).astype(np.float32)).to(dev)
+    src = torch.from_numpy(rng.integers(0, n if per_area else a * n, (a * n, k))
+                           .astype(np.int32)).to(dev)
+    w = torch.from_numpy((np.round(rng.normal(0, 60, (a * n, k)) * 256) / 256)
+                         .astype(np.float32)).to(dev)
+    delay = torch.from_numpy(rng.integers(lo - 2, lo + span + 2, (a * n, k))
+                             .astype(delay_dtype)).to(dev)
+    kw = dict(steps_lo=lo, r_span=span)
+    if per_area:
+        kw.update(rows_per_area=n, src_stride=n)
+    got = dlv.spike_deliver_cuda(spikes, src, w, delay, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, dlv.spike_deliver_plain(spikes, src, w, delay, **kw))
+
+
+def test_spike_deliver_kernel_with_a_bitmask_beyond_shared_memory(dev):
+    """2.1M sources: the kernel's spike bitmask (262 KB) no longer fits a
+    block's shared memory and is read from device memory instead."""
+    rng = np.random.default_rng(2)
+    n, k, n_src, lo, span = 2000, 256, 2_100_000, 1, 30
+    spikes = torch.from_numpy((rng.random(n_src) < 0.05).astype(np.float32)).to(dev)
+    src = torch.from_numpy(rng.integers(0, n_src, (n, k)).astype(np.int32)).to(dev)
+    w = torch.from_numpy((np.round(rng.normal(0, 60, (n, k)) * 256) / 256)
+                         .astype(np.float32)).to(dev)
+    delay = torch.from_numpy(rng.integers(lo, lo + span, (n, k)).astype(np.int8)).to(dev)
+    got = dlv.spike_deliver_cuda(spikes, src, w, delay, steps_lo=lo, r_span=span)
+    torch.cuda.synchronize()
+    want = dlv.spike_deliver_plain(spikes, src, w, delay, steps_lo=lo, r_span=span)
+    assert torch.equal(got, want) and bool(want.abs().sum() > 0)
+
+
+@pytest.mark.parametrize("model", ["ignore_and_fire", "lif"])
+def test_engine_on_the_card_matches_the_cpu(dev, model):
+    spec = mam_benchmark_spec(n_areas=4, n_per_area=64, k_intra=16, k_inter=16,
+                              rate_hz=30.0 if model == "ignore_and_fire" else 2.5)
+    cfg = EngineConfig(neuron_model=model, delivery_backend="pallas")
+    engs = {d: make_simulation(spec, cfg, device=d) for d in ("cuda", "cpu")}
+    st = {d: e.init() for d, e in engs.items()}
+    cuda.reset_launches()
+    for _ in range(8):
+        blk = {}
+        for d, e in engs.items():
+            st[d], blk[d] = e.window(st[d])
+        assert torch.equal(blk["cuda"].cpu(), blk["cpu"])
+        assert torch.equal(st["cuda"].ring.cpu(), st["cpu"].ring)
+    assert cuda.launches["spike_deliver"] > 0
+    assert (cuda.launches["lif_update"] > 0) == (model == "lif")
