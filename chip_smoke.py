@@ -6,21 +6,26 @@
 Phases, each of which raises (exit code != 0, no result line) on failure:
 
 1. device: the card's name and its ``nvidia-smi`` name and power limit;
-2. build: both CUDA kernels from ``src/repro_torch/kernels/csrc``, in parallel;
+2. build: the four CUDA kernels from ``src/repro_torch/kernels/csrc``, in
+   parallel;
 3. full width, the main path: the paper's per-area size and in-degree
    (``mam_benchmark_spec(n_areas=4, n_per_area=130_000, k_intra=3000,
    k_inter=3000)``, build seed 12; 4 areas instead of 32 so the 28 GB of
    tables fit one card), built on the device, then ``make_simulation`` on the
-   ``pallas`` backend: ignore-and-fire (2.5 Hz) under both schedules for 1 + 5
-   windows, bitwise equal to each other, and LIF under the structure-aware
-   schedule for 1 + 5 windows. The kernels' launch counts are reset just
-   before and read just after, and both must be > 0;
+   ``pallas`` backend, 1 + 5 windows each: ignore-and-fire (2.5 Hz) under
+   the conventional schedule, the structure-aware one and the structure-aware
+   one with the fused superstep kernel (``superstep_kernel=True``), bitwise
+   equal to each other window by window; LIF under the structure-aware
+   schedule, unfused and fused, bitwise equal window by window. Launches per
+   window are asserted exactly; the kernels' launch counts are reset just
+   before and read just after, and every kernel's must be > 0;
 4. each kernel against its plain PyTorch version on the card, bitwise, at
-   the main path's shapes, and timed (CUDA events; median of 100 launches
-   for lif_update, 20 for spike_deliver) beside its memory bound;
+   the main path's shapes, and timed (CUDA events after an L2 flush; median
+   of 100 launches for lif_update, 20 for spike_deliver, 10 for the
+   superstep kernels) beside its memory bound;
 5. the port on the card against the port on the CPU at the quickstart size
    (4 x 256 neurons, K 32/32), ``pallas`` backend, ignore-and-fire (30 Hz)
-   and LIF under both schedules, 10 windows, bitwise.
+   and LIF under both schedules and fused, 10 windows, bitwise.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -159,56 +164,83 @@ def phase_main_path(spec) -> tuple[object, dict]:
         per = {k: (cuda.launches[k] - before[k]) / n for k in before}
         return st, 1e3 * sum(times) / n, per
 
+    def engine(model, sched="structure_aware", **kw):
+        return make_simulation(spec, EngineConfig(
+            neuron_model=model, schedule=sched, delivery_backend="pallas", **kw), net=net)
+
+    def keep(store):
+        return lambda w, st, blk: store.append((blk.clone(), st.ring.clone()))
+
+    def same_as(store, what):
+        def check(w, st, blk):
+            blk_0, ring_0 = store[w]
+            if not (bitwise_equal(blk, blk_0) and bitwise_equal(st.ring, ring_0)):
+                raise AssertionError(f"{what} differ at window {w}")
+        return check
+
+    def expect(per, name, **nonzero):
+        want = {k: float(nonzero.get(k, 0)) for k in cuda.KERNELS}
+        if per != want:
+            raise AssertionError(f"{name}: launches per window {per}, expected {want}")
+
+    def report(name, ms, per, st):
+        log(f"[full] {name}: {ms:.2f} ms/window, real-time factor {ms / model_ms:.1f}, "
+            f"launches/window {per}, {int(st.spike_count.sum())} spikes")
+
     cuda.reset_launches()
-    engines = {s: make_simulation(spec, EngineConfig(
-        neuron_model="ignore_and_fire", schedule=s, delivery_backend="pallas"), net=net)
-        for s in ("conventional", "structure_aware")}
     # The conventional run keeps each window's block and ring; the
-    # structure-aware run must reproduce them bitwise, window by window.
-    st_c, st_s = engines["conventional"].init(), engines["structure_aware"].init()
-    blocks_c = []
-    st_c, ms_c, per_c = timed_windows(
-        engines["conventional"], st_c, 5,
-        check=lambda w, st, blk: blocks_c.append((blk.clone(), st.ring.clone())))
+    # structure-aware runs, unfused and fused, must reproduce them bitwise.
+    iaf = {"conventional": engine("ignore_and_fire", "conventional"),
+           "structure_aware": engine("ignore_and_fire"),
+           "structure_aware fused": engine("ignore_and_fire", superstep_kernel=True)}
+    blocks = []
+    runs = {"conventional": timed_windows(
+        iaf["conventional"], iaf["conventional"].init(), 5, check=keep(blocks))}
+    for name in ("structure_aware", "structure_aware fused"):
+        runs[name] = timed_windows(iaf[name], iaf[name].init(), 5,
+                                   check=same_as(blocks, f"iaf conventional and {name}"))
+    del blocks
+    st_c = runs["conventional"][0]
+    for name, (st, ms, per) in runs.items():
+        if int(st.spike_count.sum()) <= 0 or not state_equal(st_c, st):
+            raise AssertionError(f"full width iaf {name}: no spikes, or final state differs")
+        report(f"ignore_and_fire {name}", ms, per, st)
+    expect(runs["conventional"][2], "iaf conventional", spike_deliver=20)
+    expect(runs["structure_aware"][2], "iaf structure_aware", spike_deliver=20)
+    expect(runs["structure_aware fused"][2], "iaf fused", spike_deliver=10, superstep_iaf=1)
+    log("[full] ignore_and_fire conventional == structure_aware == fused bitwise over "
+        "6 windows (spike blocks, rings, states)")
+    del runs, st_c
 
-    def same_as_conventional(w, st, blk):
-        blk_c, ring_c = blocks_c[w]
-        if not (bitwise_equal(blk, blk_c) and bitwise_equal(st.ring, ring_c)):
-            raise AssertionError(f"schedules differ at window {w}")
-
-    st_s, ms_s, per_s = timed_windows(
-        engines["structure_aware"], st_s, 5, check=same_as_conventional)
-    del blocks_c
-    spikes = int(st_s.spike_count.sum())
-    if spikes <= 0 or not state_equal(st_c, st_s):
-        raise AssertionError(f"full width: spikes {spikes}, or final states differ")
-    for sched, ms, per in (("conventional", ms_c, per_c), ("structure_aware", ms_s, per_s)):
-        log(f"[full] ignore_and_fire {sched}: {ms:.2f} ms/window, real-time factor "
-            f"{ms / model_ms:.1f}, launches/window {per}")
-    log(f"[full] conventional == structure_aware bitwise over 6 windows "
-        f"(spike blocks, rings, states); {spikes} spikes")
-    del st_c, st_s, engines
-
-    eng = make_simulation(spec, EngineConfig(
-        neuron_model="lif", schedule="structure_aware", delivery_backend="pallas"), net=net)
-    st, ms_l, per_l = timed_windows(eng, eng.init(), 5)
-    if not bool(torch.isfinite(st.neuron.v).all()) or not bool(torch.isfinite(st.ring).all()):
+    # LIF: the unfused structure-aware run keeps its blocks and rings, the
+    # fused run must reproduce them and the final state bitwise.
+    lif = {"structure_aware": engine("lif"),
+           "structure_aware fused": engine("lif", superstep_kernel=True)}
+    blocks = []
+    st_u, ms_u, per_u = timed_windows(lif["structure_aware"], lif["structure_aware"].init(),
+                                      5, check=keep(blocks))
+    st_f, ms_f, per_f = timed_windows(lif["structure_aware fused"],
+                                      lif["structure_aware fused"].init(), 5,
+                                      check=same_as(blocks, "lif unfused and fused"))
+    del blocks
+    if not bool(torch.isfinite(st_f.neuron.v).all()) or not bool(torch.isfinite(st_f.ring).all()):
         raise AssertionError("LIF state is not finite")
-    log(f"[full] lif structure_aware: {ms_l:.2f} ms/window, real-time factor "
-        f"{ms_l / model_ms:.1f}, launches/window {per_l}, "
-        f"{int(st.spike_count.sum())} spikes")
-    if per_l != {"lif_update": 10.0, "spike_deliver": 20.0}:
-        raise AssertionError(f"unexpected launches per structure-aware LIF window: {per_l}")
+    if not state_equal(st_u, st_f):
+        raise AssertionError("full width LIF: fused final state != unfused")
+    report("lif structure_aware", ms_u, per_u, st_u)
+    report("lif structure_aware fused", ms_f, per_f, st_f)
+    expect(per_u, "lif structure_aware", lif_update=10, spike_deliver=20)
+    expect(per_f, "lif fused", spike_deliver=10, superstep_lif=1)
+    log("[full] lif unfused == fused bitwise over 6 windows (spike blocks, rings, states)")
     launches = dict(cuda.launches)
     log(f"[full] main-path launches {launches}, peak "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
-    profile_window("lif structure_aware", eng, st)
-    for sched in ("conventional", "structure_aware"):
-        eng = make_simulation(spec, EngineConfig(
-            neuron_model="ignore_and_fire", schedule=sched, delivery_backend="pallas"), net=net)
-        profile_window(f"ignore_and_fire {sched}", eng, eng.window(eng.init())[0])
+    for name, eng in lif.items():
+        profile_window(f"lif {name}", eng, st_f)
+    for name, eng in iaf.items():
+        profile_window(f"ignore_and_fire {name}", eng, eng.window(eng.init())[0])
     return net, launches
 
 
@@ -329,6 +361,111 @@ def phase_kernels(net, launches: dict) -> list[dict]:
         bound_by="bytes", library_ms=None, checked=True,
         intra=dict(ms=timings["intra"]["ms"], plain_ms=timings["intra"]["plain_ms"],
                    bound_ms=timings["intra"]["bound_ms"])))
+    rows += _superstep_rows(net, launches, rng, flush)
+    return rows
+
+
+def _superstep_rows(net, launches: dict, rng, flush) -> list[dict]:
+    """The fused superstep kernels against their plain versions on the
+    full-width intra tables, with states drawn so that many lanes spike."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.neuron import LIFParams
+    from repro_torch.kernels import cycle as cyc
+
+    dev = net.device
+    a, n, k = net.src_intra.shape
+    d_win, lo, span = net.delay_ratio, net.steps_lo_intra, net.r_span_intra
+    tables = (net.src_intra, net.w_intra, net.delay_intra)
+    t = lambda x: torch.from_numpy(x).to(dev)  # noqa: E731
+    # On the 1/256 grid, without -0.0: the engine's rings never hold one
+    # (csrc/deposit.cuh), and a row that receives nothing keeps its zeros.
+    fut0 = t((np.round(rng.normal(0, 300, (a, n, net.live_window)) * 4) / 1024 + 0.0)
+             .astype(np.float32))
+    scratch = fut0.clone()  # timing runs deposit into it, in place
+    delay_b = net.delay_intra.element_size()
+    src_bytes = n * k * 4  # one area's rows of src
+    fut_bytes = 2 * 4 * a * n * net.live_window  # fut read and written once
+    rows = []
+
+    def check_and_time(name, kernel, plain, args, kw):
+        got = kernel(*args(fut0.clone()), **kw)
+        want = plain(*args(fut0.clone()), **kw)
+        if not all(bitwise_equal(g, w) for g, w in zip(got, want)):
+            again = kernel(*args(fut0.clone()), **kw)
+            raise AssertionError(
+                f"{name} kernel != plain version: elements that differ "
+                f"{[int((g != w).sum()) for g, w in zip(got, want)]}; a second launch "
+                f"{'agrees' if all(map(bitwise_equal, got, again)) else 'differs'}")
+        err = max(max_abs_err(g.float(), w.float()) for g, w in zip(got, want))
+        ms = time_ms(lambda: kernel(*args(scratch), **kw), reps=10, flush=flush)
+        plain_ms = time_ms(lambda: plain(*args(scratch), **kw), reps=10, flush=flush)
+        return want, err, ms, plain_ms
+
+    # LIF: membrane potentials spread below threshold and strong synaptic
+    # currents, so neurons cross threshold in every cycle of the window.
+    p = LIFParams()
+    state = (t(rng.uniform(0, 15, (a, n)).astype(np.float32)),
+             t(rng.normal(6000, 2000, (a, n)).astype(np.float32)),
+             t(rng.integers(0, 25, (a, n)).astype(np.int32)))
+    drive_p = t(rng.uniform(0, 0.5, (a, n)).astype(np.float32))
+    gids = torch.arange(a * n, dtype=torch.int32, device=dev).view(a, n)
+    kw = dict(d_win=d_win, steps_lo=lo, r_span=span, p11=p.p11, p21=p.p21, p22=p.p22,
+              v_th=p.v_th_mv, v_reset=p.v_reset_mv, t_ref_steps=p.t_ref_steps,
+              seed=42, w_ext=87.75)
+    want, err, ms, plain_ms = check_and_time(
+        "superstep_lif", cyc.superstep_lif_cuda, cyc.superstep_lif_plain,
+        lambda fut: (*state, fut, drive_p, gids, net.alive, *tables, 1230), kw)
+    spikes = want[4]
+    per_cycle = [int(x) for x in spikes.sum(dim=(1, 2))]
+    if min(per_cycle) <= 0:
+        raise AssertionError(f"superstep_lif check: a cycle without spikes {per_cycle}")
+    # Bytes this data needs: per cycle, src of every area that spiked, w and
+    # delay of the synapses whose source spiked; the state (21 B in, 12 B out
+    # per neuron), the spikes and fut once.
+    areas = int(spikes.any(dim=2).sum())
+    active = sum(_active_synapses(spikes[s].reshape(-1).float(), net.src_intra.view(a * n, k),
+                                  n) for s in range(d_win))
+    nbytes = areas * src_bytes + active * (4 + delay_b) + a * n * (33 + d_win) + fut_bytes
+    bound_ms = max(nbytes / HBM_BYTES_PER_S, active / F32_OPS_PER_S) * 1e3
+    log(f"[kernel] superstep_lif [{a}, {n}, {k}] D {d_win} W {net.live_window}: bitwise == "
+        f"plain; spikes per cycle {per_cycle}, {active} active synapse-cycles; {ms:.3f} ms "
+        f"(bound {bound_ms:.3f} ms by bytes, {nbytes / ms / 1e6:.0f} GB/s of needed bytes), "
+        f"plain {plain_ms:.3f} ms")
+    rows.append(dict(
+        name="superstep_lif", route="cuda", source="src/repro_torch/kernels/csrc/superstep_lif.cu",
+        replaces="src/repro/kernels/cycle.py:131", launches=launches["superstep_lif"],
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
+        library_ms=None, checked=True))
+
+    # Ignore-and-fire: phases spread over 200 cycles, intervals of 1-12, so
+    # ~5% of the neurons fire in the window, some of them several times.
+    countdown = t(rng.integers(0, 200, (a, n)).astype(np.int32))
+    interval = t(rng.integers(1, 13, (a, n)).astype(np.int32))
+    kw = dict(d_win=d_win, steps_lo=lo, r_span=span)
+    want, err, ms, plain_ms = check_and_time(
+        "superstep_iaf", cyc.superstep_iaf_cuda, cyc.superstep_iaf_plain,
+        lambda fut: (countdown, fut, interval, net.alive, *tables), kw)
+    spikes = want[2]
+    per_cycle = [int(x) for x in spikes.sum(dim=(1, 2))]
+    if min(per_cycle) <= 0:
+        raise AssertionError(f"superstep_iaf check: a cycle without spikes {per_cycle}")
+    # Bytes: all of src once; w, delay and the source's pattern of every
+    # synapse whose source spiked in the window; the state (13 B per
+    # neuron), the spikes and fut once.
+    fired = spikes.any(dim=0).reshape(-1).float()
+    active = _active_synapses(fired, net.src_intra.view(a * n, k), n)
+    nbytes = a * src_bytes + active * (8 + delay_b) + a * n * (13 + d_win) + fut_bytes
+    bound_ms = max(nbytes / HBM_BYTES_PER_S, active / F32_OPS_PER_S) * 1e3
+    log(f"[kernel] superstep_iaf [{a}, {n}, {k}] D {d_win}: bitwise == plain; spikes per "
+        f"cycle {per_cycle}, {active} active synapses; {ms:.3f} ms (bound {bound_ms:.3f} ms "
+        f"by bytes, {nbytes / ms / 1e6:.0f} GB/s of needed bytes), plain {plain_ms:.3f} ms")
+    rows.append(dict(
+        name="superstep_iaf", route="cuda", source="src/repro_torch/kernels/csrc/superstep_iaf.cu",
+        replaces="src/repro/kernels/cycle.py:183", launches=launches["superstep_iaf"],
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
+        library_ms=None, checked=True))
     return rows
 
 
@@ -364,8 +501,11 @@ def phase_device_vs_cpu() -> dict:
                   "src_inter", "w_inter", "delay_inter"):
             if not bitwise_equal(getattr(nets["cuda"], f), getattr(nets["cpu"], f)):
                 raise AssertionError(f"device-built {f} != CPU-built {f}")
-        for sched in ("conventional", "structure_aware"):
-            cfg = EngineConfig(neuron_model=model, schedule=sched, delivery_backend="pallas")
+        for sched, fused in (("conventional", False), ("structure_aware", False),
+                             ("structure_aware", True)):
+            cfg = EngineConfig(neuron_model=model, schedule=sched, delivery_backend="pallas",
+                               superstep_kernel=fused)
+            sched += " fused" if fused else ""
             engs = {d: make_simulation(spec, cfg, net=nets[d], device=d) for d in nets}
             st = {d: e.init() for d, e in engs.items()}
             for w in range(10):

@@ -23,6 +23,7 @@ from repro_torch.core import schedule as schedule_lib
 from repro_torch.core.areas import MultiAreaSpec
 from repro_torch.core.connectivity import Network
 from repro_torch.core.schedule import CONVENTIONAL, STRUCTURE_AWARE, SimState
+from repro_torch.kernels.lif_update import f32
 
 __all__ = [
     "ConfigError",
@@ -32,6 +33,7 @@ __all__ = [
     "Engine",
     "resolve_params",
     "make_fused_lif_update",
+    "make_fused_superstep",
     "CONVENTIONAL",
     "STRUCTURE_AWARE",
 ]
@@ -95,6 +97,8 @@ class EngineConfig:
     # Accepted for parity; in eager PyTorch the superstep is one Python loop
     # either way.
     superstep_unroll: bool = False
+    # Run each structure-aware window (update + intra delivery of all D
+    # cycles) as one fused superstep kernel call (kernels/cycle.py).
     superstep_kernel: bool = False
     overlap_exchange: bool = False
     sharded_build: bool = False
@@ -133,6 +137,18 @@ class EngineConfig:
                 "conventional schedule exchanges every cycle and has no "
                 "window to fuse",
                 "use schedule='structure_aware', or superstep=None"))
+        if self.superstep_kernel:
+            if self.schedule != STRUCTURE_AWARE:
+                v.append(ConfigViolation(
+                    "superstep_kernel",
+                    "superstep_kernel fuses the structure-aware window; the "
+                    "conventional schedule has no window to fuse",
+                    "use schedule='structure_aware'"))
+            if self.superstep is False:
+                v.append(ConfigViolation(
+                    "superstep_kernel",
+                    "superstep_kernel=True conflicts with superstep=False",
+                    "drop one of the two flags"))
         if distributed:
             v.append(_not_ported("mesh", "the distributed engine",
                                  "distributed engine"))
@@ -148,9 +164,6 @@ class EngineConfig:
         if self.overlap_exchange:
             v.append(_not_ported("overlap_exchange", "the overlapped window-end "
                                  "exchange", "adaptive ladders and overlap"))
-        if self.superstep_kernel:
-            v.append(_not_ported("superstep_kernel", "the fused superstep "
-                                 "kernel", "superstep kernels 3-4"))
         if self.sharded_build:
             v.append(_not_ported("sharded_build", "host-free sharded "
                                  "construction", "distributed engine"))
@@ -215,11 +228,65 @@ def make_fused_lif_update(params: neuron_lib.LIFParams):
 def resolve_params(net: Network, spec: MultiAreaSpec, cfg: EngineConfig):
     """``(lif_params, drive_rate)`` as the engine runs them: the dt-corrected
     LIF propagators and the per-neuron drive rate
-    ``rate_hz * (ext_rate_hz / 2.5)``."""
+    ``rate_hz * (ext_rate_hz / 2.5)``, the expression of
+    :func:`schedule.make_update_fn`, so the fused superstep drives the same
+    math bit for bit."""
     lif_params = cfg.lif
     if abs(lif_params.dt_ms - net.dt_ms) > 1e-12:
         lif_params = dataclasses.replace(lif_params, dt_ms=net.dt_ms)
     return lif_params, net.rate_hz * (spec.ext_rate_hz / 2.5)
+
+
+def make_fused_superstep(
+    net: Network,
+    spec: MultiAreaSpec,
+    cfg: EngineConfig,
+    lif_params: neuron_lib.LIFParams,
+    drive_rate: torch.Tensor,
+    gids: torch.Tensor,
+):
+    """A ``(neuron_state, fut, t0) -> (state', spikes [D, A, n] bool, fut')``
+    closure over the fused superstep kernels (:mod:`repro_torch.kernels.cycle`).
+
+    One call advances all D cycles of a window and the window's intra
+    deposits into the live buffer ``fut`` (in place), bitwise equal to the
+    unfused window: the same LIF propagators, the same counter-based drive,
+    1/256-grid deposits.
+    """
+    from repro_torch.kernels import ops as kops
+
+    D = net.delay_ratio
+    steps_lo = net.steps_lo_intra
+    r_span = net.r_span_intra if net.k_intra > 0 else 0
+    tables = (net.src_intra, net.w_intra, net.delay_intra)
+
+    if cfg.neuron_model == "lif":
+        p = lif_params
+        drive_p = drive_rate * f32(net.dt_ms * 1e-3)
+        kw = dict(p11=p.p11, p21=p.p21, p22=p.p22, v_th=p.v_th_mv,
+                  v_reset=p.v_reset_mv, t_ref_steps=p.t_ref_steps,
+                  seed=cfg.seed, w_ext=spec.w_ext)
+
+        def run_lif(neuron_state, fut, t0):
+            v, i_syn, refrac, fut, spikes = kops.superstep_lif(
+                neuron_state.v, neuron_state.i_syn, neuron_state.refrac, fut,
+                drive_p, gids, net.alive, *tables, t0,
+                d_win=D, steps_lo=steps_lo, r_span=r_span, **kw)
+            return neuron_lib.LIFState(v=v, i_syn=i_syn, refrac=refrac), spikes, fut
+
+        return run_lif
+
+    # ignore_and_fire: the same static interval/phase rule as the unfused update.
+    interval = neuron_lib.iaf_interval(net.rate_hz, net.dt_ms)
+
+    def run_iaf(neuron_state, fut, t0):
+        del t0  # emission is input- and time-base-independent
+        cd, fut, spikes = kops.superstep_iaf(
+            neuron_state.countdown, fut, interval, net.alive, *tables,
+            d_win=D, steps_lo=steps_lo, r_span=r_span)
+        return neuron_lib.IafState(countdown=cd), spikes, fut
+
+    return run_iaf
 
 
 def _make_engine(
@@ -238,14 +305,18 @@ def _make_engine(
     cfg.check(distributed=False)
     A, n_pad = net.alive.shape
     dev = net.device
-    lif_params, _ = resolve_params(net, spec, cfg)
+    lif_params, drive_rate = resolve_params(net, spec, cfg)
     fused_lif = make_fused_lif_update(lif_params) if cfg.fused else None
     if gids is None:
         gids = torch.arange(A * n_pad, dtype=torch.int32, device=dev).view(A, n_pad)
 
     exchange = exchange_lib.LocalExchange(net, cfg)
     update_fn = schedule_lib.make_update_fn(cfg, spec, net.dt_ms, lif_params, fused_lif)
-    window_body = schedule_lib.make_window_fn(cfg, exchange, update_fn)
+    fused_window = (
+        make_fused_superstep(net, spec, cfg, lif_params, drive_rate, gids)
+        if cfg.superstep_kernel else None)
+    window_body = schedule_lib.make_window_fn(
+        cfg, exchange, update_fn, fused_superstep=fused_window)
 
     def window(state: SimState) -> tuple[SimState, torch.Tensor]:
         return window_body(state, net, gids)

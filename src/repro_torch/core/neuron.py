@@ -8,8 +8,8 @@ engines are model-agnostic:
 
 The external Poisson drive is a counter-based function of ``(seed, t,
 gid)``: no stateful generator is drawn from, so any schedule and any device
-see bit-identical drive. The 32-bit mixing runs in int64 masked to 32 bits
-(PyTorch has no uint32 add or shift on every device).
+see bit-identical drive. ``counter_uniform`` lives beside the fused
+superstep kernel that recomputes it (:mod:`repro_torch.kernels.cycle`).
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.kernels.cycle import counter_uniform
 from repro_torch.kernels.lif_update import f32, lif_update_plain
 
 __all__ = [
@@ -34,7 +35,6 @@ __all__ = [
     "poisson_drive",
 ]
 
-_M32 = 0xFFFFFFFF
 _NEVER = np.iinfo(np.int32).max // 2  # countdown of a neuron that never fires
 
 
@@ -88,22 +88,6 @@ def lif_init(shape, device) -> LIFState:
         i_syn=torch.zeros(shape, dtype=torch.float32, device=device),
         refrac=torch.zeros(shape, dtype=torch.int32, device=device),
     )
-
-
-def _splitmix32(x):
-    """A well-mixed 32-bit finaliser on int64 tensors (or Python ints)
-    holding uint32 values; every product stays below 2^63."""
-    x = (x + 0x9E3779B9) & _M32
-    x = ((x ^ (x >> 16)) * 0x21F0AAAD) & _M32
-    x = ((x ^ (x >> 15)) * 0x735A2D97) & _M32
-    return x ^ (x >> 15)
-
-
-def counter_uniform(seed: int, t: int, gids: torch.Tensor) -> torch.Tensor:
-    """Uniform [0, 1) f32 as a pure function of (seed, t, gid)."""
-    s = _splitmix32(int(seed) & _M32)
-    h = _splitmix32((_splitmix32((gids.long() + s) & _M32) + (int(t) & _M32)) & _M32)
-    return h.float() * f32(1.0 / 4294967296.0)
 
 
 def poisson_drive(

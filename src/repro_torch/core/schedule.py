@@ -99,11 +99,16 @@ def make_update_fn(cfg, spec, dt_ms: float, lif_params, fused_lif: Callable | No
     return update
 
 
-def make_window_fn(cfg, exchange, update_fn: Callable) -> Callable:
+def make_window_fn(
+    cfg, exchange, update_fn: Callable, *, fused_superstep: Callable | None = None,
+) -> Callable:
     """Build ``window(state, net, gids) -> (state', block [D, A, n] bool)``.
 
     The input state is left as it was: the ring is cloned once per window
-    and then updated in place.
+    and then updated in place. ``fused_superstep`` (``(neuron, fut, t0) ->
+    (neuron', block, fut')``, :func:`engine.make_fused_superstep`) replaces
+    the structure-aware in-window loop with the fused superstep kernel; the
+    lumped exchange still goes through the exchange hook.
     """
 
     def window(state: SimState, net, gids):
@@ -117,12 +122,16 @@ def make_window_fn(cfg, exchange, update_fn: Callable) -> Callable:
             # ring_len are multiples of D); cycles read columns of the live
             # buffer `fut`, and `t` handed to the cycle hook is the slot index.
             fut, ring = ring_buffer.open_window(ring, t0, D, net.live_window)
-            for s in range(D):
-                neuron, spikes = update_fn(neuron, fut[..., s], t0 + s, net, gids)
-                fut, d_over, d_ship = exchange.cycle(
-                    fut, spikes, s, net, gids, inter_now=False)
-                over, shipped = over + d_over, shipped + d_ship
-                cols.append(spikes)
+            if fused_superstep is not None:
+                neuron, block, fut = fused_superstep(neuron, fut, t0)
+            else:
+                for s in range(D):
+                    neuron, spikes = update_fn(neuron, fut[..., s], t0 + s, net, gids)
+                    fut, d_over, d_ship = exchange.cycle(
+                        fut, spikes, s, net, gids, inter_now=False)
+                    over, shipped = over + d_over, shipped + d_ship
+                    cols.append(spikes)
+                block = torch.stack(cols)
             ring = ring_buffer.merge_window_tail(ring, fut[..., D:], t0 + D)
         else:
             inter_now = cfg.schedule == CONVENTIONAL
@@ -133,7 +142,7 @@ def make_window_fn(cfg, exchange, update_fn: Callable) -> Callable:
                     ring, spikes, t0 + s, net, gids, inter_now=inter_now)
                 over, shipped = over + d_over, shipped + d_ship
                 cols.append(spikes)
-        block = torch.stack(cols)
+            block = torch.stack(cols)
         if cfg.schedule == STRUCTURE_AWARE:
             # The lumped global exchange: every inter-area delay is >= D, so
             # slot (t0 + s + d) lies strictly after the window.

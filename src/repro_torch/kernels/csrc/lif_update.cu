@@ -3,14 +3,8 @@
 // Replaces the Pallas TPU kernel `lif_update_pallas`
 // (src/repro/kernels/lif_update.py, body `lif_step_math`).
 //
-// Exactness: the JAX reference is jitted, and XLA contracts the propagator
-// into exactly two fused multiply-adds:
-//     i' = fma(i, p11, i_in)
-//     v' = fma(v, p22, round_f32(i * p21))
-// The other order, fma(i, p21, v * p22), disagrees in many lanes. The
-// intrinsics pin these two FMAs and this file is compiled with
-// -fmad=false, so nothing else is contracted. The parameters arrive as f32,
-// the rounding JAX applies to its weakly typed Python floats.
+// Exactness: the propagator is exactly the jitted reference's two fused
+// multiply-adds (`lif_step` in neuron.cuh, compiled with -fmad=false).
 //
 // Bound on an H100: memory. Per neuron it reads v, i (f32), refrac (i32),
 // i_in (f32), alive (1 B) and writes v, i, refrac and the spike byte:
@@ -19,8 +13,7 @@
 // the ragged edge itself. Nothing is staged in shared memory because no
 // value is read twice.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "neuron.cuh"
 
 __global__ void lif_update_kernel(
     const float* __restrict__ v, const float* __restrict__ i_syn,
@@ -28,22 +21,17 @@ __global__ void lif_update_kernel(
     const uint8_t* __restrict__ alive,
     float* __restrict__ v_out, float* __restrict__ i_out,
     int32_t* __restrict__ refrac_out, uint8_t* __restrict__ spike_out,
-    int64_t n, float p11, float p21, float p22, float v_th, float v_reset,
-    int32_t t_ref_steps) {
+    int64_t n, const LifParams p) {
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t k = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; k < n;
        k += stride) {
-    const float vk = v[k];
-    const float ik = i_syn[k];
-    const int32_t rk = refrac[k];
-    const bool refractory = rk > 0;
-    const float i_new = __fmaf_rn(ik, p11, i_in[k]);
-    const float v_prop = __fmaf_rn(vk, p22, __fmul_rn(ik, p21));
-    const float v_new = refractory ? v_reset : v_prop;
-    const bool spike = (v_new >= v_th) && (alive[k] != 0) && !refractory;
-    v_out[k] = spike ? v_reset : v_new;
-    i_out[k] = i_new;
-    refrac_out[k] = spike ? t_ref_steps : (rk > 1 ? rk - 1 : 0);
+    float vk = v[k];
+    float ik = i_syn[k];
+    int32_t rk = refrac[k];
+    const bool spike = lif_step(vk, ik, rk, i_in[k], alive[k] != 0, p);
+    v_out[k] = vk;
+    i_out[k] = ik;
+    refrac_out[k] = rk;
     spike_out[k] = spike ? 1 : 0;
   }
 }
@@ -60,8 +48,8 @@ extern "C" int lif_update_launch(
   lif_update_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
       (const float*)v, (const float*)i_syn, (const int32_t*)refrac,
       (const float*)i_in, (const uint8_t*)alive, (float*)v_out, (float*)i_out,
-      (int32_t*)refrac_out, (uint8_t*)spike_out, n, p11, p21, p22, v_th,
-      v_reset, (int32_t)t_ref_steps);
+      (int32_t*)refrac_out, (uint8_t*)spike_out, n,
+      LifParams{p11, p21, p22, v_th, v_reset, (int32_t)t_ref_steps});
   return (int)cudaGetLastError();
 }
 

@@ -34,12 +34,7 @@
 // exact all the same, because weights lie on the 1/256 grid and every partial
 // sum stays below 2^15 in magnitude, so each f32 add is exact.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-constexpr int kWarps = 32;               // warps per block
-constexpr int kThreads = 32 * kWarps;
-constexpr size_t kMaxSmem = 232448;      // per-block limit on sm_90
+#include "deposit.cuh"
 
 __global__ void pack_spikes(const float* __restrict__ spikes,
                             uint32_t* __restrict__ mask, int64_t n_src) {
@@ -59,9 +54,8 @@ struct Row {
   int mask_off;         // off(n), for the bitmask
   int steps_lo, r_span;
 
-  __device__ __forceinline__ void visit(int s, int c) const {
-    const int b = mask_off + s;
-    if ((mask[b >> 5] >> (b & 31)) & 1u) {
+  __device__ __forceinline__ void operator()(int s, int c) const {
+    if (bit_set(mask, mask_off + s)) {
       const int j = (int)delay[c] - steps_lo;
       if (j >= 0 && j < r_span) atomicAdd(acc + j, __fmul_rn(w[c], spikes[s]));
     }
@@ -78,49 +72,20 @@ __global__ void __launch_bounds__(kThreads, 2) spike_deliver_kernel(
     const DelayT* __restrict__ delay, float* __restrict__ out, int64_t n_rows,
     int k, int steps_lo, int r_span, int64_t rows_per_area, int64_t src_stride,
     int n_words, bool mask_in_smem) {
-  extern __shared__ uint4 smem_raw[];
-  uint32_t* smem = reinterpret_cast<uint32_t*>(smem_raw);
-  const uint32_t* mask = mask_g;
-  float* acc_all = reinterpret_cast<float*>(smem);
-  if (mask_in_smem) {
-    const int n4 = (n_words + 3) / 4;
-    const uint4* g4 = reinterpret_cast<const uint4*>(mask_g);
-    for (int i = threadIdx.x; i < n4; i += kThreads) smem_raw[i] = g4[i];
-    __syncthreads();
-    mask = smem;
-    acc_all = reinterpret_cast<float*>(smem + 4 * n4);
-  }
-  const int warp = threadIdx.x >> 5;
+  extern __shared__ uint4 smem[];
+  const uint32_t* mask;
+  float* acc = stage_mask(smem, mask_g, n_words, mask_in_smem, &mask) +
+               (threadIdx.x >> 5) * r_span;
   const int lane = threadIdx.x & 31;
-  float* acc = acc_all + warp * r_span;
-  for (int64_t row = (int64_t)blockIdx.x * kWarps + warp; row < n_rows;
+  for (int64_t row = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5); row < n_rows;
        row += (int64_t)gridDim.x * kWarps) {
     for (int j = lane; j < r_span; j += 32) acc[j] = 0.0f;
     __syncwarp();
     const int64_t base = row * (int64_t)k;
     const int64_t off = (row / rows_per_area) * src_stride;
-    const Row<DelayT> r{mask, spikes + off, w + base, delay + base, acc,
-                        (int)off, steps_lo, r_span};
-    if (kVec) {
-      const int4* s4 = reinterpret_cast<const int4*>(src + base);
-      const int k4 = k >> 2;
-      for (int c = lane; c < k4; c += 64) {
-        const bool two = c + 32 < k4;
-        const int4 a = __ldcs(s4 + c);
-        int4 b = a;
-        if (two) b = __ldcs(s4 + c + 32);
-        r.visit(a.x, 4 * c); r.visit(a.y, 4 * c + 1);
-        r.visit(a.z, 4 * c + 2); r.visit(a.w, 4 * c + 3);
-        if (two) {
-          const int cb = 4 * (c + 32);
-          r.visit(b.x, cb); r.visit(b.y, cb + 1);
-          r.visit(b.z, cb + 2); r.visit(b.w, cb + 3);
-        }
-      }
-    } else {
-#pragma unroll 4
-      for (int c = lane; c < k; c += 32) r.visit(__ldcs(src + base + c), c);
-    }
+    Row<DelayT> r{mask, spikes + off, w + base, delay + base, acc,
+                  (int)off, steps_lo, r_span};
+    stream_row<kVec>(src + base, k, lane, r);
     __syncwarp();
     float* o = out + row * (int64_t)r_span;
     for (int j = lane; j < r_span; j += 32) o[j] = acc[j];
@@ -134,27 +99,15 @@ static int launch_rows(const uint32_t* mask, const void* spikes, const void* src
                        int64_t rows_per_area, int64_t src_stride, int n_words,
                        cudaStream_t stream) {
   auto kernel = spike_deliver_kernel<DelayT, kVec>;
-  const size_t acc_bytes = sizeof(float) * kWarps * (size_t)r_span;
-  const size_t mask_bytes = 16 * (size_t)((n_words + 3) / 4);
-  const bool in_smem = mask_bytes + acc_bytes <= kMaxSmem;
-  const size_t smem = acc_bytes + (in_smem ? mask_bytes : 0);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const SmemPlan plan = plan_smem(n_words, r_span);
+  int64_t blocks = 0;
+  const cudaError_t err = co_resident_blocks(kernel, plan.bytes, &blocks);
   if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return (int)err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem)) !=
-      cudaSuccess)
-    return (int)err;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  int64_t blocks = (n_rows + kWarps - 1) / kWarps;
-  if (blocks > (int64_t)sms * per_sm) blocks = (int64_t)sms * per_sm;
-  kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(
+  if (blocks > (n_rows + kWarps - 1) / kWarps) blocks = (n_rows + kWarps - 1) / kWarps;
+  kernel<<<(unsigned)blocks, kThreads, plan.bytes, stream>>>(
       mask, (const float*)spikes, (const int32_t*)src, (const float*)w,
       (const DelayT*)delay, (float*)out, n_rows, k, steps_lo, r_span,
-      rows_per_area, src_stride, n_words, in_smem);
+      rows_per_area, src_stride, n_words, plan.mask_in_smem);
   return (int)cudaGetLastError();
 }
 

@@ -5,9 +5,9 @@ library with a plain C interface and loaded with :mod:`ctypes`. Nothing is
 built when this module is imported: the first launch of a kernel builds its
 library, and :func:`build_all` builds every library at once, one ``nvcc``
 process per source, all started together. Libraries land in ``_build/``
-beside this file, named by a hash of the source and the flags, so an edited
-source is rebuilt. A failed build raises; no caller falls back to the plain
-PyTorch version.
+beside this file, named by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header is rebuilt.
+A failed build raises; no caller falls back to the plain PyTorch version.
 
 ``launches[name]`` counts the launches of each kernel. A wrapper adds one
 where it launches its kernel and nowhere else, so a run can show that its
@@ -26,7 +26,7 @@ __all__ = ["KERNELS", "launches", "reset_launches", "build_all", "library", "che
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
-KERNELS = ("lif_update", "spike_deliver")
+KERNELS = ("lif_update", "spike_deliver", "superstep_lif", "superstep_iaf")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     # Only the fused multiply-adds the sources spell out with intrinsics;
@@ -40,6 +40,7 @@ build_logs: dict[str, str] = {}
 _libs: dict[str, ctypes.CDLL] = {}
 
 _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+_U32 = ctypes.c_uint32
 _SIGNATURES = {
     "lif_update": {
         "lif_update_launch": [_P] * 9 + [_I64] + [_F] * 5 + [_I, _P],
@@ -47,6 +48,14 @@ _SIGNATURES = {
     "spike_deliver": {
         name: [_P, _I64] + [_P] * 5 + [_I64, _I, _I, _I, _I64, _I64, _P]
         for name in ("spike_deliver_i8_launch", "spike_deliver_i32_launch")
+    },
+    "superstep_lif": {
+        "superstep_lif_launch": [_P] * 13 + [_I] + [_P] * 4 + [_I64, _I64]
+        + [_I] * 5 + [_I64, _U32] + [_F] * 5 + [_I, _F, _I64, _P],
+    },
+    "superstep_iaf": {
+        "superstep_iaf_launch": [_P] * 8 + [_I] + [_P] * 3 + [_I64, _I64]
+        + [_I] * 5 + [_P],
     },
 }
 
@@ -66,8 +75,9 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
+    parts = [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]
     digest = hashlib.sha256(
-        (CSRC / f"{name}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode()
+        b"".join(p.read_bytes() for p in parts) + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -15,6 +15,7 @@ from repro_torch.core import (  # noqa: E402
 )
 from repro_torch.core.neuron import LIFParams  # noqa: E402
 from repro_torch.kernels import cuda  # noqa: E402
+from repro_torch.kernels import cycle as cyc  # noqa: E402
 from repro_torch.kernels import lif_update as lif  # noqa: E402
 from repro_torch.kernels import spike_deliver as dlv  # noqa: E402
 
@@ -100,3 +101,109 @@ def test_engine_on_the_card_matches_the_cpu(dev, model):
         assert torch.equal(st["cuda"].ring.cpu(), st["cpu"].ring)
     assert cuda.launches["spike_deliver"] > 0
     assert (cuda.launches["lif_update"] > 0) == (model == "lif")
+
+
+# (A, n, K): n not a multiple of 32 and K % 4 != 0 (chunks straddle areas,
+# scalar src loads); and more 32-row chunks than the H100's 8,448
+# co-resident warps (two 1024-thread blocks on each of 132 SMs), K % 4 == 0.
+WINDOW_SHAPES = [(3, 1000, 333), (3, 100_003, 12)]
+D_WIN, LO, SPAN = 10, 1, 30
+
+
+def window_tables(dev, a, n, k, delay_dtype, seed):
+    """Grid weights and fut (no -0.0, which no engine ring holds), delays
+    reaching past both ends of the window."""
+    rng = np.random.default_rng(seed)
+    t = lambda x: torch.from_numpy(x).to(dev)  # noqa: E731
+    return dict(
+        fut=t((np.round(rng.normal(0, 300, (a, n, D_WIN + LO + SPAN - 1)) * 4) / 1024 + 0.0)
+              .astype(np.float32)),
+        alive=t(rng.random((a, n)) < 0.9),
+        src=t(rng.integers(0, n, (a, n, k)).astype(np.int32)),
+        w=t((np.round(rng.normal(0, 60, (a, n, k)) * 256) / 256).astype(np.float32)),
+        delay=t(rng.integers(LO - 1, LO + SPAN + 2, (a, n, k)).astype(delay_dtype)))
+
+
+def chunks_exceed_warps(a, n):
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return -(-a * n // 32) > sms * 64
+
+
+def same(got, want):
+    """Bitwise: dtype, shape and bytes (so -0.0 != +0.0)."""
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g.contiguous().view(torch.uint8), w.contiguous().view(torch.uint8))
+
+
+@pytest.mark.parametrize("delay_dtype", [np.int8, np.int32])
+@pytest.mark.parametrize("shape", WINDOW_SHAPES, ids=["ragged", "many_chunks"])
+def test_superstep_lif_kernel_matches_plain(dev, shape, delay_dtype):
+    a, n, k = shape
+    x = window_tables(dev, a, n, k, delay_dtype, seed=5)
+    rng = np.random.default_rng(6)
+    t = lambda y: torch.from_numpy(y).to(dev)  # noqa: E731
+    v = t(rng.uniform(0, 15, (a, n)).astype(np.float32))
+    i_syn = t(rng.normal(6000, 2000, (a, n)).astype(np.float32))
+    refrac = t(rng.integers(0, 25, (a, n)).astype(np.int32))
+    drive_p = t(rng.uniform(0, 0.5, (a, n)).astype(np.float32))
+    gids = torch.arange(a * n, dtype=torch.int32, device=dev).view(a, n)
+    p = LIFParams()
+    kw = dict(d_win=D_WIN, steps_lo=LO, r_span=SPAN, p11=p.p11, p21=p.p21, p22=p.p22,
+              v_th=p.v_th_mv, v_reset=p.v_reset_mv, t_ref_steps=p.t_ref_steps,
+              seed=42, w_ext=87.75)
+    args = lambda fut: (v, i_syn, refrac, fut, drive_p, gids, x["alive"],  # noqa: E731
+                        x["src"], x["w"], x["delay"], 1230)
+    before = cuda.launches["superstep_lif"]
+    got = cyc.superstep_lif_cuda(*args(x["fut"].clone()), **kw)
+    torch.cuda.synchronize()
+    assert cuda.launches["superstep_lif"] == before + 1
+    want = cyc.superstep_lif_plain(*args(x["fut"].clone()), **kw)
+    same(got, want)
+    assert bool((want[4].sum(dim=(1, 2)) > 0).all()), "every cycle must spike"
+    if shape == WINDOW_SHAPES[1]:
+        assert chunks_exceed_warps(a, n)
+
+
+@pytest.mark.parametrize("delay_dtype", [np.int8, np.int32])
+@pytest.mark.parametrize("shape", WINDOW_SHAPES, ids=["ragged", "many_chunks"])
+def test_superstep_iaf_kernel_matches_plain(dev, shape, delay_dtype):
+    a, n, k = shape
+    x = window_tables(dev, a, n, k, delay_dtype, seed=7)
+    rng = np.random.default_rng(8)
+    countdown = torch.from_numpy(rng.integers(0, 2 * D_WIN, (a, n)).astype(np.int32)).to(dev)
+    interval = torch.from_numpy(rng.integers(1, 13, (a, n)).astype(np.int32)).to(dev)
+    args = lambda fut: (countdown, fut, interval, x["alive"], x["src"], x["w"],  # noqa: E731
+                        x["delay"])
+    kw = dict(d_win=D_WIN, steps_lo=LO, r_span=SPAN)
+    before = cuda.launches["superstep_iaf"]
+    got = cyc.superstep_iaf_cuda(*args(x["fut"].clone()), **kw)
+    torch.cuda.synchronize()
+    assert cuda.launches["superstep_iaf"] == before + 1
+    want = cyc.superstep_iaf_plain(*args(x["fut"].clone()), **kw)
+    same(got, want)
+    assert bool((want[2].sum(dim=(1, 2)) > 0).all()), "every cycle must spike"
+    if shape == WINDOW_SHAPES[1]:
+        assert chunks_exceed_warps(a, n)
+
+
+@pytest.mark.parametrize("model", ["ignore_and_fire", "lif"])
+def test_fused_engine_on_the_card_matches_the_cpu(dev, model):
+    spec = mam_benchmark_spec(n_areas=4, n_per_area=64, k_intra=16, k_inter=16,
+                              rate_hz=30.0 if model == "ignore_and_fire" else 2.5)
+    cfg = EngineConfig(neuron_model=model, delivery_backend="pallas",
+                       superstep_kernel=True)
+    engs = {d: make_simulation(spec, cfg, device=d) for d in ("cuda", "cpu")}
+    st = {d: e.init() for d, e in engs.items()}
+    cuda.reset_launches()
+    for _ in range(8):
+        blk = {}
+        for d, e in engs.items():
+            st[d], blk[d] = e.window(st[d])
+        assert torch.equal(blk["cuda"].cpu(), blk["cpu"])
+        assert torch.equal(st["cuda"].ring.cpu(), st["cpu"].ring)
+        for name in vars(st["cpu"].neuron):
+            assert torch.equal(getattr(st["cuda"].neuron, name).cpu(),
+                               getattr(st["cpu"].neuron, name))
+    fused = "superstep_lif" if model == "lif" else "superstep_iaf"
+    assert cuda.launches[fused] == 8 and cuda.launches["lif_update"] == 0
