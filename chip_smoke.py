@@ -6,7 +6,7 @@
 Phases, each of which raises (exit code != 0, no result line) on failure:
 
 1. device: the card's name and its ``nvidia-smi`` name and power limit;
-2. build: the four CUDA kernels from ``src/repro_torch/kernels/csrc``, in
+2. build: the five CUDA kernels from ``src/repro_torch/kernels/csrc``, in
    parallel;
 3. full width, the main path: the paper's per-area size and in-degree
    (``mam_benchmark_spec(n_areas=4, n_per_area=130_000, k_intra=3000,
@@ -25,7 +25,31 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    superstep kernels) beside its memory bound;
 5. the port on the card against the port on the CPU at the quickstart size
    (4 x 256 neurons, K 32/32), ``pallas`` backend, ignore-and-fire (30 Hz)
-   and LIF under both schedules and fused, 10 windows, bitwise.
+   and LIF under both schedules and fused, 10 windows, bitwise;
+
+then, with the simulator's tables freed, the LM path (weights drawn on the
+card from seed 0, f32 products in f32):
+
+6. ``[lm]`` qwen2-0.5b at its published width and dtypes (bf16), B 2 x S
+   4096 with ``use_pallas_attention=True``: 1 warm-up + 3 timed forwards,
+   exactly 24 ``flash_attention`` launches each (counts reset just before,
+   read just after), finite logits, and the profile of one forward;
+7. ``[lm]`` the same model in f32: the kernel against the streaming path
+   (<= 1e-4 of the largest logit), and prefill of 4096 tokens + decode of
+   token 4096 against the forward of the 5120-token sequence (<= 5e-4);
+8. ``[lm]`` serving at the published dtypes through
+   ``repro_torch.serve_lm.serve``: batch 4, 4096-token prompts, 32 tokens
+   (prefill attends with a cache, so no kernel launch);
+9. ``[lm]`` h2o-danube-1.8b, bf16, B 1 x S 8192 (its 4096 window cuts in):
+   24 launches per forward; in f32, kernel against streaming (<= 1e-4);
+10. ``[kernel]`` flash_attention against its plain version at qwen2's and
+    danube's shapes and with k_len < S (f32: max abs <= 2e-5; bf16: one bf16
+    ulp of the plain output's largest magnitude), timed (CUDA events after
+    an L2 flush, median of 20) beside its bound, the plain version and
+    ``scaled_dot_product_attention`` (the library time);
+11. ``[cpu]`` reduced qwen2-0.5b in f32 on the card against the CPU, with
+    ``FLASH_THRESHOLD`` lowered so the forward runs the kernel: the forward
+    (<= 1e-4) and prefill + 4 decode steps (<= 5e-4).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -33,6 +57,7 @@ last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import copy
 import json
 import statistics
 import subprocess
@@ -45,6 +70,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 L2_FLUSH_BYTES = 256 << 20  # > the 50 MB L2
+SIM_KERNELS = ("lif_update", "spike_deliver", "superstep_lif", "superstep_iaf")
 
 
 def log(*args) -> None:
@@ -235,25 +261,27 @@ def phase_main_path(spec) -> tuple[object, dict]:
     launches = dict(cuda.launches)
     log(f"[full] main-path launches {launches}, peak "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-    if min(launches.values()) <= 0:
+    if min(launches[k] for k in SIM_KERNELS) <= 0:
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
     for name, eng in lif.items():
-        profile_window(f"lif {name}", eng, st_f)
+        profile_window(f"lif {name}", lambda: eng.window(st_f))
     for name, eng in iaf.items():
-        profile_window(f"ignore_and_fire {name}", eng, eng.window(eng.init())[0])
+        st = eng.window(eng.init())[0]
+        profile_window(f"ignore_and_fire {name}", lambda: eng.window(st))
     return net, launches
 
 
-def profile_window(name, eng, st) -> None:
-    """Device time by kernel over one window (torch.profiler), and the share
-    of the window's wall time the device was busy."""
+def profile_window(name, fn, what="window") -> list[tuple[float, int, str]]:
+    """Device time by kernel over one call of ``fn`` (torch.profiler), and
+    the share of its wall time the device was busy; returns the kernels as
+    (device us, count, name), longest first."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.window(st)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = []
@@ -266,10 +294,11 @@ def profile_window(name, eng, st) -> None:
         kernels.append((us, e.count, e.key))
     kernels.sort(reverse=True)
     busy = sum(k[0] for k in kernels)
-    log(f"[profile] {name}: window {wall_us / 1e3:.2f} ms wall, device busy "
+    log(f"[profile] {name}: {what} {wall_us / 1e3:.2f} ms wall, device busy "
         f"{busy / 1e3:.2f} ms ({100 * busy / wall_us:.1f}%), {len(kernels)} kernel kinds")
     for us, count, key in kernels[:6]:
         log(f"[profile]   {us / 1e3:9.3f} ms  x{count:<4d} {key[:90]}")
+    return kernels
 
 
 def phase_kernels(net, launches: dict) -> list[dict]:
@@ -519,10 +548,343 @@ def phase_device_vs_cpu() -> dict:
                 f"(blocks, ring, neuron state, spike_count); "
                 f"{int(st['cpu'].spike_count.sum())} spikes")
     counts = dict(cuda.launches)
-    if min(counts.values()) <= 0:
+    if min(counts[k] for k in SIM_KERNELS) <= 0:
         raise AssertionError(f"a kernel never launched in the cuda runs: {counts}")
     log(f"[cpu] kernel launches in the cuda runs {counts}")
     return counts
+
+
+# ---------------------------------------------------------------------------
+# The LM path: dense transformers at full width, the flash_attention kernel.
+
+BF16_OPS_PER_S = 989e12     # H100 SXM dense bf16 tensor cores
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| / max |want|, the JAX package's model tests' measure
+    (on ``got``'s device)."""
+    want = want.to(got.device)
+    return max_abs_err(got, want) / max(float(want.double().abs().max()), 1e-6)
+
+
+def _bundle(arch, **overrides):
+    """The bundle of ``arch`` at its published width, config fields replaced
+    (``make_bundle`` refuses to override a field it sets, such as a dtype)."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.transformer import Transformer
+
+    bundle = get_arch(arch)
+    cfg = dataclasses.replace(bundle.cfg, **overrides)
+    return dataclasses.replace(bundle, cfg=cfg, model=Transformer(cfg))
+
+
+def _lm(arch, seed=0, **overrides):
+    """``_bundle(arch, **overrides)`` and its weights, drawn on the card
+    from ``seed``."""
+    import torch
+
+    bundle = _bundle(arch, **overrides)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return bundle, bundle.model.init_params(gen)
+
+
+def _tokens(vocab, b, s, seed=1):
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randint(0, vocab, (b, s), generator=gen, device="cuda")
+
+
+def _expect_launches(before, per_call, calls, what):
+    from repro_torch.kernels import cuda
+
+    want = {k: before[k] + (per_call * calls if k == "flash_attention" else 0)
+            for k in cuda.KERNELS}
+    if dict(cuda.launches) != want:
+        raise AssertionError(f"{what}: launches {dict(cuda.launches)}, expected {want}")
+
+
+def phase_lm_main() -> dict:
+    """qwen2-0.5b at its published width and dtypes, B 2 x S 4096 with the
+    flash kernel: 1 warm-up + 3 timed forwards, 24 launches each; then the
+    profile of one forward. Returns the main path's launch counts."""
+    import torch
+
+    from repro_torch.configs.common import SHAPES
+    from repro_torch.kernels import cuda
+
+    bundle, params = _lm("qwen2-0.5b", use_pallas_attention=True)
+    cfg = bundle.cfg
+    b, s = 2, SHAPES["train_4k"].seq_len
+    toks = _tokens(cfg.vocab, b, s)
+    cuda.reset_launches()
+    times = []
+    with torch.inference_mode():
+        for i in range(4):
+            before = dict(cuda.launches)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, _ = bundle.model.forward(params, toks)
+            torch.cuda.synchronize()
+            if i:
+                times.append(time.perf_counter() - t0)
+            _expect_launches(before, cfg.n_layers, 1, "qwen2-0.5b forward")
+            if logits.shape != (b, s, cfg.vocab) or not bool(torch.isfinite(logits).all()):
+                raise AssertionError(f"qwen2-0.5b logits {tuple(logits.shape)} not finite")
+        launches = dict(cuda.launches)
+        if launches["flash_attention"] <= 0:
+            raise AssertionError(f"the LM main path never launched flash_attention: {launches}")
+        ms = 1e3 * statistics.mean(times)
+        log(f"[lm] qwen2-0.5b bf16 forward B {b} x S {s}, use_pallas_attention: "
+            f"{ms:.2f} ms/forward (mean of 3 after 1 warm-up; {[round(1e3 * t, 2) for t in times]}), "
+            f"{b * s / ms * 1e3:,.0f} tok/s, {2 * cfg.param_count() * b * s / ms / 1e9:.1f} "
+            f"TFLOP/s of weight products, {cfg.n_layers} flash_attention launches "
+            f"per forward, logits finite; main-path launches {launches}")
+        kernels = profile_window("qwen2-0.5b forward", lambda: bundle.model.forward(params, toks),
+                                 what="forward")
+    busy = sum(k[0] for k in kernels)
+    flash = sum(k[0] for k in kernels if "flash_attention" in k[2])
+    gemm = sum(k[0] for k in kernels
+               if any(w in k[2].lower() for w in ("gemm", "nvjet", "xmma", "cutlass")))
+    log(f"[lm] qwen2-0.5b forward device time: flash_attention {flash / 1e3:.2f} ms "
+        f"({100 * flash / busy:.1f}%), cuBLAS products {gemm / 1e3:.2f} ms "
+        f"({100 * gemm / busy:.1f}%), other {(busy - flash - gemm) / 1e3:.2f} ms")
+    del logits, params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_lm_f32() -> None:
+    """qwen2-0.5b with f32 parameters and compute: the kernel against the
+    streaming path, and serving (prefill + decode) against the forward."""
+    import torch
+
+    from repro_torch.configs.common import ShapeSpec
+    from repro_torch.train.steps import make_serve_artifacts
+
+    kernel, params = _lm("qwen2-0.5b", param_dtype="float32", compute_dtype="float32",
+                         use_pallas_attention=True)
+    plain = _bundle("qwen2-0.5b", param_dtype="float32", compute_dtype="float32")
+    vocab = kernel.cfg.vocab
+    with torch.inference_mode():
+        toks = _tokens(vocab, 2, 4096)
+        got, _ = kernel.model.forward(params, toks)
+        want, _ = plain.model.forward(params, toks)
+        err = rel_err(got, want)
+        log(f"[lm] qwen2-0.5b f32 B 2 x S 4096: kernel vs streaming path rel {err:.3g} "
+            f"(bar 1e-4)")
+        if not err <= 1e-4:
+            raise AssertionError(f"qwen2-0.5b f32: kernel vs streaming {err} > 1e-4")
+        del got, want
+        # One 5120-token sequence: prefill 4096, decode token 4096. Causality
+        # makes position 4096 of the longer forward the same quantity, and
+        # 5120 keeps the kernel's and the streaming path's block contracts.
+        toks = _tokens(vocab, 1, 5120, seed=2)
+        full, _ = kernel.model.forward(params, toks)
+        art = make_serve_artifacts(kernel, ShapeSpec("check", "prefill", 4097, 1),
+                                   cache_dtype=torch.float32)
+        lp, state = art.prefill_fn(params, {"tokens": toks[:, :4096]})
+        ld, state = art.decode_fn(params, state, toks[:, 4096:4097], 4096)
+        scale = float(full.double().abs().max())
+        errs = [max_abs_err(lp[:, 0], full[:, 4095]) / scale,
+                max_abs_err(ld[:, 0], full[:, 4096]) / scale]
+        log(f"[lm] qwen2-0.5b f32 serving: prefill (4096) last logits rel {errs[0]:.3g}, "
+            f"decode of token 4096 rel {errs[1]:.3g} against the 5120-token forward (bar 5e-4)")
+        if not max(errs) <= 5e-4:
+            raise AssertionError(f"qwen2-0.5b f32 serving vs forward {errs} > 5e-4")
+    del params, full, state
+    torch.cuda.empty_cache()
+
+
+def phase_lm_serve() -> None:
+    """qwen2-0.5b serving at its published dtypes through the entry point:
+    batch 4, a 4096-token prompt, 32 tokens (the first from the prefill).
+    Serving never reaches the kernel: prefill attends with a cache."""
+    import torch
+
+    from repro_torch import serve_lm
+    from repro_torch.configs.common import ShapeSpec
+    from repro_torch.kernels import cuda
+    from repro_torch.train.steps import make_serve_artifacts
+
+    bundle, params = _lm("qwen2-0.5b", use_pallas_attention=True)
+    before = dict(cuda.launches)
+    for run in ("warm-up", "timed"):
+        r = serve_lm.serve(bundle, params, batch=4, prompt_len=4096, tokens=32, seed=3)
+        steps = r["decode_steps"]
+        log(f"[lm] qwen2-0.5b bf16 serving ({run}): prefill 4 x 4096 in "
+            f"{r['prefill_s'] * 1e3:.2f} ms ({4 * 4096 / r['prefill_s']:,.0f} tok/s), "
+            f"decode {steps} steps x 4 in {r['decode_s'] * 1e3:.2f} ms "
+            f"({r['decode_s'] / steps * 1e3:.3f} ms/step, {4 * steps / r['decode_s']:,.0f} tok/s)")
+    if r["tokens"].shape != (4, 32) or not bool(torch.isfinite(r["logits"]).all()):
+        raise AssertionError("qwen2-0.5b serving: wrong shape or non-finite logits")
+    _expect_launches(before, 0, 0, "qwen2-0.5b serving")
+    # Where a decode step's time goes: one step after a prefill.
+    art = make_serve_artifacts(bundle, ShapeSpec("serve", "prefill", 4128, 4))
+    with torch.inference_mode():
+        _, state = art.prefill_fn(params, {"tokens": r["tokens"].new_zeros(4, 4096)})
+        profile_window("qwen2-0.5b decode step (batch 4, cache 4096)",
+                       lambda: art.decode_fn(params, state, r["tokens"][:, :1], 4096),
+                       what="step")
+    del params, state
+    torch.cuda.empty_cache()
+
+
+def phase_lm_danube() -> None:
+    """h2o-danube-1.8b, B 1 x S 8192, so its 4096 window cuts in: bf16 with
+    the kernel (24 launches), and f32 kernel against the streaming path."""
+    import torch
+
+    from repro_torch.kernels import cuda
+
+    bundle, params = _lm("h2o-danube-1.8b", use_pallas_attention=True)
+    toks = _tokens(bundle.cfg.vocab, 1, 8192)
+    with torch.inference_mode():
+        for i in range(2):
+            before = dict(cuda.launches)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, _ = bundle.model.forward(params, toks)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            _expect_launches(before, bundle.cfg.n_layers, 1, "h2o-danube-1.8b forward")
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError("h2o-danube-1.8b logits not finite")
+        log(f"[lm] h2o-danube-1.8b bf16 forward B 1 x S 8192 (window 4096): {ms:.2f} ms "
+            f"(second call), {8192 / ms * 1e3:,.0f} tok/s, {bundle.cfg.n_layers} "
+            f"flash_attention launches, "
+            f"logits finite")
+        del logits, params
+        torch.cuda.empty_cache()
+        kernel, params = _lm("h2o-danube-1.8b", param_dtype="float32",
+                             compute_dtype="float32", use_pallas_attention=True)
+        plain = _bundle("h2o-danube-1.8b", param_dtype="float32", compute_dtype="float32")
+        got, _ = kernel.model.forward(params, toks)
+        want, _ = plain.model.forward(params, toks)
+        err = rel_err(got, want)
+    log(f"[lm] h2o-danube-1.8b f32 S 8192: kernel vs streaming path rel {err:.3g} (bar 1e-4)")
+    if not err <= 1e-4:
+        raise AssertionError(f"h2o-danube-1.8b f32: kernel vs streaming {err} > 1e-4")
+    del got, want, params
+    torch.cuda.empty_cache()
+
+
+def _valid_pairs(sq, sk, window, k_len) -> int:
+    """(query, key) pairs the mask lets through: the work the data needs."""
+    import numpy as np
+
+    pos = np.arange(sq, dtype=np.int64)
+    hi = np.minimum(pos, min(k_len, sk) - 1)
+    lo = np.maximum(pos - window + 1, 0) if window > 0 else np.zeros_like(pos)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def phase_kernel_flash(launches: dict) -> dict:
+    """flash_attention against its plain version at the main paths' shapes
+    and with k_len < S; timed beside its bound, the plain version and SDPA."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    rng = np.random.default_rng(5)
+    shapes = [("qwen2-0.5b", (2, 4096, 14, 2, 64), 0, 4096),
+              ("h2o-danube-1.8b", (1, 8192, 32, 8, 80), 4096, 8192),
+              ("k_len < S, windowed", (2, 4096, 14, 2, 64), 1024, 3000)]
+    row = None
+    for name, (b, s, h, hkv, dh), window, k_len in shapes:
+        f32 = [torch.from_numpy(rng.normal(size=shape).astype(np.float32)).cuda()
+               for shape in ((b, s, h, dh), (b, s, hkv, dh), (b, s, hkv, dh))]
+        # f32: the JAX kernel test's bar. bf16: both round an f32 result
+        # once, so one bf16 ulp of the plain output's largest magnitude.
+        got = fa.flash_attention_cuda(*f32, window, k_len)
+        want = fa.flash_attention_plain(*f32, window, k_len)
+        err32 = max_abs_err(got, want)
+        bf = [x.bfloat16() for x in f32]
+        got = fa.flash_attention_cuda(*bf, window, k_len)
+        want = fa.flash_attention_plain(*bf, window, k_len)
+        err16 = max_abs_err(got, want)
+        ulp = 2.0 ** (np.floor(np.log2(float(want.float().abs().max()))) - 7)
+        if not (err32 <= 2e-5 and err16 <= ulp and bool(torch.isfinite(got).all())):
+            raise AssertionError(f"flash_attention {name}: kernel vs plain max abs "
+                                 f"{err32} (f32, bar 2e-5), {err16} (bf16, bar {ulp})")
+        ms = time_ms(lambda: fa.flash_attention_cuda(*bf, window, k_len), flush=flush)
+        plain_ms = time_ms(lambda: fa.flash_attention_plain(*bf, window, k_len), flush=flush)
+        pairs = _valid_pairs(s, s, window, k_len)
+        flops = 4 * b * h * dh * pairs
+        nbytes = sum(x.numel() * 2 for x in bf) + got.numel() * 2
+        bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / BF16_OPS_PER_S) * 1e3
+        library_ms = None
+        if window == 0 and k_len == s:
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in bf)
+            ref = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True).transpose(1, 2)
+            library_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True),
+                                 flush=flush)
+            log(f"[kernel] flash_attention {name}: SDPA (bf16 inside) vs plain max abs "
+                f"{max_abs_err(ref, want):.3g}")
+        log(f"[kernel] flash_attention {name} q [{b}, {s}, {h}, {dh}] kv [{b}, {s}, {hkv}, "
+            f"{dh}] window {window} k_len {k_len}: max abs vs plain {err32:.3g} f32, "
+            f"{err16:.3g} bf16 (1 ulp {ulp:.3g}); bf16 {ms:.3f} ms ({flops / ms / 1e9:.1f} "
+            f"TFLOP/s; bound {bound_ms:.4f} ms by operations, {flops / 1e9:.1f} GFLOP; "
+            f"f32 CUDA-core figure {flops / F32_OPS_PER_S * 1e3:.3f} ms), plain "
+            f"{plain_ms:.3f} ms, SDPA {library_ms if library_ms is None else round(library_ms, 4)} ms")
+        if row is None:  # the row is the qwen2-0.5b main path's shape
+            row = dict(
+                name="flash_attention", route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention.py:79",
+                launches=launches["flash_attention"], max_abs_err=err16, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by="operations",
+                library_ms=library_ms, checked=True)
+        del f32, bf, got, want
+    del flush
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_lm_device_vs_cpu() -> None:
+    """Reduced qwen2-0.5b in f32 on the card against the CPU, with
+    FLASH_THRESHOLD lowered to 16 so the 32-token forward runs the kernel:
+    the forward, then prefill + 4 decode steps."""
+    import torch
+
+    from repro_torch.configs.common import ShapeSpec
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import cuda
+    from repro_torch.models import layers
+    from repro_torch.train.steps import make_serve_artifacts
+
+    bundle = get_arch("qwen2-0.5b", reduced=True, use_pallas_attention=True)
+    params = {"cpu": bundle.model.init_params(torch.Generator().manual_seed(0))}
+    params["cuda"] = copy.deepcopy(params["cpu"]).to("cuda")
+    toks = torch.randint(0, bundle.cfg.vocab, (2, 32), generator=torch.Generator().manual_seed(1))
+    threshold = layers.FLASH_THRESHOLD
+    layers.FLASH_THRESHOLD = 16
+    try:
+        before = dict(cuda.launches)
+        with torch.inference_mode():
+            out = {d: bundle.model.forward(params[d], toks.to(d))[0] for d in params}
+            _expect_launches(before, bundle.cfg.n_layers, 1, "reduced qwen2 forward on the card")
+            err = rel_err(out["cuda"], out["cpu"])
+            art = make_serve_artifacts(bundle, ShapeSpec("check", "prefill", 32, 2),
+                                       cache_dtype=torch.float32)
+            errs = []
+            lp = {d: art.prefill_fn(params[d], {"tokens": toks[:, :28].to(d)}) for d in params}
+            errs.append(rel_err(lp["cuda"][0], lp["cpu"][0]))
+            for i in range(28, 32):
+                lp = {d: art.decode_fn(params[d], lp[d][1], toks[:, i:i + 1].to(d), i)
+                      for d in params}
+                errs.append(rel_err(lp["cuda"][0], lp["cpu"][0]))
+    finally:
+        layers.FLASH_THRESHOLD = threshold
+    log(f"[cpu] reduced qwen2-0.5b f32: forward (kernel on the card) cuda vs cpu rel "
+        f"{err:.3g} (bar 1e-4); prefill + 4 decode steps rel {max(errs):.3g} (bar 5e-4)")
+    if not (err <= 1e-4 and max(errs) <= 5e-4):
+        raise AssertionError(f"reduced qwen2 cuda vs cpu: forward {err}, serving {errs}")
 
 
 def main() -> int:
@@ -541,6 +903,14 @@ def main() -> int:
     del net
     torch.cuda.empty_cache()
     phase_device_vs_cpu()
+    torch.backends.cuda.matmul.allow_tf32 = False  # f32 products in f32 (the default,
+    torch.backends.cudnn.allow_tf32 = False        # stated): the f32 bars assume it
+    lm_launches = phase_lm_main()
+    phase_lm_f32()
+    phase_lm_serve()
+    phase_lm_danube()
+    rows.append(phase_kernel_flash(lm_launches))
+    phase_lm_device_vs_cpu()
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0

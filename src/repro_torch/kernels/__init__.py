@@ -3,6 +3,7 @@
 * ``lif_update``    -- fused neuron state update (the *update* phase)
 * ``spike_deliver`` -- delay-resolved gather delivery (the *deliver* phase)
 * ``superstep_lif`` / ``superstep_iaf`` -- the fused D-cycle window (``cycle``)
+* ``flash_attention`` -- causal GQA attention of the LM stack
 
 ``ops`` holds the device-dispatching wrappers, ``ref`` the oracles used by
 the tests, and ``cuda`` the build, load and launch-count machinery.

@@ -1,7 +1,8 @@
 """Public wrappers around the kernels, dispatching on the tensors' device.
 
 Port of ``repro.kernels.ops`` (``lif_update``, ``spike_deliver``,
-``apply_contrib``, ``superstep_lif``, ``superstep_iaf``). A tensor on the
+``apply_contrib``, ``superstep_lif``, ``superstep_iaf``) and of the call of
+``flash_attention_pallas`` in ``repro.models.layers``. A tensor on the
 CPU goes to the kernel's plain PyTorch version, a CUDA tensor to the CUDA
 kernel, and any other device raises: there is no silent fallback from the
 kernel to the plain version. Unlike the JAX wrappers these pad nothing and
@@ -14,11 +15,13 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import cycle as _cyc
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import lif_update as _lif
 from repro_torch.kernels import spike_deliver as _dlv
 
 __all__ = [
     "lif_update", "spike_deliver", "apply_contrib", "superstep_lif", "superstep_iaf",
+    "flash_attention",
 ]
 
 
@@ -93,3 +96,10 @@ def superstep_iaf(
     fn = _pick(countdown, _cyc.superstep_iaf_plain, _cyc.superstep_iaf_cuda)
     return fn(countdown, fut, interval, alive, src, w, delay,
               d_win=d_win, steps_lo=steps_lo, r_span=r_span)
+
+
+def flash_attention(q, k, v, window, k_len):
+    """Causal (optionally windowed) GQA attention ``[B, Sq, H, Dh]`` over
+    k, v ``[B, Sk, Hkv, Dh]``; see :mod:`.flash_attention`."""
+    fn = _pick(q, _fa.flash_attention_plain, _fa.flash_attention_cuda)
+    return fn(q, k, v, window, k_len)

@@ -207,3 +207,63 @@ def test_fused_engine_on_the_card_matches_the_cpu(dev, model):
                                getattr(st["cpu"].neuron, name))
     fused = "superstep_lif" if model == "lif" else "superstep_iaf"
     assert cuda.launches[fused] == 8 and cuda.launches["lif_update"] == 0
+
+
+# flash_attention: (B, S, H, Hkv, Dh, window, k_len). G = H / Hkv in
+# {1, 4, 7}; Dh in {64, 80, 128} (the published widths) and 16 (the reduced
+# configs); a window, k_len < Sk, and both together, where rows past
+# k_len + window - 1 have no valid key and take the mean of v over all keys.
+FLASH_CASES = [
+    (2, 1024, 14, 2, 64, 0, 1024),
+    (1, 1024, 32, 8, 80, 300, 1024),
+    (1, 512, 8, 8, 128, 0, 512),
+    (2, 512, 7, 1, 64, 0, 389),
+    (1, 1024, 4, 1, 80, 200, 700),
+    (2, 64, 4, 2, 16, 5, 40),
+]
+
+
+def bf16_ulp(x):
+    """The spacing of bfloat16 numbers at |x| (8 significant bits)."""
+    x = x.float().abs().clamp(min=2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(x)) - 7)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_flash_attention_kernel_matches_plain(dev, case, dtype):
+    """f32: max abs difference <= 2e-5 (the JAX kernel test's bar). bf16:
+    both compute in f32 and round once, so elementwise within one bf16 ulp
+    of the larger of the two values plus the f32 bar (near zero, an f32
+    difference of 1e-6 is many bf16 ulps)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    b, s, h, hkv, dh, window, k_len = case
+    rng = np.random.default_rng(sum(case))
+    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev, dtype)
+               for shape in ((b, s, h, dh), (b, s, hkv, dh), (b, s, hkv, dh)))
+    before = cuda.launches["flash_attention"]
+    got = fa.flash_attention_cuda(q, k, v, window, k_len)
+    torch.cuda.synchronize()
+    assert cuda.launches["flash_attention"] == before + 1
+    want = fa.flash_attention_plain(q, k, v, window, k_len)
+    assert got.dtype == dtype and got.shape == want.shape
+    assert bool(torch.isfinite(got).all())
+    diff = (got.float() - want.float()).abs()
+    if dtype == torch.float32:
+        assert float(diff.max()) <= 2e-5
+    else:
+        bound = bf16_ulp(torch.maximum(got.float().abs(), want.float().abs())) + 2e-5
+        assert bool((diff <= bound).all()), float((diff / bound).max())
+
+
+def test_flash_attention_kernel_refuses_what_it_was_not_built_for(dev):
+    from repro_torch.kernels import flash_attention as fa
+
+    q = torch.zeros(1, 64, 4, 48, device=dev)
+    kv = torch.zeros(1, 64, 2, 48, device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention_cuda(q, kv, kv, 0, 64)
+    q, kv = q[..., :16].half(), kv[..., :16].half()
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fa.flash_attention_cuda(q, kv, kv, 0, 64)
