@@ -44,9 +44,15 @@ card from seed 0, f32 products in f32):
    24 launches per forward; in f32, kernel against streaming (<= 1e-4);
 10. ``[kernel]`` flash_attention against its plain version at qwen2's and
     danube's shapes and with k_len < S (f32: max abs <= 2e-5; bf16: one bf16
-    ulp of the plain output's largest magnitude), timed (CUDA events after
-    an L2 flush, median of 20) beside its bound, the plain version and
-    ``scaled_dot_product_attention`` (the library time);
+    ulp of the plain output's largest magnitude, and per element one bf16 ulp
+    of the larger of the two values + 2e-5, the card tests' bar, which
+    ``scaled_dot_product_attention`` must fail at qwen2's shape: it rounds P
+    to bf16), timed (CUDA events after an L2 flush, median of 20) beside its
+    bound, the plain version and SDPA (the library time, and its own error);
+    the bf16 route runs on the tensor cores, the f32 route (timed at qwen2's
+    shape) on the CUDA cores; the tensor-core kernel's wgmma and TMA
+    instructions counted in its SASS (none fails the run), its registers,
+    spills and shared memory from the build report;
 11. ``[cpu]`` reduced qwen2-0.5b in f32 on the card against the CPU, with
     ``FLASH_THRESHOLD`` lowered so the forward runs the kernel: the forward
     (<= 1e-4) and prefill + 4 decode steps (<= 5e-4).
@@ -781,13 +787,63 @@ def _valid_pairs(sq, sk, window, k_len) -> int:
     return int(np.maximum(hi - lo + 1, 0).sum())
 
 
+def bf16_bar_ratio(got, want) -> float:
+    """Largest |got - want| over its bar, one bf16 ulp of the larger of the
+    two values + 2e-5 (per element, as ``tests/test_torch_cuda.py``)."""
+    import torch
+
+    got, want = got.float(), want.float()
+    top = torch.maximum(got.abs(), want.abs()).clamp(min=2.0 ** -126)
+    bar = torch.exp2(torch.floor(torch.log2(top)) - 7) + 2e-5
+    return float(((got - want).abs() / bar).max())
+
+
+def log_flash_build() -> None:
+    """The tensor-core kernel's instructions (wgmma and TMA must be there),
+    and its instantiations' registers, spills and shared memory from this
+    process's ``-Xptxas -v`` report."""
+    import re
+
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    from repro_torch.kernels import cuda
+
+    lib = cuda.library("flash_attention")
+    sass = subprocess.run([str(Path(CUDA_HOME) / "bin" / "cuobjdump"), "-sass",
+                           str(cuda._target("flash_attention"))],
+                          capture_output=True, text=True, check=True, timeout=300).stdout
+    counts = {op: len(re.findall(rf"\b{op}[.\w]*", sass)) for op in ("HGMMA", "UTMALDG")}
+    log(f"[kernel] flash_attention SASS: {counts['HGMMA']} HGMMA (wgmma), "
+        f"{counts['UTMALDG']} UTMALDG (TMA loads)")
+    if not all(counts.values()):
+        raise AssertionError(f"flash_attention: no wgmma or TMA in the SASS: {counts}")
+    report = cuda.build_logs.get("flash_attention")
+    if report is None:
+        log("[kernel] flash_attention_tc: no build report (library built by another process)")
+        return
+    dh, seen = None, {}
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '.*flash_attention_tcILi(\d+)E", line)
+        if m or "Compiling entry function" in line:
+            dh = int(m.group(1)) if m else None
+        elif dh is not None and ("spill" in line or "registers" in line):
+            seen.setdefault(dh, []).append(line.split(":", 1)[-1].strip())
+    for dh, lines in sorted(seen.items()):
+        log(f"[kernel] flash_attention_tc<{dh}>: {'; '.join(lines)}; dynamic shared memory "
+            f"{lib.flash_attention_smem_bytes(1, dh)} bytes; setmaxnreg 232 (compute) / "
+            f"40 (load)")
+
+
 def phase_kernel_flash(launches: dict) -> dict:
     """flash_attention against its plain version at the main paths' shapes
-    and with k_len < S; timed beside its bound, the plain version and SDPA."""
+    and with k_len < S; timed beside its bound, the plain version and SDPA,
+    and the f32 route at qwen2-0.5b's shape."""
     import numpy as np
     import torch
 
     from repro_torch.kernels import flash_attention as fa
+
+    log_flash_build()
 
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     rng = np.random.default_rng(5)
@@ -808,11 +864,17 @@ def phase_kernel_flash(launches: dict) -> dict:
         want = fa.flash_attention_plain(*bf, window, k_len)
         err16 = max_abs_err(got, want)
         ulp = 2.0 ** (np.floor(np.log2(float(want.float().abs().max()))) - 7)
-        if not (err32 <= 2e-5 and err16 <= ulp and bool(torch.isfinite(got).all())):
+        ratio = bf16_bar_ratio(got, want)
+        if not (err32 <= 2e-5 and err16 <= ulp and ratio <= 1.0
+                and bool(torch.isfinite(got).all())):
             raise AssertionError(f"flash_attention {name}: kernel vs plain max abs "
-                                 f"{err32} (f32, bar 2e-5), {err16} (bf16, bar {ulp})")
+                                 f"{err32} (f32, bar 2e-5), {err16} (bf16, bar {ulp}), "
+                                 f"bf16 per element {ratio} of the bar")
         ms = time_ms(lambda: fa.flash_attention_cuda(*bf, window, k_len), flush=flush)
         plain_ms = time_ms(lambda: fa.flash_attention_plain(*bf, window, k_len), flush=flush)
+        f32_ms = None
+        if row is None:  # the f32 route (CUDA cores) at the main path's shape
+            f32_ms = time_ms(lambda: fa.flash_attention_cuda(*f32, window, k_len), flush=flush)
         pairs = _valid_pairs(s, s, window, k_len)
         flops = 4 * b * h * dh * pairs
         nbytes = sum(x.numel() * 2 for x in bf) + got.numel() * 2
@@ -824,14 +886,26 @@ def phase_kernel_flash(launches: dict) -> dict:
             ref = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True).transpose(1, 2)
             library_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True),
                                  flush=flush)
-            log(f"[kernel] flash_attention {name}: SDPA (bf16 inside) vs plain max abs "
-                f"{max_abs_err(ref, want):.3g}")
+            sdpa_ratio = bf16_bar_ratio(ref, want)
+            log(f"[kernel] flash_attention {name}: bf16 vs plain, max abs / largest "
+                f"per-element |diff| over the bar: kernel {err16:.3g} / {ratio:.3f}, SDPA "
+                f"(P rounded to bf16) {max_abs_err(ref, want):.3g} / {sdpa_ratio:.3f} "
+                f"(1 ulp {ulp:.3g})")
+            # The control: a kernel that rounds P to bf16 must miss the bar,
+            # or the bar could not tell the split P from a single rounding.
+            if sdpa_ratio <= 1.0:
+                raise AssertionError(f"flash_attention {name}: SDPA meets the per-element "
+                                     f"bf16 bar ({sdpa_ratio}), so it separates nothing")
         log(f"[kernel] flash_attention {name} q [{b}, {s}, {h}, {dh}] kv [{b}, {s}, {hkv}, "
             f"{dh}] window {window} k_len {k_len}: max abs vs plain {err32:.3g} f32, "
-            f"{err16:.3g} bf16 (1 ulp {ulp:.3g}); bf16 {ms:.3f} ms ({flops / ms / 1e9:.1f} "
-            f"TFLOP/s; bound {bound_ms:.4f} ms by operations, {flops / 1e9:.1f} GFLOP; "
-            f"f32 CUDA-core figure {flops / F32_OPS_PER_S * 1e3:.3f} ms), plain "
-            f"{plain_ms:.3f} ms, SDPA {library_ms if library_ms is None else round(library_ms, 4)} ms")
+            f"{err16:.3g} bf16 (1 ulp {ulp:.3g}; per element {ratio:.3f} of the bar); "
+            f"bf16 (tensor cores) {ms:.4f} ms "
+            f"({flops / ms / 1e9:.1f} TFLOP/s, {100 * bound_ms / ms:.1f}% of the bound "
+            f"{bound_ms:.4f} ms by operations, {flops / 1e9:.1f} GFLOP), plain "
+            f"{plain_ms:.3f} ms, SDPA {library_ms if library_ms is None else round(library_ms, 4)} ms"
+            + ("" if f32_ms is None else
+               f"; f32 (CUDA cores) {f32_ms:.3f} ms ({flops / f32_ms / 1e9:.1f} TFLOP/s; "
+               f"f32 CUDA-core bound {flops / F32_OPS_PER_S * 1e3:.3f} ms)"))
         if row is None:  # the row is the qwen2-0.5b main path's shape
             row = dict(
                 name="flash_attention", route="cuda",

@@ -33,10 +33,11 @@ _LIB = ("-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 # Flags per source. The simulator's kernels are bitwise exact only with the
 # fused multiply-adds their sources spell out with intrinsics, so nvcc may
 # contract no others (-fmad=false; see csrc/lif_update.cu). Attention is
-# held to a tolerance, and nvcc may contract its FMAs.
+# held to a tolerance, and nvcc may contract its FMAs; it links the driver
+# library for the TMA tensor maps (cuTensorMapEncodeTiled).
 NVCC_FLAGS = {
     **{name: _ARCH + ("-fmad=false",) + _LIB for name in KERNELS[:4]},
-    "flash_attention": _ARCH + _LIB,
+    "flash_attention": _ARCH + _LIB + ("-lcuda",),
 }
 
 launches: dict[str, int] = {name: 0 for name in KERNELS}
@@ -63,6 +64,7 @@ _SIGNATURES = {
     },
     "flash_attention": {
         "flash_attention_launch": [_P] * 4 + [_I] * 9 + [_P],
+        "flash_attention_smem_bytes": [_I, _I],
     },
 }
 

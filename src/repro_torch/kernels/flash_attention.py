@@ -8,7 +8,10 @@ head ``h // (H // Hkv)``. The output has q's shape and dtype.
 :func:`flash_attention_plain` transcribes the Pallas body: an online softmax
 over key blocks of ``bk``, f32 inside, -1e30 both for masked logits and for
 the running max's start, output ``acc / max(l, 1e-30)``. The kernel
-(``csrc/flash_attention.cu``) computes the same function with its own tiles.
+(``csrc/flash_attention.cu``) computes the same function with its own tiles,
+by one of two routes chosen by dtype: float32 on the CUDA cores, bfloat16 on
+the tensor cores (wgmma and TMA, with P split into two bf16 terms so that the
+probabilities keep f32 precision in the PV product).
 Both keep the JAX wrapper's contract ``Sq % min(bq, Sq) == 0`` and
 ``Sk % min(bk, Sk) == 0``.
 """
@@ -82,7 +85,8 @@ def flash_attention_plain(q, k, v, window, k_len, *, bq: int = BQ, bk: int = BK)
 
 def flash_attention_cuda(q, k, v, window, k_len):
     """Launch the CUDA kernel on contiguous CUDA tensors of one dtype
-    (float32 or bfloat16) with ``Dh`` in :data:`HEAD_DIMS`."""
+    (float32: CUDA cores; bfloat16: tensor cores, 16-byte aligned) with
+    ``Dh`` in :data:`HEAD_DIMS`."""
     _check_shapes(q, k, v, BQ, BK)
     for name, x in (("q", q), ("k", k), ("v", v)):
         if not x.is_cuda or x.dtype not in _DTYPES or x.dtype != q.dtype \
@@ -91,6 +95,9 @@ def flash_attention_cuda(q, k, v, window, k_len):
                 f"flash_attention kernel: {name} must be a contiguous CUDA float32 or "
                 f"bfloat16 tensor on q's device and of q's dtype, got {x.dtype} on "
                 f"{x.device}{'' if x.is_contiguous() else ', not contiguous'}")
+        if x.dtype == torch.bfloat16 and x.data_ptr() % 16:
+            raise ValueError(f"flash_attention kernel: bfloat16 {name} must start on a "
+                             f"16-byte boundary (TMA), got address {x.data_ptr():#x}")
     b, sq, h, dh = q.shape
     if dh not in HEAD_DIMS:
         raise ValueError(f"flash_attention kernel: head dim {dh} not in {HEAD_DIMS}")

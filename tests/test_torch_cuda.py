@@ -210,9 +210,12 @@ def test_fused_engine_on_the_card_matches_the_cpu(dev, model):
 
 
 # flash_attention: (B, S, H, Hkv, Dh, window, k_len). G = H / Hkv in
-# {1, 4, 7}; Dh in {64, 80, 128} (the published widths) and 16 (the reduced
-# configs); a window, k_len < Sk, and both together, where rows past
+# {1, 4, 7}; Dh in {64, 80, 128} (the published widths), 16 (the reduced
+# configs) and 32; a window, k_len < Sk, and both together, where rows past
 # k_len + window - 1 have no valid key and take the mean of v over all keys.
+# The tensor-core route's edges: many 128-row tiles with G = 7 and diagonal
+# tiles (S 2048), k_len not a multiple of its key tile (128 keys for Dh <= 64,
+# 64 above), a window smaller than one key tile, and G = 1 at Dh 128.
 FLASH_CASES = [
     (2, 1024, 14, 2, 64, 0, 1024),
     (1, 1024, 32, 8, 80, 300, 1024),
@@ -220,6 +223,12 @@ FLASH_CASES = [
     (2, 512, 7, 1, 64, 0, 389),
     (1, 1024, 4, 1, 80, 200, 700),
     (2, 64, 4, 2, 16, 5, 40),
+    (1, 2048, 14, 2, 64, 0, 2048),
+    (2, 512, 8, 2, 32, 0, 512),
+    (1, 1024, 14, 2, 64, 0, 777),
+    (1, 1024, 8, 2, 128, 0, 1000),
+    (2, 1024, 14, 2, 64, 50, 1024),
+    (1, 2048, 4, 4, 128, 0, 2048),
 ]
 
 
@@ -267,3 +276,33 @@ def test_flash_attention_kernel_refuses_what_it_was_not_built_for(dev):
     q, kv = q[..., :16].half(), kv[..., :16].half()
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         fa.flash_attention_cuda(q, kv, kv, 0, 64)
+
+
+def test_flash_attention_bf16_route_refuses_what_it_was_not_built_for(dev):
+    """The tensor-core route raises on a head dim it was not built for and
+    on a tensor that is not contiguous or not 16-byte aligned; it never
+    gives way to another."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q = torch.zeros(1, 64, 4, 48, device=dev, dtype=torch.bfloat16)
+    kv = torch.zeros(1, 64, 2, 48, device=dev, dtype=torch.bfloat16)
+    before = cuda.launches["flash_attention"]
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention_cuda(q, kv, kv, 0, 64)
+    q = torch.zeros(1, 4, 64, 64, device=dev, dtype=torch.bfloat16).transpose(1, 2)
+    kv = torch.zeros(1, 64, 2, 64, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="not contiguous"):
+        fa.flash_attention_cuda(q, kv, kv, 0, 64)
+    # Contiguous, but one element (2 bytes) past a 16-byte boundary: TMA
+    # and the 16-byte Q loads cannot read it.
+    q = torch.zeros(64 * 4 * 64 + 1, device=dev, dtype=torch.bfloat16)[1:].view(1, 64, 4, 64)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        fa.flash_attention_cuda(q, kv, kv, 0, 64)
+    # The library refuses it too, without launching.
+    lib = cuda.library("flash_attention")
+    out = torch.empty(1, 64, 4, 64, device=dev, dtype=torch.bfloat16)
+    err = lib.flash_attention_launch(
+        q.data_ptr(), kv.data_ptr(), kv.data_ptr(), out.data_ptr(), 1, 1, 64, 64, 4, 2, 64,
+        0, 64, torch.cuda.current_stream(dev).cuda_stream)
+    assert "misaligned" in lib.error_string(err).decode()
+    assert cuda.launches["flash_attention"] == before

@@ -3,8 +3,11 @@ package's Pallas kernel, run in interpret mode on the CPU.
 
 Tolerance: max abs difference 2e-5, the JAX kernel test's bar
 (tests/test_kernels.py); both sides compute in f32 and differ only in the
-order of their sums.
+order of their sums. The split-P test holds bf16 outputs to the card tests'
+bar: one bf16 ulp of the larger value + 2e-5, per element.
 """
+
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -86,3 +89,69 @@ def test_bf16_inputs_are_computed_in_f32_and_cast_once():
     got = flash_attention_plain(q, k, v, 0, 64)
     want = flash_attention_plain(q.float(), k.float(), v.float(), 0, 64).bfloat16()
     assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+
+
+def _pv_emulated(q, k, v, window, k_len, *, split, bk):
+    """flash_attention_plain's loop with P fed to the PV product as the
+    tensor cores take it: rounded once to bf16, or split into two bf16 terms
+    P_hi = bf16(P), P_lo = bf16(P - P_hi), both multiplied by V into one f32
+    sum (the CUDA kernel's bf16 route)."""
+    b, sq, h, dh = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    scale = 1.0 / math.sqrt(dh)
+    qg = q.reshape(b, sq, hkv, g, dh).permute(0, 2, 3, 1, 4).float()
+    q_pos = torch.arange(sq)[:, None]
+    m = torch.full((b, hkv, g, sq), -1e30)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((b, hkv, g, sq, dh))
+    for k0 in range(0, sk, bk):
+        kb = k[:, k0:k0 + bk].permute(0, 2, 1, 3).float()[:, :, None]
+        vb = v[:, k0:k0 + bk].permute(0, 2, 1, 3).float()[:, :, None]
+        logits = torch.matmul(qg, kb.transpose(-1, -2)) * scale
+        k_pos = k0 + torch.arange(bk)[None, :]
+        d = q_pos - k_pos
+        mask = (d >= 0) & ((window <= 0) | (d < window)) & (k_pos < k_len)
+        logits = torch.where(mask, logits, -1e30)
+        m_new = torch.maximum(m, logits.amax(dim=-1))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(logits - m_new[..., None])
+        l = l * corr + p.sum(dim=-1)
+        p_hi = p.bfloat16().float()
+        pv = torch.matmul(p_hi, vb)
+        if split:
+            pv = pv + torch.matmul((p - p_hi).bfloat16().float(), vb)
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dh).to(q.dtype)
+
+
+# Cases of tests/test_torch_cuda.py's FLASH_CASES with S cut to 256 (and
+# windows and k_len with it).
+@pytest.mark.parametrize("case", [
+    (2, 256, 14, 2, 64, 0, 256),
+    (1, 256, 32, 8, 80, 60, 256),
+    (2, 256, 7, 1, 64, 0, 189),
+    (1, 256, 4, 1, 80, 50, 170),
+    (2, 64, 4, 2, 16, 5, 40),
+], ids=lambda c: "x".join(map(str, c)))
+def test_split_p_keeps_the_bf16_bar_and_single_rounding_does_not(case):
+    """Why the kernel's bf16 route splits P: against the plain version (f32
+    P), the split keeps every bf16 output within the card tests' bar (one
+    bf16 ulp of the larger value + 2e-5); P rounded once to bf16, as a
+    textbook tensor-core kernel does, puts several percent of the outputs
+    outside it."""
+    b, s, h, hkv, dh, window, k_len = case
+    rng = np.random.default_rng(sum(case))
+    q, k, v = (torch.from_numpy(x).bfloat16() for x in _qkv(rng, b, s, h, hkv, dh))
+    want = flash_attention_plain(q, k, v, window, k_len, bk=64).float()
+
+    def outside(split):
+        got = _pv_emulated(q, k, v, window, k_len, split=split, bk=64).float()
+        big = torch.maximum(got.abs(), want.abs()).clamp(min=2.0 ** -126)
+        bound = torch.exp2(torch.floor(torch.log2(big)) - 7) + 2e-5
+        return float(((got - want).abs() > bound).float().mean())
+
+    assert outside(split=True) == 0.0
+    assert outside(split=False) > 0.01
