@@ -18,11 +18,21 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    equal to each other window by window; LIF under the structure-aware
    schedule, unfused and fused, bitwise equal window by window. Launches per
    window are asserted exactly; the kernels' launch counts are reset just
-   before and read just after, and every kernel's must be > 0;
+   before and read just after, and every kernel's must be > 0. Each run's
+   window is then profiled (torch.profiler): the six longest kernels and
+   every port kernel that ran, with device time and count;
 4. each kernel against its plain PyTorch version on the card, bitwise, at
-   the main path's shapes, and timed (CUDA events after an L2 flush; median
-   of 100 launches for lif_update, 20 for spike_deliver, 10 for the
-   superstep kernels) beside its memory bound;
+   the main path's shapes (superstep_iaf also at the main path's 2.5 Hz),
+   and timed beside its memory bound: median of 100 windows for
+   lif_update, 20 for spike_deliver, 10 for the superstep kernels, each
+   window an L2 flush, a start event, the call and an end event. The
+   windows are enqueued in batches behind a device spin that outlasts the
+   host's enqueue of the batch, so the device never waits for the host
+   inside a window; an event after the spin checks that, and the timer
+   raises if it cannot hold (``time_ms``). Plain versions whose enqueue
+   blocks on the launch queue are timed host-paced, with a ``[timer]``
+   line. lif_update is also timed host-paced, the timer of earlier runs,
+   and its per-launch device time in the profiled LIF window is printed;
 5. the port on the card against the port on the CPU at the quickstart size
    (4 x 256 neurons, K 32/32), ``pallas`` backend, ignore-and-fire (30 Hz)
    and LIF under both schedules and fused, 10 windows, bitwise;
@@ -47,8 +57,8 @@ card from seed 0, f32 products in f32):
     ulp of the plain output's largest magnitude, and per element one bf16 ulp
     of the larger of the two values + 2e-5, the card tests' bar, which
     ``scaled_dot_product_attention`` must fail at qwen2's shape: it rounds P
-    to bf16), timed (CUDA events after an L2 flush, median of 20) beside its
-    bound, the plain version and SDPA (the library time, and its own error);
+    to bf16), timed (as in 4, median of 20) beside its bound, the plain
+    version and SDPA (the library time, and its own error);
     the bf16 route runs on the tensor cores, the f32 route (timed at qwen2's
     shape) on the CUDA cores; the tensor-core kernel's wgmma and TMA
     instructions counted in its SASS (none fails the run), its registers,
@@ -77,6 +87,11 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 L2_FLUSH_BYTES = 256 << 20  # > the 50 MB L2
 SIM_KERNELS = ("lif_update", "spike_deliver", "superstep_lif", "superstep_iaf")
+# The port's kernel functions (csrc/*.cu), as the profiler names them: every
+# one that ran in a profiled window gets a [profile] line.
+PORT_KERNEL_SYMBOLS = ("lif_update_kernel", "pack_spikes", "spike_deliver_kernel",
+                       "superstep_lif_kernel", "iaf_spikes", "iaf_deposit",
+                       "flash_attention_kernel", "flash_attention_tc")
 
 
 def log(*args) -> None:
@@ -98,14 +113,16 @@ def max_abs_err(a, b) -> float:
     return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
 
 
-def time_ms(fn, *, reps: int = 20, flush=None) -> float:
-    """Median device time of ``fn`` over ``reps`` launches (CUDA events),
-    after 3 warm-up launches."""
+SPIN_CYCLES_PER_S = 2.0e9   # above the H100's clocks, so a spin lasts at least as asked
+MAX_SPIN_S = 4.0
+TIMER_BATCH = 25            # windows behind one spin: bounds the launch queue's depth
+
+
+def _enqueue_windows(fn, reps: int, flush) -> list:
+    """Enqueue ``reps`` x (L2 flush, start event, ``fn()``, end event)."""
     import torch
 
-    for _ in range(3):
-        fn()
-    times = []
+    pairs = []
     for _ in range(reps):
         if flush is not None:
             flush.zero_()
@@ -113,8 +130,86 @@ def time_ms(fn, *, reps: int = 20, flush=None) -> float:
         start.record()
         fn()
         end.record()
+        pairs.append((start, end))
+    return pairs
+
+
+def time_ms_host_paced(fn, *, reps: int = 20, flush=None) -> float:
+    """The earlier timer of this script: each window enqueued and
+    synchronized in turn, so the device waits inside a window for whatever
+    host work ``fn`` does before its launch. Kept to show that effect, and
+    for functions :func:`time_ms` cannot hold behind a spin."""
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(reps):
+        ((start, end),) = _enqueue_windows(fn, 1, flush)
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _gated_batch(fn, reps: int, flush, spin_s: float) -> list[float] | None:
+    """``reps`` windows enqueued behind a device spin of ``spin_s``; their
+    times, or None if the device got past the spin before the host had
+    enqueued the last window."""
+    import torch
+
+    torch.cuda._sleep(int(spin_s * SPIN_CYCLES_PER_S))
+    gate = torch.cuda.Event()
+    gate.record()
+    pairs = _enqueue_windows(fn, reps, flush)
+    early = gate.query()
+    torch.cuda.synchronize()
+    return None if early else [s.elapsed_time(e) for s, e in pairs]
+
+
+def time_ms(fn, *, reps: int = 20, flush=None, host_paced_ok: bool = False) -> float:
+    """Median device time of ``fn`` over ``reps`` windows (CUDA events), with
+    no host time inside a window.
+
+    Three warm-up windows give the host's time to enqueue one window. The
+    windows are then enqueued in batches of at most ``TIMER_BATCH``, each
+    behind a device spin (``torch.cuda._sleep``) of 1.5x the batch's enqueue
+    time plus 1 ms, and the host synchronizes after each batch. An event
+    recorded right after the spin tells whether the device got past it
+    before the host had enqueued the batch's last window: then the device
+    may have waited for the host inside a window, so the spin is made 4x
+    longer and the batch repeated once; if the device is still too early,
+    this raises. A function whose enqueue blocks on the launch queue
+    (hundreds of launches per call, as some plain versions) cannot be held
+    behind a spin: with ``host_paced_ok`` its time is taken by
+    :func:`time_ms_host_paced` instead, and a ``[timer]`` line says so.
+    """
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _enqueue_windows(fn, 3, flush)
+    host_s = (time.perf_counter() - t0) / 3
+    torch.cuda.synchronize()
+    times = []
+    while len(times) < reps:
+        batch = min(TIMER_BATCH, reps - len(times))
+        spin_s = 1.5 * batch * host_s + 1e-3
+        got, what = None, f"{batch} windows take {batch * host_s:.3f} s to enqueue"
+        for _ in range(2):
+            if spin_s > MAX_SPIN_S:
+                break
+            got = _gated_batch(fn, batch, flush, spin_s)
+            if got is not None:
+                break
+            what = (f"the device got past a {spin_s * 1e3:.1f} ms spin before the host "
+                    f"had enqueued {batch} windows")
+            spin_s *= 4
+        if got is None:
+            if not host_paced_ok:
+                raise RuntimeError(f"time_ms: {what}; host time would land in the windows")
+            log(f"[timer] {what}: host-paced timer for this function")
+            return time_ms_host_paced(fn, reps=reps, flush=flush)
+        times += got
     return statistics.median(times)
 
 
@@ -148,14 +243,17 @@ def phase_build() -> None:
     log(f"[build] {len(seconds)} kernels built in {time.perf_counter() - t0:.1f} s "
         f"({', '.join(f'{k} {v:.1f} s' for k, v in seconds.items())})")
     for name, out in cuda.build_logs.items():
+        entry = ""
         for line in out.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1][:40]  # the mangled name names the instantiation
+            elif "registers" in line or "spill" in line:
+                log(f"[build] {name} {entry}: {line.strip()}")
 
 
-def phase_main_path(spec) -> tuple[object, dict]:
-    """Build the full-width network and drive the engine; returns the network
-    and the main path's launch counts."""
+def phase_main_path(spec) -> tuple[object, dict, dict]:
+    """Build the full-width network and drive the engine; returns the network,
+    the main path's launch counts and lif_update's profiled us per launch."""
     import torch
 
     from repro_torch.core import EngineConfig, build_network, make_simulation
@@ -269,12 +367,19 @@ def phase_main_path(spec) -> tuple[object, dict]:
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     if min(launches[k] for k in SIM_KERNELS) <= 0:
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
+    profiled = {}
     for name, eng in lif.items():
-        profile_window(f"lif {name}", lambda: eng.window(st_f))
+        kernels = profile_window(f"lif {name}", lambda: eng.window(st_f))
+        if name == "structure_aware":
+            us, count = _port_kernel_time(kernels, "lif_update_kernel")
+            if count != per_u["lif_update"]:
+                raise AssertionError(f"profiled LIF window: {count} lif_update launches, "
+                                     f"expected {per_u['lif_update']}")
+            profiled["lif_update"] = us / count
     for name, eng in iaf.items():
         st = eng.window(eng.init())[0]
         profile_window(f"ignore_and_fire {name}", lambda: eng.window(st))
-    return net, launches
+    return net, launches, profiled
 
 
 def profile_window(name, fn, what="window") -> list[tuple[float, int, str]]:
@@ -302,13 +407,21 @@ def profile_window(name, fn, what="window") -> list[tuple[float, int, str]]:
     busy = sum(k[0] for k in kernels)
     log(f"[profile] {name}: {what} {wall_us / 1e3:.2f} ms wall, device busy "
         f"{busy / 1e3:.2f} ms ({100 * busy / wall_us:.1f}%), {len(kernels)} kernel kinds")
-    for us, count, key in kernels[:6]:
-        log(f"[profile]   {us / 1e3:9.3f} ms  x{count:<4d} {key[:90]}")
+    for i, (us, count, key) in enumerate(kernels):
+        if i < 6 or any(sym in key for sym in PORT_KERNEL_SYMBOLS):
+            log(f"[profile]   {us / 1e3:9.3f} ms  x{count:<4d} {key[:90]}")
     return kernels
 
 
-def phase_kernels(net, launches: dict) -> list[dict]:
-    """Each kernel against its plain version on the card, and timed."""
+def _port_kernel_time(kernels, symbol) -> tuple[float, int]:
+    """Device us and launches of the profiled kernels whose name holds ``symbol``."""
+    hits = [(us, count) for us, count, key in kernels if symbol in key]
+    return sum(h[0] for h in hits), sum(h[1] for h in hits)
+
+
+def phase_kernels(net, launches: dict, lif_profile_us: dict) -> list[dict]:
+    """Each kernel against its plain version on the card, and timed;
+    ``lif_profile_us`` holds lif_update's profiled us per launch."""
     import numpy as np
     import torch
 
@@ -338,17 +451,28 @@ def phase_kernels(net, launches: dict) -> list[dict]:
         raise AssertionError("lif_update kernel != plain version")
     err = max(max_abs_err(g.float(), w.float()) for g, w in zip(got, want))
     ms = time_ms(lambda: lif.lif_update_cuda(*args, **kw), reps=100, flush=flush)
-    plain_ms = time_ms(lambda: lif.lif_update_plain(*args, **kw), reps=100, flush=flush)
+    paced_ms = time_ms_host_paced(lambda: lif.lif_update_cuda(*args, **kw), reps=100,
+                                  flush=flush)
+    # The floor of one timed launch: the same timer around a 4-neuron launch.
+    tiny = tuple(x[:4] for x in args)
+    floor_ms = time_ms(lambda: lif.lif_update_cuda(*tiny, **kw), reps=100, flush=flush)
+    plain_ms = time_ms(lambda: lif.lif_update_plain(*args, **kw), reps=100, flush=flush,
+                       host_paced_ok=True)
     nbytes = 30 * n
     bound_ms = max(nbytes / HBM_BYTES_PER_S, 6 * n / F32_OPS_PER_S) * 1e3
     log(f"[kernel] lif_update N={n}: bitwise == plain; {ms:.4f} ms "
-        f"(bound {bound_ms:.4f} ms by bytes, {nbytes / ms / 1e6:.0f} GB/s), "
-        f"plain {plain_ms:.4f} ms")
+        f"(bound {bound_ms:.4f} ms by bytes, {100 * bound_ms / ms:.1f}% of it, "
+        f"{nbytes / ms / 1e6:.0f} GB/s), plain {plain_ms:.4f} ms; the host-paced timer "
+        f"reads {paced_ms:.4f} ms in this call; a 4-neuron launch reads "
+        f"{floor_ms:.4f} ms (the floor of one timed launch)")
+    log(f"[kernel] lif_update in the profiled unfused LIF window (CUPTI): "
+        f"{lif_profile_us['lif_update']:.2f} us per launch")
     rows.append(dict(
         name="lif_update", route="cuda", source="src/repro_torch/kernels/csrc/lif_update.cu",
         replaces="src/repro/kernels/lif_update.py:77", launches=launches["lif_update"],
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by="bytes", library_ms=None, checked=True))
+        bound_by="bytes", library_ms=None, checked=True, host_paced_ms=paced_ms,
+        launch_floor_ms=floor_ms))
 
     # spike_deliver on the full tables, spike vector at ~1% density.
     a, n_pad = net.alive.shape
@@ -369,7 +493,8 @@ def phase_kernels(net, launches: dict) -> list[dict]:
             raise AssertionError(f"spike_deliver ({pathway}) kernel != plain version")
         err = max_abs_err(got, want)
         ms = time_ms(lambda: dlv.spike_deliver_cuda(spikes, src, w, delay, **kw))
-        plain_ms = time_ms(lambda: dlv.spike_deliver_plain(spikes, src, w, delay, **kw))
+        plain_ms = time_ms(lambda: dlv.spike_deliver_plain(spikes, src, w, delay, **kw),
+                           host_paced_ok=True)
         # Bytes this data needs: all of src, w and delay of the synapses whose
         # source spiked, the spike vector and the output.
         active = _active_synapses(spikes, src, n_pad if pathway == "intra" else None)
@@ -407,6 +532,7 @@ def _superstep_rows(net, launches: dict, rng, flush) -> list[dict]:
     import torch
 
     from repro_torch.core.neuron import LIFParams
+    from repro_torch.kernels import cuda
     from repro_torch.kernels import cycle as cyc
 
     dev = net.device
@@ -435,7 +561,8 @@ def _superstep_rows(net, launches: dict, rng, flush) -> list[dict]:
                 f"{'agrees' if all(map(bitwise_equal, got, again)) else 'differs'}")
         err = max(max_abs_err(g.float(), w.float()) for g, w in zip(got, want))
         ms = time_ms(lambda: kernel(*args(scratch), **kw), reps=10, flush=flush)
-        plain_ms = time_ms(lambda: plain(*args(scratch), **kw), reps=10, flush=flush)
+        plain_ms = time_ms(lambda: plain(*args(scratch), **kw), reps=10, flush=flush,
+                           host_paced_ok=True)
         return want, err, ms, plain_ms
 
     # LIF: membrane potentials spread below threshold and strong synaptic
@@ -474,33 +601,55 @@ def _superstep_rows(net, launches: dict, rng, flush) -> list[dict]:
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
         library_ms=None, checked=True))
 
-    # Ignore-and-fire: phases spread over 200 cycles, intervals of 1-12, so
-    # ~5% of the neurons fire in the window, some of them several times.
-    countdown = t(rng.integers(0, 200, (a, n)).astype(np.int32))
-    interval = t(rng.integers(1, 13, (a, n)).astype(np.int32))
-    kw = dict(d_win=d_win, steps_lo=lo, r_span=span)
-    want, err, ms, plain_ms = check_and_time(
-        "superstep_iaf", cyc.superstep_iaf_cuda, cyc.superstep_iaf_plain,
-        lambda fut: (countdown, fut, interval, net.alive, *tables), kw)
-    spikes = want[2]
-    per_cycle = [int(x) for x in spikes.sum(dim=(1, 2))]
-    if min(per_cycle) <= 0:
-        raise AssertionError(f"superstep_iaf check: a cycle without spikes {per_cycle}")
-    # Bytes: all of src once; w, delay and the source's pattern of every
-    # synapse whose source spiked in the window; the state (13 B per
-    # neuron), the spikes and fut once.
-    fired = spikes.any(dim=0).reshape(-1).float()
-    active = _active_synapses(fired, net.src_intra.view(a * n, k), n)
-    nbytes = a * src_bytes + active * (8 + delay_b) + a * n * (13 + d_win) + fut_bytes
-    bound_ms = max(nbytes / HBM_BYTES_PER_S, active / F32_OPS_PER_S) * 1e3
-    log(f"[kernel] superstep_iaf [{a}, {n}, {k}] D {d_win}: bitwise == plain; spikes per "
-        f"cycle {per_cycle}, {active} active synapses; {ms:.3f} ms (bound {bound_ms:.3f} ms "
-        f"by bytes, {nbytes / ms / 1e6:.0f} GB/s of needed bytes), plain {plain_ms:.3f} ms")
+    # Ignore-and-fire at two densities: phases spread over 200 cycles and
+    # intervals of 1-12, so ~5% of the neurons fire in the window, some of
+    # them several times; and the main path's 2.5 Hz (interval 4000 steps,
+    # phases over the whole interval), so ~0.25% fire once.
+    timed = {}
+    for regime, phases, intervals in (("5%", (0, 200), (1, 13)),
+                                      ("main path 2.5 Hz", (0, 4000), (4000, 4001))):
+        countdown = t(rng.integers(*phases, (a, n)).astype(np.int32))
+        interval = t(rng.integers(*intervals, (a, n)).astype(np.int32))
+        kw = dict(d_win=d_win, steps_lo=lo, r_span=span)
+        want, err, ms, plain_ms = check_and_time(
+            "superstep_iaf", cyc.superstep_iaf_cuda, cyc.superstep_iaf_plain,
+            lambda fut: (countdown, fut, interval, net.alive, *tables), kw)
+        spikes = want[2]
+        per_cycle = [int(x) for x in spikes.sum(dim=(1, 2))]
+        if min(per_cycle) <= 0:
+            raise AssertionError(f"superstep_iaf check ({regime}): a cycle without spikes "
+                                 f"{per_cycle}")
+        # Bytes: all of src once; w, delay and the source's pattern of every
+        # synapse whose source spiked in the window; the state (13 B per
+        # neuron), the spikes and fut once.
+        fired = spikes.any(dim=0).reshape(-1).float()
+        active = _active_synapses(fired, net.src_intra.view(a * n, k), n)
+        nbytes = a * src_bytes + active * (8 + delay_b) + a * n * (13 + d_win) + fut_bytes
+        bound_ms = max(nbytes / HBM_BYTES_PER_S, active / F32_OPS_PER_S) * 1e3
+        log(f"[kernel] superstep_iaf [{a}, {n}, {k}] D {d_win}, {regime}: bitwise == plain; "
+            f"{100 * float(fired.mean()):.2f}% of sources fire, spikes per cycle {per_cycle}, "
+            f"{active} active synapses; {ms:.3f} ms (bound {bound_ms:.3f} ms by bytes, "
+            f"{100 * bound_ms / ms:.1f}% of it, {nbytes / ms / 1e6:.0f} GB/s of needed "
+            f"bytes), plain {plain_ms:.3f} ms")
+        timed[regime] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, err=err)
+    # A yardstick for the stream: one library reduction that reads all of
+    # src once, in its own int32 (a widening sum is much slower).
+    stream_ms = time_ms(lambda: net.src_intra.amax(), reps=10, flush=flush)
+    log(f"[kernel] superstep_iaf yardstick: torch.amax over src ({a * src_bytes / 1e9:.2f} GB) "
+        f"{stream_ms:.3f} ms, {a * src_bytes / stream_ms / 1e6:.0f} GB/s")
+    lib = cuda.library("superstep_iaf")
+    log(f"[kernel] superstep_iaf deposit at N={a * n}: "
+        f"{lib.superstep_iaf_smem_bytes(a * n, d_win, span)} bytes of dynamic shared memory, "
+        f"bitmask {'in shared memory' if lib.superstep_iaf_mask_in_smem(a * n, d_win, span) else 'read through L2'}"
+        f" (registers and spills: [build] lines)")
+    # The row is the 5% shape; the main path's density is beside it.
+    five, main = timed["5%"], timed["main path 2.5 Hz"]
     rows.append(dict(
         name="superstep_iaf", route="cuda", source="src/repro_torch/kernels/csrc/superstep_iaf.cu",
         replaces="src/repro/kernels/cycle.py:183", launches=launches["superstep_iaf"],
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
-        library_ms=None, checked=True))
+        max_abs_err=max(five["err"], main["err"]), ms=five["ms"], plain_ms=five["plain_ms"],
+        bound_ms=five["bound_ms"], bound_by="bytes", library_ms=None, checked=True,
+        main_path_density={k: main[k] for k in ("ms", "plain_ms", "bound_ms")}))
     return rows
 
 
@@ -871,7 +1020,8 @@ def phase_kernel_flash(launches: dict) -> dict:
                                  f"{err32} (f32, bar 2e-5), {err16} (bf16, bar {ulp}), "
                                  f"bf16 per element {ratio} of the bar")
         ms = time_ms(lambda: fa.flash_attention_cuda(*bf, window, k_len), flush=flush)
-        plain_ms = time_ms(lambda: fa.flash_attention_plain(*bf, window, k_len), flush=flush)
+        plain_ms = time_ms(lambda: fa.flash_attention_plain(*bf, window, k_len), flush=flush,
+                           host_paced_ok=True)
         f32_ms = None
         if row is None:  # the f32 route (CUDA cores) at the main path's shape
             f32_ms = time_ms(lambda: fa.flash_attention_cuda(*f32, window, k_len), flush=flush)
@@ -972,8 +1122,8 @@ def main() -> int:
     device = phase_device()
     phase_build()
     spec = mam_benchmark_spec(n_areas=4, n_per_area=130_000, k_intra=3000, k_inter=3000)
-    net, launches = phase_main_path(spec)
-    rows = phase_kernels(net, launches)
+    net, launches, profiled = phase_main_path(spec)
+    rows = phase_kernels(net, launches, profiled)
     del net
     torch.cuda.empty_cache()
     phase_device_vs_cpu()

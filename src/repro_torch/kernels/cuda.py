@@ -61,6 +61,8 @@ _SIGNATURES = {
     "superstep_iaf": {
         "superstep_iaf_launch": [_P] * 8 + [_I] + [_P] * 3 + [_I64, _I64]
         + [_I] * 5 + [_P],
+        "superstep_iaf_smem_bytes": [_I64, _I, _I],
+        "superstep_iaf_mask_in_smem": [_I64, _I, _I],
     },
     "flash_attention": {
         "flash_attention_launch": [_P] * 4 + [_I] * 9 + [_P],

@@ -18,7 +18,8 @@ nothing, and they read int8 delays as stored.
 
 The CUDA kernels are ``csrc/superstep_lif.cu`` (one cooperative launch, one
 grid barrier per cycle) and ``csrc/superstep_iaf.cu`` (all spikes first, then
-one pass over the tables for the whole window); their sources say how.
+one pass over ``src`` for the whole window, the hits queued and served 32 at
+a time); their sources say how.
 """
 
 from __future__ import annotations
@@ -206,7 +207,9 @@ def superstep_iaf_cuda(
     *, d_win: int, steps_lo: int, r_span: int,
 ):
     """Launch the fused ignore-and-fire kernels (spikes, then one deposit
-    pass). ``countdown``, ``interval`` int32 and ``alive`` bool ``[A, n]``;
+    pass; ``src`` is streamed by bulk copies when ``K % 4 == 0`` and it is
+    16-byte aligned, by ordinary loads otherwise). ``countdown``,
+    ``interval`` int32 and ``alive`` bool ``[A, n]``;
     ``fut``, ``src``, ``w``, ``delay`` as for :func:`superstep_lif_cuda`.
     Returns a new countdown, ``fut`` (updated in place) and new spikes.
     """
@@ -224,6 +227,9 @@ def superstep_iaf_cuda(
             raise ValueError(f"superstep_iaf kernel: {what} {tuple(x.shape)} != "
                              f"countdown {tuple(countdown.shape)}")
     a, n = countdown.shape
+    if a * n >= 1 << 31:
+        raise ValueError(f"superstep_iaf kernel: {a * n} neurons; the kernel indexes "
+                         f"sources in 31 bits")
     k = src.shape[-1]
     cd_o = torch.empty_like(countdown)
     spikes = torch.empty((d_win, a, n), dtype=torch.bool, device=dev)

@@ -1,7 +1,9 @@
 """Fused LIF (iaf_psc_exp) state update: the CUDA kernel and its plain version.
 
 Port of ``repro.kernels.lif_update``. The kernel (``csrc/lif_update.cu``)
-makes one pass over flat ``[N]`` state, one thread per neuron, no padding.
+makes one pass over flat ``[N]`` state, four neurons a thread with 16-byte
+accesses, no padding; a ragged tail, or inputs not aligned for the wide
+accesses, take its scalar path (the wrapper refuses neither).
 
 Exactness: the jitted JAX reference computes the propagator as exactly two
 fused multiply-adds, ``i' = fma(i, p11, i_in)`` and

@@ -110,13 +110,13 @@ WINDOW_SHAPES = [(3, 1000, 333), (3, 100_003, 12)]
 D_WIN, LO, SPAN = 10, 1, 30
 
 
-def window_tables(dev, a, n, k, delay_dtype, seed):
+def window_tables(dev, a, n, k, delay_dtype, seed, d_win=D_WIN):
     """Grid weights and fut (no -0.0, which no engine ring holds), delays
     reaching past both ends of the window."""
     rng = np.random.default_rng(seed)
     t = lambda x: torch.from_numpy(x).to(dev)  # noqa: E731
     return dict(
-        fut=t((np.round(rng.normal(0, 300, (a, n, D_WIN + LO + SPAN - 1)) * 4) / 1024 + 0.0)
+        fut=t((np.round(rng.normal(0, 300, (a, n, d_win + LO + SPAN - 1)) * 4) / 1024 + 0.0)
               .astype(np.float32)),
         alive=t(rng.random((a, n)) < 0.9),
         src=t(rng.integers(0, n, (a, n, k)).astype(np.int32)),
@@ -185,6 +185,98 @@ def test_superstep_iaf_kernel_matches_plain(dev, shape, delay_dtype):
     assert bool((want[2].sum(dim=(1, 2)) > 0).all()), "every cycle must spike"
     if shape == WINDOW_SHAPES[1]:
         assert chunks_exceed_warps(a, n)
+
+
+# The redesigned superstep_iaf's regimes: (A, n, K, D). K = 3000 spans
+# five 512-synapse ring stages and a partial one; K = 333 (K % 4 != 0)
+# takes the ordinary-load path; 800,000 neurons give a bitmask too large
+# for shared memory beside the rings and queues (the limit is ~635,000 at
+# D = 10, r_span = 30).
+IAF_REGIMES = {
+    "none_fire": (3, 1000, 3000, D_WIN),
+    "all_fire_every_cycle": (3, 1000, 3000, D_WIN),
+    "d_32": (3, 1000, 3000, 32),
+    "k_3000_5pct": (3, 2000, 3000, D_WIN),
+    "k_333_all_fire": (3, 1000, 333, D_WIN),
+    "mask_beyond_smem": (2, 400_000, 8, D_WIN),
+}
+
+
+@pytest.mark.parametrize("regime", list(IAF_REGIMES))
+def test_superstep_iaf_kernel_regimes(dev, regime):
+    """Bitwise against the plain version: no source fires (fut unchanged,
+    zero rows included), all fire in every cycle (full queues on every
+    chunk), D = 32 (full 32-bit patterns), K = 3000, K = 333, a bitmask read
+    through L2; delays reach outside the window in every regime."""
+    a, n, k, d_win = IAF_REGIMES[regime]
+    x = window_tables(dev, a, n, k, np.int8, seed=9, d_win=d_win)
+    x["fut"][0, :10] = 0.0
+    rng = np.random.default_rng(10)
+    ints = lambda lo, hi: torch.from_numpy(  # noqa: E731
+        rng.integers(lo, hi, (a, n)).astype(np.int32)).to(dev)
+    if regime == "none_fire":
+        countdown, interval = ints(d_win, 4 * d_win), ints(1, 13)
+    elif regime in ("all_fire_every_cycle", "k_333_all_fire"):
+        countdown, interval = ints(0, 1), ints(1, 2)
+    elif regime == "d_32":
+        countdown = ints(0, 40)
+        interval = torch.where(torch.from_numpy(rng.random((a, n)) < 0.3).to(dev), 1,
+                               ints(2, 12))
+    else:
+        countdown, interval = ints(0, 200), ints(1, 13)
+    outside = (x["delay"] < LO) | (x["delay"] >= LO + SPAN)
+    assert bool(outside.any()) and not bool(outside.all())
+    lib = cuda.library("superstep_iaf")
+    assert lib.superstep_iaf_mask_in_smem(a * n, d_win, SPAN) == (regime != "mask_beyond_smem")
+    args = lambda fut: (countdown, fut, interval, x["alive"], x["src"], x["w"],  # noqa: E731
+                        x["delay"])
+    kw = dict(d_win=d_win, steps_lo=LO, r_span=SPAN)
+    before = cuda.launches["superstep_iaf"]
+    got = cyc.superstep_iaf_cuda(*args(x["fut"].clone()), **kw)
+    torch.cuda.synchronize()
+    assert cuda.launches["superstep_iaf"] == before + 1
+    want = cyc.superstep_iaf_plain(*args(x["fut"].clone()), **kw)
+    same(got, want)
+    spikes = want[2]
+    if regime == "none_fire":
+        assert not bool(spikes.any())
+        same(got[1:2], (x["fut"],))
+    elif regime in ("all_fire_every_cycle", "k_333_all_fire"):
+        assert bool((spikes == x["alive"]).all())
+    elif regime == "d_32":
+        assert bool(spikes.all(dim=0).any()), "some source must fire in all 32 cycles"
+    else:
+        assert bool((spikes.sum(dim=(1, 2)) > 0).all()), "every cycle must spike"
+
+
+@pytest.mark.parametrize("case", ["ragged", "unaligned"])
+def test_lif_update_kernel_on_ragged_and_unaligned_inputs(dev, case):
+    """N % 4 != 0: the last neurons take the scalar tail. Views that start
+    one element past a 16-byte boundary (1 byte for alive): the kernel
+    launches on them and takes its scalar path for all of N; the wrapper
+    does not refuse them."""
+    rng = np.random.default_rng(11)
+    n = 1001 if case == "ragged" else 4096
+    p = LIFParams()
+    kw = dict(p11=p.p11, p21=p.p21, p22=p.p22, v_th=p.v_th_mv,
+              v_reset=p.v_reset_mv, t_ref_steps=p.t_ref_steps)
+    xs = [torch.from_numpy(x).to(dev) for x in (
+        rng.normal(13.0, 3.0, n + 1).astype(np.float32),
+        rng.normal(0.0, 300.0, n + 1).astype(np.float32),
+        rng.integers(-1, 5, n + 1).astype(np.int32),
+        rng.normal(0.0, 250.0, n + 1).astype(np.float32),
+        rng.random(n + 1) < 0.9)]
+    xs = [x[1:] if case == "unaligned" else x[:n] for x in xs]
+    assert all(x.is_contiguous() and x.numel() == n for x in xs)
+    if case == "unaligned":
+        assert all(x.data_ptr() % 16 != 0 for x in xs[:4]) and xs[4].data_ptr() % 4 != 0
+    before = cuda.launches["lif_update"]
+    got = lif.lif_update_cuda(*xs, **kw)
+    torch.cuda.synchronize()
+    assert cuda.launches["lif_update"] == before + 1
+    want = lif.lif_update_plain(*xs, **kw)
+    assert int(want[3].sum()) > 0
+    same(got, want)
 
 
 @pytest.mark.parametrize("model", ["ignore_and_fire", "lif"])

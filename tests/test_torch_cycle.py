@@ -130,6 +130,43 @@ def test_superstep_iaf_plain_matches_jax(delay_dtype):
     assert bool((per_cycle > 0).all()), per_cycle
 
 
+@pytest.mark.parametrize("regime", ["none_fire", "all_fire_every_cycle", "d_32"])
+def test_superstep_iaf_plain_matches_jax_in_edge_regimes(regime):
+    """The plain version the card tests hold the kernel against, in their
+    edge regimes: no source fires (``fut`` unchanged, zero rows included);
+    every alive source fires in every cycle (interval 1); a window of
+    D = 32 cycles, so some sources have full 32-bit patterns."""
+    x = window_inputs(np.int8)
+    rng = np.random.default_rng(4)
+    d_win = 32 if regime == "d_32" else D_WIN
+    x["fut"] = (np.round(rng.normal(0, 512, (A, N, d_win + LO + SPAN - 1))) / 256.0
+                + 0.0).astype(np.float32)  # + 0.0: no -0.0, which the plain sum clears
+    x["fut"][0, :5] = 0.0
+    if regime == "none_fire":
+        x["countdown"] = rng.integers(D_WIN, 4 * D_WIN, (A, N)).astype(np.int32)
+    elif regime == "all_fire_every_cycle":
+        x["countdown"] = np.zeros((A, N), np.int32)
+        x["interval"] = np.ones((A, N), np.int32)
+    else:
+        x["countdown"] = rng.integers(0, 40, (A, N)).astype(np.int32)
+        x["interval"] = np.where(rng.random((A, N)) < 0.3, 1,
+                                 rng.integers(2, 12, (A, N))).astype(np.int32)
+    names = ("countdown", "fut", "interval", "alive", "src", "w", "delay")
+    kw = dict(d_win=d_win, steps_lo=LO, r_span=SPAN)
+    want = jops.superstep_iaf(*as_jax(x, *names), **kw)
+    got = tops.superstep_iaf(*as_torch(x, *names), **kw)
+    assert_outputs_equal(got, want, ("countdown", "fut", "spikes"))
+    spikes, alive = got[2], torch.from_numpy(x["alive"])
+    if regime == "none_fire":
+        assert not bool(spikes.any())
+        assert np.array_equal(got[1].numpy().view(np.uint8), x["fut"].view(np.uint8))
+    elif regime == "all_fire_every_cycle":
+        assert bool((spikes == alive).all())
+    else:
+        full = spikes.all(dim=0)
+        assert bool(full.any()), "some source must fire in all 32 cycles"
+
+
 def test_superstep_plain_updates_fut_in_place_and_checks_its_width():
     x = window_inputs(np.int8)
     names = ("countdown", "fut", "interval", "alive", "src", "w", "delay")
