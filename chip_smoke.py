@@ -6,64 +6,93 @@
 Phases, each of which raises (exit code != 0, no result line) on failure:
 
 1. device: the card's name and its ``nvidia-smi`` name and power limit;
-2. build: the five CUDA kernels from ``src/repro_torch/kernels/csrc``, in
+2. build: the six CUDA kernels from ``src/repro_torch/kernels/csrc``, in
    parallel;
 3. full width, the main path: the paper's per-area size and in-degree
    (``mam_benchmark_spec(n_areas=4, n_per_area=130_000, k_intra=3000,
-   k_inter=3000)``, build seed 12; 4 areas instead of 32 so the 28 GB of
-   tables fit one card), built on the device, then ``make_simulation`` on the
-   ``pallas`` backend, 1 + 5 windows each: ignore-and-fire (2.5 Hz) under
-   the conventional schedule, the structure-aware one and the structure-aware
-   one with the fused superstep kernel (``superstep_kernel=True``), bitwise
-   equal to each other window by window; LIF under the structure-aware
-   schedule, unfused and fused, bitwise equal window by window. Launches per
-   window are asserted exactly; the kernels' launch counts are reset just
-   before and read just after, and every kernel's must be > 0. Each run's
-   window is then profiled (torch.profiler): the six longest kernels and
-   every port kernel that ran, with device time and count;
-4. each kernel against its plain PyTorch version on the card, bitwise, at
-   the main path's shapes (superstep_iaf also at the main path's 2.5 Hz),
-   and timed beside its memory bound: median of 100 windows for
-   lif_update, 20 for spike_deliver, 10 for the superstep kernels, each
-   window an L2 flush, a start event, the call and an end event. The
-   windows are enqueued in batches behind a device spin that outlasts the
-   host's enqueue of the batch, so the device never waits for the host
-   inside a window; an event after the spin checks that, and the timer
-   raises if it cannot hold (``time_ms``). Plain versions whose enqueue
-   blocks on the launch queue are timed host-paced, with a ``[timer]``
-   line. lif_update is also timed host-paced, the timer of earlier runs,
-   and its per-launch device time in the profiled LIF window is printed;
-5. the port on the card against the port on the CPU at the quickstart size
-   (4 x 256 neurons, K 32/32), ``pallas`` backend, ignore-and-fire (30 Hz)
-   and LIF under both schedules and fused, 10 windows, bitwise;
+   k_inter=3000)``, build seed 12; 4 areas instead of 32 so the tables fit
+   one card), built on the device with its incoming tables (28 GB) and the
+   outgoing tables the event backend reads (``add_outgoing_tables``, the
+   inversion of ``build_network(outgoing=True)``, timed on its own line; ~31
+   GB). Then ``make_simulation`` on the ``pallas`` backend, 1 + 5 windows
+   each: ignore-and-fire (2.5 Hz) under the conventional schedule, the
+   structure-aware one and the structure-aware one with the fused superstep
+   kernel (``superstep_kernel=True``), bitwise equal to each other window by
+   window; LIF under the structure-aware schedule, unfused and fused,
+   bitwise equal window by window, from the state after 18 untimed
+   windows, when the areas have begun to spike (``LIF_RAMP_WINDOWS``).
+   Launches per window are asserted exactly; the kernels' launch counts are
+   reset just before and read just after, and every kernel of the path must
+   have launched. Each run's window is then profiled (torch.profiler): the
+   six longest kernels and every port kernel that ran, with device time and
+   count;
+4. ``[event]`` the same configurations on the ``event`` backend (the
+   ``event_deliver`` kernel), on the same network, 1 + 5 windows each, every
+   one bitwise the matching ``pallas`` run's spike blocks and rings window by
+   window with ``overflow == 0``: ignore-and-fire conventional,
+   structure-aware, legacy (``superstep=False``), fused, adaptive, and
+   adaptive + overlap through ``run_windows`` (one drain); LIF unfused with
+   ``fused_update=True`` and fused. Launches per window asserted exactly
+   (counts reset just before the event runs, read just after), ms/window
+   beside the ``pallas`` run's, the peak memory, and the profile of one
+   window of the unfused and the fused iaf event runs;
+   ``[steady]`` LIF at its steady state (~70 Hz, from window 40): the
+   fused pallas run and the adaptive event runs, unfused and fused, bitwise
+   the unfused pallas run window by window with ``overflow == 0``, launches
+   per window asserted, ms/window; and the spikes the static event packets
+   drop in one window at this rate;
+5. ``[kernel]`` event_deliver against its plain version, bitwise, on the
+   packets of the iaf runs' last window (inter and intra) and on packets
+   with every padding case, timed beside its bound, the plain version and
+   ``index_add_``; then the outgoing tables are freed;
+6. each pallas-path kernel against its plain PyTorch version on the card,
+   bitwise, at the main path's shapes (superstep_iaf also at the main path's
+   2.5 Hz), and timed beside its memory bound: median of 100 windows for
+   lif_update, 20 for spike_deliver and event_deliver, 10 for the superstep
+   kernels, each window an L2 flush, a start event, the call and an end
+   event. The windows are enqueued in batches behind a device spin that
+   outlasts the host's enqueue of the batch, so the device never waits for
+   the host inside a window; an event after the spin checks that, and the
+   timer raises if it cannot hold (``time_ms``). Plain versions whose
+   enqueue blocks on the launch queue are timed host-paced, with a
+   ``[timer]`` line. lif_update is also timed host-paced, the timer of
+   earlier runs, and its per-launch device time in the profiled LIF window
+   is printed;
+7. the port on the card against the port on the CPU at the quickstart size
+   (4 x 256 neurons, K 32/32), bitwise over 10 windows (40 for LIF, which
+   first spikes in window 18 at this size), ``overflow`` included:
+   ignore-and-fire (30 Hz) and LIF on ``pallas`` (both schedules and
+   fused) and on ``event`` (both schedules, legacy, fused, adaptive,
+   adaptive + overlap), and ignore-and-fire at 2000 Hz with forced overflow
+   (``s_max_headroom=0, s_max_floor=1``);
 
 then, with the simulator's tables freed, the LM path (weights drawn on the
 card from seed 0, f32 products in f32):
 
-6. ``[lm]`` qwen2-0.5b at its published width and dtypes (bf16), B 2 x S
+8. ``[lm]`` qwen2-0.5b at its published width and dtypes (bf16), B 2 x S
    4096 with ``use_pallas_attention=True``: 1 warm-up + 3 timed forwards,
    exactly 24 ``flash_attention`` launches each (counts reset just before,
    read just after), finite logits, and the profile of one forward;
-7. ``[lm]`` the same model in f32: the kernel against the streaming path
+9. ``[lm]`` the same model in f32: the kernel against the streaming path
    (<= 1e-4 of the largest logit), and prefill of 4096 tokens + decode of
    token 4096 against the forward of the 5120-token sequence (<= 5e-4);
-8. ``[lm]`` serving at the published dtypes through
+10. ``[lm]`` serving at the published dtypes through
    ``repro_torch.serve_lm.serve``: batch 4, 4096-token prompts, 32 tokens
    (prefill attends with a cache, so no kernel launch);
-9. ``[lm]`` h2o-danube-1.8b, bf16, B 1 x S 8192 (its 4096 window cuts in):
+11. ``[lm]`` h2o-danube-1.8b, bf16, B 1 x S 8192 (its 4096 window cuts in):
    24 launches per forward; in f32, kernel against streaming (<= 1e-4);
-10. ``[kernel]`` flash_attention against its plain version at qwen2's and
+12. ``[kernel]`` flash_attention against its plain version at qwen2's and
     danube's shapes and with k_len < S (f32: max abs <= 2e-5; bf16: one bf16
     ulp of the plain output's largest magnitude, and per element one bf16 ulp
     of the larger of the two values + 2e-5, the card tests' bar, which
     ``scaled_dot_product_attention`` must fail at qwen2's shape: it rounds P
-    to bf16), timed (as in 4, median of 20) beside its bound, the plain
+    to bf16), timed (as in 6, median of 20) beside its bound, the plain
     version and SDPA (the library time, and its own error);
     the bf16 route runs on the tensor cores, the f32 route (timed at qwen2's
     shape) on the CUDA cores; the tensor-core kernel's wgmma and TMA
     instructions counted in its SASS (none fails the run), its registers,
     spills and shared memory from the build report;
-11. ``[cpu]`` reduced qwen2-0.5b in f32 on the card against the CPU, with
+13. ``[cpu]`` reduced qwen2-0.5b in f32 on the card against the CPU, with
     ``FLASH_THRESHOLD`` lowered so the forward runs the kernel: the forward
     (<= 1e-4) and prefill + 4 decode steps (<= 5e-4).
 
@@ -74,6 +103,7 @@ last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -86,12 +116,26 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 L2_FLUSH_BYTES = 256 << 20  # > the 50 MB L2
-SIM_KERNELS = ("lif_update", "spike_deliver", "superstep_lif", "superstep_iaf")
+SIM_KERNELS = ("lif_update", "spike_deliver", "superstep_lif", "superstep_iaf",
+               "event_deliver")
+PALLAS_PATH_KERNELS = SIM_KERNELS[:4]
+EVENT_PATH_KERNELS = ("lif_update", "superstep_lif", "superstep_iaf", "event_deliver")
+# LIF at full width (seed 12) first spikes in window 11, ramps up and
+# outgrows the static event packets (276 ids an area, 1,104 a cycle) in
+# window 25, and fires ~36,000 spikes a window (~70 Hz) from window ~30 on
+# (the untimed windows' lines of this script show it). Its main-path runs
+# start after LIF_RAMP_WINDOWS windows, so that their 1 + 5 windows carry
+# spikes within the packets; the steady-state runs after LIF_STEADY_WINDOWS.
+LIF_RAMP_WINDOWS = 18
+LIF_STEADY_WINDOWS = 40
+INCOMING = ("src_intra", "w_intra", "delay_intra", "src_inter", "w_inter", "delay_inter")
+OUTGOING = ("tgt_intra", "wout_intra", "dout_intra", "tgt_inter", "wout_inter", "dout_inter")
 # The port's kernel functions (csrc/*.cu), as the profiler names them: every
 # one that ran in a profiled window gets a [profile] line.
 PORT_KERNEL_SYMBOLS = ("lif_update_kernel", "pack_spikes", "spike_deliver_kernel",
                        "superstep_lif_kernel", "iaf_spikes", "iaf_deposit",
-                       "flash_attention_kernel", "flash_attention_tc")
+                       "flash_attention_kernel", "flash_attention_tc",
+                       "event_deliver_kernel")
 
 
 def log(*args) -> None:
@@ -251,71 +295,136 @@ def phase_build() -> None:
                 log(f"[build] {name} {entry}: {line.strip()}")
 
 
-def phase_main_path(spec) -> tuple[object, dict, dict]:
-    """Build the full-width network and drive the engine; returns the network,
-    the main path's launch counts and lif_update's profiled us per launch."""
+def phase_build_network(spec):
+    """The full-width network with its incoming and outgoing tables, built on
+    the card: ``build_network(spec, seed=12)``, then the inversion that
+    ``build_network(..., outgoing=True)`` runs (``add_outgoing_tables``),
+    timed on its own line."""
     import torch
 
-    from repro_torch.core import EngineConfig, build_network, make_simulation
-    from repro_torch.kernels import cuda
+    from repro_torch.core import build_network
+    from repro_torch.core.connectivity import _outgoing_k_bound, add_outgoing_tables
+
+    def gb(net, fields):
+        return sum(getattr(net, f).numel() * getattr(net, f).element_size()
+                   for f in fields) / 1e9
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     net = build_network(spec, seed=12)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    table_gb = sum(getattr(net, f).numel() * getattr(net, f).element_size()
-                   for f in ("src_intra", "w_intra", "delay_intra",
-                             "src_inter", "w_inter", "delay_inter")) / 1e9
     log(f"[full] network {spec.n_areas} x {net.n_pad}, K {net.k_intra}/{net.k_inter}, "
         f"D {net.delay_ratio}, ring {net.ring_len}, intra window "
         f"[{net.steps_lo_intra}, +{net.r_span_intra}), inter window "
-        f"[{net.steps_lo_inter}, +{net.r_span_inter}); built on {net.device} in "
-        f"{build_s:.2f} s, tables {table_gb:.2f} GB, peak "
+        f"[{net.steps_lo_inter}, +{net.r_span_inter}); incoming tables built on "
+        f"{net.device} in {build_s:.2f} s, {gb(net, INCOMING):.2f} GB, peak "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-    model_ms = net.delay_ratio * net.dt_ms
+    t0 = time.perf_counter()
+    net = add_outgoing_tables(net)
+    torch.cuda.synchronize()
+    invert_s = time.perf_counter() - t0
+    k_out = (net.tgt_intra.shape[-1], net.tgt_inter.shape[-1])
+    bound = (_outgoing_k_bound(net.k_intra), _outgoing_k_bound(net.k_inter))
+    log(f"[full] outgoing tables (the inversion): {invert_s:.2f} s, K_out {k_out[0]}/"
+        f"{k_out[1]} (bound {bound[0]}/{bound[1]}), {gb(net, OUTGOING):.2f} GB; build "
+        f"{build_s + invert_s:.2f} s in all, tables {gb(net, INCOMING + OUTGOING):.2f} GB, "
+        f"peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    if k_out[0] > bound[0] or k_out[1] > bound[1]:
+        raise AssertionError(f"K_out {k_out} above the bound {bound}")
+    return net
 
-    def timed_windows(eng, st, n, check=None):
-        """1 warm-up + n timed windows (host clock around each window, which
-        ends in a synchronize); ``check`` runs outside the timing. Returns
-        the state, ms/window (mean) and kernel launches per window."""
-        times = []
-        for w in range(n + 1):
-            if w == 1:
-                before = dict(cuda.launches)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            st, blk = eng.window(st)
-            torch.cuda.synchronize()
-            if w:
-                times.append(time.perf_counter() - t0)
-            if check:
-                check(w, st, blk)
-        per = {k: (cuda.launches[k] - before[k]) / n for k in before}
-        return st, 1e3 * sum(times) / n, per
+
+def _timed_windows(eng, st, n, check=None):
+    """1 warm-up + n timed windows (host clock around each window, which ends
+    in a synchronize); ``check`` runs outside the timing. Returns the state,
+    ms/window (mean), kernel launches per window, and a note of the slowest
+    and fastest window and of the caching allocator's retries (a cudaMalloc
+    that failed, emptied the cache and synchronized) during the windows."""
+    import torch
+
+    from repro_torch.kernels import cuda
+
+    times = []
+    for w in range(n + 1):
+        if w == 1:
+            before = dict(cuda.launches)
+            retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, blk = eng.window(st)
+        torch.cuda.synchronize()
+        if w:
+            times.append(time.perf_counter() - t0)
+        if check:
+            check(w, st, blk)
+    per = {k: (cuda.launches[k] - before[k]) / n for k in before}
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries
+    note = (f"windows {1e3 * min(times):.2f}-{1e3 * max(times):.2f} ms, "
+            f"{retries} allocator retries")
+    return st, 1e3 * sum(times) / n, per, note
+
+
+def _advance(eng, st, n, what):
+    """``st`` after ``n`` untimed windows of ``eng``; logs each window's
+    spikes and those of its busiest (cycle, area)."""
+    first = st.t // eng.delay_ratio
+    blocks = []
+    for _ in range(n):
+        st, blk = eng.window(st)
+        blocks.append(blk)
+    log(f"[full] {what}, windows {first}-{first + n - 1}: {_fired(blocks)}")
+    return st
+
+
+def _fired(blocks) -> str:
+    """Spikes a window, and those of each window's busiest (cycle, area)."""
+    import torch
+
+    per = [blk.sum(-1, dtype=torch.int32) for blk in blocks]  # [D, A] each
+    return (f"spikes {[int(x.sum()) for x in per]}, busiest (cycle, area) "
+            f"{[int(x.max()) for x in per]}")
+
+
+def _keep(store):
+    return lambda w, st, blk: store.append((blk.clone(), st.ring.clone()))
+
+
+def _same_as(store, what):
+    def check(w, st, blk):
+        blk_0, ring_0 = store[w]
+        if not (bitwise_equal(blk, blk_0) and bitwise_equal(st.ring, ring_0)):
+            raise AssertionError(f"{what} differ at window {w}")
+    return check
+
+
+def _expect(per, name, **nonzero):
+    from repro_torch.kernels import cuda
+
+    want = {k: float(nonzero.get(k, 0)) for k in cuda.KERNELS}
+    if per != want:
+        raise AssertionError(f"{name}: launches per window {per}, expected {want}")
+
+
+def _report(name, ms, per, note, st, model_ms):
+    log(f"[full] {name}: {ms:.2f} ms/window ({note}), real-time factor "
+        f"{ms / model_ms:.1f}, launches/window {per}, {int(st.spike_count.sum())} spikes")
+
+
+def phase_main_path(spec, net) -> dict:
+    """The ``pallas`` runs at full width. Returns their stores (each window's
+    block and ring, for the event runs to match), ms/window per run, the
+    path's launch counts and lif_update's profiled us per launch."""
+    import torch
+
+    from repro_torch.core import EngineConfig, make_simulation
+    from repro_torch.kernels import cuda
+
+    model_ms = net.delay_ratio * net.dt_ms
 
     def engine(model, sched="structure_aware", **kw):
         return make_simulation(spec, EngineConfig(
             neuron_model=model, schedule=sched, delivery_backend="pallas", **kw), net=net)
-
-    def keep(store):
-        return lambda w, st, blk: store.append((blk.clone(), st.ring.clone()))
-
-    def same_as(store, what):
-        def check(w, st, blk):
-            blk_0, ring_0 = store[w]
-            if not (bitwise_equal(blk, blk_0) and bitwise_equal(st.ring, ring_0)):
-                raise AssertionError(f"{what} differ at window {w}")
-        return check
-
-    def expect(per, name, **nonzero):
-        want = {k: float(nonzero.get(k, 0)) for k in cuda.KERNELS}
-        if per != want:
-            raise AssertionError(f"{name}: launches per window {per}, expected {want}")
-
-    def report(name, ms, per, st):
-        log(f"[full] {name}: {ms:.2f} ms/window, real-time factor {ms / model_ms:.1f}, "
-            f"launches/window {per}, {int(st.spike_count.sum())} spikes")
 
     cuda.reset_launches()
     # The conventional run keeps each window's block and ring; the
@@ -323,50 +432,56 @@ def phase_main_path(spec) -> tuple[object, dict, dict]:
     iaf = {"conventional": engine("ignore_and_fire", "conventional"),
            "structure_aware": engine("ignore_and_fire"),
            "structure_aware fused": engine("ignore_and_fire", superstep_kernel=True)}
-    blocks = []
-    runs = {"conventional": timed_windows(
-        iaf["conventional"], iaf["conventional"].init(), 5, check=keep(blocks))}
+    iaf_store = []
+    runs = {"conventional": _timed_windows(
+        iaf["conventional"], iaf["conventional"].init(), 5, check=_keep(iaf_store))}
     for name in ("structure_aware", "structure_aware fused"):
-        runs[name] = timed_windows(iaf[name], iaf[name].init(), 5,
-                                   check=same_as(blocks, f"iaf conventional and {name}"))
-    del blocks
+        runs[name] = _timed_windows(iaf[name], iaf[name].init(), 5,
+                                    check=_same_as(iaf_store, f"iaf conventional and {name}"))
     st_c = runs["conventional"][0]
-    for name, (st, ms, per) in runs.items():
+    for name, (st, ms, per, note) in runs.items():
         if int(st.spike_count.sum()) <= 0 or not state_equal(st_c, st):
             raise AssertionError(f"full width iaf {name}: no spikes, or final state differs")
-        report(f"ignore_and_fire {name}", ms, per, st)
-    expect(runs["conventional"][2], "iaf conventional", spike_deliver=20)
-    expect(runs["structure_aware"][2], "iaf structure_aware", spike_deliver=20)
-    expect(runs["structure_aware fused"][2], "iaf fused", spike_deliver=10, superstep_iaf=1)
+        _report(f"ignore_and_fire {name}", ms, per, note, st, model_ms)
+    _expect(runs["conventional"][2], "iaf conventional", spike_deliver=20)
+    _expect(runs["structure_aware"][2], "iaf structure_aware", spike_deliver=20)
+    _expect(runs["structure_aware fused"][2], "iaf fused", spike_deliver=10, superstep_iaf=1)
     log("[full] ignore_and_fire conventional == structure_aware == fused bitwise over "
         "6 windows (spike blocks, rings, states)")
+    ms = {f"iaf {name}": run[1] for name, run in runs.items()}
     del runs, st_c
 
-    # LIF: the unfused structure-aware run keeps its blocks and rings, the
-    # fused run must reproduce them and the final state bitwise.
+    # LIF: both runs start from the state after LIF_RAMP_WINDOWS windows of
+    # the fused engine; the unfused structure-aware run keeps its blocks and
+    # rings, the fused run must reproduce them and the final state bitwise.
     lif = {"structure_aware": engine("lif"),
            "structure_aware fused": engine("lif", superstep_kernel=True)}
-    blocks = []
-    st_u, ms_u, per_u = timed_windows(lif["structure_aware"], lif["structure_aware"].init(),
-                                      5, check=keep(blocks))
-    st_f, ms_f, per_f = timed_windows(lif["structure_aware fused"],
-                                      lif["structure_aware fused"].init(), 5,
-                                      check=same_as(blocks, "lif unfused and fused"))
-    del blocks
+    lif_start = _advance(lif["structure_aware fused"], lif["structure_aware fused"].init(),
+                         LIF_RAMP_WINDOWS, "lif untimed, fused pallas")
+    lif_store = []
+    st_u, ms_u, per_u, note_u = _timed_windows(lif["structure_aware"], lif_start,
+                                       5, check=_keep(lif_store))
+    st_f, ms_f, per_f, note_f = _timed_windows(lif["structure_aware fused"], lif_start, 5,
+                                       check=_same_as(lif_store, "lif unfused and fused"))
     if not bool(torch.isfinite(st_f.neuron.v).all()) or not bool(torch.isfinite(st_f.ring).all()):
         raise AssertionError("LIF state is not finite")
     if not state_equal(st_u, st_f):
         raise AssertionError("full width LIF: fused final state != unfused")
-    report("lif structure_aware", ms_u, per_u, st_u)
-    report("lif structure_aware fused", ms_f, per_f, st_f)
-    expect(per_u, "lif structure_aware", lif_update=10, spike_deliver=20)
-    expect(per_f, "lif fused", spike_deliver=10, superstep_lif=1)
+    if not all(bool(blk.any()) for blk, _ in lif_store):
+        raise AssertionError("full width LIF: a window without spikes")
+    log(f"[full] lif runs, windows {LIF_RAMP_WINDOWS}-{LIF_RAMP_WINDOWS + 5}: "
+        f"{_fired([blk for blk, _ in lif_store])}")
+    _report("lif structure_aware", ms_u, per_u, note_u, st_u, model_ms)
+    _report("lif structure_aware fused", ms_f, per_f, note_f, st_f, model_ms)
+    _expect(per_u, "lif structure_aware", lif_update=10, spike_deliver=20)
+    _expect(per_f, "lif fused", spike_deliver=10, superstep_lif=1)
     log("[full] lif unfused == fused bitwise over 6 windows (spike blocks, rings, states)")
+    ms.update({"lif structure_aware": ms_u, "lif structure_aware fused": ms_f})
     launches = dict(cuda.launches)
-    log(f"[full] main-path launches {launches}, peak "
+    log(f"[full] main-path launches (pallas runs) {launches}, peak "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-    if min(launches[k] for k in SIM_KERNELS) <= 0:
-        raise AssertionError(f"a kernel of the main path never launched: {launches}")
+    if min(launches[k] for k in PALLAS_PATH_KERNELS) <= 0:
+        raise AssertionError(f"a kernel of the pallas runs never launched: {launches}")
     profiled = {}
     for name, eng in lif.items():
         kernels = profile_window(f"lif {name}", lambda: eng.window(st_f))
@@ -379,7 +494,151 @@ def phase_main_path(spec) -> tuple[object, dict, dict]:
     for name, eng in iaf.items():
         st = eng.window(eng.init())[0]
         profile_window(f"ignore_and_fire {name}", lambda: eng.window(st))
-    return net, launches, profiled
+    return dict(iaf_store=iaf_store, lif_store=lif_store, lif_start=lif_start, ms=ms,
+                launches=launches, profiled=profiled)
+
+
+def phase_event_runs(spec, net, pallas: dict) -> dict:
+    """The ``event`` runs at full width on the same network, 1 + 5 windows
+    each, every one bitwise the matching ``pallas`` run window by window
+    (spike blocks and rings) with ``overflow == 0``. Returns the event path's
+    launch counts."""
+    import torch
+
+    from repro_torch.core import EngineConfig, make_simulation, run_windows
+    from repro_torch.kernels import cuda
+
+    model_ms = net.delay_ratio * net.dt_ms
+
+    def engine(model, sched="structure_aware", **kw):
+        return make_simulation(spec, EngineConfig(
+            neuron_model=model, schedule=sched, delivery_backend="event", **kw), net=net)
+
+    def check_final(name, st, store):
+        if int(st.overflow) != 0:
+            raise AssertionError(f"event {name}: overflow {int(st.overflow)}")
+        if not bitwise_equal(st.ring, store[-1][1]):
+            raise AssertionError(f"event {name}: final ring differs from the pallas run's")
+
+    # (name, model, schedule, config, the pallas run it must equal and is
+    # timed beside, expected launches per window)
+    iaf_runs = [
+        ("conventional", "conventional", {}, "iaf conventional", dict(event_deliver=20)),
+        ("structure_aware", "structure_aware", {}, "iaf structure_aware",
+         dict(event_deliver=11)),
+        ("structure_aware legacy", "structure_aware", dict(superstep=False),
+         "iaf structure_aware", dict(event_deliver=20)),
+        ("structure_aware fused", "structure_aware", dict(superstep_kernel=True),
+         "iaf structure_aware fused", dict(event_deliver=1, superstep_iaf=1)),
+        ("structure_aware adaptive", "structure_aware", dict(adaptive_exchange=True),
+         "iaf structure_aware", dict(event_deliver=11)),
+    ]
+    lif_runs = [
+        ("structure_aware", "structure_aware", dict(fused_update=True),
+         "lif structure_aware", dict(event_deliver=11, lif_update=10)),
+        ("structure_aware fused", "structure_aware", dict(superstep_kernel=True),
+         "lif structure_aware fused", dict(event_deliver=1, superstep_lif=1)),
+    ]
+    torch.cuda.reset_peak_memory_stats()
+    cuda.reset_launches()
+    engines = {}
+    for model, runs, store, start in (
+            ("ignore_and_fire", iaf_runs, pallas["iaf_store"], None),
+            ("lif", lif_runs, pallas["lif_store"], pallas["lif_start"])):
+        for name, sched, kw, twin, per_window in runs:
+            eng = engines[f"{model} {name}"] = engine(model, sched, **kw)
+            st, ms, per, note = _timed_windows(eng, eng.init() if start is None else start, 5,
+                                         check=_same_as(store, f"event {model} {name} and {twin}"))
+            check_final(f"{model} {name}", st, store)
+            _expect(per, f"event {model} {name}", **per_window)
+            log(f"[event] {model} {name}: {ms:.2f} ms/window ({note}; pallas "
+                f"{pallas['ms'][twin]:.2f}), "
+                f"real-time factor {ms / model_ms:.1f} (pallas "
+                f"{pallas['ms'][twin] / model_ms:.1f}), launches/window {per}, "
+                f"{int(st.spike_count.sum())} spikes, overflow 0; bitwise the pallas run "
+                f"window by window")
+
+    # Adaptive + overlap through run_windows: blocks window by window, and
+    # the drained state at the end, against the pallas run.
+    name = "structure_aware adaptive overlap"
+    eng = engines[f"ignore_and_fire {name}"] = engine(
+        "ignore_and_fire", adaptive_exchange=True, overlap_exchange=True)
+    store = pallas["iaf_store"]
+    before = dict(cuda.launches)
+    checked = []
+
+    def on_block(w, blk):
+        if not bitwise_equal(blk, store[w - 1][0]):
+            raise AssertionError(f"event iaf {name}: block differs at window {w - 1}")
+        checked.append(w)
+
+    res = run_windows(eng, eng.init(), 6, on_block=on_block)
+    check_final(f"ignore_and_fire {name}", res.state, store)
+    total = {k: cuda.launches[k] - before[k] for k in before}
+    want = {k: 66 if k == "event_deliver" else 0 for k in cuda.KERNELS}
+    if total != want or not res.overlapped or res.drains != 1 or len(checked) != 6:
+        raise AssertionError(f"event iaf {name}: launches {total} (expected {want}), "
+                             f"overlapped {res.overlapped}, drains {res.drains}")
+    ms = 1e3 * float(res.window_times_s[1:].mean())
+    twin = pallas["ms"]["iaf structure_aware"]
+    log(f"[event] ignore_and_fire {name} (run_windows): {ms:.2f} ms/window over windows "
+        f"2-6 (pallas {twin:.2f}), real-time factor {ms / model_ms:.1f}, launches {total} "
+        f"over 6 windows and the drain, drains {res.drains}, overflow 0; blocks bitwise "
+        f"the pallas run's window by window, the drained state's ring bitwise its last")
+    launches = dict(cuda.launches)
+    log(f"[event] event-path launches {launches}, peak while the event engines ran "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    if min(launches[k] for k in EVENT_PATH_KERNELS) <= 0 or launches["spike_deliver"]:
+        raise AssertionError(f"event path launches {launches}")
+    for name in ("ignore_and_fire structure_aware", "ignore_and_fire structure_aware fused"):
+        eng = engines[name]
+        st = eng.window(eng.init())[0]
+        kernels = profile_window(f"event {name}", lambda: eng.window(st))
+        log(f"[profile]   {sum(k[1] for k in kernels)} kernel launches in the window")
+    return launches
+
+
+def phase_lif_steady(spec, net, start) -> None:
+    """LIF at its steady state (~70 Hz), 1 + 5 windows from window
+    ``LIF_STEADY_WINDOWS`` (``start`` advanced on the fused pallas engine):
+    the fused pallas run bitwise the unfused one, and the adaptive event
+    runs, unfused (``fused_update=True``) and fused, bitwise the unfused
+    pallas run window by window with ``overflow == 0``. Then one window of
+    the static event packets, which drop spikes at this rate: the count."""
+    from repro_torch.core import EngineConfig, make_simulation
+
+    model_ms = net.delay_ratio * net.dt_ms
+
+    def engine(backend, **kw):
+        return make_simulation(spec, EngineConfig(
+            neuron_model="lif", delivery_backend=backend, **kw), net=net)
+
+    fused = engine("pallas", superstep_kernel=True)
+    start = _advance(fused, start, LIF_STEADY_WINDOWS - LIF_RAMP_WINDOWS,
+                     "lif untimed, fused pallas")
+    store = []
+    runs = [("pallas", engine("pallas"), _keep(store), dict(spike_deliver=20, lif_update=10)),
+            ("pallas fused", fused, None, dict(spike_deliver=10, superstep_lif=1)),
+            ("event adaptive", engine("event", adaptive_exchange=True, fused_update=True),
+             None, dict(event_deliver=11, lif_update=10)),
+            ("event adaptive fused",
+             engine("event", adaptive_exchange=True, superstep_kernel=True), None,
+             dict(event_deliver=1, superstep_lif=1))]
+    for name, eng, check, per_window in runs:
+        st, ms, per, note = _timed_windows(
+            eng, start, 5, check=check or _same_as(store, f"steady lif {name} and pallas"))
+        _expect(per, f"steady lif {name}", **per_window)
+        if int(st.overflow) != 0 or not bitwise_equal(st.ring, store[-1][1]):
+            raise AssertionError(f"steady lif {name}: overflow {int(st.overflow)} or final "
+                                 "ring differs")
+        log(f"[steady] lif {name}: {ms:.2f} ms/window ({note}), real-time factor "
+            f"{ms / model_ms:.1f}, launches/window {per}, overflow 0"
+            + ("" if check else "; bitwise the unfused pallas run window by window"))
+    log(f"[steady] lif runs, windows {LIF_STEADY_WINDOWS}-{LIF_STEADY_WINDOWS + 5}: "
+        f"{_fired([blk for blk, _ in store])}")
+    st = engine("event", superstep_kernel=True).window(start)[0]
+    log(f"[steady] lif event fused with static packets: {int(st.overflow)} spikes dropped "
+        f"in one window")
 
 
 def profile_window(name, fn, what="window") -> list[tuple[float, int, str]]:
@@ -417,6 +676,100 @@ def _port_kernel_time(kernels, symbol) -> tuple[float, int]:
     """Device us and launches of the profiled kernels whose name holds ``symbol``."""
     hits = [(us, count) for us, count, key in kernels if symbol in key]
     return sum(h[0] for h in hits), sum(h[1] for h in hits)
+
+
+def phase_kernel_event(net, block, ring, t0: int, launches: dict) -> dict:
+    """event_deliver against its plain version at full width, bitwise, on the
+    packets the engine makes from a fired window of the iaf run (``block``
+    ``[D, A, n]``, emitted from step ``t0``): the window-end inter packets
+    ``[D, s_max_all]`` and the busiest cycle's intra packets ``[A,
+    s_max_area]``; then the inter packets with every kind of padding. Timed
+    beside its bound, the plain version and the library's scatter of the
+    same adds (``index_add_`` of precomputed flat indices and weights, the
+    gather not included)."""
+    import torch
+
+    from repro_torch.core.delivery import event_bounds
+    from repro_torch.kernels import event_deliver as evt
+    from repro_torch.kernels import ops
+
+    dev = net.device
+    a, n = net.alive.shape
+    r = net.ring_len
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    s_area, s_all = event_bounds(net, headroom=8.0, floor=16)  # EngineConfig's defaults
+    d_win = block.shape[0]
+    inter_ids, counts = ops.compact_ids_block(
+        block.reshape(d_win, -1), torch.arange(a * n, device=dev), size=s_all, fill_id=a * n)
+    busiest = int(counts.argmax())
+    intra_ids, _ = ops.compact_ids_block(
+        block[busiest], torch.arange(n, device=dev), size=s_area, fill_id=n)
+    padded = inter_ids.clone()
+    padded[0, :4] = torch.tensor([-1, a * n, a * n + 7, 2**31 - 1], dtype=torch.int32)
+    padded[1, :] = a * n                      # a row of padding only
+    padded[2, :3] = inter_ids[3, 0]           # one source three times
+    flat = lambda x: x.view(a * n, -1)  # noqa: E731
+    tables = {p: (flat(getattr(net, f"tgt_{p}")), flat(getattr(net, f"wout_{p}")),
+                  flat(getattr(net, f"dout_{p}"))) for p in ("intra", "inter")}
+    cases = {"inter": (inter_ids, "inter", None, t0),
+             "intra": (intra_ids, "intra", n, t0 + busiest),
+             "inter, every padding": (padded, "inter", None, t0)}
+    ring = ring.view(a * n, r)
+    scratch = ring.clone()  # timing runs scatter into it, in place
+    timings = {}
+    for name, (ids, pathway, per_area, t) in cases.items():
+        tgt, w, d = tables[pathway]
+        kw = dict(rows_per_area=per_area)
+        got = evt.event_deliver_cuda(ring.clone(), ids, tgt, w, d, t, **kw)
+        want = evt.event_deliver_plain(ring.clone(), ids, tgt, w, d, t, **kw)
+        if not bitwise_equal(got, want):
+            raise AssertionError(f"event_deliver ({name}) kernel != plain version: "
+                                 f"{int((got != want).sum())} ring entries differ")
+        err = max_abs_err(got, want)
+        # The real entries of the packets, their table rows and synapses.
+        n_src = n if per_area else a * n
+        row = torch.arange(ids.shape[0], device=dev)[:, None].expand(ids.shape)
+        real = (ids >= 0) & (ids < n_src)
+        src_rows = (ids + (row * n if per_area else 0))[real].long()
+        tg = tgt[src_rows].long()
+        hit = tg >= 0
+        delivered = int(hit.sum())
+        step = 0 if per_area else row[real][:, None]
+        off = (row[real] * n)[:, None] if per_area else 0
+        slots = torch.remainder(t + step + d[src_rows].long(), r)
+        flat_idx = ((tg + off) * r + slots)[hit]
+        vals = w[src_rows][hit]
+        if name == "inter, every padding":
+            log(f"[kernel] event_deliver {name}: bitwise == plain ({int(real.sum())} real "
+                f"ids of {ids.numel()})")
+            continue
+        ms = time_ms(lambda: evt.event_deliver_cuda(scratch, ids, tgt, w, d, t, **kw),
+                     flush=flush)
+        plain_ms = time_ms(lambda: evt.event_deliver_plain(scratch, ids, tgt, w, d, t, **kw),
+                           flush=flush, host_paced_ok=True)
+        library_ms = time_ms(lambda: scratch.view(-1).index_add_(0, flat_idx, vals),
+                             flush=flush)
+        # Bytes this data needs: the packets, the fired sources' whole tgt
+        # rows, w and d of the delivered synapses, and one 32-byte ring sector
+        # per delivered synapse.
+        nbytes = (ids.numel() * 4 + src_rows.numel() * tgt.shape[1] * 4
+                  + delivered * (4 + d.element_size()) + 32 * delivered)
+        bound_ms = max(nbytes / HBM_BYTES_PER_S, delivered / F32_OPS_PER_S) * 1e3
+        log(f"[kernel] event_deliver {name} packets {list(ids.shape)}, K_out {tgt.shape[1]}: "
+            f"bitwise == plain; {src_rows.numel()} fired sources, {delivered} synapses; "
+            f"{ms:.4f} ms (bound {bound_ms:.4f} ms by bytes, {100 * bound_ms / ms:.1f}% of "
+            f"it), plain {plain_ms:.3f} ms, index_add_ of the same adds {library_ms:.4f} ms")
+        timings[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                             library_ms=library_ms, err=err)
+    t = timings["inter"]
+    return dict(
+        name="event_deliver", route="cuda", source="src/repro_torch/kernels/csrc/event_deliver.cu",
+        replaces="src/repro/kernels/ops.py:244 (jnp scatter; no Pallas counterpart)",
+        launches=launches["event_deliver"], max_abs_err=max(
+            timings["intra"]["err"], t["err"]),
+        ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by="bytes",
+        library_ms=t["library_ms"], checked=True,
+        intra={k: timings["intra"][k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")})
 
 
 def phase_kernels(net, launches: dict, lif_profile_us: dict) -> list[dict]:
@@ -669,38 +1022,71 @@ def _active_synapses(spikes, src, rows_per_area) -> int:
 
 
 def phase_device_vs_cpu() -> dict:
-    """The port on the card against the port on the CPU, bitwise."""
+    """The port on the card against the port on the CPU, bitwise: the
+    ``pallas`` configs, and the ``event`` configs (static, adaptive,
+    adaptive + overlap through run_windows, and forced overflow, whose
+    ``overflow`` count must agree too)."""
     import torch
 
-    from repro_torch.core import EngineConfig, build_network, make_simulation
+    from repro_torch.core import EngineConfig, build_network, make_simulation, run_windows
     from repro_torch.core import mam_benchmark_spec
     from repro_torch.kernels import cuda
 
+    configs = [("pallas " + name, dict(delivery_backend="pallas", **kw)) for name, kw in (
+        ("conventional", dict(schedule="conventional")), ("structure_aware", {}),
+        ("structure_aware fused", dict(superstep_kernel=True)))]
+    configs += [("event " + name, dict(delivery_backend="event", **kw)) for name, kw in (
+        ("conventional", dict(schedule="conventional")), ("structure_aware", {}),
+        ("structure_aware legacy", dict(superstep=False)),
+        ("structure_aware fused", dict(superstep_kernel=True)),
+        ("structure_aware adaptive", dict(adaptive_exchange=True)),
+        ("structure_aware adaptive overlap", dict(adaptive_exchange=True,
+                                                  overlap_exchange=True)))]
+    # Massed firing (interval 5 steps) past packets of 1 per area and 4 per
+    # network: the static bounds drop spikes, and both devices count them.
+    forced = [("event " + name + " forced overflow", dict(
+        delivery_backend="event", s_max_headroom=0.0, s_max_floor=1, **kw)) for name, kw in (
+        ("conventional", dict(schedule="conventional")), ("structure_aware", {}))]
     cuda.reset_launches()
-    for model, rate in (("ignore_and_fire", 30.0), ("lif", 2.5)):
+    # LIF at this size first spikes in window 18: its runs take 40 windows.
+    for model, rate, configs, n_win in (("ignore_and_fire", 30.0, configs, 10),
+                                        ("lif", 2.5, configs, 40),
+                                        ("ignore_and_fire", 2000.0, forced, 10)):
         spec = mam_benchmark_spec(n_areas=4, n_per_area=256, k_intra=32, k_inter=32,
                                   rate_hz=rate)
-        nets = {d: build_network(spec, seed=12, device=d) for d in ("cuda", "cpu")}
-        for f in ("alive", "rate_hz", "src_intra", "w_intra", "delay_intra",
-                  "src_inter", "w_inter", "delay_inter"):
+        nets = {d: build_network(spec, seed=12, outgoing=True, device=d)
+                for d in ("cuda", "cpu")}
+        for f in ("alive", "rate_hz") + INCOMING + OUTGOING:
             if not bitwise_equal(getattr(nets["cuda"], f), getattr(nets["cpu"], f)):
                 raise AssertionError(f"device-built {f} != CPU-built {f}")
-        for sched, fused in (("conventional", False), ("structure_aware", False),
-                             ("structure_aware", True)):
-            cfg = EngineConfig(neuron_model=model, schedule=sched, delivery_backend="pallas",
-                               superstep_kernel=fused)
-            sched += " fused" if fused else ""
+        for name, kw in configs:
+            cfg = EngineConfig(neuron_model=model, **kw)
             engs = {d: make_simulation(spec, cfg, net=nets[d], device=d) for d in nets}
-            st = {d: e.init() for d, e in engs.items()}
-            for w in range(10):
-                blk = {}
-                for d, e in engs.items():
-                    st[d], blk[d] = e.window(st[d])
-                if not (bitwise_equal(blk["cuda"], blk["cpu"])
-                        and state_equal(st["cuda"], st["cpu"])):
-                    raise AssertionError(f"{model} {sched}: cuda != cpu at window {w}")
-            log(f"[cpu] {model} {sched}: cuda == cpu bitwise over 10 windows "
-                f"(blocks, ring, neuron state, spike_count); "
+            if cfg.overlap_exchange:
+                blocks = {d: [] for d in engs}
+                st = {d: run_windows(e, e.init(), n_win,
+                                     on_block=lambda w, b, d=d: blocks[d].append(b)).state
+                      for d, e in engs.items()}
+                if not all(map(bitwise_equal, blocks["cuda"], blocks["cpu"])):
+                    raise AssertionError(f"{model} {name}: cuda != cpu blocks")
+            else:
+                st = {d: e.init() for d, e in engs.items()}
+                for w in range(n_win):
+                    blk = {}
+                    for d, e in engs.items():
+                        st[d], blk[d] = e.window(st[d])
+                    if not (bitwise_equal(blk["cuda"], blk["cpu"])
+                            and state_equal(st["cuda"], st["cpu"])):
+                        raise AssertionError(f"{model} {name}: cuda != cpu at window {w}")
+            over = {d: int(x.overflow) for d, x in st.items()}
+            if not state_equal(st["cuda"], st["cpu"]) or over["cuda"] != over["cpu"]:
+                raise AssertionError(f"{model} {name}: cuda != cpu (overflow {over})")
+            if ("forced" in name) != (over["cpu"] > 0):
+                raise AssertionError(f"{model} {name}: overflow {over['cpu']}")
+            if int(st["cpu"].spike_count.sum()) <= 0:
+                raise AssertionError(f"{model} {name}: no spikes in {n_win} windows")
+            log(f"[cpu] {model} {rate:g} Hz {name}: cuda == cpu bitwise over {n_win} windows "
+                f"(blocks, ring, neuron state, spike_count), overflow {over['cpu']}; "
                 f"{int(st['cpu'].spike_count.sum())} spikes")
     counts = dict(cuda.launches)
     if min(counts[k] for k in SIM_KERNELS) <= 0:
@@ -1122,8 +1508,23 @@ def main() -> int:
     device = phase_device()
     phase_build()
     spec = mam_benchmark_spec(n_areas=4, n_per_area=130_000, k_intra=3000, k_inter=3000)
-    net, launches, profiled = phase_main_path(spec)
-    rows = phase_kernels(net, launches, profiled)
+    net = phase_build_network(spec)
+    pallas = phase_main_path(spec, net)
+    event_launches = phase_event_runs(spec, net, pallas)
+    phase_lif_steady(spec, net, pallas["lif_start"])
+    block, ring = pallas["iaf_store"][-1]  # the iaf runs' last window, from t0 = 5 D
+    event_row = phase_kernel_event(net, block, ring, 5 * net.delay_ratio, event_launches)
+    # The outgoing tables and the runs' stores go before the kernel phases'
+    # large temporaries.
+    net = dataclasses.replace(net, **{f: None for f in OUTGOING})
+    launches, profiled = pallas["launches"], pallas["profiled"]
+    del pallas, block, ring
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    log(f"[full] outgoing tables freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    rows = phase_kernels(net, launches, profiled) + [event_row]
+    log(f"[kernel] peak in the kernel phases after the outgoing tables were freed: "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     del net
     torch.cuda.empty_cache()
     phase_device_vs_cpu()

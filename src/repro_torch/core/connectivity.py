@@ -13,11 +13,17 @@ pathway, global target row, k)``, bitwise equal to the JAX package's draws.
 :func:`build_network` evaluates those functions on the device in row chunks
 and writes straight into preallocated tables: the paper's per-area size has
 ~3e9 synapses, and a host build would need tens of GB per temporary array.
+
+The event backend reads the *outgoing* (source -> targets) tables,
+``build_network(outgoing=True)``: the incoming tables inverted by a counting
+sort over target-row chunks (:func:`_invert_adjacency`), in the order of the
+JAX package's stable argsort.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -28,12 +34,15 @@ from repro_torch.device import resolve_device
 __all__ = [
     "Network",
     "build_network",
+    "add_outgoing_tables",
     "network_from_numpy",
     "draw_pathway_rows",
 ]
 
 _TABLES = ("alive", "rate_hz", "src_intra", "w_intra", "delay_intra",
            "src_inter", "w_inter", "delay_inter")
+OUTGOING_TABLES = ("tgt_intra", "wout_intra", "dout_intra",
+                   "tgt_inter", "wout_inter", "dout_inter")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,6 +58,16 @@ class Network:
     src_inter: torch.Tensor    # [A, n_pad, K_e] int32, global source id
     w_inter: torch.Tensor      # [A, n_pad, K_e] f32
     delay_inter: torch.Tensor  # [A, n_pad, K_e] int8/int32, steps >= D
+
+    # Optional outgoing tables (the event backend), from
+    # build_network(outgoing=True): per source neuron its targets, padded
+    # with target -1 / weight 0 / delay 1 to the widest source.
+    tgt_intra: torch.Tensor | None = None   # [A, n_pad, K_out_i] target index in the area
+    wout_intra: torch.Tensor | None = None  # [A, n_pad, K_out_i] f32
+    dout_intra: torch.Tensor | None = None  # [A, n_pad, K_out_i] int8/int32
+    tgt_inter: torch.Tensor | None = None   # [A, n_pad, K_out_e] global target id
+    wout_inter: torch.Tensor | None = None  # [A, n_pad, K_out_e] f32
+    dout_inter: torch.Tensor | None = None  # [A, n_pad, K_out_e] int8/int32
 
     n_pad: int = 0
     n_areas: int = 0
@@ -102,12 +121,14 @@ def network_from_numpy(arrays: dict, *, device, **static) -> Network:
     ``arrays`` maps each table name (``alive``, ``rate_hz``, ``src_intra``,
     ...) to an array, as ``np.asarray`` of the JAX package's ``Network``
     leaves gives them; ``static`` holds the static fields (``n_pad``,
-    ``ring_len``, ``steps_lo_intra``, ...). Other keys in ``arrays`` (tables
-    this port does not hold yet) are ignored.
+    ``ring_len``, ``steps_lo_intra``, ...). The outgoing tables
+    (``tgt_intra``, ...) are carried where ``arrays`` holds them (not None).
+    Other keys in ``arrays`` (tables this port does not hold yet) are
+    ignored.
     """
     dev = torch.device(device)
-    tables = {k: torch.from_numpy(np.array(arrays[k])).to(dev)
-              for k in _TABLES}
+    names = _TABLES + tuple(k for k in OUTGOING_TABLES if arrays.get(k) is not None)
+    tables = {k: torch.from_numpy(np.array(arrays[k])).to(dev) for k in names}
     return Network(**tables, **static)
 
 
@@ -242,6 +263,100 @@ def draw_pathway_rows(
     raise ValueError(f"unknown pathway {pathway!r} ('intra' | 'inter')")
 
 
+def _outgoing_k_bound(k: int) -> int:
+    """Deterministic upper estimate of the outgoing row width ``K_out``.
+
+    The real ``K_out`` is the largest in-edge count over source neurons,
+    concentrated around the in-degree ``k`` with Poisson fluctuations:
+    mean + ~6 sigma (+ slack for tiny ``k``).
+    """
+    if k <= 0:
+        return 0
+    return int(k + math.ceil(6.0 * math.sqrt(k)) + 8)
+
+
+def _source_counts(src: torch.Tensor, n_src: int, chunk_rows: int) -> torch.Tensor:
+    """Entries per source id of an incoming ``[N_tgt, K]`` table (int64)."""
+    counts = torch.zeros(n_src, dtype=torch.int64, device=src.device)
+    for r0 in range(0, src.shape[0], chunk_rows):
+        counts += torch.bincount(src[r0:r0 + chunk_rows].reshape(-1).long(),
+                                 minlength=n_src)
+    return counts
+
+
+def _invert_adjacency(tgt, wout, dout, src, w, d, *, chunk_rows: int) -> None:
+    """Fill the outgoing rows ``tgt/wout/dout [n_src, K_out]`` (preallocated
+    with their padding) from the incoming ``src/w/d [N_tgt, K]``.
+
+    The JAX package sorts all ``N_tgt x K`` entries by source with one
+    stable argsort, so each source's targets come in (target row, k) order.
+    This is a counting sort over target-row chunks in the same order: a
+    per-source cursor, and within a chunk each entry's rank among the
+    chunk's entries of its source (a stable sort of the chunk), so an entry
+    lands at ``cursor[src] + rank``. Temporaries are a few chunk-sized
+    int64 arrays, never the whole table.
+    """
+    n_tgt, k = src.shape
+    n_src, k_out = tgt.shape
+    if k == 0 or k_out == 0:
+        return
+    cursor = torch.zeros(n_src, dtype=torch.int64, device=src.device)
+    tgt_f, wout_f, dout_f = tgt.view(-1), wout.view(-1), dout.view(-1)
+    for r0 in range(0, n_tgt, chunk_rows):
+        r1 = min(n_tgt, r0 + chunk_rows)
+        flat = src[r0:r1].reshape(-1).long()
+        key, perm = torch.sort(flat, stable=True)
+        rank = (torch.arange(key.numel(), device=key.device)
+                - torch.searchsorted(key, key, side="left"))
+        dst = key * k_out + cursor[key] + rank
+        tgt_f[dst] = (r0 + perm // k).to(torch.int32)
+        wout_f[dst] = w[r0:r1].reshape(-1)[perm]
+        dout_f[dst] = d[r0:r1].reshape(-1)[perm]
+        cursor += torch.bincount(flat, minlength=n_src)
+
+
+def _outgoing(src, w, d, n_src: int, chunk_rows: int):
+    """Outgoing ``(tgt, wout, dout)`` of one or more incoming tables
+    ``src/w/d [G, N_tgt, K]`` over the source ids ``[0, n_src)``, each
+    ``[G, n_src, K_out]`` with ``K_out`` the widest source of all ``G``."""
+    counts = [_source_counts(s, n_src, chunk_rows) for s in src]
+    k_out = max(int(c.max()) if c.numel() else 0 for c in counts)
+    shape = (src.shape[0], n_src, k_out)
+    tgt = torch.full(shape, -1, dtype=torch.int32, device=src.device)
+    wout = torch.zeros(shape, dtype=torch.float32, device=src.device)
+    # The incoming delay dtype is kept: int8 tables stay int8.
+    dout = torch.ones(shape, dtype=d.dtype, device=src.device)
+    for g in range(src.shape[0]):
+        _invert_adjacency(tgt[g], wout[g], dout[g], src[g], w[g], d[g],
+                          chunk_rows=chunk_rows)
+    return tgt, wout, dout
+
+
+def add_outgoing_tables(net: Network, outgoing: bool | str = True, *,
+                        chunk_rows: int = 8192) -> Network:
+    """``net`` with its outgoing tables, built on ``net``'s device.
+
+    ``outgoing=True`` inverts both pathways, ``"intra"`` the intra tier
+    only. Intra tables are inverted per area (sources and targets are
+    indices within the area) and padded to the widest area; inter tables
+    over the global id space. Bitwise equal to the JAX package's
+    ``build_network(..., outgoing=...)`` tables, ``K_out`` included.
+    """
+    if outgoing not in (True, "intra"):
+        raise ValueError(f"outgoing={outgoing!r} (expected True or 'intra')")
+    A, n_pad = net.n_areas, net.n_pad
+    chunk = max(1, int(chunk_rows))
+    out = dict(zip(("tgt_intra", "wout_intra", "dout_intra"), _outgoing(
+        net.src_intra, net.w_intra, net.delay_intra, n_pad, chunk)))
+    if net.k_inter > 0 and outgoing != "intra":
+        flat = lambda x: x.reshape(1, A * n_pad, net.k_inter)  # noqa: E731
+        tables = _outgoing(flat(net.src_inter), flat(net.w_inter),
+                           flat(net.delay_inter), A * n_pad, chunk)
+        out.update(zip(("tgt_inter", "wout_inter", "dout_inter"),
+                       (x.view(A, n_pad, -1) for x in tables)))
+    return dataclasses.replace(net, **out)
+
+
 def build_network(
     spec: MultiAreaSpec,
     *,
@@ -254,14 +369,14 @@ def build_network(
     """Instantiate the connectivity tables for ``spec`` on ``device``.
 
     Bitwise equal to the JAX package's ``build_network(spec, seed=seed,
-    size_multiple=size_multiple)``. ``device`` defaults to ``"cuda"`` and
-    raises when no GPU is present; pass ``device="cpu"`` to build on the
-    host. Rows are drawn ``chunk_rows`` at a time straight into the tables.
+    size_multiple=size_multiple, outgoing=outgoing)``. ``device`` defaults
+    to ``"cuda"`` and raises when no GPU is present; pass ``device="cpu"``
+    to build on the host. Rows are drawn ``chunk_rows`` at a time straight
+    into the tables. ``outgoing`` (``True`` or ``"intra"``) adds the
+    outgoing tables the event backend reads (:func:`add_outgoing_tables`).
     """
-    if outgoing:
-        raise NotImplementedError(
-            "outgoing tables serve the event backend, which is not ported "
-            "yet (ROADMAP: the event backend with outgoing tables)")
+    if outgoing not in (False, True, "intra"):
+        raise ValueError(f"outgoing={outgoing!r} (expected bool or 'intra')")
     dev = resolve_device(device)
     A = spec.n_areas
     n_pad = spec.padded_area_size(size_multiple)
@@ -304,7 +419,7 @@ def build_network(
 
     lo_i, span_i = window(delay_intra, 1)
     lo_e, span_e = window(delay_inter, spec.delay_ratio)
-    return Network(
+    net = Network(
         alive=alive.to(dev),
         rate_hz=rate.to(dev),
         src_intra=src_intra.view(A, n_pad, K_i),
@@ -323,3 +438,4 @@ def build_network(
         steps_lo_inter=lo_e,
         r_span_inter=span_e,
     )
+    return add_outgoing_tables(net, outgoing, chunk_rows=chunk) if outgoing else net

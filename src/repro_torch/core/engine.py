@@ -4,9 +4,9 @@ Port of ``repro.core.engine``. The engine advances the network in windows of
 ``D`` cycles (``D`` = delay ratio, paper eq. (1)); each cycle is the paper's
 deliver -> update -> collocate sequence. The conventional and structure-aware
 schedules produce bit-identical spike trains. :class:`EngineConfig` keeps the
-JAX package's field names and defaults; a field whose feature is not ported
-yet is reported by :meth:`EngineConfig.validate` with the ROADMAP item that
-ports it.
+JAX package's field names, defaults and rules; a field whose feature is
+not ported yet is reported by :meth:`EngineConfig.validate` with the ROADMAP
+item that ports it.
 """
 
 from __future__ import annotations
@@ -130,6 +130,12 @@ class EngineConfig:
                 f"unknown exchange {self.exchange!r} "
                 f"(expected one of {exchange_lib.EXCHANGES})",
                 "pick a listed exchange, or '' for the default"))
+        if self.s_max_burst < 1:
+            v.append(ConfigViolation(
+                "s_max_burst",
+                f"s_max_burst={self.s_max_burst} would shrink the "
+                "whole-network event bound's burst slack below its floor",
+                "use an integer >= 1 (B for a B-trial folded batch)"))
         if self.superstep is True and self.schedule != STRUCTURE_AWARE:
             v.append(ConfigViolation(
                 "superstep",
@@ -149,21 +155,19 @@ class EngineConfig:
                     "superstep_kernel",
                     "superstep_kernel=True conflicts with superstep=False",
                     "drop one of the two flags"))
+        if self.overlap_exchange and self.schedule != STRUCTURE_AWARE:
+            v.append(ConfigViolation(
+                "overlap_exchange",
+                "overlap_exchange double-buffers the structure-aware "
+                "window-end exchange; the conventional schedule has no "
+                "lumped exchange to overlap",
+                "use schedule='structure_aware', or drop overlap_exchange"))
         if distributed:
             v.append(_not_ported("mesh", "the distributed engine",
                                  "distributed engine"))
         if self.exchange not in ("", "local"):
             v.append(_not_ported("exchange", f"exchange={self.exchange!r}",
                                  "distributed engine"))
-        if self.delivery_backend == "event":
-            v.append(_not_ported("delivery_backend", "the 'event' backend",
-                                 "the event backend with outgoing tables"))
-        if self.adaptive_exchange:
-            v.append(_not_ported("adaptive_exchange", "the adaptive two-phase "
-                                 "exchange", "adaptive ladders and overlap"))
-        if self.overlap_exchange:
-            v.append(_not_ported("overlap_exchange", "the overlapped window-end "
-                                 "exchange", "adaptive ladders and overlap"))
         if self.sharded_build:
             v.append(_not_ported("sharded_build", "host-free sharded "
                                  "construction", "distributed engine"))
@@ -206,6 +210,12 @@ class Engine:
     run: Callable[[SimState, int], tuple[SimState, torch.Tensor]]
     config: EngineConfig
     delay_ratio: int
+    # The overlapped pipeline (overlap_exchange=True; None otherwise):
+    # window_overlap(state, inflight) -> (state', inflight', block),
+    # drain(state, inflight) -> state', init_inflight() -> empty inflight.
+    window_overlap: Callable | None = None
+    drain: Callable | None = None
+    init_inflight: Callable | None = None
 
 
 def make_fused_lif_update(params: neuron_lib.LIFParams):
@@ -303,6 +313,8 @@ def _make_engine(
     """
     cfg = config
     cfg.check(distributed=False)
+    if cfg.backend == "event" and net.tgt_intra is None:
+        raise ValueError("event delivery needs build_network(outgoing=True)")
     A, n_pad = net.alive.shape
     dev = net.device
     lif_params, drive_rate = resolve_params(net, spec, cfg)
@@ -318,8 +330,28 @@ def _make_engine(
     window_body = schedule_lib.make_window_fn(
         cfg, exchange, update_fn, fused_superstep=fused_window)
 
-    def window(state: SimState) -> tuple[SimState, torch.Tensor]:
-        return window_body(state, net, gids)
+    overlap = drain = init_inflight = None
+    if cfg.overlap_exchange:
+        overlap_body, drain_body = schedule_lib.make_overlap_window_fn(
+            cfg, exchange, update_fn, fused_superstep=fused_window)
+
+        def overlap(state: SimState, inflight):
+            return overlap_body(state, inflight, net, gids)
+
+        def drain(state: SimState, inflight) -> SimState:
+            return drain_body(state, inflight, net, gids)
+
+        def init_inflight():
+            return exchange.init_inflight(net)
+
+        # The compatibility `window`: one overlapped window drained on the
+        # spot, bitwise the sequential window.
+        def window(state: SimState) -> tuple[SimState, torch.Tensor]:
+            st, inflight, block = overlap(state, init_inflight())
+            return drain(st, inflight), block
+    else:
+        def window(state: SimState) -> tuple[SimState, torch.Tensor]:
+            return window_body(state, net, gids)
 
     def init() -> SimState:
         if cfg.neuron_model == "lif":
@@ -335,12 +367,21 @@ def _make_engine(
         )
 
     def run(state: SimState, n_windows: int):
+        """n windows; the overlapped pipeline carries its in-flight window
+        from one to the next and drains it once at the end."""
         totals = []
+        inflight = init_inflight() if overlap is not None else None
         for _ in range(n_windows):
-            state, block = window_body(state, net, gids)
+            if overlap is not None:
+                state, inflight, block = overlap(state, inflight)
+            else:
+                state, block = window_body(state, net, gids)
             totals.append(block.sum(dtype=torch.int32))
+        if overlap is not None:
+            state = drain(state, inflight)
         return state, (torch.stack(totals) if totals
                        else torch.zeros(0, dtype=torch.int32, device=dev))
 
     return Engine(init=init, window=window, run=run, config=cfg,
-                  delay_ratio=net.delay_ratio)
+                  delay_ratio=net.delay_ratio, window_overlap=overlap,
+                  drain=drain, init_inflight=init_inflight)

@@ -27,15 +27,17 @@ def make_simulation(
 
     ``device`` defaults to ``"cuda"`` and raises when no GPU is present; pass
     ``device="cpu"`` to run on the host. ``net=None`` builds the connectivity
-    on that device (seeded by ``build_seed``); a given ``net`` must already
-    live there. A ``mesh`` (the distributed engine) is not ported yet. The
+    on that device (seeded by ``build_seed``, with outgoing tables exactly
+    when the event backend needs them); a given ``net`` must already live
+    there. A ``mesh`` (the distributed engine) is not ported yet. The
     config is validated in one shot: a bad config raises
     :class:`~repro_torch.core.engine.ConfigError` listing every broken rule.
     """
     config.check(distributed=mesh is not None)
     dev = resolve_device(device)
     if net is None:
-        net = connectivity_lib.build_network(spec, seed=build_seed, device=dev)
+        net = connectivity_lib.build_network(
+            spec, seed=build_seed, outgoing=config.backend == "event", device=dev)
     elif net.device.type != dev.type or (
             dev.index is not None and net.device != dev):
         raise ValueError(f"net lives on {net.device}, but the engine was asked "

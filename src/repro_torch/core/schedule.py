@@ -35,6 +35,7 @@ __all__ = [
     "RunResult",
     "make_update_fn",
     "make_window_fn",
+    "make_overlap_window_fn",
     "run_windows",
 ]
 
@@ -48,9 +49,10 @@ class SimState:
     ring: torch.Tensor          # [A, n_pad, R] f32
     t: int                      # absolute cycle index (host-side)
     spike_count: torch.Tensor   # [A, n_pad] int32 cumulative spikes
-    # Spikes dropped by a fixed-size packet bound; the ported exchange and
-    # backends have none, so this stays 0 (kept for parity with the JAX state).
-    overflow: int = 0
+    # Spikes dropped by a fixed-size event packet: an int32 device scalar
+    # once an event packet was bounded, else 0. Nonzero means the run is no
+    # longer exact (raise s_max_headroom / s_max_floor, or go adaptive).
+    overflow: Any = 0
     # Wire bytes the exchanges shipped (0 on a single host).
     shipped_bytes: float = 0.0
 
@@ -110,11 +112,35 @@ def make_window_fn(
     the structure-aware in-window loop with the fused superstep kernel; the
     lumped exchange still goes through the exchange hook.
     """
+    compute_window = _make_compute_window(cfg, exchange, update_fn, fused_superstep)
+    blocked = bool(cfg.use_superstep)
 
     def window(state: SimState, net, gids):
+        t0 = state.t
+        state, block = compute_window(state, state.ring.clone(), net, gids)
+        if cfg.schedule == CONVENTIONAL:
+            return state, block
+        # The lumped global exchange: every inter-area delay is >= D, so
+        # slot (t0 + s + d) lies strictly after the window.
+        ring, d_over, d_ship = exchange.window_end(
+            state.ring, block, t0, net, gids, blocked=blocked)
+        return dataclasses.replace(
+            state, ring=ring, overflow=state.overflow + d_over,
+            shipped_bytes=state.shipped_bytes + d_ship), block
+
+    return window
+
+
+def _make_compute_window(cfg, exchange, update_fn, fused_superstep):
+    """The window body without the structure-aware window-end exchange:
+    ``compute(state, ring, net, gids) -> (state', block)``, where ``ring`` is
+    the caller's own copy of ``state.ring``, updated in place. Under the
+    conventional schedule this is the whole window (the cycle hook runs the
+    long-range pathway too)."""
+
+    def compute_window(state: SimState, ring, net, gids):
         D = net.delay_ratio
         t0 = state.t
-        ring = state.ring.clone()
         neuron, over, shipped = state.neuron, state.overflow, state.shipped_bytes
         cols = []
         if cfg.use_superstep:
@@ -143,18 +169,54 @@ def make_window_fn(
                 over, shipped = over + d_over, shipped + d_ship
                 cols.append(spikes)
             block = torch.stack(cols)
-        if cfg.schedule == STRUCTURE_AWARE:
-            # The lumped global exchange: every inter-area delay is >= D, so
-            # slot (t0 + s + d) lies strictly after the window.
-            ring, d_over, d_ship = exchange.window_end(
-                ring, block, t0, net, gids, blocked=bool(cfg.use_superstep))
-            over, shipped = over + d_over, shipped + d_ship
         return SimState(
             neuron=neuron, ring=ring, t=t0 + D,
             spike_count=state.spike_count + block.sum(0, dtype=torch.int32),
             overflow=over, shipped_bytes=shipped), block
 
-    return window
+    return compute_window
+
+
+def make_overlap_window_fn(
+    cfg, exchange, update_fn: Callable, *, fused_superstep: Callable | None = None,
+) -> tuple[Callable, Callable]:
+    """Build the double-buffered window pair ``(window_overlap, drain)``.
+
+    ``window_overlap(state, inflight, net, gids) -> (state', inflight',
+    block)`` first finishes the previous window's in-flight exchange (its
+    earliest deposit lands on the first ring slot this window reads), then
+    runs the window's compute, then starts this window's exchange and hands
+    it back in flight. ``drain(state, inflight, net, gids) -> state'``
+    retires an in-flight window, so a drained pipeline is bitwise the
+    sequential trajectory. Neither modifies its input state.
+    """
+    if cfg.schedule == CONVENTIONAL:
+        raise ValueError(
+            "overlap_exchange requires the structure-aware schedule: the "
+            "conventional schedule has no lumped window-end exchange to "
+            "overlap with compute")
+    compute_window = _make_compute_window(cfg, exchange, update_fn, fused_superstep)
+    blocked = bool(cfg.use_superstep)
+
+    def window_overlap(state: SimState, inflight, net, gids):
+        ring = exchange.finish_window_end(
+            state.ring.clone(), inflight, net, gids, blocked=blocked)
+        t0 = state.t
+        state, block = compute_window(state, ring, net, gids)
+        inflight, d_over, d_ship = exchange.start_window_end(
+            block, t0, net, gids, blocked=blocked)
+        return dataclasses.replace(
+            state, overflow=state.overflow + d_over,
+            shipped_bytes=state.shipped_bytes + d_ship), inflight, block
+
+    def drain(state: SimState, inflight, net, gids):
+        if inflight.wire is None:
+            return state
+        ring = exchange.finish_window_end(
+            state.ring.clone(), inflight, net, gids, blocked=blocked)
+        return dataclasses.replace(state, ring=ring)
+
+    return window_overlap, drain
 
 
 @dataclasses.dataclass
@@ -165,6 +227,8 @@ class RunResult:
     spikes_per_window: np.ndarray   # [windows_done] int64
     window_times_s: np.ndarray      # wall per window
     windows_done: int
+    overlapped: bool = False        # ran the double-buffered pipeline
+    drains: int = 0                 # in-flight windows retired at boundaries
 
 
 def run_windows(
@@ -181,20 +245,31 @@ def run_windows(
     """The windowed run loop: one window at a time, synchronised and timed.
 
     ``on_block(w, block)`` fires after every window with its ``[D, A, n]``
-    bool spike block, ``on_window(w, state)`` with the new state.
-    Checkpointing, fault injection and preemption (``checkpointer``,
-    ``faults``, ``stop_requested``) are not ported yet and raise.
+    bool spike block, ``on_window(w, state)`` with the new state. When the
+    engine carries the overlapped pipeline (``engine.window_overlap`` is
+    set), the loop threads the in-flight window through and drains it at the
+    end of the run, so the returned state is the sequential trajectory's;
+    the state ``on_window`` sees may still lack its window's long-range
+    deposits. Checkpointing, fault injection and preemption
+    (``checkpointer``, ``faults``, ``stop_requested``) are not ported yet
+    and raise.
     """
     if checkpointer is not None or faults is not None or stop_requested is not None:
         raise NotImplementedError(
             "checkpointer / faults / stop_requested are not ported yet "
             "(ROADMAP: resilience)")
+    overlapped = getattr(engine, "window_overlap", None) is not None
+    inflight = engine.init_inflight() if overlapped else None
+    drains = 0
     D = int(engine.delay_ratio)
     w_done = state.t // D
     spikes, times = [], []
     for _ in range(n_windows):
         t0 = time.perf_counter()
-        state, block = engine.window(state)
+        if overlapped:
+            state, inflight, block = engine.window_overlap(state, inflight)
+        else:
+            state, block = engine.window(state)
         spikes.append(int(block.sum()))  # waits for the window to finish
         times.append(time.perf_counter() - t0)
         w_done += 1
@@ -202,8 +277,13 @@ def run_windows(
             on_block(w_done, block)
         if on_window is not None:
             on_window(w_done, state)
+    if overlapped and len(times):
+        state = engine.drain(state, inflight)
+        drains += 1
     return RunResult(
         state=state,
         spikes_per_window=np.asarray(spikes, dtype=np.int64),
         window_times_s=np.asarray(times, dtype=np.float64),
-        windows_done=len(times))
+        windows_done=len(times),
+        overlapped=overlapped,
+        drains=drains)

@@ -27,7 +27,7 @@ __all__ = ["KERNELS", "launches", "reset_launches", "build_all", "library", "che
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
 KERNELS = ("lif_update", "spike_deliver", "superstep_lif", "superstep_iaf",
-           "flash_attention")
+           "flash_attention", "event_deliver")
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3")
 _LIB = ("-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 # Flags per source. The simulator's kernels are bitwise exact only with the
@@ -36,8 +36,9 @@ _LIB = ("-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 # held to a tolerance, and nvcc may contract its FMAs; it links the driver
 # library for the TMA tensor maps (cuTensorMapEncodeTiled).
 NVCC_FLAGS = {
-    **{name: _ARCH + ("-fmad=false",) + _LIB for name in KERNELS[:4]},
-    "flash_attention": _ARCH + _LIB + ("-lcuda",),
+    name: _ARCH + _LIB + ("-lcuda",) if name == "flash_attention"
+    else _ARCH + ("-fmad=false",) + _LIB
+    for name in KERNELS
 }
 
 launches: dict[str, int] = {name: 0 for name in KERNELS}
@@ -67,6 +68,10 @@ _SIGNATURES = {
     "flash_attention": {
         "flash_attention_launch": [_P] * 4 + [_I] * 9 + [_P],
         "flash_attention_smem_bytes": [_I, _I],
+    },
+    "event_deliver": {
+        name: [_P] * 5 + [_I64, _I, _I, _I, _I, _I64, _I64, _I64, _P]
+        for name in ("event_deliver_i8_launch", "event_deliver_i32_launch")
     },
 }
 

@@ -94,5 +94,5 @@ def test_build_network_defaults_to_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tconn.build_network(tspec, seed=12)
-    with pytest.raises(NotImplementedError, match="event backend"):
-        tconn.build_network(tspec, seed=12, device="cpu", outgoing=True)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tconn.build_network(tspec, seed=12, outgoing=True)

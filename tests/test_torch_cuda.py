@@ -398,3 +398,120 @@ def test_flash_attention_bf16_route_refuses_what_it_was_not_built_for(dev):
         0, 64, torch.cuda.current_stream(dev).cuda_stream)
     assert "misaligned" in lib.error_string(err).decode()
     assert cuda.launches["flash_attention"] == before
+
+
+# event_deliver: (packet rows, S, N_src rows, K_out); K_out % 4 != 0 in the
+# second and third.
+EVENT_SHAPES = [(10, 300, 5000, 64), (4, 70, 2000, 333), (1, 1, 100, 7)]
+
+
+def event_inputs(dev, rows, s_max, n_src, k, delay_dtype, per_area, seed):
+    """Outgoing tables with -1 padding, grid weights, a ring without -0.0,
+    and packets with real ids, padding ids (>= n_src and < 0) and repeats."""
+    rng = np.random.default_rng(seed)
+    t = lambda x: torch.from_numpy(x).to(dev)  # noqa: E731
+    n_tgt = n_src
+    bound = n_src // rows if per_area else n_src
+    tgt = rng.integers(0, bound, (n_src, k)).astype(np.int32)
+    tgt[rng.random((n_src, k)) < 0.1] = -1
+    ids = rng.integers(-3, bound + 5, (rows, s_max)).astype(np.int32)
+    ring = np.round(rng.normal(0, 300, (n_tgt, 110)) * 4) / 1024 + 0.0
+    return dict(
+        ring=t(ring.astype(np.float32)), ids=t(ids), tgt=t(tgt),
+        w=t((np.round(rng.normal(0, 60, (n_src, k)) * 256) / 256).astype(np.float32)),
+        d=t(rng.integers(1, 101, (n_src, k)).astype(delay_dtype)))
+
+
+@pytest.mark.parametrize("per_area", [False, True], ids=["cycles", "areas"])
+@pytest.mark.parametrize("delay_dtype", [np.int8, np.int32])
+@pytest.mark.parametrize("shape", EVENT_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_event_deliver_kernel_matches_plain(dev, shape, delay_dtype, per_area):
+    from repro_torch.kernels import event_deliver as evt
+
+    rows, s_max, n_src, k = shape
+    n_src -= n_src % rows
+    x = event_inputs(dev, rows, s_max, n_src, k, delay_dtype, per_area, seed=sum(shape))
+    kw = dict(rows_per_area=n_src // rows if per_area else None)
+    before = cuda.launches["event_deliver"]
+    got = evt.event_deliver_cuda(x["ring"].clone(), x["ids"], x["tgt"], x["w"], x["d"],
+                                 1234, **kw)
+    torch.cuda.synchronize()
+    assert cuda.launches["event_deliver"] == before + 1
+    want = evt.event_deliver_plain(x["ring"].clone(), x["ids"], x["tgt"], x["w"], x["d"],
+                                   1234, **kw)
+    same([got], [want])
+    assert not torch.equal(want, x["ring"])
+
+
+# Packet sizes (S of 4 rows) that make the launcher choose each group size,
+# 8, 4, 2 and 1 warps per entry, with 4-8 resident 256-thread blocks per SM
+# on the H100's 132 SMs.
+@pytest.mark.parametrize("per_area", [False, True], ids=["cycles", "areas"])
+@pytest.mark.parametrize("s_max", [70, 400, 800, 1500, 6000])
+def test_event_deliver_kernel_every_group_size_matches_plain(dev, s_max, per_area):
+    from repro_torch.kernels import event_deliver as evt
+
+    x = event_inputs(dev, 4, s_max, 2000, 333, np.int8, per_area, seed=9)
+    kw = dict(rows_per_area=500 if per_area else None)
+    got = evt.event_deliver_cuda(x["ring"].clone(), x["ids"], x["tgt"], x["w"], x["d"], 5,
+                                 **kw)
+    torch.cuda.synchronize()
+    same([got], [evt.event_deliver_plain(x["ring"].clone(), x["ids"], x["tgt"], x["w"],
+                                         x["d"], 5, **kw)])
+
+
+@pytest.mark.parametrize("case", ["padding_only", "empty"])
+def test_event_deliver_kernel_on_packets_without_spikes(dev, case):
+    from repro_torch.kernels import event_deliver as evt
+
+    x = event_inputs(dev, 10, 50, 1000, 37, np.int8, False, seed=5)
+    ids = (torch.full_like(x["ids"], 1000) if case == "padding_only"
+           else x["ids"][:, :0].contiguous())
+    before = cuda.launches["event_deliver"]
+    got = evt.event_deliver_cuda(x["ring"].clone(), ids, x["tgt"], x["w"], x["d"], 7)
+    torch.cuda.synchronize()
+    assert cuda.launches["event_deliver"] == before + (case == "padding_only")
+    same([got], [x["ring"]])
+    same([got], [evt.event_deliver_plain(x["ring"].clone(), ids, x["tgt"], x["w"], x["d"], 7)])
+
+
+# Event engine configs on the card against the CPU: (name, model, config).
+EVENT_ENGINES = [
+    ("iaf", "ignore_and_fire", {}),
+    ("iaf_conventional", "ignore_and_fire", dict(schedule="conventional")),
+    ("iaf_legacy", "ignore_and_fire", dict(superstep=False)),
+    ("iaf_fused", "ignore_and_fire", dict(superstep_kernel=True)),
+    ("iaf_adaptive", "ignore_and_fire", dict(adaptive_exchange=True, s_max_floor=4)),
+    ("iaf_adaptive_overlap", "ignore_and_fire",
+     dict(adaptive_exchange=True, overlap_exchange=True, s_max_floor=4)),
+    ("iaf_overflow", "ignore_and_fire", dict(s_max_headroom=0.0, s_max_floor=1)),
+    ("lif", "lif", dict(fused_update=True)),
+    ("lif_fused", "lif", dict(superstep_kernel=True)),
+    ("lif_overlap", "lif", dict(overlap_exchange=True)),
+]
+
+
+@pytest.mark.parametrize("name,model,kw", EVENT_ENGINES, ids=[c[0] for c in EVENT_ENGINES])
+def test_event_engine_on_the_card_matches_the_cpu(dev, name, model, kw):
+    spec = mam_benchmark_spec(n_areas=4, n_per_area=64, k_intra=16, k_inter=16,
+                              rate_hz=30.0 if model == "ignore_and_fire" else 2.5)
+    if name == "iaf_overflow":
+        spec = mam_benchmark_spec(n_areas=2, n_per_area=64, k_intra=4, k_inter=4,
+                                  rate_hz=2000.0)
+    cfg = EngineConfig(neuron_model=model, delivery_backend="event", **kw)
+    engs = {d: make_simulation(spec, cfg, device=d) for d in ("cuda", "cpu")}
+    st = {d: e.init() for d, e in engs.items()}
+    cuda.reset_launches()
+    for _ in range(30 if model == "lif" else 8):  # LIF spikes from ~2 ms on
+        blk = {}
+        for d, e in engs.items():
+            st[d], blk[d] = e.window(st[d])
+        assert torch.equal(blk["cuda"].cpu(), blk["cpu"])
+        assert torch.equal(st["cuda"].ring.cpu(), st["cpu"].ring)
+        assert int(st["cuda"].overflow) == int(st["cpu"].overflow)
+        for field in vars(st["cpu"].neuron):
+            assert torch.equal(getattr(st["cuda"].neuron, field).cpu(),
+                               getattr(st["cpu"].neuron, field))
+    assert cuda.launches["event_deliver"] > 0 and cuda.launches["spike_deliver"] == 0
+    assert (int(st["cpu"].overflow) > 0) == (name == "iaf_overflow")
+    assert int(st["cpu"].spike_count.sum()) > 0

@@ -190,10 +190,9 @@ def test_make_simulation_defaults_to_cuda(monkeypatch):
 def test_unported_features_are_reported_with_their_roadmap_item():
     with pytest.raises(ConfigError) as err:
         EngineConfig(delivery_backend="event", adaptive_exchange=True,
-                     overlap_exchange=True, exchange="routed")
+                     overlap_exchange=True, exchange="routed", sharded_build=True)
     fields = [v.field for v in err.value.violations]
-    assert fields == ["exchange", "delivery_backend", "adaptive_exchange",
-                      "overlap_exchange"]
+    assert fields == ["exchange", "sharded_build"]
     assert all("ROADMAP" in v.remedy for v in err.value.violations)
     with pytest.raises(ConfigError, match="distributed engine"):
         make_simulation(port_spec("lif"), EngineConfig(), mesh=object(), device="cpu")
