@@ -6,16 +6,18 @@
 Phases, each of which raises (exit code != 0, no result line) on failure:
 
 1. device: the card's name and its ``nvidia-smi`` name and power limit;
-2. build: the six CUDA kernels from ``src/repro_torch/kernels/csrc``, in
-   parallel;
+2. build: the six CUDA kernels from ``src/repro_torch/kernels/csrc``, and
+   the event scatter with each of its regimes forced, in parallel;
 3. full width, the main path: the paper's per-area size and in-degree
    (``mam_benchmark_spec(n_areas=4, n_per_area=130_000, k_intra=3000,
    k_inter=3000)``, build seed 12; 4 areas instead of 32 so the tables fit
    one card), built on the device with its incoming tables (28 GB) and the
    outgoing tables the event backend reads (``add_outgoing_tables``, the
    inversion of ``build_network(outgoing=True)``, timed on its own line; ~31
-   GB). Then ``make_simulation`` on the ``pallas`` backend, 1 + 5 windows
-   each: ignore-and-fire (2.5 Hz) under the conventional schedule, the
+   GB), every outgoing row checked to ascend with its -1 padding at the end
+   (the event kernel's precondition; in row chunks). Then
+   ``make_simulation`` on the ``pallas`` backend, 1 + 5 windows each:
+   ignore-and-fire (2.5 Hz) under the conventional schedule, the
    structure-aware one and the structure-aware one with the fused superstep
    kernel (``superstep_kernel=True``), bitwise equal to each other window by
    window; LIF under the structure-aware schedule, unfused and fused,
@@ -39,17 +41,27 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    ``[steady]`` LIF at its steady state (~70 Hz, from window 40): the
    fused pallas run and the adaptive event runs, unfused and fused, bitwise
    the unfused pallas run window by window with ``overflow == 0``, launches
-   per window asserted, ms/window; and the spikes the static event packets
-   drop in one window at this rate;
+   per window asserted, ms/window; one window of each adaptive event run
+   profiled, with ``event_deliver``'s share of the device's busy time; and
+   the spikes the static event packets drop in one window at this rate;
 5. ``[kernel]`` event_deliver against its plain version, bitwise, on the
-   packets of the iaf runs' last window (inter and intra) and on packets
-   with every padding case, timed beside its bound, the plain version and
-   ``index_add_``; then the outgoing tables are freed;
+   packets the engine makes from the iaf runs' last window (2.5 Hz, static
+   packets) and from the steady LIF runs' last window (~70 Hz, the adaptive
+   ladders' rungs), inter and the busiest cycle's intra, and on both
+   windows' inter packets with every padding case; timed beside its bound
+   (the tables' bytes and 64 B per distinct ring sector touched), the
+   ceiling of one reduction a synapse at the L2's RED rate (measured here
+   by ``red_probe``), the earlier bound (32 B of ring a synapse), the plain
+   version (3 windows at the steady size) and the gather + ``index_add_``
+   of the same adds; then both of the kernel's regimes (builds that force
+   each) beside its own choice, bitwise and timed, on packets thinned to
+   0.5-15 adds per ring sector; then the outgoing tables are freed;
 6. each pallas-path kernel against its plain PyTorch version on the card,
    bitwise, at the main path's shapes (superstep_iaf also at the main path's
    2.5 Hz), and timed beside its memory bound: median of 100 windows for
-   lif_update, 20 for spike_deliver and event_deliver, 10 for the superstep
-   kernels, each window an L2 flush, a start event, the call and an end
+   lif_update, 20 for spike_deliver and event_deliver (10 for the library
+   call at the steady size), 10 for the superstep kernels, each window an
+   L2 flush, a start event, the call and an end
    event. The windows are enqueued in batches behind a device spin that
    outlasts the host's enqueue of the batch, so the device never waits for
    the host inside a window; an event after the spin checks that, and the
@@ -280,12 +292,22 @@ def phase_device() -> dict:
 
 
 def phase_build() -> None:
+    from concurrent.futures import ThreadPoolExecutor
+
     from repro_torch.kernels import cuda
+    from repro_torch.kernels.event_deliver import REGIMES
 
     t0 = time.perf_counter()
-    seconds = cuda.build_all()
+    # The event scatter's two forced-regime builds (for [kernel]'s regime
+    # lines) start with the others.
+    with ThreadPoolExecutor(1 + len(REGIMES)) as pool:
+        variants = [pool.submit(cuda.build_all, ("event_deliver",), d) for d in REGIMES.values()]
+        seconds = cuda.build_all()
+        variant_s = [v.result() for v in variants]
     log(f"[build] {len(seconds)} kernels built in {time.perf_counter() - t0:.1f} s "
-        f"({', '.join(f'{k} {v:.1f} s' for k, v in seconds.items())})")
+        f"({', '.join(f'{k} {v:.1f} s' for k, v in seconds.items())}); event_deliver "
+        f"with its regime forced: "
+        f"{', '.join(f'{r} {sum(v.values()):.1f} s' for r, v in zip(REGIMES, variant_s))}")
     for name, out in cuda.build_logs.items():
         entry = ""
         for line in out.splitlines():
@@ -303,7 +325,9 @@ def phase_build_network(spec):
     import torch
 
     from repro_torch.core import build_network
-    from repro_torch.core.connectivity import _outgoing_k_bound, add_outgoing_tables
+    from repro_torch.core.connectivity import (
+        _outgoing_k_bound, add_outgoing_tables, check_outgoing_order,
+    )
 
     def gb(net, fields):
         return sum(getattr(net, f).numel() * getattr(net, f).element_size()
@@ -332,6 +356,10 @@ def phase_build_network(spec):
         f"peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     if k_out[0] > bound[0] or k_out[1] > bound[1]:
         raise AssertionError(f"K_out {k_out} above the bound {bound}")
+    t0 = time.perf_counter()
+    check_outgoing_order(net)  # raises on a row the event kernel cannot take
+    log(f"[full] every outgoing row ascends with its -1 padding at the end (checked in "
+        f"row chunks in {time.perf_counter() - t0:.2f} s)")
     return net
 
 
@@ -598,13 +626,16 @@ def phase_event_runs(spec, net, pallas: dict) -> dict:
     return launches
 
 
-def phase_lif_steady(spec, net, start) -> None:
+def phase_lif_steady(spec, net, start) -> tuple:
     """LIF at its steady state (~70 Hz), 1 + 5 windows from window
     ``LIF_STEADY_WINDOWS`` (``start`` advanced on the fused pallas engine):
     the fused pallas run bitwise the unfused one, and the adaptive event
     runs, unfused (``fused_update=True``) and fused, bitwise the unfused
-    pallas run window by window with ``overflow == 0``. Then one window of
-    the static event packets, which drop spikes at this rate: the count."""
+    pallas run window by window with ``overflow == 0``; one window of each
+    adaptive event run profiled, with ``event_deliver``'s share of the
+    device's busy time. Then one window of the static event packets, which
+    drop spikes at this rate: the count. Returns the last window's block and
+    ring and its first step, for ``[kernel]``."""
     from repro_torch.core import EngineConfig, make_simulation
 
     model_ms = net.delay_ratio * net.dt_ms
@@ -636,9 +667,19 @@ def phase_lif_steady(spec, net, start) -> None:
             + ("" if check else "; bitwise the unfused pallas run window by window"))
     log(f"[steady] lif runs, windows {LIF_STEADY_WINDOWS}-{LIF_STEADY_WINDOWS + 5}: "
         f"{_fired([blk for blk, _ in store])}")
+    for name, eng, _, _ in runs[2:]:
+        kernels = profile_window(f"steady lif {name}, window {LIF_STEADY_WINDOWS}",
+                                 lambda: eng.window(start))
+        us, count = _port_kernel_time(kernels, "event_deliver_kernel")
+        busy = sum(k[0] for k in kernels)
+        log(f"[profile]   event_deliver_kernel {us / 1e3:.3f} ms in {count} launches, "
+            f"{100 * us / busy:.1f}% of the busy time; {sum(k[1] for k in kernels)} "
+            f"kernel launches in the window")
     st = engine("event", superstep_kernel=True).window(start)[0]
     log(f"[steady] lif event fused with static packets: {int(st.overflow)} spikes dropped "
         f"in one window")
+    block, ring = store[-1]
+    return block, ring, (LIF_STEADY_WINDOWS + 5) * net.delay_ratio
 
 
 def profile_window(name, fn, what="window") -> list[tuple[float, int, str]]:
@@ -678,98 +719,301 @@ def _port_kernel_time(kernels, symbol) -> tuple[float, int]:
     return sum(h[0] for h in hits), sum(h[1] for h in hits)
 
 
-def phase_kernel_event(net, block, ring, t0: int, launches: dict) -> dict:
-    """event_deliver against its plain version at full width, bitwise, on the
-    packets the engine makes from a fired window of the iaf run (``block``
-    ``[D, A, n]``, emitted from step ``t0``): the window-end inter packets
-    ``[D, s_max_all]`` and the busiest cycle's intra packets ``[A,
-    s_max_area]``; then the inter packets with every kind of padding. Timed
-    beside its bound, the plain version and the library's scatter of the
-    same adds (``index_add_`` of precomputed flat indices and weights, the
-    gather not included)."""
+def event_packets(net, block, t0: int, *, adaptive: bool) -> dict:
+    """The packets the event engine makes from a fired window ``block``
+    ``[D, A, n]`` emitted from step ``t0``: the window-end inter packets
+    ``[D, S_all]`` and the busiest cycle's intra packets ``[A, S_area]``,
+    sized by the static bounds of ``EngineConfig``'s defaults, or (with
+    ``adaptive``) by the rungs of the adaptive ladders that the counts
+    select, as ``LocalExchange`` sizes them. Returns ``{name: (ids,
+    pathway, rows_per_area, t)}``."""
     import torch
 
-    from repro_torch.core.delivery import event_bounds
-    from repro_torch.kernels import event_deliver as evt
+    from repro_torch.core import EngineConfig
+    from repro_torch.core.exchange import LocalExchange
     from repro_torch.kernels import ops
+
+    dev = net.device
+    a, n = net.alive.shape
+    ex = LocalExchange(net, EngineConfig(delivery_backend="event", adaptive_exchange=adaptive))
+    flat = block.reshape(block.shape[0], -1)
+    counts = flat.sum(-1, dtype=torch.int32)
+    busiest = int(counts.argmax())
+    s_all, s_area = ex.s_max_all, ex.s_max_area
+    if adaptive:
+        s_all = ops.ladder_rung(ex.ladder_all, counts.max())
+        per_area = block[busiest].sum(-1, dtype=torch.int32)
+        s_area = ops.ladder_rung(ex.ladder_area, per_area.max())
+    inter, _ = ops.compact_ids_block(flat, torch.arange(a * n, device=dev), size=s_all,
+                                     fill_id=a * n)
+    intra, _ = ops.compact_ids_block(block[busiest], torch.arange(n, device=dev),
+                                     size=s_area, fill_id=n)
+    return {"inter": (inter, "inter", None, t0), "intra": (intra, "intra", n, t0 + busiest)}
+
+
+def event_adds(ring, ids, tables, per_area, t):
+    """What a scatter of the packets ``ids`` adds into ``ring [N, R]``: the
+    fired entries' table rows (found here, outside any timing), and a
+    function that gathers the flat ring indices and weights of all their
+    K_out columns with static shapes and no host sync. A padding column
+    adds +0.0 at a ring position of its own, a no-op, since rings never hold
+    -0.0, and one that does not queue on a single address. Returns
+    ``(src_rows, gather)``; ``gather()`` returns ``(flat_idx, vals, hit)``."""
+    import torch
+
+    tgt, w, d = tables
+    dev, (n_rows, r), k = ring.device, ring.shape, tgt.shape[1]
+    n_src = per_area or tgt.shape[0]
+    n_tgt = per_area or n_rows
+    row = torch.arange(ids.shape[0], device=dev)[:, None].expand(ids.shape)
+    real = (ids >= 0) & (ids < n_src)
+    row = row[real]
+    src_rows = ids[real].long() + (row * per_area if per_area else 0)
+    off = (row * per_area)[:, None] if per_area else 0
+    step = 0 if per_area else row[:, None]
+    spread = torch.arange(src_rows.numel() * k, device=dev).view(-1, k) % ring.numel()
+
+    def gather():
+        tg = tgt[src_rows].long()
+        hit = (tg >= 0) & (tg < n_tgt)
+        idx = (tg + off) * r + torch.remainder(t + step + d[src_rows].long(), r)
+        return (torch.where(hit, idx, spread).view(-1),
+                torch.where(hit, w[src_rows], 0.0).view(-1), hit)
+
+    return src_rows, gather
+
+
+def event_bound(ring, ids, tables, per_area, t, red_rate) -> dict:
+    """The least time a scatter of the packets ``ids`` could take: the
+    packets, the fired rows' ``tgt``, ``w``/``d`` of the delivered synapses,
+    and 64 bytes (read and written once) per distinct 32-byte ring sector
+    the adds touch, over the memory rate. ``reds_ms``, the delivered
+    reductions over ``red_rate`` (the L2's, measured), is the ceiling of a
+    kernel that reduces each synapse on its own into the L2, as this one
+    does, not a bound of the function: adds to one sector could be combined
+    before they reach the L2. ``old_bound_ms`` is the earlier bound, 32
+    bytes of ring per delivered synapse. Also the counts, and ``gather``
+    (``event_adds``)."""
+    import torch
+
+    tgt, _, d = tables
+    src_rows, gather = event_adds(ring, ids, tables, per_area, t)
+    idx, _, hit = gather()
+    synapses = int(hit.sum())
+    sectors = int(torch.unique(idx.view(hit.shape)[hit] // 8).numel())
+    del idx, hit
+    table_bytes = (ids.numel() * 4 + src_rows.numel() * tgt.shape[1] * 4
+                   + synapses * (4 + d.element_size()))
+    bytes_ms = (table_bytes + 64 * sectors) / HBM_BYTES_PER_S * 1e3
+    reds_ms = synapses / red_rate * 1e3
+    return dict(bound_ms=bytes_ms, bound_by="bytes", reds_ms=reds_ms,
+                old_bound_ms=(table_bytes + 32 * synapses) / HBM_BYTES_PER_S * 1e3,
+                fired=src_rows.numel(), synapses=synapses, sectors=sectors, gather=gather)
+
+
+def bound_note(b, ms) -> str:
+    return (f"bound {b['bound_ms']:.4f} ms by bytes, {100 * b['bound_ms'] / ms:.1f}% of it; "
+            f"one L2 RED a synapse {b['reds_ms']:.4f} ms, {100 * b['reds_ms'] / ms:.1f}% of it; "
+            f"the earlier bound, 32 B of ring a synapse, {b['old_bound_ms']:.4f} ms, "
+            f"{100 * b['old_bound_ms'] / ms:.1f}% of it")
+
+
+def red_rates(net, flush) -> dict:
+    """Reductions per second: the ``red_probe`` of csrc/event_deliver.cu,
+    2,048 threads per SM x 64 f32 REDs each at pseudo-random positions,
+    into a buffer of one slice of the event kernel (a quarter of the L2,
+    left in the L2 between windows) and into one of the ring's size (the L2
+    flushed before each window)."""
+    import torch
+
+    from repro_torch.kernels import event_deliver as evt
+
+    dev = net.device
+    r = net.ring_len
+    threads = torch.cuda.get_device_properties(dev).multi_processor_count * 2048
+    adds = 64
+    slice_rows = evt.slice_rows(r, dev)
+    out = dict(slice_rows=slice_rows, slice_mb=slice_rows * r * 4 / 1e6, reds=threads * adds)
+    sizes = (("l2", slice_rows * r, None), ("dram", net.alive.numel() * r, flush))
+    for name, numel, fl in sizes:
+        buf = torch.zeros(numel, dtype=torch.float32, device=dev)
+        ms = time_ms(lambda: evt.red_probe(buf, adds, threads), flush=fl)
+        out[name] = threads * adds / (ms * 1e-3)
+        out[f"{name}_ms"] = ms
+        del buf
+    log(f"[kernel] event_deliver yardstick, RED rate (red_probe, {threads * adds} f32 "
+        f"reductions at random positions): into one slice ({out['slice_mb']:.1f} MB, "
+        f"{slice_rows} ring rows, in the L2) {out['l2'] / 1e9:.1f} G/s "
+        f"({out['l2_ms']:.4f} ms); "
+        f"into a ring-sized buffer ({numel * 4 / 1e6:.0f} MB, from DRAM) "
+        f"{out['dram'] / 1e9:.1f} G/s ({out['dram_ms']:.4f} ms)")
+    return out
+
+
+# Where the kernel switches regime: the steady inter packets keep 1 in
+# `keep` of their fired entries (15.3 adds per ring sector at keep 1, so
+# ~0.5-7.6 below), the steady intra ones (1.6 at keep 1, ~0.2-0.8 below);
+# the iaf packets as they are.
+REGIME_KEEPS = {("steady", "inter"): (32, 16, 12, 8, 4, 2, 1),
+                ("steady", "intra"): (8, 4, 3, 2, 1), ("iaf", "inter"): (1,),
+                ("iaf", "intra"): (1,)}
+
+
+def regime_lines(net, windows: dict, tables: dict, flush) -> list[dict]:
+    """The scatter's two regimes, forced by a build of each
+    (``event_deliver_forced``), beside the kernel's own choice, on packets
+    thinned to fewer fired entries (``REGIME_KEEPS``), packed to the front
+    of each row as the engine packs them: each bitwise the
+    plain version, each timed (median of 20). Adds per sector count the
+    delivered synapses over all of the ring's 32-byte sectors, as the
+    kernel's choice does."""
+    import torch
+
+    from repro_torch.kernels import event_deliver as evt
+
+    a, n = net.alive.shape
+    r = net.ring_len
+    out = []
+    for run, (block, ring, t0, adaptive) in windows.items():
+        cases = event_packets(net, block, t0, adaptive=adaptive)
+        ring = ring.view(a * n, r)
+        scratch = ring.clone()
+        for pathway, (ids, _, per_area, t) in cases.items():
+            tgt, w, d = tables[pathway]
+            kw = dict(rows_per_area=per_area)
+            pad = per_area or a * n
+            real = (ids >= 0) & (ids < pad)
+            rank = real.cumsum(1)
+            for keep in REGIME_KEEPS[run, pathway]:
+                # 1 in `keep` of each row's fired entries, first in the row,
+                # as the engine packs a packet of fewer spikes.
+                kept = real & (rank % keep == 0)
+                order = torch.sort((~kept).to(torch.int8), dim=1, stable=True).indices
+                pk = torch.where(kept.gather(1, order), ids.gather(1, order),
+                                 torch.full_like(ids, pad))
+                src_rows, _ = event_adds(ring, pk, tables[pathway], per_area, t)
+                synapses = int((tgt[src_rows] >= 0).sum())
+                want = evt.event_deliver_plain(ring.clone(), pk, tgt, w, d, t, **kw)
+                ms = {}
+                for regime in ("auto", *evt.REGIMES):
+                    fn = (evt.event_deliver_cuda if regime == "auto" else
+                          lambda *x, regime=regime, **y: evt.event_deliver_forced(regime, *x, **y))
+                    if not bitwise_equal(fn(ring.clone(), pk, tgt, w, d, t, **kw), want):
+                        raise AssertionError(f"event_deliver {regime} ({run} {pathway}, 1 in "
+                                             f"{keep} entries) != plain version")
+                    ms[regime] = time_ms(lambda: fn(scratch, pk, tgt, w, d, t, **kw),
+                                         flush=flush)
+                del want
+                per_sector = synapses / (ring.numel() / 8)
+                best = min(ms["sliced"], ms["unsliced"])
+                log(f"[kernel] event_deliver regimes, {run} {pathway} 1 in {keep} fired entries "
+                    f"({src_rows.numel()} sources, {synapses} synapses, {per_sector:.2f} adds a "
+                    f"ring sector): sliced {ms['sliced']:.4f} ms, unsliced "
+                    f"{ms['unsliced']:.4f} ms, the kernel's choice {ms['auto']:.4f} ms "
+                    f"({100 * (ms['auto'] / best - 1):+.1f}% on the faster); bitwise == plain")
+                out.append(dict(packets=f"{run} {pathway}", keep=keep, adds_per_sector=per_sector,
+                                **{f"{k}_ms": v for k, v in ms.items()}))
+        del scratch
+    return out
+
+
+def phase_kernel_event(net, windows: dict, launches: dict) -> dict:
+    """event_deliver against its plain version at full width, bitwise, on
+    the packets the engine makes (``event_packets``) from fired windows:
+    ``windows`` maps a name to ``(block, ring, t0, adaptive)``, the iaf
+    run's last window (2.5 Hz, static packets) and LIF's steady state (~70
+    Hz, adaptive packets); then the iaf inter packets with every kind of
+    padding. Timed beside its bound, the plain version and the library's
+    scatter of the same adds (the gather of flat indices and weights from
+    the packets' table rows and ``index_add_``, timed together).
+
+    The bound: the packets, the fired rows' ``tgt``, ``w``/``d`` of the
+    delivered synapses, and 64 bytes (read and written once) per distinct
+    32-byte ring sector the adds touch, over the memory rate. Beside it the
+    ceiling of one reduction a synapse, the delivered synapses over the L2's
+    measured RED rate (``red_rates``), and the earlier bound (32 bytes of
+    ring per delivered synapse).
+
+    Then the kernel's two regimes on thinned packets (``regime_lines``)."""
+    import torch
+
+    from repro_torch.kernels import event_deliver as evt
 
     dev = net.device
     a, n = net.alive.shape
     r = net.ring_len
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
-    s_area, s_all = event_bounds(net, headroom=8.0, floor=16)  # EngineConfig's defaults
-    d_win = block.shape[0]
-    inter_ids, counts = ops.compact_ids_block(
-        block.reshape(d_win, -1), torch.arange(a * n, device=dev), size=s_all, fill_id=a * n)
-    busiest = int(counts.argmax())
-    intra_ids, _ = ops.compact_ids_block(
-        block[busiest], torch.arange(n, device=dev), size=s_area, fill_id=n)
-    padded = inter_ids.clone()
-    padded[0, :4] = torch.tensor([-1, a * n, a * n + 7, 2**31 - 1], dtype=torch.int32)
-    padded[1, :] = a * n                      # a row of padding only
-    padded[2, :3] = inter_ids[3, 0]           # one source three times
+    rates = red_rates(net, flush)
     flat = lambda x: x.view(a * n, -1)  # noqa: E731
     tables = {p: (flat(getattr(net, f"tgt_{p}")), flat(getattr(net, f"wout_{p}")),
                   flat(getattr(net, f"dout_{p}"))) for p in ("intra", "inter")}
-    cases = {"inter": (inter_ids, "inter", None, t0),
-             "intra": (intra_ids, "intra", n, t0 + busiest),
-             "inter, every padding": (padded, "inter", None, t0)}
-    ring = ring.view(a * n, r)
-    scratch = ring.clone()  # timing runs scatter into it, in place
     timings = {}
-    for name, (ids, pathway, per_area, t) in cases.items():
-        tgt, w, d = tables[pathway]
-        kw = dict(rows_per_area=per_area)
-        got = evt.event_deliver_cuda(ring.clone(), ids, tgt, w, d, t, **kw)
-        want = evt.event_deliver_plain(ring.clone(), ids, tgt, w, d, t, **kw)
-        if not bitwise_equal(got, want):
-            raise AssertionError(f"event_deliver ({name}) kernel != plain version: "
-                                 f"{int((got != want).sum())} ring entries differ")
-        err = max_abs_err(got, want)
-        # The real entries of the packets, their table rows and synapses.
-        n_src = n if per_area else a * n
-        row = torch.arange(ids.shape[0], device=dev)[:, None].expand(ids.shape)
-        real = (ids >= 0) & (ids < n_src)
-        src_rows = (ids + (row * n if per_area else 0))[real].long()
-        tg = tgt[src_rows].long()
-        hit = tg >= 0
-        delivered = int(hit.sum())
-        step = 0 if per_area else row[real][:, None]
-        off = (row[real] * n)[:, None] if per_area else 0
-        slots = torch.remainder(t + step + d[src_rows].long(), r)
-        flat_idx = ((tg + off) * r + slots)[hit]
-        vals = w[src_rows][hit]
-        if name == "inter, every padding":
-            log(f"[kernel] event_deliver {name}: bitwise == plain ({int(real.sum())} real "
-                f"ids of {ids.numel()})")
-            continue
-        ms = time_ms(lambda: evt.event_deliver_cuda(scratch, ids, tgt, w, d, t, **kw),
-                     flush=flush)
-        plain_ms = time_ms(lambda: evt.event_deliver_plain(scratch, ids, tgt, w, d, t, **kw),
-                           flush=flush, host_paced_ok=True)
-        library_ms = time_ms(lambda: scratch.view(-1).index_add_(0, flat_idx, vals),
-                             flush=flush)
-        # Bytes this data needs: the packets, the fired sources' whole tgt
-        # rows, w and d of the delivered synapses, and one 32-byte ring sector
-        # per delivered synapse.
-        nbytes = (ids.numel() * 4 + src_rows.numel() * tgt.shape[1] * 4
-                  + delivered * (4 + d.element_size()) + 32 * delivered)
-        bound_ms = max(nbytes / HBM_BYTES_PER_S, delivered / F32_OPS_PER_S) * 1e3
-        log(f"[kernel] event_deliver {name} packets {list(ids.shape)}, K_out {tgt.shape[1]}: "
-            f"bitwise == plain; {src_rows.numel()} fired sources, {delivered} synapses; "
-            f"{ms:.4f} ms (bound {bound_ms:.4f} ms by bytes, {100 * bound_ms / ms:.1f}% of "
-            f"it), plain {plain_ms:.3f} ms, index_add_ of the same adds {library_ms:.4f} ms")
-        timings[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                             library_ms=library_ms, err=err)
-    t = timings["inter"]
+    for run, (block, ring, t0, adaptive) in windows.items():
+        cases = event_packets(net, block, t0, adaptive=adaptive)
+        ring = ring.view(a * n, r)
+        scratch = ring.clone()  # timing runs scatter into it, in place
+        for pathway, (ids, _, per_area, t) in cases.items():
+            name = f"{run} {pathway}"
+            tgt, w, d = tables[pathway]
+            kw = dict(rows_per_area=per_area)
+            got = evt.event_deliver_cuda(ring.clone(), ids, tgt, w, d, t, **kw)
+            want = evt.event_deliver_plain(ring.clone(), ids, tgt, w, d, t, **kw)
+            if not bitwise_equal(got, want):
+                raise AssertionError(f"event_deliver ({name}) kernel != plain version: "
+                                     f"{int((got != want).sum())} ring entries differ")
+            err = max_abs_err(got, want)
+            del got, want
+            b = event_bound(ring, ids, tables[pathway], per_area, t, rates["l2"])
+            ms = time_ms(lambda: evt.event_deliver_cuda(scratch, ids, tgt, w, d, t, **kw),
+                         flush=flush)
+            plain_ms = time_ms(
+                lambda: evt.event_deliver_plain(scratch, ids, tgt, w, d, t, **kw),
+                reps=3 if adaptive else 20, flush=flush, host_paced_ok=True)
+
+            def library():
+                idx, vals, _ = b["gather"]()
+                scratch.view(-1).index_add_(0, idx, vals)
+
+            library_ms = time_ms(library, reps=10 if adaptive else 20, flush=flush,
+                                 host_paced_ok=True)
+            log(f"[kernel] event_deliver {name} packets {list(ids.shape)}, K_out "
+                f"{tgt.shape[1]}: bitwise == plain; {b['fired']} fired sources, "
+                f"{b['synapses']} synapses into {b['sectors']} ring sectors "
+                f"({b['synapses'] / max(b['sectors'], 1):.2f} adds a sector); {ms:.4f} ms, "
+                f"{b['synapses'] / ms / 1e6:.2f} G synapses/s ({bound_note(b, ms)}), "
+                f"plain {plain_ms:.3f} ms, gather + index_add_ of the same adds "
+                f"{library_ms:.4f} ms")
+            timings[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, err=err,
+                                 **{k: v for k, v in b.items() if k != "gather"})
+            del b
+        del scratch
+
+    # Every kind of padding, on the inter packets of each window (the
+    # kernel streams whole rows at 2.5 Hz and slices the ring at ~70 Hz).
+    for run, (block, ring, t0, adaptive) in windows.items():
+        ids = event_packets(net, block, t0, adaptive=adaptive)["inter"][0].clone()
+        ids[0, :4] = torch.tensor([-1, a * n, a * n + 7, 2**31 - 1], dtype=torch.int32)
+        ids[1, :] = a * n                      # a row of padding only
+        ids[2, :3] = ids[3, 0]                 # one source three times
+        tgt, w, d = tables["inter"]
+        ring = ring.view(a * n, r)
+        got = evt.event_deliver_cuda(ring.clone(), ids, tgt, w, d, t0)
+        if not bitwise_equal(got, evt.event_deliver_plain(ring.clone(), ids, tgt, w, d, t0)):
+            raise AssertionError(f"event_deliver ({run}, every padding) kernel != plain version")
+        real = int(((ids >= 0) & (ids < a * n)).sum())
+        log(f"[kernel] event_deliver {run} inter, every padding: bitwise == plain ({real} "
+            f"real ids of {ids.numel()})")
+        del got
+    regimes = regime_lines(net, windows, tables, flush)
+    t = timings["iaf inter"]
+    extra = {name.replace(" ", "_"): {k: v for k, v in x.items() if k != "err"}
+             for name, x in timings.items() if name != "iaf inter"}
     return dict(
         name="event_deliver", route="cuda", source="src/repro_torch/kernels/csrc/event_deliver.cu",
         replaces="src/repro/kernels/ops.py:244 (jnp scatter; no Pallas counterpart)",
-        launches=launches["event_deliver"], max_abs_err=max(
-            timings["intra"]["err"], t["err"]),
-        ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by="bytes",
-        library_ms=t["library_ms"], checked=True,
-        intra={k: timings["intra"][k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")})
+        launches=launches["event_deliver"], max_abs_err=max(x["err"] for x in timings.values()),
+        ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+        library_ms=t["library_ms"], checked=True, red_rates=rates, regimes=regimes, **extra)
 
 
 def phase_kernels(net, launches: dict, lif_profile_us: dict) -> list[dict]:
@@ -1511,14 +1755,16 @@ def main() -> int:
     net = phase_build_network(spec)
     pallas = phase_main_path(spec, net)
     event_launches = phase_event_runs(spec, net, pallas)
-    phase_lif_steady(spec, net, pallas["lif_start"])
+    steady = phase_lif_steady(spec, net, pallas["lif_start"])
     block, ring = pallas["iaf_store"][-1]  # the iaf runs' last window, from t0 = 5 D
-    event_row = phase_kernel_event(net, block, ring, 5 * net.delay_ratio, event_launches)
+    event_row = phase_kernel_event(
+        net, {"iaf": (block, ring, 5 * net.delay_ratio, False), "steady": (*steady, True)},
+        event_launches)
     # The outgoing tables and the runs' stores go before the kernel phases'
     # large temporaries.
     net = dataclasses.replace(net, **{f: None for f in OUTGOING})
     launches, profiled = pallas["launches"], pallas["profiled"]
-    del pallas, block, ring
+    del pallas, block, ring, steady
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     log(f"[full] outgoing tables freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")

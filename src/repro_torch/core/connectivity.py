@@ -36,6 +36,7 @@ __all__ = [
     "build_network",
     "add_outgoing_tables",
     "network_from_numpy",
+    "check_outgoing_order",
     "draw_pathway_rows",
 ]
 
@@ -43,6 +44,8 @@ _TABLES = ("alive", "rate_hz", "src_intra", "w_intra", "delay_intra",
            "src_inter", "w_inter", "delay_inter")
 OUTGOING_TABLES = ("tgt_intra", "wout_intra", "dout_intra",
                    "tgt_inter", "wout_inter", "dout_inter")
+# Table rows a build or check step handles at once on the device.
+CHUNK_ROWS = 8192
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,7 +132,32 @@ def network_from_numpy(arrays: dict, *, device, **static) -> Network:
     dev = torch.device(device)
     names = _TABLES + tuple(k for k in OUTGOING_TABLES if arrays.get(k) is not None)
     tables = {k: torch.from_numpy(np.array(arrays[k])).to(dev) for k in names}
-    return Network(**tables, **static)
+    net = Network(**tables, **static)
+    check_outgoing_order(net)
+    return net
+
+
+def check_outgoing_order(net: Network) -> None:
+    """Raise ``ValueError`` unless every outgoing row of ``net`` ascends as
+    unsigned 32-bit values: real targets in ascending order, the ``-1``
+    padding only at the end. The event kernel relies on that order
+    (``kernels/event_deliver``); :func:`add_outgoing_tables` gives it by
+    construction, as the JAX package's stable argsort does. A check, in row
+    chunks: nothing is sorted."""
+    for name in ("tgt_intra", "tgt_inter"):
+        tgt = getattr(net, name)
+        if tgt is None or tgt.shape[-1] < 2:
+            continue
+        rows = tgt.reshape(-1, tgt.shape[-1])
+        for r0 in range(0, rows.shape[0], CHUNK_ROWS):
+            key = rows[r0:r0 + CHUNK_ROWS].long() & 0xFFFFFFFF  # -1 as the largest
+            bad = (key[:, 1:] < key[:, :-1]).any(dim=1)
+            if bool(bad.any()):
+                row = r0 + int(bad.nonzero()[0, 0])
+                raise ValueError(
+                    f"{name}: outgoing row {row} does not ascend with its -1 padding at "
+                    f"the end (the event kernel needs that order): "
+                    f"{rows[row, :8].tolist()}...")
 
 
 # ---------------------------------------------------------------------------
@@ -333,7 +361,7 @@ def _outgoing(src, w, d, n_src: int, chunk_rows: int):
 
 
 def add_outgoing_tables(net: Network, outgoing: bool | str = True, *,
-                        chunk_rows: int = 8192) -> Network:
+                        chunk_rows: int = CHUNK_ROWS) -> Network:
     """``net`` with its outgoing tables, built on ``net``'s device.
 
     ``outgoing=True`` inverts both pathways, ``"intra"`` the intra tier
@@ -364,7 +392,7 @@ def build_network(
     size_multiple: int = 1,
     outgoing: bool = False,
     device=None,
-    chunk_rows: int = 8192,
+    chunk_rows: int = CHUNK_ROWS,
 ) -> Network:
     """Instantiate the connectivity tables for ``spec`` on ``device``.
 

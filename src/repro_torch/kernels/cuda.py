@@ -8,6 +8,8 @@ process per source, all started together. Libraries land in ``_build/``
 beside this file, named by a hash of the source, the shared headers
 (``csrc/*.cuh``) and the flags, so an edited source or header is rebuilt.
 A failed build raises; no caller falls back to the plain PyTorch version.
+A development variant of a source (``-D`` macros, ``library(name,
+defines)``) is built beside it under its own hash, for measurements only.
 
 ``launches[name]`` counts the launches of each kernel. A wrapper adds one
 where it launches its kernel and nowhere else, so a run can show that its
@@ -43,7 +45,7 @@ NVCC_FLAGS = {
 
 launches: dict[str, int] = {name: 0 for name in KERNELS}
 build_logs: dict[str, str] = {}
-_libs: dict[str, ctypes.CDLL] = {}
+_libs: dict[tuple[str, tuple[str, ...]], ctypes.CDLL] = {}
 
 _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _U32 = ctypes.c_uint32
@@ -70,8 +72,10 @@ _SIGNATURES = {
         "flash_attention_smem_bytes": [_I, _I],
     },
     "event_deliver": {
-        name: [_P] * 5 + [_I64, _I, _I, _I, _I, _I64, _I64, _I64, _P]
-        for name in ("event_deliver_i8_launch", "event_deliver_i32_launch")
+        **{name: [_P] * 6 + [_I64, _I, _I, _I, _I, _I64, _I64, _I64, _P]
+           for name in ("event_deliver_i8_launch", "event_deliver_i32_launch")},
+        "event_deliver_slice_rows": [_I, _P],
+        "event_deliver_red_probe": [_P, _I64, _I, _I64, _P],
     },
 }
 
@@ -90,20 +94,24 @@ def _nvcc() -> str:
     return str(Path(CUDA_HOME) / "bin" / "nvcc")
 
 
-def _target(name: str) -> Path:
+def _flags(name: str, defines: tuple[str, ...]) -> list[str]:
+    return [*NVCC_FLAGS[name], *(f"-D{x}" for x in defines)]
+
+
+def _target(name: str, defines: tuple[str, ...] = ()) -> Path:
     parts = [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]
     digest = hashlib.sha256(
-        b"".join(p.read_bytes() for p in parts) + " ".join(NVCC_FLAGS[name]).encode()
+        b"".join(p.read_bytes() for p in parts) + " ".join(_flags(name, defines)).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def build_all(names=KERNELS) -> dict[str, float]:
+def build_all(names=KERNELS, defines: tuple[str, ...] = ()) -> dict[str, float]:
     """Build every library not yet built, in parallel; seconds per source.
 
     Raises ``RuntimeError`` with the compiler's output if any build fails.
     The ``-Xptxas -v`` report (registers, shared memory, spills) of each
-    build is kept in ``build_logs``.
+    build is kept in ``build_logs``, under the name and the ``defines``.
     """
     import time
 
@@ -111,18 +119,18 @@ def build_all(names=KERNELS) -> dict[str, float]:
     nvcc = _nvcc()
     procs = {}
     for name in names:
-        target = _target(name)
+        target = _target(name, defines)
         if target.exists():
             continue
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS[name], "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc, *_flags(name, defines), "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (time.perf_counter(), tmp, target, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     seconds, failed = {}, []
     for name, (t0, tmp, target, proc) in procs.items():
         out, _ = proc.communicate()
         seconds[name] = time.perf_counter() - t0
-        build_logs[name] = out
+        build_logs[" ".join((name, *defines))] = out
         if proc.returncode != 0:
             failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{out}")
         else:
@@ -132,18 +140,19 @@ def build_all(names=KERNELS) -> dict[str, float]:
     return seconds
 
 
-def library(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built on first use."""
-    lib = _libs.get(name)
+def library(name: str, defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built on first use; with
+    ``defines`` (``"MACRO=value"``), a development variant of its source."""
+    lib = _libs.get((name, defines))
     if lib is None:
-        build_all((name,))
-        lib = ctypes.CDLL(str(_target(name)))
+        build_all((name,), defines)
+        lib = ctypes.CDLL(str(_target(name, defines)))
         for fn, argtypes in _SIGNATURES[name].items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
         lib.error_string.argtypes = [ctypes.c_int]
         lib.error_string.restype = ctypes.c_char_p
-        _libs[name] = lib
+        _libs[name, defines] = lib
     return lib
 
 

@@ -405,9 +405,18 @@ def test_flash_attention_bf16_route_refuses_what_it_was_not_built_for(dev):
 EVENT_SHAPES = [(10, 300, 5000, 64), (4, 70, 2000, 333), (1, 1, 100, 7)]
 
 
+def as_outgoing_rows(tgt):
+    """Rows as the outgoing tables hold them (the kernel's precondition):
+    real targets ascending, -1 padding at the end."""
+    key = np.where(tgt < 0, np.iinfo(np.int64).max, tgt.astype(np.int64))
+    key.sort(axis=1)
+    return np.where(key == np.iinfo(np.int64).max, -1, key).astype(np.int32)
+
+
 def event_inputs(dev, rows, s_max, n_src, k, delay_dtype, per_area, seed):
-    """Outgoing tables with -1 padding, grid weights, a ring without -0.0,
-    and packets with real ids, padding ids (>= n_src and < 0) and repeats."""
+    """Outgoing tables with -1 padding (rows ascending, as built), grid
+    weights, a ring without -0.0, and packets with real ids, padding ids
+    (>= n_src and < 0) and repeats."""
     rng = np.random.default_rng(seed)
     t = lambda x: torch.from_numpy(x).to(dev)  # noqa: E731
     n_tgt = n_src
@@ -417,7 +426,7 @@ def event_inputs(dev, rows, s_max, n_src, k, delay_dtype, per_area, seed):
     ids = rng.integers(-3, bound + 5, (rows, s_max)).astype(np.int32)
     ring = np.round(rng.normal(0, 300, (n_tgt, 110)) * 4) / 1024 + 0.0
     return dict(
-        ring=t(ring.astype(np.float32)), ids=t(ids), tgt=t(tgt),
+        ring=t(ring.astype(np.float32)), ids=t(ids), tgt=t(as_outgoing_rows(tgt)),
         w=t((np.round(rng.normal(0, 60, (n_src, k)) * 256) / 256).astype(np.float32)),
         d=t(rng.integers(1, 101, (n_src, k)).astype(delay_dtype)))
 
@@ -443,16 +452,21 @@ def test_event_deliver_kernel_matches_plain(dev, shape, delay_dtype, per_area):
     assert not torch.equal(want, x["ring"])
 
 
-# Packet sizes (S of 4 rows) that make the launcher choose each group size,
-# 8, 4, 2 and 1 warps per entry, with 4-8 resident 256-thread blocks per SM
-# on the H100's 132 SMs.
+# Packet sizes (S of 4 rows, 160 to 192,000 entries, nearly all of them
+# real) that make the kernel take both regimes, the unsliced one with 8 and
+# 4 warps an entry and the sliced one with 8, 4, 2 and 1 parts a segment,
+# with 3 resident 256-thread blocks per SM on the H100's 132 SMs (2 in the
+# sliced regime).
 @pytest.mark.parametrize("per_area", [False, True], ids=["cycles", "areas"])
-@pytest.mark.parametrize("s_max", [70, 400, 800, 1500, 6000])
+@pytest.mark.parametrize("s_max", [40, 70, 250, 400, 800, 1500, 3000, 6000, 12000, 24000,
+                                   48000])
 def test_event_deliver_kernel_every_group_size_matches_plain(dev, s_max, per_area):
     from repro_torch.kernels import event_deliver as evt
 
-    x = event_inputs(dev, 4, s_max, 2000, 333, np.int8, per_area, seed=9)
-    kw = dict(rows_per_area=500 if per_area else None)
+    # 20,000 table and ring rows keep every partial sum far below 2^13, where
+    # the ring's 1/1024 grid stays exact in f32, at 192,000 entries too.
+    x = event_inputs(dev, 4, s_max, 20_000, 333, np.int8, per_area, seed=9)
+    kw = dict(rows_per_area=5000 if per_area else None)
     got = evt.event_deliver_cuda(x["ring"].clone(), x["ids"], x["tgt"], x["w"], x["d"], 5,
                                  **kw)
     torch.cuda.synchronize()
@@ -473,6 +487,154 @@ def test_event_deliver_kernel_on_packets_without_spikes(dev, case):
     assert cuda.launches["event_deliver"] == before + (case == "padding_only")
     same([got], [x["ring"]])
     same([got], [evt.event_deliver_plain(x["ring"].clone(), ids, x["tgt"], x["w"], x["d"], 7)])
+
+
+# Dense packets over rings of many slices: (ring rows, K_out, S of 4 rows).
+# "three_l2": a ring of three times the L2 and 128,000 entries of 48
+# targets, more than one add per ring sector; "parts": 3.5 slices of rings
+# and 3,200 entries of 512 targets, few enough for several warps (parts) a
+# segment; "odd_k": 3.5 slices, K_out 333 and tables whose element count is
+# not a multiple of the 8 a vector load reads.
+SLICING_CASES = {"three_l2": (None, 48, 32_000), "parts": (3.5, 512, 800),
+                 "odd_k": (3.5, 333, 1600)}
+
+
+def slicing_inputs(dev, case, delay_dtype, per_area, seed=11):
+    """Inputs that the kernel slices (no knob sets that): beside random
+    sources, one source whose targets straddle each slice boundary, 4,000
+    sources that all target one hot row, twice each, and the tables' last
+    row, fired, with no padding, so the kernel reads up to the tables'
+    end."""
+    from repro_torch.kernels import event_deliver as evt
+
+    r, areas = 110, 4
+    slices, k, s_max = SLICING_CASES[case]
+    slice_rows = evt.slice_rows(r, dev)
+    l2 = torch.cuda.get_device_properties(dev).L2_cache_size
+    n = 3 * l2 // (4 * r) if slices is None else int(slices * slice_rows)
+    n -= n % areas
+    if case == "odd_k" and n * k % 8 == 0:
+        n -= areas  # n % 8 == 4 then, and k is odd
+    area = n // areas
+    assert n // slice_rows >= 3
+    x = event_inputs(dev, areas, s_max, n, k, delay_dtype, per_area, seed)
+    tgt = x["tgt"].cpu().numpy()
+    rng = np.random.default_rng(seed)
+    special = []
+    for b in range(slice_rows, n, slice_rows):  # a source at each boundary
+        lo = b - k // 2 - (area * (b // area) if per_area else 0)
+        row = np.clip(np.arange(lo, lo + k), 0, (area if per_area else n) - 1)
+        src = b if per_area else int(rng.integers(0, n))
+        tgt[src] = row
+        special.append(src)
+    hot = int(rng.integers(0, area if per_area else n))
+    hot_src = rng.choice(area if per_area else n, 4000, replace=False)
+    tgt[hot_src, :2] = hot
+    tgt[hot_src] = as_outgoing_rows(tgt[hot_src])
+    tgt[n - 1] = np.sort(rng.integers(0, area if per_area else n, k))
+    x["tgt"] = torch.from_numpy(tgt).to(dev)
+    ids = x["ids"].cpu().numpy()
+    hot_ids = min(1000, s_max // 2)
+    if per_area:  # each special source in its own area's packet
+        for src in special:
+            ids[src // area, int(rng.integers(0, s_max))] = src % area
+        ids[0, s_max - hot_ids:] = hot_src[:hot_ids]  # area 0's rows hold the hot sources
+        ids[areas - 1, -1] = area - 1
+    else:
+        ids[0, :len(special)] = special
+        ids[1, :hot_ids] = hot_src[:hot_ids]
+        ids[2, -1] = n - 1
+    x["ids"] = torch.from_numpy(ids).to(dev)
+    return x, slice_rows, l2
+
+
+@pytest.mark.parametrize("per_area", [False, True], ids=["cycles", "areas"])
+@pytest.mark.parametrize("delay_dtype", [np.int8, np.int32])
+@pytest.mark.parametrize("case", list(SLICING_CASES))
+def test_event_deliver_kernel_over_many_slices(dev, case, delay_dtype, per_area):
+    """Rings of many slices, a quarter of the L2 each (the kernel derives
+    that from the card): segments that straddle slice boundaries, one hot
+    target row that takes thousands of adds, bitwise the plain version."""
+    from repro_torch.kernels import event_deliver as evt
+
+    x, slice_rows, l2 = slicing_inputs(dev, case, delay_dtype, per_area)
+    n = x["ring"].shape[0]
+    assert slice_rows == max(1, l2 // 4 // (110 * 4))
+    if case == "three_l2":
+        assert x["ring"].numel() * 4 >= 3 * l2 - 4 * 110 * 4
+    if case == "odd_k":
+        assert x["tgt"].numel() % 8 != 0
+    kw = dict(rows_per_area=n // 4 if per_area else None)
+    before = cuda.launches["event_deliver"]
+    got = evt.event_deliver_cuda(x["ring"].clone(), x["ids"], x["tgt"], x["w"], x["d"], 77,
+                                 **kw)
+    torch.cuda.synchronize()
+    assert cuda.launches["event_deliver"] == before + 1
+    want = evt.event_deliver_plain(x["ring"].clone(), x["ids"], x["tgt"], x["w"], x["d"], 77,
+                                   **kw)
+    same([got], [want])
+    assert not torch.equal(want, x["ring"])
+
+
+# The development builds that force one regime, on a sparse packet (40
+# entries a row) and a dense one (3,000): each regime on both.
+@pytest.mark.parametrize("per_area", [False, True], ids=["cycles", "areas"])
+@pytest.mark.parametrize("s_max", [40, 3000])
+@pytest.mark.parametrize("regime", ["sliced", "unsliced"])
+def test_event_deliver_forced_regimes_match_plain(dev, regime, s_max, per_area):
+    from repro_torch.kernels import event_deliver as evt
+
+    x = event_inputs(dev, 4, s_max, 20_000, 333, np.int32, per_area, seed=13)
+    kw = dict(rows_per_area=5000 if per_area else None)
+    before = dict(cuda.launches)
+    got = evt.event_deliver_forced(regime, x["ring"].clone(), x["ids"], x["tgt"], x["w"],
+                                   x["d"], 21, **kw)
+    torch.cuda.synchronize()
+    assert cuda.launches == before  # a measurement build: not counted
+    same([got], [evt.event_deliver_plain(x["ring"].clone(), x["ids"], x["tgt"], x["w"],
+                                         x["d"], 21, **kw)])
+
+
+def test_event_deliver_kernel_ignores_what_its_scratch_holds(dev):
+    """The scratch is kept between launches: its cursors may hold anything
+    (positions left by another packet), and each launch leaves its two
+    counters zero."""
+    from repro_torch.kernels import event_deliver as evt
+
+    x, _, _ = slicing_inputs(dev, "parts", np.int8, False)
+    args = (x["ids"], x["tgt"], x["w"], x["d"], 77)
+    want = evt.event_deliver_plain(x["ring"].clone(), *args)
+    first = evt.event_deliver_cuda(x["ring"].clone(), *args)
+    buf = evt._scratches[x["ring"].device, torch.cuda.current_stream(dev).cuda_stream]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    buf[2:] = torch.randint(0, 600, (buf.numel() - 2,), device=dev, generator=gen)
+    second = evt.event_deliver_cuda(x["ring"].clone(), *args)
+    torch.cuda.synchronize()
+    same([first, second], [want, want])
+    assert buf[:2].tolist() == [0, 0]
+
+
+def test_event_deliver_kernel_refuses_misaligned_tables(dev):
+    from repro_torch.kernels import event_deliver as evt
+
+    x = event_inputs(dev, 2, 16, 200, 37, np.int8, False, seed=3)
+    before = cuda.launches["event_deliver"]
+    for name in ("tgt", "w", "d"):
+        y = dict(x)
+        y[name] = torch.cat([x[name].view(-1)[:1], x[name].view(-1)])[1:].view(200, 37)
+        with pytest.raises(ValueError, match=f"{name} must start on a"):
+            evt.event_deliver_cuda(x["ring"].clone(), x["ids"], y["tgt"], y["w"], y["d"], 0)
+    assert cuda.launches["event_deliver"] == before
+
+
+def test_red_probe_is_not_a_launch_of_the_scatter(dev):
+    from repro_torch.kernels import event_deliver as evt
+
+    buf = torch.zeros(1 << 20, device=dev)
+    before = dict(cuda.launches)
+    evt.red_probe(buf, adds=4, threads=1024)
+    torch.cuda.synchronize()
+    assert float(buf.sum()) == 4 * 1024 and cuda.launches == before
 
 
 # Event engine configs on the card against the CPU: (name, model, config).

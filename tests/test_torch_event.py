@@ -113,6 +113,57 @@ def test_network_from_numpy_carries_outgoing_tables():
         tconn.build_network(tspec, seed=654, outgoing="inter", device="cpu")
 
 
+def ascends_with_padding_last(tgt) -> bool:
+    """Every row ascends as unsigned 32-bit values: real targets in order,
+    the -1 padding only at the end (numpy, independent of the port)."""
+    rows = np.asarray(tgt).reshape(-1, np.shape(tgt)[-1]).astype(np.int64) & 0xFFFFFFFF
+    return bool((np.diff(rows, axis=1) >= 0).all())
+
+
+@pytest.mark.parametrize("case", list(OUTGOING_CASES))
+def test_outgoing_rows_ascend_with_padding_last(case):
+    """The event kernel's precondition (``kernels/event_deliver``): the
+    port's outgoing tables, built whole (``build_network(outgoing=...)``) or
+    added to a built network (``add_outgoing_tables``), and the JAX
+    package's, carried in through ``network_from_numpy``."""
+    kw, multiple, outgoing = OUTGOING_CASES[case]
+    jspec, tspec = specs(**kw)
+    built = tconn.build_network(tspec, seed=12, size_multiple=multiple, outgoing=outgoing,
+                                device="cpu", chunk_rows=7)
+    added = tconn.add_outgoing_tables(
+        tconn.build_network(tspec, seed=12, size_multiple=multiple, device="cpu"), outgoing)
+    jnet = jbuild(jspec, seed=12, size_multiple=multiple, outgoing=outgoing)
+    for name in ("tgt_intra", "tgt_inter"):
+        tables = [getattr(built, name), getattr(added, name), getattr(jnet, name)]
+        if tables[2] is None:
+            assert tables[0] is None and tables[1] is None, name
+            continue
+        assert all(ascends_with_padding_last(t) for t in tables), name
+        padding = np.asarray(tables[2]) < 0
+        assert padding.any(), name  # the rows do carry padding
+    tconn.check_outgoing_order(built)
+    tconn.check_outgoing_order(added)
+    carry(jnet)  # checks the carried tables' order
+
+
+@pytest.mark.parametrize("table", ["tgt_intra", "tgt_inter"])
+@pytest.mark.parametrize("fault", ["swapped", "padding_inside"])
+def test_network_from_numpy_refuses_unsorted_outgoing_rows(table, fault):
+    jspec, _ = specs(n_areas=2, n_per_area=32, k_intra=4, k_inter=4)
+    jnet = jbuild(jspec, seed=654, outgoing=True)
+    arrays = {f: (None if getattr(jnet, f) is None else np.array(getattr(jnet, f)))
+              for f in TABLES + OUT}
+    rows = arrays[table].reshape(-1, arrays[table].shape[-1])
+    r = int(np.argmax((rows >= 0).sum(axis=1) >= 2))  # a row with two real targets
+    if fault == "swapped":
+        rows[r, [0, 1]] = rows[r, [1, 0]] if rows[r, 0] != rows[r, 1] else (rows[r, 0] + 1,
+                                                                            rows[r, 0])
+    else:
+        rows[r, 0] = -1
+    with pytest.raises(ValueError, match=f"{table}: outgoing row {r} "):
+        tconn.network_from_numpy(arrays, device="cpu", **{f: getattr(jnet, f) for f in STATIC})
+
+
 # ---------------------------------------------------------------------------
 # Packet primitives and scatters
 # ---------------------------------------------------------------------------
