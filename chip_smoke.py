@@ -55,8 +55,23 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    version (3 windows at the steady size) and the gather + ``index_add_``
    of the same adds; then both of the kernel's regimes (builds that force
    each) beside its own choice, bitwise and timed, on packets thinned to
-   0.5-15 adds per ring sector; then the outgoing tables are freed;
-6. each pallas-path kernel against its plain PyTorch version on the card,
+   0.5-15 adds per ring sector;
+6. ``[resilience]`` the resilient run loop on the same network: LIF at its
+   steady state (window 40, ~70 Hz) on ``event`` with adaptive packets and
+   the ``lif_update`` kernel, and ignore-and-fire on ``pallas``, fused and
+   overlapped, each 6 windows through ``run_windows`` uninterrupted, then
+   again with a checkpoint every 2 windows, one transient write failure and
+   a preemption after 4 windows, resumed by ``restore_sim`` for the last 2:
+   spike blocks, rings, neuron leaves and ``spike_count`` bitwise the
+   uninterrupted run's with ``overflow == 0``; launches counted (reset just
+   before, read just after), drains and retries asserted; the checkpoint's
+   bytes, the save split into the device-to-host copy and the write, and
+   the restore time, beside the card's name and power limit (in a temporary
+   directory, removed after); and the uninterrupted run's per-window times
+   (``run_windows``: a device synchronize every window, the first window a
+   fresh engine's) beside ``Engine.run``'s ms/window over the same 6
+   windows, alternated twice; then the outgoing tables are freed;
+7. each pallas-path kernel against its plain PyTorch version on the card,
    bitwise, at the main path's shapes (superstep_iaf also at the main path's
    2.5 Hz), and timed beside its memory bound: median of 100 windows for
    lif_update, 20 for spike_deliver and event_deliver (10 for the library
@@ -70,7 +85,26 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    ``[timer]`` line. lif_update is also timed host-paced, the timer of
    earlier runs, and its per-launch device time in the profiled LIF window
    is printed;
-7. the port on the card against the port on the CPU at the quickstart size
+8. ``[cli]`` with the network freed, ``python -m
+   repro_torch.launch.simulate`` as subprocesses at the paper's per-area size
+   and in-degree (``--model mam_benchmark --areas 4 --n-per-area 130000 --k
+   6000 --seed 12``), each line of their reports echoed: (a) ``--backend
+   pallas --neuron lif --compare --profile --t-ms 25`` (conventional ==
+   structure-aware, and the phase table at full width), (b) ``--backend
+   event --neuron lif --compare --compare-adaptive --compare-overlap --t-ms
+   25 --spikes-out A.npz``, (c) ``--backend event --neuron lif --adaptive
+   --overlap --t-ms 25 --checkpoint-dir D --inject-fault preempt:window=15``
+   (exit 0 and the PREEMPTED line) and (d) the same without the fault,
+   ``--resume --spikes-out C.npz``: every exit 0, ``C.npz`` bitwise
+   ``A.npz`` (whose last leg is structure-aware, adaptive and overlapped),
+   LIF spiking on both sides of the preemption (it first spikes in window
+   11 at this size; the checkpoint's spike count lies strictly between 0
+   and the final one), so a ring lost or changed at the checkpoint shows;
+   each run's kernel launches (the subprocess prints its counts after the
+   CLI returns) nonzero for the kernels of its path, and the resilient
+   legs' per-window times from ``run_windows`` (the first window a cold
+   process's);
+9. the port on the card against the port on the CPU at the quickstart size
    (4 x 256 neurons, K 32/32), bitwise over 10 windows (40 for LIF, which
    first spikes in window 18 at this size), ``overflow`` included:
    ignore-and-fire (30 Hz) and LIF on ``pallas`` (both schedules and
@@ -81,30 +115,30 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
 then, with the simulator's tables freed, the LM path (weights drawn on the
 card from seed 0, f32 products in f32):
 
-8. ``[lm]`` qwen2-0.5b at its published width and dtypes (bf16), B 2 x S
+10. ``[lm]`` qwen2-0.5b at its published width and dtypes (bf16), B 2 x S
    4096 with ``use_pallas_attention=True``: 1 warm-up + 3 timed forwards,
    exactly 24 ``flash_attention`` launches each (counts reset just before,
    read just after), finite logits, and the profile of one forward;
-9. ``[lm]`` the same model in f32: the kernel against the streaming path
+11. ``[lm]`` the same model in f32: the kernel against the streaming path
    (<= 1e-4 of the largest logit), and prefill of 4096 tokens + decode of
    token 4096 against the forward of the 5120-token sequence (<= 5e-4);
-10. ``[lm]`` serving at the published dtypes through
+12. ``[lm]`` serving at the published dtypes through
    ``repro_torch.serve_lm.serve``: batch 4, 4096-token prompts, 32 tokens
    (prefill attends with a cache, so no kernel launch);
-11. ``[lm]`` h2o-danube-1.8b, bf16, B 1 x S 8192 (its 4096 window cuts in):
+13. ``[lm]`` h2o-danube-1.8b, bf16, B 1 x S 8192 (its 4096 window cuts in):
    24 launches per forward; in f32, kernel against streaming (<= 1e-4);
-12. ``[kernel]`` flash_attention against its plain version at qwen2's and
+14. ``[kernel]`` flash_attention against its plain version at qwen2's and
     danube's shapes and with k_len < S (f32: max abs <= 2e-5; bf16: one bf16
     ulp of the plain output's largest magnitude, and per element one bf16 ulp
     of the larger of the two values + 2e-5, the card tests' bar, which
     ``scaled_dot_product_attention`` must fail at qwen2's shape: it rounds P
-    to bf16), timed (as in 6, median of 20) beside its bound, the plain
+    to bf16), timed (as in 7, median of 20) beside its bound, the plain
     version and SDPA (the library time, and its own error);
     the bf16 route runs on the tensor cores, the f32 route (timed at qwen2's
     shape) on the CUDA cores; the tensor-core kernel's wgmma and TMA
     instructions counted in its SASS (none fails the run), its registers,
     spills and shared memory from the build report;
-13. ``[cpu]`` reduced qwen2-0.5b in f32 on the card against the CPU, with
+15. ``[cpu]`` reduced qwen2-0.5b in f32 on the card against the CPU, with
     ``FLASH_THRESHOLD`` lowered so the forward runs the kernel: the forward
     (<= 1e-4) and prefill + 4 decode steps (<= 5e-4).
 
@@ -116,6 +150,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -278,16 +313,20 @@ def state_equal(a, b) -> bool:
     return a.t == b.t and all(bitwise_equal(x, y) for x, y in leaves)
 
 
+def card_name_power() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
 def phase_device() -> dict:
     import torch
 
     name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     log(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
         f"devices {torch.cuda.device_count()}: {name}")
-    log(smi.splitlines()[0])  # nvidia-smi's name and power limit, as it prints them
+    log(card_name_power())
     return dict(platform="gpu", kind=name, count=torch.cuda.device_count())
 
 
@@ -634,8 +673,9 @@ def phase_lif_steady(spec, net, start) -> tuple:
     pallas run window by window with ``overflow == 0``; one window of each
     adaptive event run profiled, with ``event_deliver``'s share of the
     device's busy time. Then one window of the static event packets, which
-    drop spikes at this rate: the count. Returns the last window's block and
-    ring and its first step, for ``[kernel]``."""
+    drop spikes at this rate: the count. Returns the last window's block,
+    ring and first step, for ``[kernel]``, and the state at window
+    ``LIF_STEADY_WINDOWS``, for ``[resilience]``."""
     from repro_torch.core import EngineConfig, make_simulation
 
     model_ms = net.delay_ratio * net.dt_ms
@@ -679,7 +719,216 @@ def phase_lif_steady(spec, net, start) -> tuple:
     log(f"[steady] lif event fused with static packets: {int(st.overflow)} spikes dropped "
         f"in one window")
     block, ring = store[-1]
-    return block, ring, (LIF_STEADY_WINDOWS + 5) * net.delay_ratio
+    return (block, ring, (LIF_STEADY_WINDOWS + 5) * net.delay_ratio), start
+
+
+def phase_resilience(spec, net, lif_start) -> None:
+    """``[resilience]``: preempt and resume through ``run_windows`` at full
+    width, bitwise the uninterrupted run (see the module docstring, item 6)."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import manager as ckpt_manager
+    from repro_torch.core import EngineConfig, make_simulation, run_windows
+    from repro_torch.core import faults as faults_lib
+    from repro_torch.core import schedule as schedule_lib
+    from repro_torch.kernels import cuda
+
+    D = net.delay_ratio
+    # (name, config, start state, launches per window, drains when preempted)
+    runs = [("lif event adaptive", dict(neuron_model="lif", delivery_backend="event",
+                                        adaptive_exchange=True, fused_update=True),
+             lif_start, dict(event_deliver=11, lif_update=10), 0),
+            ("iaf pallas fused overlapped",
+             dict(neuron_model="ignore_and_fire", delivery_backend="pallas",
+                  superstep_kernel=True, overlap_exchange=True),
+             None, dict(spike_deliver=10, superstep_iaf=1), 2)]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        for name, kw, start, per_window, drains in runs:
+            eng = make_simulation(spec, EngineConfig(**kw), net=net)
+            st0 = eng.init() if start is None else start
+            w0 = st0.t // D
+            cuda.reset_launches()
+            blocks = []
+            ref = run_windows(eng, st0, 6, on_block=lambda w, b: blocks.append(b.clone()))
+            directory = os.path.join(tmp, name.replace(" ", "_"))
+            inj = faults_lib.FaultInjector(faults_lib.FaultConfig(
+                preempt_after_window=w0 + 4, ckpt_write_failures=1), n_devices=1,
+                delay_ratio=D)
+            ckpt = schedule_lib.SimCheckpointer(directory, eng, net, every=2, injector=inj,
+                                                backoff_s=0.01)
+            try:
+                run_windows(eng, st0, 6, checkpointer=ckpt, faults=inj)
+                raise AssertionError(f"resilience {name}: no preemption")
+            except faults_lib.Preempted as exc:
+                leg = exc.result
+                if exc.window != w0 + 4 or leg.drains != drains or ckpt.retry_count != 1:
+                    raise AssertionError(
+                        f"resilience {name}: preempted at {exc.window}, drains {leg.drains}, "
+                        f"retries {ckpt.retry_count}")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, info = schedule_lib.restore_sim(directory, eng, net)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            got = []
+            res = run_windows(eng, st, 2, on_block=lambda w, b: got.append((w, b)))
+            launches = dict(cuda.launches)
+            want = {k: 12 * per_window.get(k, 0) for k in cuda.KERNELS}
+            if launches != want:
+                raise AssertionError(f"resilience {name}: launches {launches}, expected {want}")
+            # The loop's cost per window beside the engine's own run of the
+            # same 6 windows, alternated: loop (the run above), run, loop,
+            # run (after the launch count, which they would change).
+            loops, runs_ms = [ref.window_times_s * 1e3], []
+            for rep in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                eng.run(st0, 6)
+                torch.cuda.synchronize()
+                runs_ms.append((time.perf_counter() - t0) / 6 * 1e3)
+                if rep == 0:
+                    loops.append(run_windows(eng, st0, 6).window_times_s * 1e3)
+            log(f"[resilience] {name}: run_windows ms a window, uninterrupted "
+                f"{np.round(loops[0], 3).tolist()} (the first a fresh engine's) and again "
+                f"{np.round(loops[1], 3).tolist()}: windows 2-6 {loops[0][1:].mean():.3f} / "
+                f"{loops[1][1:].mean():.3f} mean; Engine.run over the same 6 windows after "
+                f"each, {runs_ms[0]:.3f} / {runs_ms[1]:.3f} ms/window ({card_name_power()})")
+            if [w for w, _ in got] != [w0 + 5, w0 + 6] or not all(
+                    bitwise_equal(b, blocks[w - w0 - 1]) for w, b in got):
+                raise AssertionError(f"resilience {name}: resumed blocks differ")
+            a, b = res.state, ref.state
+            leaves = [(a.ring, b.ring), (a.spike_count, b.spike_count)] + [
+                (getattr(a.neuron, f.name), getattr(b.neuron, f.name))
+                for f in dataclasses.fields(a.neuron)]
+            if a.t != b.t or not all(bitwise_equal(x, y) for x, y in leaves) or int(
+                    a.overflow) or int(b.overflow) or int(ref.spikes_per_window.sum()) <= 0:
+                raise AssertionError(f"resilience {name}: resumed state differs")
+            log(f"[resilience] {name}, windows {w0}-{w0 + 6}: preempted after window "
+                f"{w0 + 4} (checkpoints {ckpt.saved_windows}, {ckpt.retry_count} write "
+                f"retried, {drains} drains), restored in {restore_s:.3f} s and resumed for 2 "
+                f"windows: blocks, ring, neuron leaves and spike_count bitwise the "
+                f"uninterrupted run's, overflow 0, spikes {ref.spikes_per_window.tolist()}; "
+                f"launches {launches} over the 12 windows")
+
+            # One save timed in its two halves, and the restore above.
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            host = schedule_lib.host_state(res.state)
+            copy_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            path = ckpt_manager.save(os.path.join(directory, "timed"), w0 + 6, host)
+            write_s = time.perf_counter() - t0
+            nbytes = os.path.getsize(os.path.join(path, "arrays.npz"))
+            log(f"[resilience] {name} checkpoint: {nbytes} bytes; save {copy_s + write_s:.3f} "
+                f"s = device-to-host copy {copy_s:.3f} s + write {write_s:.3f} s; restore "
+                f"{restore_s:.3f} s (read, to the card, synchronize) ({card_name_power()})")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# Each [cli] run executes ``python -m repro_torch.launch.simulate`` through
+# runpy (what ``-m`` does), prints the per-window times of every
+# ``run_windows`` call (a preempted one's too), then the process's kernel
+# launch counts.
+CLI_WRAPPER = (
+    "import json, runpy, sys\n"
+    "from repro_torch.core import faults, schedule\n"
+    "from repro_torch.kernels import cuda\n"
+    "run_windows = schedule.run_windows\n"
+    "def show(res):\n"
+    "    print('run_windows ms ' + json.dumps([round(t * 1e3, 3) for t in "
+    "res.window_times_s]), flush=True)\n"
+    "def timed(*args, **kwargs):\n"
+    "    try:\n"
+    "        res = run_windows(*args, **kwargs)\n"
+    "    except faults.Preempted as exc:\n"
+    "        show(exc.result)\n"
+    "        raise\n"
+    "    show(res)\n"
+    "    return res\n"
+    "schedule.run_windows = timed\n"
+    "sys.argv[0] = 'repro_torch.launch.simulate'\n"
+    "try:\n"
+    "    runpy.run_module('repro_torch.launch.simulate', run_name='__main__', "
+    "alter_sys=True)\n"
+    "finally:\n"
+    "    print('launches ' + json.dumps(cuda.launches), flush=True)\n")
+PREEMPT_AT = 15  # LIF first spikes in window 11 at the [cli] size
+
+
+def phase_cli() -> None:
+    """``[cli]``: the launcher at full width in subprocesses (see the module
+    docstring, item 8)."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    a_npz, c_npz = os.path.join(tmp, "A.npz"), os.path.join(tmp, "C.npz")
+    ckpt_dir = os.path.join(tmp, "D")
+    base = ["--model", "mam_benchmark", "--areas", "4", "--n-per-area", "130000",
+            "--k", "6000", "--seed", "12"]
+    resilient = ["--backend", "event", "--neuron", "lif", "--adaptive", "--overlap",
+                 "--t-ms", "25", "--checkpoint-dir", ckpt_dir]
+    # (leg, flags, lines its stdout must hold, kernels that must have launched)
+    legs = [
+        ("a", ["--backend", "pallas", "--neuron", "lif", "--compare", "--profile",
+               "--t-ms", "25"],
+         ["schedules produce identical spike counts (static): True"],
+         ("lif_update", "spike_deliver")),
+        ("b", ["--backend", "event", "--neuron", "lif", "--compare", "--compare-adaptive",
+               "--compare-overlap", "--t-ms", "25", "--spikes-out", a_npz],
+         ["schedules produce identical spike counts (static): True",
+          "schedules produce identical spike counts (adaptive+overlap): True",
+          "adaptive == static spike counts (structure_aware/overlap): True",
+          "overlapped == sequential spike counts (structure_aware/adaptive): True"],
+         ("event_deliver",)),
+        ("c", resilient + ["--inject-fault", f"preempt:window={PREEMPT_AT}"],
+         [f"PREEMPTED (simulated preemption) after window {PREEMPT_AT}"], ("event_deliver",)),
+        ("d", resilient + ["--resume", "--spikes-out", c_npz],
+         [f"resumed window {PREEMPT_AT}", "in-flight drain(s)"], ("event_deliver",)),
+    ]
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
+    try:
+        for leg, flags, expect, kernels in legs:
+            t0 = time.perf_counter()
+            run = subprocess.run([sys.executable, "-c", CLI_WRAPPER, *base, *flags],
+                                 capture_output=True, text=True, timeout=600, env=env)
+            lines = [ln for ln in run.stdout.splitlines() if ln.strip()]
+            for ln in lines:
+                log(f"[cli] ({leg}) {ln}")
+            if run.returncode != 0:
+                log(run.stderr[-4000:])
+                raise AssertionError(f"cli ({leg}) exited {run.returncode}")
+            launches = json.loads(lines[-1].split(" ", 1)[1])
+            missing = [s for s in expect if not any(s in ln for ln in lines)]
+            if missing or min(launches[k] for k in kernels) <= 0:
+                raise AssertionError(f"cli ({leg}): missing {missing}, launches {launches}")
+            log(f"[cli] ({leg}) exit 0 in {time.perf_counter() - t0:.1f} s (process start, "
+                f"network build and runs)")
+            if leg == "c":
+                saved = np.load(os.path.join(ckpt_dir, f"step_{PREEMPT_AT:08d}", "arrays.npz"))
+                before = int(saved[".spike_count"].sum())
+        a, c = np.load(a_npz), np.load(c_npz)
+        total = int(a["spike_count"].sum())
+        if int(a["t"]) != int(c["t"]) or not np.array_equal(a["spike_count"], c["spike_count"]):
+            raise AssertionError("cli: the resumed run's spike counts differ from A.npz")
+        if not 0 < before < total:
+            raise AssertionError(f"cli: LIF must spike on both sides of the preemption "
+                                 f"({before} spikes by window {PREEMPT_AT}, {total} in all)")
+        log(f"[cli] C.npz == A.npz bitwise: {total} spikes over {int(c['t'])} steps, "
+            f"{before} of them by window {PREEMPT_AT}, where the run was preempted and "
+            f"resumed")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def profile_window(name, fn, what="window") -> list[tuple[float, int, str]]:
@@ -1755,11 +2004,13 @@ def main() -> int:
     net = phase_build_network(spec)
     pallas = phase_main_path(spec, net)
     event_launches = phase_event_runs(spec, net, pallas)
-    steady = phase_lif_steady(spec, net, pallas["lif_start"])
+    steady, lif_steady_start = phase_lif_steady(spec, net, pallas["lif_start"])
     block, ring = pallas["iaf_store"][-1]  # the iaf runs' last window, from t0 = 5 D
     event_row = phase_kernel_event(
         net, {"iaf": (block, ring, 5 * net.delay_ratio, False), "steady": (*steady, True)},
         event_launches)
+    phase_resilience(spec, net, lif_steady_start)
+    del lif_steady_start
     # The outgoing tables and the runs' stores go before the kernel phases'
     # large temporaries.
     net = dataclasses.replace(net, **{f: None for f in OUTGOING})
@@ -1772,7 +2023,10 @@ def main() -> int:
     log(f"[kernel] peak in the kernel phases after the outgoing tables were freed: "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     del net
+    gc.collect()
     torch.cuda.empty_cache()
+    log(f"[cli] the network freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    phase_cli()
     phase_device_vs_cpu()
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 products in f32 (the default,
     torch.backends.cudnn.allow_tf32 = False        # stated): the f32 bars assume it

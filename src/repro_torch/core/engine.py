@@ -12,12 +12,14 @@ item that ports it.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
+from typing import Callable
 
+import numpy as np
 import torch
 
 from repro_torch.core import delivery as delivery_lib
 from repro_torch.core import exchange as exchange_lib
+from repro_torch.core import faults as faults_lib
 from repro_torch.core import neuron as neuron_lib
 from repro_torch.core import schedule as schedule_lib
 from repro_torch.core.areas import MultiAreaSpec
@@ -102,7 +104,9 @@ class EngineConfig:
     superstep_kernel: bool = False
     overlap_exchange: bool = False
     sharded_build: bool = False
-    faults: Any = None
+    # Host-side fault plan (repro_torch.core.faults.FaultConfig), read by
+    # the windowed run loop (schedule.run_windows) only; None injects nothing.
+    faults: faults_lib.FaultConfig | None = None
 
     def __post_init__(self) -> None:
         self.check()
@@ -171,8 +175,6 @@ class EngineConfig:
         if self.sharded_build:
             v.append(_not_ported("sharded_build", "host-free sharded "
                                  "construction", "distributed engine"))
-        if self.faults is not None:
-            v.append(_not_ported("faults", "fault injection", "resilience"))
         return v
 
     def check(self, *, distributed: bool | None = None) -> None:
@@ -299,6 +301,14 @@ def make_fused_superstep(
     return run_iaf
 
 
+def _per_neuron(x, dtype, shape, dev) -> torch.Tensor:
+    """``x`` (a scalar or array) broadcast to a ``shape`` tensor; a seed
+    keeps its uint32 value, as the JAX engine casts it."""
+    if dtype == torch.int64:
+        x = np.asarray(x).astype(np.uint32).astype(np.int64)
+    return torch.as_tensor(x, dtype=dtype).to(dev).expand(shape).contiguous()
+
+
 def _make_engine(
     net: Network,
     spec: MultiAreaSpec,
@@ -353,7 +363,12 @@ def _make_engine(
         def window(state: SimState) -> tuple[SimState, torch.Tensor]:
             return window_body(state, net, gids)
 
-    def init() -> SimState:
+    def init(seed=None, stim=None) -> SimState:
+        """A fresh state; ``seed`` / ``stim`` (scalars broadcast) become the
+        per-neuron drive seed and stimulus scale leaves, as in the JAX
+        engine: LIF only, and not under ``superstep_kernel``."""
+        if seed is not None or stim is not None:
+            schedule_lib.check_seed_stim(cfg)
         if cfg.neuron_model == "lif":
             nstate = neuron_lib.lif_init((A, n_pad), dev)
         else:
@@ -364,6 +379,8 @@ def _make_engine(
             ring=torch.zeros((A, n_pad, net.ring_len), dtype=torch.float32, device=dev),
             t=0,
             spike_count=torch.zeros((A, n_pad), dtype=torch.int32, device=dev),
+            seed=None if seed is None else _per_neuron(seed, torch.int64, (A, n_pad), dev),
+            stim=None if stim is None else _per_neuron(stim, torch.float32, (A, n_pad), dev),
         )
 
     def run(state: SimState, n_windows: int):

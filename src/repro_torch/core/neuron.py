@@ -91,7 +91,7 @@ def lif_init(shape, device) -> LIFState:
 
 
 def poisson_drive(
-    seed: int,
+    seed,
     t: int,
     gids: torch.Tensor,
     rate_hz: torch.Tensor,
@@ -99,7 +99,8 @@ def poisson_drive(
     w_ext: float,
 ) -> torch.Tensor:
     """Deterministic external drive current for step ``t``: each neuron gets a
-    Bernoulli(dt * rate) impulse of weight ``w_ext``, keyed on (seed, t, gid)."""
+    Bernoulli(dt * rate) impulse of weight ``w_ext``, keyed on (seed, t, gid);
+    ``seed`` is an int or a per-neuron tensor (:func:`counter_uniform`)."""
     p = rate_hz * f32(dt_ms * 1e-3)
     u = counter_uniform(seed, t, gids)
     return (u < p).float() * f32(w_ext)

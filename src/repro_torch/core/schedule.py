@@ -13,17 +13,25 @@ Where the JAX package has ``lax.scan`` loops this has Python loops. The
 structure-aware superstep (blocked ring read over the live window buffer) is
 therefore one loop whether ``superstep_unroll`` is set or not; the legacy
 ``superstep=False`` window is the per-cycle reference.
+
+The resilient run loop (:func:`run_windows` with a :class:`SimCheckpointer`,
+a fault plan or a stop flag) and :func:`restore_sim` keep the JAX package's
+checkpoint format, config hash and manifest, so a checkpoint written by
+either package resumes bitwise in the other.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import json
 import time
 from typing import Any, Callable
 
 import numpy as np
 import torch
 
+from repro_torch.core import faults as faults_lib
 from repro_torch.core import neuron as neuron_lib
 from repro_torch.core import ring_buffer
 
@@ -31,11 +39,16 @@ __all__ = [
     "CONVENTIONAL",
     "STRUCTURE_AWARE",
     "SimState",
+    "SimCheckpointer",
     "state_from_numpy",
+    "host_state",
+    "check_seed_stim",
     "RunResult",
     "make_update_fn",
     "make_window_fn",
     "make_overlap_window_fn",
+    "restore_sim",
+    "resume_config_hash",
     "run_windows",
 ]
 
@@ -55,6 +68,13 @@ class SimState:
     overflow: Any = 0
     # Wire bytes the exchanges shipped (0 on a single host).
     shipped_bytes: float = 0.0
+    # Optional per-neuron drive seed ([A, n_pad] int64 holding uint32
+    # values), read by the counter-based drive in place of cfg.seed; a
+    # broadcast cfg.seed is bitwise the int-seed path. None adds no leaf.
+    seed: Any = None
+    # Optional per-neuron stimulus scale ([A, n_pad] f32) on the drive rate;
+    # all ones is bitwise None (x * 1.0f is exact).
+    stim: Any = None
 
 
 def state_from_numpy(arrays: dict, *, device) -> SimState:
@@ -81,16 +101,54 @@ def state_from_numpy(arrays: dict, *, device) -> SimState:
         shipped_bytes=float(arrays.get("shipped_bytes", 0.0)))
 
 
+def host_state(state: SimState) -> SimState:
+    """A host copy of ``state`` (numpy leaves) in the JAX package's leaf
+    dtypes: ``t`` and ``overflow`` int32, ``shipped_bytes`` f32, ``seed``
+    uint32. Copies device tensors on the caller's thread and stream (and
+    reading a device ``overflow`` waits for the device)."""
+    def host(x):
+        return x.detach().to("cpu", copy=True).numpy()
+
+    neuron = dataclasses.replace(state.neuron, **{
+        f.name: host(getattr(state.neuron, f.name))
+        for f in dataclasses.fields(state.neuron)})
+    return SimState(
+        neuron=neuron, ring=host(state.ring), t=np.int32(state.t),
+        spike_count=host(state.spike_count), overflow=np.int32(int(state.overflow)),
+        shipped_bytes=np.float32(state.shipped_bytes),
+        seed=None if state.seed is None else host(state.seed).astype(np.uint32),
+        stim=None if state.stim is None else host(state.stim))
+
+
+def check_seed_stim(cfg) -> None:
+    """Refuse per-neuron ``seed`` / ``stim`` leaves where the engine would
+    ignore them (the JAX engine's rules): LIF only, and not under
+    ``superstep_kernel``."""
+    if cfg.neuron_model != "lif":
+        raise ValueError(
+            "per-trial seed/stim drive the LIF Poisson input; "
+            "ignore_and_fire has no seed or input dependence")
+    if cfg.superstep_kernel:
+        raise ValueError(
+            "per-trial seed/stim are not supported under "
+            "superstep_kernel (the fused kernel bakes cfg.seed in)")
+
+
 def make_update_fn(cfg, spec, dt_ms: float, lif_params, fused_lif: Callable | None):
-    """The neuron-update closure ``update(neuron_state, i_in, t, net, gids)
-    -> (state', spikes)``. The LIF drive rate is ``rate_hz * (ext_rate_hz /
-    2.5)``, the JAX package's one expression."""
+    """The neuron-update closure ``update(neuron_state, i_in, t, net, gids,
+    seed=None, stim=None) -> (state', spikes)``. The LIF drive rate is
+    ``rate_hz * (ext_rate_hz / 2.5)``, the JAX package's one expression;
+    ``seed`` / ``stim`` (the ``SimState`` leaves) replace ``cfg.seed`` and
+    scale the rate."""
     drive_scale = spec.ext_rate_hz / 2.5
 
-    def update(neuron_state, i_in, t, net, gids):
+    def update(neuron_state, i_in, t, net, gids, seed=None, stim=None):
         if cfg.neuron_model == "lif":
+            rate = net.rate_hz * drive_scale
+            if stim is not None:
+                rate = rate * stim
             drive = neuron_lib.poisson_drive(
-                cfg.seed, t, gids, net.rate_hz * drive_scale, dt_ms, spec.w_ext)
+                cfg.seed if seed is None else seed, t, gids, rate, dt_ms, spec.w_ext)
             if fused_lif is not None:
                 return fused_lif(neuron_state, i_in + drive, net.alive)
             return neuron_lib.lif_update(
@@ -152,7 +210,8 @@ def _make_compute_window(cfg, exchange, update_fn, fused_superstep):
                 neuron, block, fut = fused_superstep(neuron, fut, t0)
             else:
                 for s in range(D):
-                    neuron, spikes = update_fn(neuron, fut[..., s], t0 + s, net, gids)
+                    neuron, spikes = update_fn(neuron, fut[..., s], t0 + s, net, gids,
+                                               seed=state.seed, stim=state.stim)
                     fut, d_over, d_ship = exchange.cycle(
                         fut, spikes, s, net, gids, inter_now=False)
                     over, shipped = over + d_over, shipped + d_ship
@@ -163,14 +222,15 @@ def _make_compute_window(cfg, exchange, update_fn, fused_superstep):
             inter_now = cfg.schedule == CONVENTIONAL
             for s in range(D):
                 i_in, ring = ring_buffer.read_and_clear(ring, t0 + s)
-                neuron, spikes = update_fn(neuron, i_in, t0 + s, net, gids)
+                neuron, spikes = update_fn(neuron, i_in, t0 + s, net, gids,
+                                           seed=state.seed, stim=state.stim)
                 ring, d_over, d_ship = exchange.cycle(
                     ring, spikes, t0 + s, net, gids, inter_now=inter_now)
                 over, shipped = over + d_over, shipped + d_ship
                 cols.append(spikes)
             block = torch.stack(cols)
-        return SimState(
-            neuron=neuron, ring=ring, t=t0 + D,
+        return dataclasses.replace(
+            state, neuron=neuron, ring=ring, t=t0 + D,
             spike_count=state.spike_count + block.sum(0, dtype=torch.int32),
             overflow=over, shipped_bytes=shipped), block
 
@@ -219,16 +279,252 @@ def make_overlap_window_fn(
     return window_overlap, drain
 
 
+# ---------------------------------------------------------------------------
+# Windowed checkpoint / resume / fault-tolerant run loop
+# ---------------------------------------------------------------------------
+#
+# Checkpoints are taken only at window boundaries: there t ≡ 0 (mod D), the
+# live window buffer is merged back and the ring's phase alignment is the
+# one a fresh init has, so a restored state re-enters the superstep exactly
+# where the uninterrupted run would. The drive is a counter-based function
+# of (seed, t, gid), so the seed and t in the manifest are its whole RNG
+# state: resume is bitwise, not statistical.
+
+
+# Config fields that are layout, not trajectory: every value gives the same
+# spike trains, so checkpoints stay exchangeable across them. Recorded in the
+# manifest payload, left out of the compatibility hash and the mismatch diff.
+_LAYOUT_KEYS = frozenset(
+    {"shard_inter_tables", "subgroup_inter_tables", "overlap_exchange",
+     "sharded_build"})
+
+
+def resume_config_hash(cfg, net, *, exchange: str | None = None):
+    """``(hash, payload)`` identifying what a checkpoint can resume into:
+    the JAX package's payload and 16-hex digest for the same config and
+    network. Covers what changes the trajectory (neuron model, schedule,
+    exchange, adaptive flag, backend, seed, packet bounds) and the network
+    invariants the state's shapes encode (D, ring length, area grid);
+    ``_LAYOUT_KEYS`` ride in the payload outside the hash. ``exchange``
+    overrides ``cfg.exchange`` (launchers hash the requested exchange)."""
+    payload = {
+        "neuron_model": cfg.neuron_model,
+        "schedule": cfg.schedule,
+        "exchange": cfg.exchange if exchange is None else exchange,
+        "adaptive_exchange": bool(cfg.adaptive_exchange),
+        "delivery_backend": cfg.backend,
+        "seed": int(cfg.seed),
+        "s_max_headroom": float(cfg.s_max_headroom),
+        "s_max_floor": int(cfg.s_max_floor),
+        "delay_ratio": int(net.delay_ratio),
+        "ring_len": int(net.ring_len),
+        "n_areas": int(net.n_areas),
+        "n_pad": int(net.n_pad),
+        "shard_inter_tables": bool(cfg.shard_inter_tables),
+        "subgroup_inter_tables": bool(cfg.subgroup_inter_tables),
+        "overlap_exchange": bool(cfg.overlap_exchange),
+        "sharded_build": bool(cfg.sharded_build),
+    }
+    hashed = {k: v for k, v in payload.items() if k not in _LAYOUT_KEYS}
+    digest = hashlib.sha256(
+        json.dumps(hashed, sort_keys=True).encode()).hexdigest()[:16]
+    return digest, payload
+
+
+class SimCheckpointer:
+    """Windowed ``SimState`` checkpoints through ``checkpoint.AsyncWriter``.
+
+    ``save`` copies the whole state to the host (:func:`host_state`, on the
+    caller's thread) and submits it with the reference's manifest: window
+    phase, seed, group count (1: the single-host engine) and resume-config
+    hash. The step id is the
+    count of completed windows (``t // D``).
+    """
+
+    def __init__(
+        self,
+        directory: str,
+        engine,
+        net,
+        *,
+        every: int = 50,
+        keep: int = 3,
+        exchange: str | None = None,
+        injector: faults_lib.FaultInjector | None = None,
+        retries: int = 3,
+        backoff_s: float = 0.05,
+    ):
+        from repro_torch.checkpoint import manager as ckpt_manager
+
+        self.directory = directory
+        self.every = every
+        self.delay_ratio = int(engine.delay_ratio)
+        self.seed = int(engine.config.seed)
+        self.config_hash, self.config_payload = resume_config_hash(
+            engine.config, net, exchange=exchange)
+        save_fn = None
+        if injector is not None and injector.cfg.ckpt_write_failures > 0:
+            save_fn = injector.wrap_save(ckpt_manager.save)
+        self.writer = ckpt_manager.AsyncWriter(
+            directory, keep=keep, retries=retries, backoff_s=backoff_s,
+            save_fn=save_fn)
+        self.saved_windows: list[int] = []
+
+    def due(self, window: int) -> bool:
+        """Does the cadence fire at this completed-window count? The
+        overlapped loop asks before it touches the state, so the in-flight
+        window can drain first."""
+        w = int(window)
+        return self.every > 0 and w > 0 and w % self.every == 0
+
+    def maybe_save(self, state: SimState, window: int | None = None) -> int | None:
+        """Save when the completed-window count hits the cadence."""
+        w = int(state.t) // self.delay_ratio if window is None else int(window)
+        if self.due(w):
+            return self.save(state)
+        return None
+
+    def save(self, state: SimState) -> int:
+        """Submit a window-boundary checkpoint; returns the step id."""
+        t = int(state.t)
+        if t % self.delay_ratio != 0:
+            raise ValueError(
+                f"checkpoint requested mid-window (t={t}, D="
+                f"{self.delay_ratio}): only window boundaries keep the ring "
+                f"phase alignment a resumed superstep needs")
+        w = t // self.delay_ratio
+        if self.saved_windows and self.saved_windows[-1] == w:
+            return w  # boundary already checkpointed (cadence + preemption)
+        ring_len = int(state.ring.shape[-1])
+        extra = {
+            "kind": "simstate",
+            "t": t,
+            "window": w,
+            "window_phase": 0,
+            "delay_ratio": self.delay_ratio,
+            "ring_len": ring_len,
+            "ring_phase": t % ring_len,
+            "seed": self.seed,
+            "n_groups": 1,
+            "config_hash": self.config_hash,
+            "config": self.config_payload,
+        }
+        self.writer.submit(w, host_state(state), extra=extra)
+        self.saved_windows.append(w)
+        return w
+
+    @property
+    def retry_count(self) -> int:
+        return self.writer.retry_count
+
+    def close(self) -> None:
+        self.writer.close()
+
+
+def _state_template(cfg, net, keys) -> SimState:
+    """A ``SimState`` of meta tensors with the engine's shapes and dtypes
+    (no device memory), with ``seed`` / ``stim`` where the checkpoint has
+    them."""
+    a, n_pad = net.alive.shape
+
+    def meta(dtype, *tail):
+        return torch.empty((a, n_pad, *tail), dtype=dtype, device="meta")
+
+    if cfg.neuron_model == "lif":
+        neuron = neuron_lib.LIFState(v=meta(torch.float32), i_syn=meta(torch.float32),
+                                     refrac=meta(torch.int32))
+    else:
+        neuron = neuron_lib.IafState(countdown=meta(torch.int32))
+    return SimState(
+        neuron=neuron, ring=meta(torch.float32, net.ring_len), t=0,
+        spike_count=meta(torch.int32), overflow=0, shipped_bytes=0.0,
+        seed=meta(torch.int64) if ".seed" in keys else None,
+        stim=meta(torch.float32) if ".stim" in keys else None)
+
+
+def restore_sim(
+    directory: str,
+    engine,
+    net,
+    *,
+    exchange: str | None = None,
+):
+    """Restore the latest ``SimState`` checkpoint into ``engine`` on ``net``'s
+    device.
+
+    Fails fast, before any array is read, when the checkpoint's
+    resume-config hash differs from this run's (the reference's
+    field-by-field error), when its window phase is unaligned, when it was
+    taken on more than one group (elastic resharding comes with the
+    distributed engine), or when it holds ``seed`` / ``stim`` leaves the
+    engine would ignore (``Engine.init``'s refusals). The arrays load straight into device tensors of
+    the engine's shapes; ``overflow`` comes back as the engine's windows
+    keep it (an int32 device scalar where the static event packets count
+    drops, else an int), ``seed`` / ``stim`` where the checkpoint has them.
+    Returns ``(state, info)``, ``info`` holding the manifest and the step.
+    """
+    from repro_torch.checkpoint import manager as ckpt_manager
+
+    manifest, step = ckpt_manager.read_manifest(directory)
+    extra = manifest.get("extra", {})
+    cfg = engine.config
+    expect_hash, payload = resume_config_hash(cfg, net, exchange=exchange)
+    got_hash = extra.get("config_hash")
+    if got_hash is not None and got_hash != expect_hash:
+        old = extra.get("config", {})
+        diffs = [
+            f"  {k}: checkpoint={old.get(k)!r} != run={v!r}"
+            for k, v in payload.items()
+            if k not in _LAYOUT_KEYS and old.get(k) != v
+        ] or [f"  config hash {got_hash} != {expect_hash}"]
+        raise ValueError(
+            "checkpoint is incompatible with this run's config -- resuming "
+            "would not reproduce the uninterrupted trajectory:\n"
+            + "\n".join(diffs))
+    if extra.get("window_phase", 0) != 0:
+        raise ValueError(
+            f"checkpoint at step {step} is not window-phase aligned "
+            f"(window_phase={extra.get('window_phase')}); only "
+            f"window-boundary checkpoints can resume the D-cycle superstep")
+    old_groups = int(extra.get("n_groups", 1))
+    if old_groups != 1:
+        raise ValueError(
+            f"checkpoint at step {step} was taken on {old_groups} group(s), this "
+            f"run has 1: elastic resharding needs the distributed engine's "
+            f"partition plan, not ported yet (ROADMAP: distributed engine)")
+    if ".seed" in manifest["keys"] or ".stim" in manifest["keys"]:
+        check_seed_stim(cfg)
+
+    state, _ = ckpt_manager.restore(
+        directory, _state_template(cfg, net, manifest["keys"]), step, device=net.device)
+    if cfg.backend == "event" and not cfg.adaptive_exchange:
+        state.overflow = torch.tensor(state.overflow, dtype=torch.int32, device=net.device)
+    return state, {"step": step, "manifest": manifest, "reshard": None}
+
+
 @dataclasses.dataclass
 class RunResult:
-    """Outcome of :func:`run_windows`."""
+    """Outcome of :func:`run_windows` (also carried by ``Preempted``)."""
 
     state: SimState
     spikes_per_window: np.ndarray   # [windows_done] int64
-    window_times_s: np.ndarray      # wall per window
-    windows_done: int
+    window_times_s: np.ndarray      # wall per window, injected jitter included
+    windows_done: int               # completed in this call
+    injected_sleep_s: float = 0.0
     overlapped: bool = False        # ran the double-buffered pipeline
     drains: int = 0                 # in-flight windows retired at boundaries
+
+
+def _preempted(window: int, path: str | None, result: RunResult) -> faults_lib.Preempted:
+    exc = faults_lib.Preempted(window, path)
+    exc.result = result
+    return exc
+
+
+def _wait(x: torch.Tensor) -> None:
+    """Block until the device has finished the work that produces ``x``."""
+    if x.is_cuda:
+        torch.cuda.synchronize(x.device)
 
 
 def run_windows(
@@ -236,54 +532,117 @@ def run_windows(
     state: SimState,
     n_windows: int,
     *,
-    checkpointer=None,
-    faults=None,
+    checkpointer: SimCheckpointer | None = None,
+    faults: faults_lib.FaultConfig | faults_lib.FaultInjector | None = None,
     on_window: Callable[[int, SimState], None] | None = None,
     on_block: Callable[[int, Any], None] | None = None,
     stop_requested: Callable[[], bool] | None = None,
 ) -> RunResult:
-    """The windowed run loop: one window at a time, synchronised and timed.
+    """The resilient run loop: windowed, checkpointed, fault-aware.
+
+    After every window it waits for the device, then submits a checkpoint
+    when the cadence fires, sleeps the injected faults, and stops -- a final
+    checkpoint first, then :class:`~repro_torch.core.faults.Preempted` with
+    the result as ``exc.result`` -- on simulated preemption or when
+    ``stop_requested()`` turns true (a signal handler's flag).
+
+    With the overlapped pipeline (``engine.window_overlap`` set) the loop
+    threads the in-flight window through and drains it before a checkpoint,
+    on a stop and at the end, so every saved or returned state is the
+    sequential trajectory's. Injected sleeps model the pipeline: ``compute +
+    comm`` a window when sequential, ``max(compute, previous comm)`` when
+    pipelined, the last comm paid at the drain. ``faults`` defaults to
+    ``engine.config.faults``; an injector can be shared across resume legs.
 
     ``on_block(w, block)`` fires after every window with its ``[D, A, n]``
-    bool spike block, ``on_window(w, state)`` with the new state. When the
-    engine carries the overlapped pipeline (``engine.window_overlap`` is
-    set), the loop threads the in-flight window through and drains it at the
-    end of the run, so the returned state is the sequential trajectory's;
-    the state ``on_window`` sees may still lack its window's long-range
-    deposits. Checkpointing, fault injection and preemption
-    (``checkpointer``, ``faults``, ``stop_requested``) are not ported yet
-    and raise.
+    bool spike block, ``on_window(w, state)`` with the new state (under the
+    pipeline its ring may still lack the window's long-range deposits).
     """
-    if checkpointer is not None or faults is not None or stop_requested is not None:
-        raise NotImplementedError(
-            "checkpointer / faults / stop_requested are not ported yet "
-            "(ROADMAP: resilience)")
-    overlapped = getattr(engine, "window_overlap", None) is not None
+    fault_arg = faults if faults is not None else engine.config.faults
+    if isinstance(fault_arg, faults_lib.FaultInjector):
+        injector = fault_arg
+    elif fault_arg is not None and fault_arg.any_enabled:
+        injector = faults_lib.FaultInjector(
+            fault_arg, n_devices=1, delay_ratio=engine.delay_ratio)
+    else:
+        injector = None
+
+    overlapped = engine.window_overlap is not None
     inflight = engine.init_inflight() if overlapped else None
+    in_flight_dirty = False
+    pending_comm = 0.0
     drains = 0
+
     D = int(engine.delay_ratio)
-    w_done = state.t // D
-    spikes, times = [], []
+    w_done = int(state.t) // D  # absolute windows completed
+    spikes: list[int] = []
+    times: list[float] = []
+    slept = 0.0
+
+    def result() -> RunResult:
+        return RunResult(
+            state=state,
+            spikes_per_window=np.asarray(spikes, dtype=np.int64),
+            window_times_s=np.asarray(times, dtype=np.float64),
+            windows_done=len(times),
+            injected_sleep_s=slept,
+            overlapped=overlapped,
+            drains=drains,
+        )
+
+    def drain_pipeline():
+        """Retire the in-flight window (and pay its modelled comm time)."""
+        nonlocal state, inflight, in_flight_dirty, pending_comm, slept, drains
+        if not overlapped or not in_flight_dirty:
+            return
+        state = engine.drain(state, inflight)
+        inflight = engine.init_inflight()
+        _wait(state.ring)
+        if injector is not None and pending_comm > 0.0:
+            slept += injector.inject(pending_comm)
+        pending_comm = 0.0
+        in_flight_dirty = False
+        drains += 1
+
     for _ in range(n_windows):
         t0 = time.perf_counter()
         if overlapped:
             state, inflight, block = engine.window_overlap(state, inflight)
+            in_flight_dirty = True
         else:
             state, block = engine.window(state)
-        spikes.append(int(block.sum()))  # waits for the window to finish
-        times.append(time.perf_counter() - t0)
+        _wait(state.ring)
         w_done += 1
+        if injector is not None:
+            comp = injector.window_jitter_s(w_done)
+            comm = injector.window_comm_jitter_s(w_done)
+            if overlapped:
+                # This window's compute straggler overlaps the previous
+                # window's exchange; its own exchange is next window's
+                # in-flight time.
+                slept += injector.inject(max(comp, pending_comm))
+                pending_comm = comm
+            else:
+                slept += injector.inject(comp + comm)
+        times.append(time.perf_counter() - t0)
+        spikes.append(int(block.sum()))
         if on_block is not None:
             on_block(w_done, block)
+        if checkpointer is not None and checkpointer.due(w_done):
+            drain_pipeline()
+            checkpointer.maybe_save(state, window=w_done)
         if on_window is not None:
             on_window(w_done, state)
-    if overlapped and len(times):
-        state = engine.drain(state, inflight)
-        drains += 1
-    return RunResult(
-        state=state,
-        spikes_per_window=np.asarray(spikes, dtype=np.int64),
-        window_times_s=np.asarray(times, dtype=np.float64),
-        windows_done=len(times),
-        overlapped=overlapped,
-        drains=drains)
+        stop = stop_requested is not None and stop_requested()
+        if (injector is not None and injector.preempt_now(w_done)) or stop:
+            drain_pipeline()
+            path = None
+            if checkpointer is not None:
+                checkpointer.save(state)   # the SIGTERM-grace checkpoint
+                checkpointer.close()
+                path = checkpointer.directory
+            # Raised unbound: a local holding the exception would tie this
+            # frame (engine, network, state) into a cycle with its traceback.
+            raise _preempted(w_done, path, result())
+    drain_pipeline()
+    return result()

@@ -52,14 +52,20 @@ def _splitmix32(x):
     return x ^ (x >> 15)
 
 
-def counter_uniform(seed: int, t: int, gids: torch.Tensor) -> torch.Tensor:
+def counter_uniform(seed, t: int, gids: torch.Tensor) -> torch.Tensor:
     """Uniform [0, 1) f32 as a pure function of (seed, t, gid).
 
-    The 32-bit mixing runs in int64 masked to 32 bits (PyTorch has no uint32
-    add or shift on every device); the CUDA kernel computes the same in
-    ``uint32_t`` (``csrc/neuron.cuh``).
+    ``seed`` is an int (the engine-wide seed) or an integer tensor
+    broadcastable against ``gids`` holding uint32 values (the per-neuron
+    drive seed); a broadcast int gives the same bits. The 32-bit mixing runs
+    in int64 masked to 32 bits (PyTorch has no uint32 add or shift on every
+    device); the CUDA kernel computes the same in ``uint32_t``
+    (``csrc/neuron.cuh``).
     """
-    s = _splitmix32(int(seed) & _M32)
+    if isinstance(seed, torch.Tensor):
+        s = _splitmix32(seed.long() & _M32)
+    else:
+        s = _splitmix32(int(seed) & _M32)
     h = _splitmix32((_splitmix32((gids.long() + s) & _M32) + (int(t) & _M32)) & _M32)
     return h.float() * f32(1.0 / 4294967296.0)
 

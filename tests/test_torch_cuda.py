@@ -677,3 +677,60 @@ def test_event_engine_on_the_card_matches_the_cpu(dev, name, model, kw):
     assert cuda.launches["event_deliver"] > 0 and cuda.launches["spike_deliver"] == 0
     assert (int(st["cpu"].overflow) > 0) == (name == "iaf_overflow")
     assert int(st["cpu"].spike_count.sum()) > 0
+
+
+def test_card_state_with_a_device_overflow_round_trips_through_a_checkpoint(dev, tmp_path):
+    """Static event packets that drop spikes keep ``overflow`` as an int32
+    device scalar: save (host copies on the caller's thread) and
+    ``restore_sim`` give back every leaf bitwise, on the card, and the
+    resumed windows equal the uninterrupted ones."""
+    from repro_torch.core import schedule as schedule_lib
+
+    spec = mam_benchmark_spec(n_areas=2, n_per_area=64, k_intra=4, k_inter=4,
+                              rate_hz=2000.0)
+    net = build_network(spec, seed=12, outgoing=True, device=dev)
+    eng = make_simulation(spec, EngineConfig(
+        neuron_model="ignore_and_fire", delivery_backend="event", s_max_headroom=0.0,
+        s_max_floor=1), net=net, device=dev)
+    st = eng.init()
+    for _ in range(3):
+        st, _ = eng.window(st)
+    assert isinstance(st.overflow, torch.Tensor) and st.overflow.is_cuda
+    assert int(st.overflow) > 0
+    ckpt = schedule_lib.SimCheckpointer(str(tmp_path), eng, net, every=0)
+    ckpt.save(st)
+    ckpt.close()
+    back, info = schedule_lib.restore_sim(str(tmp_path), eng, net)
+    assert info["step"] == 3 and back.t == st.t
+    assert back.overflow.is_cuda and back.overflow.dtype == torch.int32
+    for a, b in ((back.ring, st.ring), (back.spike_count, st.spike_count),
+                 (back.neuron.countdown, st.neuron.countdown), (back.overflow, st.overflow)):
+        assert a.is_cuda and torch.equal(a, b)
+    for _ in range(3):
+        st, blk = eng.window(st)
+        back, blk_back = eng.window(back)
+        assert torch.equal(blk, blk_back)
+    assert torch.equal(back.ring, st.ring) and int(back.overflow) == int(st.overflow)
+
+
+def test_launcher_on_the_card_matches_the_cpu(dev, tmp_path):
+    """``python -m repro_torch.launch.simulate`` with ``--device cuda`` and
+    ``--device cpu``: exit 0 and the same spike counts."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    counts = {}
+    for device in ("cuda", "cpu"):
+        out = tmp_path / f"{device}.npz"
+        run = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.simulate", "--device", device,
+             "--areas", "4", "--n-per-area", "256", "--k", "64", "--backend", "event",
+             "--compare", "--compare-adaptive", "--t-ms", "20", "--spikes-out", str(out)],
+            capture_output=True, text=True, timeout=600,
+            env=dict(os.environ, PYTHONPATH=os.path.join(root, "src")))
+        assert run.returncode == 0, run.stderr
+        counts[device] = np.load(out)["spike_count"]
+    assert counts["cuda"].sum() > 0
+    assert np.array_equal(counts["cuda"], counts["cpu"])

@@ -30,6 +30,7 @@ from repro_torch.core import (  # noqa: E402
     run_windows,
     state_from_numpy,
 )
+from repro_torch.core.faults import Preempted  # noqa: E402
 
 SIZE = dict(n_areas=4, n_per_area=48, k_intra=8, k_inter=8)
 # neuron model -> (area rate Hz, build seed, windows), as in test_system.py
@@ -173,8 +174,11 @@ def test_run_and_run_windows_count_the_same_spikes():
     res = run_windows(eng, eng.init(), len(want), on_block=lambda w, b: blocks.append(w))
     assert res.spikes_per_window.tolist() == want and blocks == list(range(1, len(want) + 1))
     assert torch.equal(res.state.ring, st.ring)
-    with pytest.raises(NotImplementedError, match="resilience"):
-        run_windows(eng, eng.init(), 1, checkpointer=object())
+    # The resilient loop is ported: a stop request ends the run at the first
+    # window boundary, with the windows done so far on the exception.
+    with pytest.raises(Preempted) as stop:
+        run_windows(eng, eng.init(), len(want), stop_requested=lambda: True)
+    assert stop.value.window == 1 and stop.value.result.spikes_per_window.tolist() == want[:1]
 
 
 def test_make_simulation_defaults_to_cuda(monkeypatch):
