@@ -104,6 +104,26 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    CLI returns) nonzero for the kernels of its path, and the resilient
    legs' per-window times from ``run_windows`` (the first window a cold
    process's);
+8b. ``[serve]`` the folded trial server (``repro_torch.launch.serve``) at
+   the 32-area MAM (``mam_spec(scale=0.1)``: 418,340 neurons, ``n_pad``
+   19,890, K 420/180) in the serve CLI's ``--selftest`` regime (``v_th`` 2.0
+   mV, packet floor ``n_pad``), 16 trials of 1-8 windows drawn from
+   ``default_rng(0)``: (a) the event fold's B, the largest of 8, 6, 4 whose
+   reckoned peak (B + 1 copies of one copy's tables, two folded rings) is
+   at most 70 GB, beside ``max_memory_allocated``; (b) the event server,
+   every trial bitwise its sequential reference run alone through
+   ``make_simulation`` on the card, overflow 0, spikes in every trial,
+   ``event_deliver`` launched (counts reset just before serving, read just
+   after), trials/s, p50 / p99, the folded window's ms against the single
+   trial's, ``on_block``'s host time a window; (d) the same trials at
+   ``max_batch=1``, bitwise the fold's; (c) the ``pallas`` server at B = 8,
+   every trial bitwise the event server's, ``lif_update`` and
+   ``spike_deliver`` launched, and one ``spike_deliver`` inter launch at
+   the fold's shape (~5.1M sources: its bitmask lies past shared memory)
+   bitwise its plain version and timed beside its bound; (e) 4-copy servers
+   at ``tests/test_serve.py``'s size on the card == on the CPU, both routes;
+   (f) ``python -m repro_torch.launch.serve --selftest --scale 0.1 --batch
+   B`` as a subprocess, exit 0 and its ``selftest OK`` line;
 9. the port on the card against the port on the CPU at the quickstart size
    (4 x 256 neurons, K 32/32), bitwise over 10 windows (40 for LIF, which
    first spikes in window 18 at this size), ``overflow`` included:
@@ -356,6 +376,11 @@ def phase_build() -> None:
                 log(f"[build] {name} {entry}: {line.strip()}")
 
 
+def _tables_gb(net, fields=INCOMING + OUTGOING + ("alive", "rate_hz")) -> float:
+    return sum(getattr(net, f).numel() * getattr(net, f).element_size()
+               for f in fields if getattr(net, f) is not None) / 1e9
+
+
 def phase_build_network(spec):
     """The full-width network with its incoming and outgoing tables, built on
     the card: ``build_network(spec, seed=12)``, then the inversion that
@@ -368,10 +393,6 @@ def phase_build_network(spec):
         _outgoing_k_bound, add_outgoing_tables, check_outgoing_order,
     )
 
-    def gb(net, fields):
-        return sum(getattr(net, f).numel() * getattr(net, f).element_size()
-                   for f in fields) / 1e9
-
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     net = build_network(spec, seed=12)
@@ -381,7 +402,7 @@ def phase_build_network(spec):
         f"D {net.delay_ratio}, ring {net.ring_len}, intra window "
         f"[{net.steps_lo_intra}, +{net.r_span_intra}), inter window "
         f"[{net.steps_lo_inter}, +{net.r_span_inter}); incoming tables built on "
-        f"{net.device} in {build_s:.2f} s, {gb(net, INCOMING):.2f} GB, peak "
+        f"{net.device} in {build_s:.2f} s, {_tables_gb(net, INCOMING):.2f} GB, peak "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     t0 = time.perf_counter()
     net = add_outgoing_tables(net)
@@ -390,8 +411,8 @@ def phase_build_network(spec):
     k_out = (net.tgt_intra.shape[-1], net.tgt_inter.shape[-1])
     bound = (_outgoing_k_bound(net.k_intra), _outgoing_k_bound(net.k_inter))
     log(f"[full] outgoing tables (the inversion): {invert_s:.2f} s, K_out {k_out[0]}/"
-        f"{k_out[1]} (bound {bound[0]}/{bound[1]}), {gb(net, OUTGOING):.2f} GB; build "
-        f"{build_s + invert_s:.2f} s in all, tables {gb(net, INCOMING + OUTGOING):.2f} GB, "
+        f"{k_out[1]} (bound {bound[0]}/{bound[1]}), {_tables_gb(net, OUTGOING):.2f} GB; build "
+        f"{build_s + invert_s:.2f} s in all, tables {_tables_gb(net, INCOMING + OUTGOING):.2f} GB, "
         f"peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     if k_out[0] > bound[0] or k_out[1] > bound[1]:
         raise AssertionError(f"K_out {k_out} above the bound {bound}")
@@ -929,6 +950,286 @@ def phase_cli() -> None:
             f"resumed")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# [serve]: the folded trial server at the 32-area MAM (mam_spec(scale=0.1)).
+
+SERVE_BATCHES = (8, 6, 4)   # the event fold: the largest whose reckoned peak fits
+SERVE_PEAK_GB = 70.0
+SERVE_PALLAS_BATCH = 8      # incoming tables only
+SERVE_TRIALS, SERVE_WINDOWS = 16, 8
+# [cli]'s wrapper around ``python -m repro_torch.launch.serve``.
+SERVE_CLI_WRAPPER = CLI_WRAPPER.replace("repro_torch.launch.simulate",
+                                        "repro_torch.launch.serve")
+
+
+def serve_requests(trials: int, windows: int) -> list:
+    """The serve CLI's ``--selftest`` requests: seeds, stim U(0.8, 1.2) and
+    durations of 1-``windows`` windows drawn from ``default_rng(0)``."""
+    import numpy as np
+
+    from repro_torch.launch.serve import TrialRequest
+
+    rng = np.random.default_rng(0)
+    return [TrialRequest(seed=int(rng.integers(1, 2**31)),
+                         stim=float(rng.uniform(0.8, 1.2)),
+                         windows=int(rng.integers(1, windows + 1)))
+            for _ in range(trials)]
+
+
+def _serve_all(server, requests) -> list:
+    handles = [server.submit(r) for r in requests]
+    return [h.result(timeout=600) for h in handles]
+
+
+def _window_times_ms(eng, st, n: int) -> list[float]:
+    """Host clock around each of ``n`` windows from ``st``, each ending in a
+    synchronize."""
+    import torch
+
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, _ = eng.window(st)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return times
+
+
+def _same_trials(got, want, what: str) -> None:
+    import numpy as np
+
+    for g, w in zip(got, want, strict=True):
+        if g.request != w.request or g.overflow != w.overflow or not np.array_equal(
+                g.spikes, w.spikes):
+            raise AssertionError(f"{what}: trial seed={g.request.seed} differs "
+                                 f"(overflow {g.overflow} / {w.overflow})")
+
+
+def _stats_line(name, stats, card) -> str:
+    return (f"[serve] {name}: {stats['trials']} trials in {stats['elapsed_s']:.3f} s, "
+            f"{stats['trials_per_s']:.3f} trials/s, p50 {stats['p50_ms']:.1f} ms, "
+            f"p99 {stats['p99_ms']:.1f} ms, busy {stats['busy_s']:.3f} s over "
+            f"{stats['windows']} folded windows ({card})")
+
+
+def phase_serve() -> None:
+    """``[serve]``: the folded trial server at ``mam_spec(scale=0.1)``, the
+    serve CLI's ``--selftest`` regime (``v_th`` 2.0 mV, packet floor at the
+    area's padded size), 16 trials of 1-8 windows: (a) the event fold's B
+    from a reckoning of its peak; (b) the event server, every trial bitwise
+    its sequential reference on the card, overflow 0, spikes in every trial;
+    (c) the pallas server at B = 8, bitwise the event trials, and one
+    ``spike_deliver`` inter launch at the fold's shape against its plain
+    version; (d) the sequential baseline (``max_batch=1``); (e) card == CPU
+    at ``tests/test_serve.py``'s size; (f) the serve CLI's selftest."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import EngineConfig, build_network, make_simulation
+    from repro_torch.core import mam_benchmark_spec, mam_spec
+    from repro_torch.core.neuron import LIFParams
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels import spike_deliver as dlv
+    from repro_torch.launch.serve import SimServer, TrialRequest, sequential_reference
+
+    card = card_name_power()
+    spec = mam_spec(scale=0.1)
+    lif = LIFParams(v_th_mv=2.0)
+    cfg = EngineConfig(delivery_backend="event", lif=lif,
+                       s_max_floor=max(16, spec.padded_area_size(1)))
+    requests = serve_requests(SERVE_TRIALS, SERVE_WINDOWS)
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    # (a) The reckoning: one copy's tables (K_out is known only once built).
+    t0 = time.perf_counter()
+    net = build_network(spec, seed=12, outgoing=True, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    a, n_pad = net.alive.shape
+    copy_gb, incoming_gb = _tables_gb(net), _tables_gb(net, INCOMING)
+    ring_gb = a * n_pad * net.ring_len * 4 / 1e9
+    k_out = (net.tgt_intra.shape[-1], net.tgt_inter.shape[-1])
+    # B + 1 copies (the single copy beside the fold while it is built) and two
+    # folded rings (the state's and the window's copy).
+    reckon = {b: (b + 1) * copy_gb + 2 * b * ring_gb for b in SERVE_BATCHES}
+    fits = [b for b in SERVE_BATCHES if reckon[b] <= SERVE_PEAK_GB]
+    if not fits:
+        raise AssertionError(f"serve: no fold fits {SERVE_PEAK_GB} GB: {reckon}")
+    B = fits[0]
+    log(f"[serve] mam_spec(scale=0.1): {spec.n_areas} areas, {spec.n_total} neurons, "
+        f"n_pad {n_pad}, K {net.k_intra}/{net.k_inter}, K_out {k_out[0]}/{k_out[1]}, "
+        f"ring {net.ring_len}; one copy built in {build_s:.2f} s: {copy_gb:.3f} GB of "
+        f"tables ({incoming_gb:.3f} incoming), folded ring {ring_gb:.3f} GB a copy; "
+        f"reckoned peak {', '.join(f'B={b} {g:.2f} GB' for b, g in reckon.items())}: "
+        f"event fold B = {B} (<= {SERVE_PEAK_GB:g} GB) ({card})")
+    del net
+    free()
+
+    # (b) The event server.
+    t0 = time.perf_counter()
+    server = SimServer(spec, cfg, max_batch=B, max_windows=SERVE_WINDOWS, device="cuda")
+    torch.cuda.synchronize()
+    fold_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    server.start()
+    start_s = time.perf_counter() - t0
+    fold_gb = _tables_gb(server.net)
+    cuda.reset_launches()
+    event = _serve_all(server, requests)
+    launches = dict(cuda.launches)
+    stats = server.stats()
+    server.shutdown()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if launches["event_deliver"] <= 0:
+        raise AssertionError(f"serve event: event_deliver never launched: {launches}")
+    fold_ms = _window_times_ms(server.engine, server._init_state(requests[:B]),
+                               SERVE_WINDOWS)
+    log(f"[serve] (b) event server, B = {B}: built and folded in {fold_s:.2f} s "
+        f"({fold_gb:.2f} GB of tables), warm-up dispatch {start_s:.2f} s; peak "
+        f"{peak_gb:.2f} GB (max_memory_allocated) against {reckon[B]:.2f} GB reckoned; "
+        f"launches while serving {launches} ({card})")
+    log(_stats_line("(b) event server", stats, card))
+    log(f"[serve] (b) on_block: {1e3 * stats['block_host_s'] / stats['windows']:.2f} ms of "
+        f"host time a folded window to copy the [{server.delay_ratio}, {B * a}, {n_pad}] "
+        f"block ({server.delay_ratio * B * a * n_pad / 1e6:.1f} MB) and slice its trials "
+        f"({card})")
+    del server
+    free()
+
+    ref = make_simulation(spec, cfg, device="cuda")
+    for r in event:
+        want = sequential_reference(spec, cfg, r.request, engine=ref)
+        if r.spikes.shape != want.shape or not np.array_equal(r.spikes, want):
+            raise AssertionError(f"serve event: trial seed={r.request.seed} != its "
+                                 f"sequential reference")
+        if r.overflow != 0 or not r.spikes.any():
+            raise AssertionError(f"serve event: trial seed={r.request.seed}: overflow "
+                                 f"{r.overflow}, {int(r.spikes.sum())} spikes")
+    single_ms = _window_times_ms(ref, ref.init(seed=requests[0].seed, stim=requests[0].stim),
+                                 SERVE_WINDOWS)
+    spikes = [int(r.spikes.sum()) for r in event]
+    cycles = sum(r.spikes.shape[0] for r in event)
+    rate_hz = sum(spikes) / (spec.n_total * cycles * spec.dt_ms * 1e-3)
+    log(f"[serve] (b) every trial bitwise its sequential reference (run alone through "
+        f"make_simulation on the card), overflow 0; spikes per trial {spikes}, mean rate "
+        f"{rate_hz:.1f} Hz")
+    log(f"[serve] (b) folded window (B = {B}) {statistics.mean(fold_ms):.2f} ms "
+        f"({', '.join(f'{t:.2f}' for t in fold_ms)}) against the single trial's "
+        f"{statistics.mean(single_ms):.2f} ms ({', '.join(f'{t:.2f}' for t in single_ms)}): "
+        f"{statistics.mean(fold_ms) / (B * statistics.mean(single_ms)):.3f} of B single "
+        f"windows ({card})")
+
+    # (d) The sequential baseline: the same machinery, no fold.
+    del ref
+    free()
+    with SimServer(spec, cfg, max_batch=1, max_windows=SERVE_WINDOWS,
+                   device="cuda") as server:
+        seq = _serve_all(server, requests)
+    _same_trials(seq, event, "serve max_batch=1 vs event fold")
+    log(_stats_line("(d) sequential baseline, max_batch=1", server.stats(), card)
+        + f"; its trials == the fold's, bitwise; the fold (B = {B}) above: "
+          f"{stats['trials_per_s']:.3f} trials/s")
+    del server
+    free()
+
+    # (c) The pallas server at B = 8.
+    pcfg = dataclasses.replace(cfg, delivery_backend="pallas")
+    server = SimServer(spec, pcfg, max_batch=SERVE_PALLAS_BATCH,
+                       max_windows=SERVE_WINDOWS, device="cuda").start()
+    cuda.reset_launches()
+    pallas = _serve_all(server, requests)
+    launches = dict(cuda.launches)
+    pstats = server.stats()
+    server.shutdown()
+    if min(launches["lif_update"], launches["spike_deliver"]) <= 0:
+        raise AssertionError(f"serve pallas: a kernel never launched: {launches}")
+    _same_trials(pallas, event, "serve pallas vs event")
+    log(f"[serve] (c) pallas server, B = {SERVE_PALLAS_BATCH}: "
+        f"{_tables_gb(server.net):.2f} GB of tables, peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; every trial bitwise the event "
+        f"server's; launches while serving {launches} ({card})")
+    log(_stats_line("(c) pallas server", pstats, card))
+    # One inter launch at the fold's shape, on a served cycle's spikes: the
+    # bitmask of ~5.1M sources lies past shared memory (the global-mask branch).
+    net = server.net
+    st = server._init_state(requests[:SERVE_PALLAS_BATCH])
+    for _ in range(2):
+        st, blk = server.engine.window(st)
+    counts = blk.reshape(blk.shape[0], -1).sum(-1)
+    spikes_f = blk[int(counts.argmax())].reshape(-1).float().contiguous()
+    n_src = spikes_f.numel()
+    rows, k = a * SERVE_PALLAS_BATCH * n_pad, net.k_inter
+    src, w, delay = (getattr(net, f).view(rows, k)
+                     for f in ("src_inter", "w_inter", "delay_inter"))
+    kw = dict(steps_lo=net.steps_lo_inter, r_span=net.r_span_inter)
+    before = dict(cuda.launches)
+    got = dlv.spike_deliver_cuda(spikes_f, src, w, delay, **kw)
+    want = dlv.spike_deliver_plain(spikes_f, src, w, delay, **kw)
+    if not bitwise_equal(got, want):
+        raise AssertionError("spike_deliver at the fold's shape != plain version")
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    ms = time_ms(lambda: dlv.spike_deliver_cuda(spikes_f, src, w, delay, **kw), flush=flush)
+    plain_ms = time_ms(lambda: dlv.spike_deliver_plain(spikes_f, src, w, delay, **kw),
+                       reps=10, flush=flush, host_paced_ok=True)
+    cuda.launches.update(before)  # comparison launches are not the path's
+    active = _active_synapses(spikes_f, src, None)
+    nbytes = (src.numel() * 4 + active * (4 + delay.element_size()) + n_src * 4
+              + got.numel() * 4)
+    bound_ms = max(nbytes / HBM_BYTES_PER_S, 2 * active / F32_OPS_PER_S) * 1e3
+    log(f"[serve] (c) spike_deliver inter at the fold's shape [{rows}, {k}], {n_src} "
+        f"sources (a {-(-n_src // 128) * 16 / 1e3:.0f} KB bitmask, in global memory), "
+        f"{int(spikes_f.sum())} spiking, r_span {kw['r_span']}: bitwise == plain; "
+        f"{active} active synapses; {ms:.3f} ms (bound {bound_ms:.3f} ms by bytes, "
+        f"{100 * bound_ms / ms:.1f}% of it), plain {plain_ms:.3f} ms ({card})")
+    del server, net, st, blk, src, w, delay, got, want, flush, spikes_f
+    free()
+
+    # (e) Card == CPU at tests/test_serve.py's size, 4 copies, both routes.
+    tiny = mam_benchmark_spec(n_areas=4, n_per_area=48, k_intra=8, k_inter=8)
+    tiny_reqs = [TrialRequest(seed=101, stim=1.0, windows=3),
+                 TrialRequest(seed=202, stim=0.9, windows=3),
+                 TrialRequest(seed=303, stim=1.1, windows=2),
+                 TrialRequest(seed=404, stim=1.0, windows=4),
+                 TrialRequest(seed=505, stim=1.2, windows=1)]
+    for backend in ("event", "pallas"):
+        tcfg = EngineConfig(delivery_backend=backend, lif=lif)
+        served = {}
+        for dev in ("cuda", "cpu"):
+            with SimServer(tiny, tcfg, max_batch=4, max_windows=8, device=dev) as srv:
+                served[dev] = _serve_all(srv, tiny_reqs)
+        _same_trials(served["cuda"], served["cpu"], f"serve card vs cpu ({backend})")
+        log(f"[serve] (e) {backend}: {len(tiny_reqs)} trials of the 4 x 48 spec served "
+            f"4 at a time on the card == on the CPU, bitwise, overflow "
+            f"{[r.overflow for r in served['cpu']]}; spikes "
+            f"{[int(r.spikes.sum()) for r in served['cpu']]}")
+
+    # (f) The serve CLI's selftest, as a subprocess.
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
+    run = subprocess.run(
+        [sys.executable, "-c", SERVE_CLI_WRAPPER, "--selftest", "--scale", "0.1",
+         "--batch", str(B), "--trials", str(SERVE_TRIALS), "--windows", str(SERVE_WINDOWS)],
+        capture_output=True, text=True, timeout=600, env=env)
+    lines = [ln for ln in run.stdout.splitlines() if ln.strip()]
+    for ln in lines:
+        log(f"[serve] (f) {ln}")
+    if run.returncode != 0:
+        log(run.stderr[-4000:])
+        raise AssertionError(f"serve cli exited {run.returncode}")
+    launches = json.loads(lines[-1].split(" ", 1)[1])
+    if not any(ln.startswith("selftest OK") for ln in lines) or launches["event_deliver"] <= 0:
+        raise AssertionError(f"serve cli: no selftest OK line or no launches: {launches}")
+    log(f"[serve] (f) the serve CLI's selftest exit 0 in {time.perf_counter() - t0:.1f} s "
+        f"(process start, build, serving, 16 references) ({card})")
 
 
 def profile_window(name, fn, what="window") -> list[tuple[float, int, str]]:
@@ -2027,6 +2328,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"[cli] the network freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
     phase_cli()
+    phase_serve()
     phase_device_vs_cpu()
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 products in f32 (the default,
     torch.backends.cudnn.allow_tf32 = False        # stated): the f32 bars assume it

@@ -33,6 +33,7 @@ __all__ = [
     "mam_benchmark_spec",
     "mam_spec",
     "ring_area_adjacency",
+    "tile_spec",
     "MAM_AREA_NAMES",
 ]
 
@@ -374,3 +375,31 @@ def mam_spec(
         k_intra=ki,
         k_inter=ke,
     )
+
+
+def tile_spec(spec: MultiAreaSpec, copies: int) -> MultiAreaSpec:
+    """``copies`` independent replicas of ``spec`` as one block-diagonal spec.
+
+    The serving layer's folded trial batching (``launch/serve.py``) runs B
+    independent trials as one super-network of ``B * A`` areas whose
+    area adjacency is block-diagonal: no synapse crosses a copy boundary,
+    so each block's trajectory is exactly the single-trial trajectory when
+    each block is fed the single-trial gid table. All temporal and
+    connectivity parameters are shared; only ``areas`` and
+    ``area_adjacency`` grow.
+    """
+    if copies < 1:
+        raise ValueError(f"copies must be >= 1, got {copies}")
+    if copies == 1:
+        return spec
+    a = spec.n_areas
+    base = spec.adjacency_matrix() if spec.k_inter > 0 else None
+    if base is not None:
+        big = np.zeros((copies * a, copies * a), dtype=bool)
+        for b in range(copies):
+            big[b * a:(b + 1) * a, b * a:(b + 1) * a] = base
+        adjacency = tuple(tuple(int(x) for x in row) for row in big)
+    else:
+        adjacency = None
+    return dataclasses.replace(
+        spec, areas=spec.areas * copies, area_adjacency=adjacency)

@@ -38,6 +38,8 @@ __all__ = [
     "network_from_numpy",
     "check_outgoing_order",
     "draw_pathway_rows",
+    "tile_gids",
+    "tile_network",
 ]
 
 _TABLES = ("alive", "rate_hz", "src_intra", "w_intra", "delay_intra",
@@ -467,3 +469,74 @@ def build_network(
         r_span_inter=span_e,
     )
     return add_outgoing_tables(net, outgoing, chunk_rows=chunk) if outgoing else net
+
+
+def tile_gids(n_areas: int, n_pad: int, copies: int, *, device=None) -> torch.Tensor:
+    """The folded batch's gid table: the single-trial ids, tiled per copy.
+
+    ``[copies * n_areas, n_pad]`` int32 on ``device`` (default ``"cuda"``),
+    every copy repeating ``arange(n_areas * n_pad)``. Fed to the engine's
+    ``gids`` override, it makes each block of a :func:`tile_network`
+    super-network draw the single-trial counter drive bit for bit; trials
+    differ by their ``seed`` state leaf, not by the gid table.
+    """
+    one = torch.arange(n_areas * n_pad, dtype=torch.int32,
+                       device=resolve_device(device)).view(n_areas, n_pad)
+    return one.repeat(copies, 1)
+
+
+def tile_network(net: Network, copies: int) -> Network:
+    """``copies`` disjoint replicas of ``net`` as one block-diagonal network.
+
+    The serving layer's folded trial batching: the area axis is tiled
+    ``B = copies`` times (``[A, n_pad, ...]`` -> ``[B * A, n_pad, ...]``)
+    and every global neuron id is offset by ``b * A * n_pad`` in copy
+    ``b``, so no synapse crosses a copy boundary. Within-area indices
+    (``src_intra``, ``tgt_intra``) are copy-local already and tile
+    unchanged. Each block then reproduces the single-trial trajectory bit
+    for bit: weights live on the 1/256 grid and each copy's scatter order
+    is the single-trial order.
+
+    The offsets respect the tables' sentinels: the outgoing ``tgt_inter``
+    pads with ``-1``, which stays ``-1`` (a shifted sentinel would be a
+    valid id in another copy), so the tiled rows still ascend with ``-1``
+    last (:func:`check_outgoing_order`); the incoming ``src_inter`` has no
+    sentinels and is offset everywhere. The reference also tiles the
+    network's area adjacency and refuses sharded inbound tables; this
+    ``Network`` holds neither, so there is nothing to tile or refuse.
+    Tables are written copy by copy on ``net``'s device, so the fold needs
+    no temporary beyond one copy of one table.
+    """
+    if copies < 1:
+        raise ValueError(f"copies must be >= 1, got {copies}")
+    if copies == 1:
+        return net
+    A, n_pad = net.alive.shape
+    B = copies
+    block = A * n_pad
+    if B * block > torch.iinfo(torch.int32).max:
+        raise ValueError(
+            f"{B} copies x {block} padded neurons overflows the int32 "
+            "global-id space")
+
+    def rep(x):
+        return x.repeat(B, *(1,) * (x.dim() - 1))
+
+    def rep_global(x, sentinel: bool):
+        out = torch.empty((B * A, *x.shape[1:]), dtype=x.dtype, device=x.device)
+        for b in range(B):
+            dst = out[b * A:(b + 1) * A]
+            if sentinel:
+                torch.where(x < 0, x, x + b * block, out=dst)
+            else:
+                torch.add(x, b * block, out=dst)
+        return out
+
+    arrays = {name: rep(getattr(net, name)) for name in _TABLES if name != "src_inter"}
+    arrays["src_inter"] = (rep_global(net.src_inter, sentinel=False)
+                           if net.src_inter.numel() else rep(net.src_inter))
+    for name in OUTGOING_TABLES:
+        x = getattr(net, name)
+        if x is not None:
+            arrays[name] = rep_global(x, sentinel=True) if name == "tgt_inter" else rep(x)
+    return dataclasses.replace(net, n_areas=B * A, **arrays)
