@@ -104,6 +104,26 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    CLI returns) nonzero for the kernels of its path, and the resilient
    legs' per-window times from ``run_windows`` (the first window a cold
    process's);
+8a. ``[dist]`` the distributed engine (``make_simulation(..., mesh=...)``)
+   as four ranks of one gloo world sharing the card (``ProcessMesh((2, 2),
+   ("data", "model"))``: 2 area groups x 2 lanes), spawned as processes of
+   this script (``--dist-rank``), every rank held to the single host
+   window by window (whole blocks gathered, bitwise) with ``overflow ==
+   0``: (a) the main path's spec (4 x 130,000, K 3000/3000), the
+   host-free sharded build (rank 0 plans and broadcasts, every rank draws
+   its own tables), ``event``, structure-aware: iaf over the main path's
+   6 windows and LIF over its 24 (adaptive, overlapped, ``fused_update``);
+   (b) K 300/300, every rank building the global network and cutting it:
+   iaf on ``pallas`` and ``event`` under both schedules, against a
+   single-host pallas run made here first. Per rank, beside the card's
+   name and power limit: build seconds, GB allocated and peak, ms/window,
+   kernel launches per window (asserted), shipped bytes per window (==
+   ``dense_wire_bytes`` on static packets), collective calls per window,
+   and one profiled window: the time inside the gloo collectives and the
+   part of it spent waiting for the other ranks. Kernels 1, 2 and 6 are
+   held to their plain versions at a rank's shard shapes. Four ranks on
+   one card are no scaling measurement: they share its SMs, and gloo's
+   wire goes through host memory;
 8b. ``[serve]`` the folded trial server (``repro_torch.launch.serve``) at
    the 32-area MAM (``mam_spec(scale=0.1)``: 418,340 neurons, ``n_pad``
    19,890, K 420/180) in the serve CLI's ``--selftest`` regime (``v_th`` 2.0
@@ -453,16 +473,26 @@ def _timed_windows(eng, st, n, check=None):
     return st, 1e3 * sum(times) / n, per, note
 
 
-def _advance(eng, st, n, what):
+def _advance(eng, st, n, what, keep=None):
     """``st`` after ``n`` untimed windows of ``eng``; logs each window's
-    spikes and those of its busiest (cycle, area)."""
+    spikes and those of its busiest (cycle, area). ``keep`` (a list) gets
+    each window's block, bit-packed on the host."""
     first = st.t // eng.delay_ratio
     blocks = []
     for _ in range(n):
         st, blk = eng.window(st)
         blocks.append(blk)
+        if keep is not None:
+            keep.append(_packed(blk))
     log(f"[full] {what}, windows {first}-{first + n - 1}: {_fired(blocks)}")
     return st
+
+
+def _packed(blk):
+    """A spike block bit-packed into a host array (the [dist] references)."""
+    import numpy as np
+
+    return np.packbits(blk.cpu().numpy().astype(bool))
 
 
 def _fired(blocks) -> str:
@@ -544,8 +574,9 @@ def phase_main_path(spec, net) -> dict:
     # rings, the fused run must reproduce them and the final state bitwise.
     lif = {"structure_aware": engine("lif"),
            "structure_aware fused": engine("lif", superstep_kernel=True)}
+    lif_ramp = []
     lif_start = _advance(lif["structure_aware fused"], lif["structure_aware fused"].init(),
-                         LIF_RAMP_WINDOWS, "lif untimed, fused pallas")
+                         LIF_RAMP_WINDOWS, "lif untimed, fused pallas", keep=lif_ramp)
     lif_store = []
     st_u, ms_u, per_u, note_u = _timed_windows(lif["structure_aware"], lif_start,
                                        5, check=_keep(lif_store))
@@ -583,7 +614,7 @@ def phase_main_path(spec, net) -> dict:
         st = eng.window(eng.init())[0]
         profile_window(f"ignore_and_fire {name}", lambda: eng.window(st))
     return dict(iaf_store=iaf_store, lif_store=lif_store, lif_start=lif_start, ms=ms,
-                launches=launches, profiled=profiled)
+                launches=launches, profiled=profiled, lif_ramp=lif_ramp)
 
 
 def phase_event_runs(spec, net, pallas: dict) -> dict:
@@ -2291,9 +2322,361 @@ def phase_lm_device_vs_cpu() -> None:
         raise AssertionError(f"reduced qwen2 cuda vs cpu: forward {err}, serving {errs}")
 
 
+# ---------------------------------------------------------------------------
+# [dist]: the distributed engine, four gloo ranks sharing the card
+# ---------------------------------------------------------------------------
+
+DIST_MESH = ((2, 2), ("data", "model"))   # 2 area groups x 2 lanes
+DIST_RANKS = 4
+DIST_K_REDUCED = 300
+DIST_IAF_WINDOWS = 6                      # 1 + 5, as the main path's runs
+DIST_LIF_WINDOWS = LIF_RAMP_WINDOWS + 6   # windows 0-23: the ramp, then 18-23
+DIST_TIMEOUT_S = 480
+
+
+def dist_references(pallas: dict) -> dict:
+    """[dist] (a)'s references, bit-packed on the host: the single-host iaf
+    runs' 6 windows and LIF's 24 (the untimed ramp, then the stored
+    windows), every one bitwise the event runs' (which ``[event]``
+    checks)."""
+    return dict(iaf=[_packed(blk) for blk, _ in pallas["iaf_store"]],
+                lif=pallas["lif_ramp"] + [_packed(blk) for blk, _ in pallas["lif_store"]])
+
+
+def phase_dist(refs: dict) -> None:
+    """[dist]: the distributed engine (``make_simulation(..., mesh=...)``)
+    as four ranks of one gloo world, all on this card, spawned here as
+    processes of this script (``--dist-rank``) and echoed after they end.
+    The single-host references: (a) the main path's runs, (b) the iaf
+    pallas run at K 300, run here first. Every rank must exit 0."""
+    import socket
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import EngineConfig, build_network, make_simulation, mam_benchmark_spec
+
+    spec = mam_benchmark_spec(n_areas=4, n_per_area=130_000, k_intra=DIST_K_REDUCED,
+                              k_inter=DIST_K_REDUCED)
+    net = build_network(spec, seed=12)
+    eng = make_simulation(spec, EngineConfig(neuron_model="ignore_and_fire",
+                                             delivery_backend="pallas"), net=net)
+    st, ref_b = eng.init(), []
+    for _ in range(DIST_IAF_WINDOWS):
+        st, blk = eng.window(st)
+        ref_b.append(_packed(blk))
+    shape = tuple(blk.shape)
+    del eng, net, st, blk
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[dist] (b) single-host reference: iaf pallas at 4 x 130000, K "
+        f"{DIST_K_REDUCED}/{DIST_K_REDUCED}, {DIST_IAF_WINDOWS} windows; "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB left allocated in this process")
+    with tempfile.TemporaryDirectory() as tmp:
+        arrays = {f"{k}_{w}": b for k, blocks in (("iaf", refs["iaf"]), ("lif", refs["lif"]),
+                                                  ("b", ref_b)) for w, b in enumerate(blocks)}
+        np.savez(f"{tmp}/refs.npz", shape=np.asarray(shape), **arrays)
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        t0 = time.perf_counter()
+        procs = []
+        for rank in range(DIST_RANKS):
+            with open(f"{tmp}/rank{rank}.log", "w") as out:
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(Path(__file__).resolve()), "--dist-rank", str(rank),
+                     tmp, str(port)], stdout=out, stderr=subprocess.STDOUT))
+        try:
+            for p in procs:
+                p.wait(timeout=max(1.0, DIST_TIMEOUT_S - (time.perf_counter() - t0)))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for rank in range(DIST_RANKS):
+            for line in Path(f"{tmp}/rank{rank}.log").read_text().splitlines():
+                log(line if line.startswith("[dist]") else f"[dist] rank {rank}| {line}")
+        rcs = [p.returncode for p in procs]
+        log(f"[dist] {DIST_RANKS} ranks exited {rcs} after {time.perf_counter() - t0:.1f} s")
+        if any(rcs):
+            raise AssertionError(f"[dist] a rank failed: exit codes {rcs}")
+
+
+class _DistRank:
+    """One rank of [dist]: its mesh, the references, the card."""
+
+    def __init__(self, mesh, refs, card):
+        self.mesh, self.refs, self.card = mesh, refs, card
+        self.shape = tuple(int(x) for x in refs["shape"])
+
+    def log(self, msg: str) -> None:
+        log(f"[dist] rank {self.mesh.rank}: {msg} ({self.card})")
+
+    def ref(self, key: str, w: int):
+        import numpy as np
+        import torch
+
+        bits = np.unpackbits(self.refs[f"{key}_{w}"], count=int(np.prod(self.shape)))
+        return torch.from_numpy(bits.astype(bool).reshape(self.shape)).to(self.mesh.device)
+
+    def run(self, name, eng, key, windows, *, expect, static):
+        """``windows`` windows of ``eng`` (through its pipeline when it has
+        one, drained at the end), each whole block bitwise the reference's,
+        overflow 0; each window timed (a synchronize at both ends), its
+        collectives and shipped bytes counted. Returns the final state."""
+        import collections
+
+        import torch
+        import torch.distributed as dist
+
+        from repro_torch.core import comm
+        from repro_torch.kernels import cuda
+
+        st = eng.init()
+        inflight = eng.init_inflight() if eng.window_overlap is not None else None
+        cuda.reset_launches()
+        calls, times, shipped = collections.Counter(), [], []
+        for w in range(windows):
+            dist.barrier()
+            torch.cuda.synchronize()
+            before, ship0 = collections.Counter(comm.calls), st.shipped_bytes
+            t0 = time.perf_counter()
+            if inflight is not None:
+                st, inflight, blk = eng.window_overlap(st, inflight)
+            else:
+                st, blk = eng.window(st)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            calls.update(collections.Counter(comm.calls) - before)
+            shipped.append(st.shipped_bytes - ship0)
+            if not bitwise_equal(eng.gather_block(blk), self.ref(key, w)):
+                raise AssertionError(f"[dist] {name}: window {w} differs from the single host")
+        if inflight is not None:
+            st = eng.drain(st, inflight)
+        per = {k: v / windows for k, v in cuda.launches.items() if v}
+        if int(st.overflow) != 0:
+            raise AssertionError(f"[dist] {name}: overflow {int(st.overflow)}")
+        if per != {k: float(v) for k, v in expect.items()}:
+            raise AssertionError(f"[dist] {name}: launches per window {per}, expected {expect}")
+        wb = eng.wire_bytes["total_bytes"]
+        if static and any(x != wb for x in shipped):
+            raise AssertionError(f"[dist] {name}: shipped {shipped} != dense_wire_bytes {wb}")
+        ms = [1e3 * t for t in times]
+        if static:
+            wire = f"shipped {shipped[-1]:.0f} B/window == dense_wire_bytes {wb}"
+        else:
+            wire = (f"shipped {min(shipped):.0f}-{max(shipped):.0f} B/window (adaptive; the "
+                    f"static accounting {wb})")
+        per_call = {f"{op} over {'+'.join(ax)}": n / windows for (op, ax), n in sorted(calls.items())}
+        self.log(f"{name}: {windows} windows bitwise the single host, overflow 0; "
+                 f"{statistics.mean(ms[1:]):.2f} ms/window over windows 1-{windows - 1} "
+                 f"({min(ms[1:]):.2f}-{max(ms[1:]):.2f}; window 0 {ms[0]:.2f}); launches/window "
+                 f"{per}; {wire}; collective calls/window {per_call}")
+        return st
+
+    def profile(self, name, fn):
+        """One window under torch.profiler: the host time inside the process
+        group's collectives (the profiler's gloo ops) and, from this module's
+        own per-call timers, the part of it spent waiting for the other
+        ranks (each call's time less the fastest rank's)."""
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        from repro_torch.core import comm
+
+        torch.cuda.synchronize()
+        comm.reset_stats(timed=True)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        own = torch.tensor([t for _, _, t in comm.times], dtype=torch.float64)
+        comm.reset_stats()
+        every = comm.all_gather(own[None], self.mesh, self.mesh.axis_names, dim=0)
+        wait = float((own - every.min(dim=0).values).sum())
+        gloo = [e for e in prof.key_averages() if e.key.startswith("gloo:")]
+        inside = sum(e.cpu_time_total for e in gloo) / 1e6
+        busy = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()
+                   if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA) / 1e6
+        self.log(f"[profile] {name}: window {1e3 * wall:.2f} ms wall; {len(own)} collectives, "
+                 f"{1e3 * inside:.2f} ms inside them by the profiler "
+                 f"({', '.join(sorted({f'{e.key} x{e.count}' for e in gloo})) or 'no gloo ops'}), "
+                 f"{1e3 * float(own.sum()):.2f} ms by comm's timers, of which {1e3 * wait:.2f} ms "
+                 f"waiting for the other ranks; device busy {1e3 * busy:.2f} ms")
+
+
+def _dist_a(r) -> None:
+    """(a) the paper's per-area size, host-free sharded build, event path."""
+    import torch
+
+    from repro_torch.core import EngineConfig, make_simulation, mam_benchmark_spec
+    from repro_torch.core import neuron as neuron_lib
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.lif_update import lif_update_plain
+
+    spec = mam_benchmark_spec(n_areas=4, n_per_area=130_000, k_intra=3000, k_inter=3000)
+    runs = (("iaf", "ignore_and_fire", {}, DIST_IAF_WINDOWS, dict(event_deliver=11)),
+            ("lif", "lif", dict(adaptive_exchange=True, overlap_exchange=True, fused_update=True),
+             DIST_LIF_WINDOWS, dict(event_deliver=11, lif_update=10)))
+    for key, model, kw, windows, expect in runs:
+        cfg = EngineConfig(neuron_model=model, delivery_backend="event", sharded_build=True, **kw)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        eng = make_simulation(spec, cfg, mesh=r.mesh, build_seed=12)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        r.log(f"(a) {key} sharded build (rank 0's plan, broadcast, then this rank's "
+              f"tables): {build_s:.2f} s, {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+              f"allocated, peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        name = f"(a) {key} event structure_aware" + "".join(f" {k}" for k in kw)
+        st = r.run(name, eng, key, windows, expect=expect, static=not kw)
+        r.log(f"(a) {key}: peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB over build "
+              f"and run; {int(eng.gather_state(st).spike_count.sum())} spikes")
+        r.profile(f"(a) {key}", lambda: eng.window(st))
+        if model == "lif":
+            # Kernel 1 at this rank's shard shape: [A_loc, n_loc] state.
+            p = dataclasses.replace(neuron_lib.LIFParams(), dt_ms=spec.dt_ms)
+            kw1 = dict(p11=p.p11, p21=p.p21, p22=p.p22, v_th=p.v_th_mv,
+                       v_reset=p.v_reset_mv, t_ref_steps=p.t_ref_steps)
+            n = st.neuron
+            args = (n.v, n.i_syn, n.refrac, st.ring[..., 0].contiguous(),
+                    torch.ones_like(n.refrac, dtype=torch.bool))
+            got = ops.lif_update(*args, **kw1)
+            want = lif_update_plain(*args, **kw1)
+            if not all(bitwise_equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError("[dist] lif_update differs from its plain version")
+            r.log(f"[kernel] lif_update at the shard shape {tuple(n.v.shape)}: bitwise == plain")
+        del eng, st
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _dist_b(r) -> None:
+    """(b) K 300: every rank builds the global network, shard_network cuts
+    it; pallas and event under both schedules; kernels 2 and 6 held to
+    their plain versions at the shard shapes."""
+    import torch
+
+    from repro_torch.core import EngineConfig, build_network, comm, make_simulation
+    from repro_torch.core import delivery, dist_engine, mam_benchmark_spec
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.event_deliver import event_deliver_plain
+    from repro_torch.kernels.spike_deliver import spike_deliver_plain
+
+    mesh = r.mesh
+    spec = mam_benchmark_spec(n_areas=4, n_per_area=130_000, k_intra=DIST_K_REDUCED,
+                              k_inter=DIST_K_REDUCED)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    net = build_network(spec, seed=12, outgoing="intra", device=mesh.device)
+    torch.cuda.synchronize()
+    r.log(f"(b) global network K {DIST_K_REDUCED}/{DIST_K_REDUCED} built on this rank in "
+          f"{time.perf_counter() - t0:.2f} s, {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    expect = {("pallas", "conventional"): dict(spike_deliver=20),
+              ("pallas", "structure_aware"): dict(spike_deliver=20),
+              ("event", "conventional"): dict(event_deliver=20),
+              ("event", "structure_aware"): dict(event_deliver=11)}
+    for (backend, sched), want in expect.items():
+        cfg = EngineConfig(neuron_model="ignore_and_fire", delivery_backend=backend,
+                           schedule=sched)
+        eng = make_simulation(spec, cfg, net=net, mesh=mesh)
+        st = r.run(f"(b) iaf {backend} {sched}", eng, "b", DIST_IAF_WINDOWS, expect=want,
+                   static=True)
+        r.profile(f"(b) {backend} {sched}", lambda: eng.window(st))
+        del eng, st
+    r.log(f"(b) peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+    # Kernels 2 and 6 at this rank's shard shapes, on the last window's
+    # spikes (the reference block), against their plain versions.
+    blk = r.ref("b", DIST_IAF_WINDOWS - 1)                     # [D, A, n_pad]
+    view = dist_engine.shard_network(net, mesh, "structure_aware")
+    c = dist_engine._cut(mesh, "structure_aware", net.n_areas, net.n_pad)
+    s = int(blk.reshape(blk.shape[0], -1).sum(1).argmax())     # the busiest cycle
+    cases = {
+        "intra": (blk[s, c.aoff:c.aoff + c.a_loc].float().reshape(-1),
+                  [view.src_intra, view.w_intra, view.delay_intra],
+                  dict(steps_lo=net.steps_lo_intra, r_span=net.r_span_intra,
+                       rows_per_area=c.n_loc, src_stride=net.n_pad)),
+        "inter": (blk[s].float().reshape(-1),
+                  [view.src_inter, view.w_inter, view.delay_inter],
+                  dict(steps_lo=net.steps_lo_inter, r_span=net.r_span_inter)),
+    }
+    for name, (spikes, tables, kw) in cases.items():
+        tables = [x.reshape(-1, x.shape[-1]) for x in tables]
+        got = ops.spike_deliver(spikes, *tables, **kw)
+        want = spike_deliver_plain(spikes, *tables, **kw)
+        if not bitwise_equal(got, want):
+            raise AssertionError(f"[dist] spike_deliver {name} differs from its plain version")
+        r.log(f"[kernel] spike_deliver {name} at the shard shape: {tables[0].shape[0]} rows x "
+              f"{tables[0].shape[1]} against {spikes.numel()} sources ({int(spikes.sum())} spiking): bitwise == plain")
+    cfg = EngineConfig(neuron_model="ignore_and_fire", delivery_backend="event")
+    recv_intra, recv_inter = dist_engine._event_tables(net, view, mesh, cfg, c)
+    local = blk[:, c.aoff:c.aoff + c.a_loc, c.noff:c.noff + c.n_loc]
+    gids = (torch.arange(net.n_areas * net.n_pad, dtype=torch.int32, device=mesh.device)
+            .view(net.n_areas, net.n_pad)[c.aoff:c.aoff + c.a_loc, c.noff:c.noff + c.n_loc])
+    need = comm.count_max(local.reshape(local.shape[0], -1).sum(1).max(), mesh,
+                          mesh.axis_names)  # one packet size on every rank
+    packets, _ = delivery.compact_fired_block(local, gids, s_max=need,
+                                              invalid=net.n_areas * net.n_pad)
+    wire = comm.all_gather(packets, mesh, mesh.axis_names, dim=1)
+    ring = torch.zeros((c.a_loc * c.n_loc, net.ring_len), dtype=torch.float32,
+                       device=mesh.device)
+    got = ops.event_deliver_block(ring.clone(), wire, *recv_inter, 5 * net.delay_ratio)
+    want = event_deliver_plain(ring.clone(), wire, *recv_inter, 5 * net.delay_ratio)
+    if not bitwise_equal(got, want):
+        raise AssertionError("[dist] event_deliver inter differs from its plain version")
+    r.log(f"[kernel] event_deliver inter at the shard shape: packets {tuple(wire.shape)} through "
+          f"receive tables {tuple(recv_inter.tgt.shape)} into {tuple(ring.shape)}: bitwise == plain")
+    ids = torch.arange(c.n_loc, dtype=torch.int32, device=mesh.device) + c.noff
+    pk, _ = ops.compact_ids_block(local[s], ids, size=c.n_loc, fill_id=net.n_pad)
+    area_wire = comm.all_gather(pk, mesh, mesh.axis_names[-1], dim=1)
+    base = torch.arange(c.a_loc, dtype=torch.int32, device=mesh.device)[:, None] * net.n_pad
+    flat = torch.where(area_wire < net.n_pad, area_wire + base, c.a_loc * net.n_pad).view(1, -1)
+    got = ops.event_deliver_block(ring.clone(), flat, *recv_intra, s)
+    want = event_deliver_plain(ring.clone(), flat, *recv_intra, s)
+    if not bitwise_equal(got, want):
+        raise AssertionError("[dist] event_deliver intra differs from its plain version")
+    r.log(f"[kernel] event_deliver intra at the shard shape: packet {tuple(flat.shape)} through "
+          f"receive tables {tuple(recv_intra.tgt.shape)}: bitwise == plain")
+
+
+def dist_rank_main(rank: int, tmp: str, port: int) -> int:
+    """One rank of [dist] (run as ``chip_smoke.py --dist-rank R DIR PORT``)."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(2)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=DIST_RANKS, rank=rank,
+                            timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+    try:
+        from repro_torch.core import ProcessMesh
+        from repro_torch.kernels import cuda
+
+        if rank == 0:
+            cuda.build_all()  # built already by the parent: loads, or builds once
+        dist.barrier()
+        mesh = ProcessMesh(*DIST_MESH)
+        r = _DistRank(mesh, np.load(f"{tmp}/refs.npz"), card_name_power())
+        r.log(f"{mesh}, torch {torch.__version__}, backend {dist.get_backend()}")
+        _dist_a(r)
+        _dist_b(r)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
 def main() -> int:
     import torch
 
+    if len(sys.argv) == 5 and sys.argv[1] == "--dist-rank":
+        return dist_rank_main(int(sys.argv[2]), sys.argv[3], int(sys.argv[4]))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
@@ -2304,6 +2687,7 @@ def main() -> int:
     spec = mam_benchmark_spec(n_areas=4, n_per_area=130_000, k_intra=3000, k_inter=3000)
     net = phase_build_network(spec)
     pallas = phase_main_path(spec, net)
+    dist_refs = dist_references(pallas)
     event_launches = phase_event_runs(spec, net, pallas)
     steady, lif_steady_start = phase_lif_steady(spec, net, pallas["lif_start"])
     block, ring = pallas["iaf_store"][-1]  # the iaf runs' last window, from t0 = 5 D
@@ -2327,6 +2711,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[cli] the network freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    phase_dist(dist_refs)
+    del dist_refs
     phase_cli()
     phase_serve()
     phase_device_vs_cpu()

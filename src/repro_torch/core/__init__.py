@@ -18,6 +18,7 @@ from repro_torch.core.engine import (
     SimState,
 )
 from repro_torch.core.factory import make_simulation
+from repro_torch.core.mesh import ProcessMesh
 from repro_torch.core.schedule import run_windows, state_from_numpy
 
 __all__ = [
@@ -37,6 +38,7 @@ __all__ = [
     "EngineConfig",
     "SimState",
     "make_simulation",
+    "ProcessMesh",
     "run_windows",
     "state_from_numpy",
 ]

@@ -1,0 +1,254 @@
+"""Spike-exchange collectives over a :class:`~repro_torch.core.mesh.ProcessMesh`.
+
+Port of ``repro.core.comm``. The paper's separate pathways (§4.1.2) map onto
+the mesh's axes:
+
+* the **local pathway** runs every cycle over the subgroup axis only, the
+  ranks that share an area (``gather_area``);
+* the **global pathway** runs every D-th cycle and carries the window's
+  ``[D, ...]`` block over all ranks (``gather_global``); the conventional
+  schedule instead gathers every cycle's spikes over all ranks
+  (``gather_full``).
+
+Spikes travel as one bit per neuron per cycle on the dense wire
+(``pack_bits``, bit for bit the JAX package's format). The JAX functions run
+inside ``shard_map`` and name mesh axes; these take the mesh and its axis
+names and call ``torch.distributed`` on the axis's process group. Every rank
+must call the same collectives in the same order.
+
+**The wire** is chosen from each group's backend:
+
+* ``gloo`` (host memory, the only backend when ranks share one card): a
+  device tensor is copied into a pinned host buffer that this module owns,
+  gathered there, and copied back. The copy to the host waits for the
+  device, so every staged collective is a synchronisation point.
+* ``nccl`` (one card per rank): device tensors go as they are.
+
+``calls`` counts collectives by ``(op, axes)`` and, while ``times`` is a
+list, each collective appends ``(op, axes, seconds)`` with the host time it
+spent inside ``torch.distributed`` (waiting for the other ranks included).
+"""
+
+from __future__ import annotations
+
+import collections
+import time
+from typing import Sequence
+
+import torch
+import torch.distributed as dist
+
+__all__ = [
+    "pack_bits",
+    "unpack_bits",
+    "all_gather",
+    "all_reduce",
+    "gather_area",
+    "gather_global",
+    "gather_full",
+    "exchange_bytes",
+    "count_max",
+    "gather_counts",
+    "count_wire_bytes",
+    "calls",
+    "times",
+    "reset_stats",
+]
+
+calls: collections.Counter = collections.Counter()
+times: list | None = None
+# Pinned host buffers for the gloo wire, by (role, shape, dtype).
+_pinned: dict = {}
+
+
+def reset_stats(*, timed: bool = False) -> None:
+    """Zero ``calls``; start recording ``times`` when ``timed``, else stop."""
+    global times
+    calls.clear()
+    times = [] if timed else None
+
+
+def pack_bits(x: torch.Tensor) -> torch.Tensor:
+    """``[..., n]`` 0/1 int8 -> ``[..., ceil(n/8)]`` uint8, bit ``i`` of byte
+    ``j`` holding element ``8 j + i`` (the JAX package's wire format)."""
+    n = x.shape[-1]
+    pad = (-n) % 8
+    if pad:
+        x = torch.nn.functional.pad(x, (0, pad))
+    b = x.reshape(*x.shape[:-1], (n + pad) // 8, 8).to(torch.int32)
+    shifts = torch.arange(8, dtype=torch.int32, device=x.device)
+    return (b << shifts).sum(dim=-1).to(torch.uint8)
+
+
+def unpack_bits(p: torch.Tensor, n: int) -> torch.Tensor:
+    """Inverse of :func:`pack_bits`: ``[..., n/8]`` uint8 -> ``[..., n]`` int8."""
+    shifts = torch.arange(8, dtype=torch.int32, device=p.device)
+    bits = (p.to(torch.int32)[..., None] >> shifts) & 1
+    return bits.reshape(*p.shape[:-1], p.shape[-1] * 8)[..., :n].to(torch.int8)
+
+
+def _key(axes) -> tuple:
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+def _staged(group, x: torch.Tensor) -> bool:
+    """Whether ``x`` crosses ``group`` through pinned host buffers."""
+    backend = dist.get_backend(group)
+    if backend == "gloo":
+        return x.is_cuda
+    if backend == "nccl":
+        return False
+    raise ValueError(f"no wire for process-group backend {backend!r} (gloo or nccl)")
+
+
+def _buffer(role: str, shape, dtype) -> torch.Tensor:
+    key = (role, tuple(shape), dtype)
+    buf = _pinned.get(key)
+    if buf is None:
+        buf = _pinned[key] = torch.empty(shape, dtype=dtype, pin_memory=True)
+    return buf
+
+
+def _timed(op: str, axes, fn):
+    calls[(op, axes)] += 1
+    if times is None:
+        return fn()
+    t0 = time.perf_counter()
+    out = fn()
+    times.append((op, axes, time.perf_counter() - t0))
+    return out
+
+
+def _gather(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """``[n, *x.shape]``: every rank's ``x`` over the group of ``axes``, in
+    row-major order over ``axes``."""
+    axes = _key(axes)
+    group = mesh.group(axes)
+    n = mesh.extent(axes)
+    x = x.contiguous()
+    if _staged(group, x):
+        src = _buffer("in", x.shape, x.dtype)
+        src.copy_(x)  # waits for the device
+        out = _buffer("out", (n, *x.shape), x.dtype)
+        _timed("all_gather", axes, lambda: dist.all_gather(list(out.unbind(0)), src, group=group))
+        # The next staged collective's copy to the host waits for this copy
+        # before anything is written into `out` again.
+        return out.to(x.device, non_blocking=True)
+    out = torch.empty((n, *x.shape), dtype=x.dtype, device=x.device)
+    _timed("all_gather", axes, lambda: dist.all_gather(list(out.unbind(0)), x, group=group))
+    return out
+
+
+def all_gather(x: torch.Tensor, mesh, axes, *, dim: int) -> torch.Tensor:
+    """Tiled all_gather: the ranks' ``x`` concatenated along ``dim`` in
+    row-major order over ``axes`` (``jax.lax.all_gather(..., tiled=True)``)."""
+    g = _gather(x, mesh, axes)
+    n = g.shape[0]
+    if dim == 0:
+        return g.reshape(n * x.shape[0], *x.shape[1:])
+    g = torch.movedim(g, 0, dim)
+    return g.reshape(*x.shape[:dim], n * x.shape[dim], *x.shape[dim + 1:])
+
+
+def all_reduce(x: torch.Tensor, mesh, axes, *, op: str = "sum") -> torch.Tensor:
+    """``x`` reduced over the group of ``axes`` (``'sum'`` or ``'max'``); a
+    new tensor on ``x``'s device (``jax.lax.psum`` / ``pmax``)."""
+    axes = _key(axes)
+    group = mesh.group(axes)
+    rop = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+    staged = _staged(group, x)
+    buf = x.detach().to("cpu", copy=True) if staged else x.detach().clone()
+    _timed(f"all_reduce_{op}", axes, lambda: dist.all_reduce(buf, op=rop, group=group))
+    return buf.to(x.device, non_blocking=True) if staged else buf
+
+
+def gather_area(
+    spikes_local: torch.Tensor, mesh, *, subgroup_axis: str = "model", packed: bool = True,
+) -> torch.Tensor:
+    """Local pathway: ``[A_loc, n_loc]`` int8, this rank's shard of its
+    areas -> ``[A_loc, n_pad]``, the areas' whole spike vectors, gathered
+    over the subgroup only (bit-packed on the wire)."""
+    if not packed:
+        return all_gather(spikes_local, mesh, subgroup_axis, dim=1)
+    n_loc = spikes_local.shape[-1]
+    wire = _gather(pack_bits(spikes_local), mesh, subgroup_axis)  # [n_sh, A_loc, per]
+    out = unpack_bits(wire, n_loc)                               # [n_sh, A_loc, n_loc]
+    return torch.movedim(out, 0, 1).reshape(spikes_local.shape[0], -1)
+
+
+def gather_global(
+    block_local: torch.Tensor, mesh, *, area_axes: Sequence[str] = ("pod", "data"),
+    subgroup_axis: str = "model", packed: bool = True,
+) -> torch.Tensor:
+    """Global pathway: ``[D, A_loc, n_loc]`` int8 -> ``[D, A, n_pad]`` in
+    global area order. First the subgroup completes each area, then the
+    area axes concatenate areas, innermost axis first, so that the global
+    area index is row-major over the area axes (bit-packed on the wire)."""
+    if not packed:
+        block = all_gather(block_local, mesh, subgroup_axis, dim=2)
+        for ax in reversed(tuple(area_axes)):
+            block = all_gather(block, mesh, ax, dim=1)
+        return block
+    n_loc = block_local.shape[-1]
+    per = (n_loc + 7) // 8
+    wire = all_gather(pack_bits(block_local), mesh, subgroup_axis, dim=2)
+    for ax in reversed(tuple(area_axes)):
+        wire = all_gather(wire, mesh, ax, dim=1)
+    d, a_tot, _ = wire.shape
+    out = unpack_bits(wire.reshape(d, a_tot, -1, per), n_loc)
+    return out.reshape(d, a_tot, -1)
+
+
+def gather_full(
+    spikes_local: torch.Tensor, mesh, axes: Sequence[str], *, packed: bool = True,
+) -> torch.Tensor:
+    """Conventional pathway: ``[A, n_loc]`` -> ``[A, n_pad]``, one gather of
+    the cycle's spike vector over ``axes`` (all of them), bit-packed."""
+    if not packed:
+        return all_gather(spikes_local, mesh, tuple(axes), dim=1)
+    n_loc = spikes_local.shape[-1]
+    wire = _gather(pack_bits(spikes_local), mesh, tuple(axes))  # [n_sh, A, per]
+    out = unpack_bits(wire, n_loc)
+    return torch.movedim(out, 0, 1).reshape(spikes_local.shape[0], -1)
+
+
+def exchange_bytes(shape_local: tuple[int, ...], n_gather_devices: int,
+                   dtype_bytes: int = 1) -> int:
+    """Bytes a rank receives in one tiled all_gather (for the cost model)."""
+    n_elems = 1
+    for s in shape_local:
+        n_elems *= s
+    return n_elems * (n_gather_devices - 1) * dtype_bytes
+
+
+def count_max(count, mesh, axes) -> int:
+    """Phase 1 of the adaptive two-phase exchange: the maximum of every
+    rank's count over ``axes``, as a host int. Every rank gets the same
+    number, so every rank picks the same ladder rung and ships packets of
+    one size. Reading a device count waits for the device: the protocol's
+    one synchronisation."""
+    group = mesh.group(_key(axes))
+    if dist.get_backend(group) == "nccl":
+        x = torch.as_tensor(count, dtype=torch.int64, device=mesh.device).reshape(1)
+    else:
+        x = torch.tensor([int(count)], dtype=torch.int64)
+    return int(all_reduce(x, mesh, axes, op="max")[0])
+
+
+def gather_counts(
+    counts_local: torch.Tensor, mesh, *, area_axes: Sequence[str] = ("pod", "data"),
+    subgroup_axis: str = "model",
+) -> torch.Tensor:
+    """The global ``[D, A]`` per-area count table from each rank's partial
+    ``[D, A_loc]`` int32 counts: summed over the subgroup, then gathered
+    over the area axes innermost first (the order of :func:`gather_global`)."""
+    c = all_reduce(counts_local, mesh, subgroup_axis, op="sum")
+    for ax in reversed(tuple(area_axes)):
+        c = all_gather(c, mesh, ax, dim=1)
+    return c
+
+
+def count_wire_bytes(n_words: int, n_devices: int) -> int:
+    """Mesh-total bytes of one phase-1 count collective: ``n_words`` int32
+    words received by each of ``n_devices`` ranks."""
+    return n_devices * n_words * 4

@@ -1,6 +1,6 @@
 """Network instantiation: fixed-indegree connectivity with tiered delays.
 
-Port of ``repro.core.connectivity`` (single-host incoming tables). The tables
+Port of ``repro.core.connectivity``. The tables
 are rectangular tensors, split into the paper's short- and long-range tiers:
 
 * intra-area synapses of area ``a``: ``src_intra[a, n, k]`` (index *within*
@@ -18,6 +18,15 @@ The event backend reads the *outgoing* (source -> targets) tables,
 ``build_network(outgoing=True)``: the incoming tables inverted by a counting
 sort over target-row chunks (:func:`_invert_adjacency`), in the order of the
 JAX package's stable argsort.
+
+The distributed engine reads per-rank cuts of these tables:
+:func:`shard_inter_tables` re-cuts the inter tables into *inbound* slices
+(each shard keeps the synapses whose targets it owns) and
+:func:`slice_intra_tables` cuts the outgoing intra tables over the
+subgroup's neuron windows. The host-free build (:func:`sharded_build_plan`,
+:func:`build_shard_tables`, :func:`build_group_intra_tables`,
+:func:`build_lane_intra_tables`) draws one shard's tables straight from the
+counter-based rules, bitwise equal to cutting the global network.
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.areas import MultiAreaSpec
+from repro_torch.core.partition import shard_pathway_rows
 from repro_torch.device import resolve_device
 
 __all__ = [
@@ -38,6 +48,13 @@ __all__ = [
     "network_from_numpy",
     "check_outgoing_order",
     "draw_pathway_rows",
+    "shard_inter_tables",
+    "slice_intra_tables",
+    "ShardedBuildPlan",
+    "sharded_build_plan",
+    "build_shard_tables",
+    "build_group_intra_tables",
+    "build_lane_intra_tables",
     "tile_gids",
     "tile_network",
 ]
@@ -46,6 +63,7 @@ _TABLES = ("alive", "rate_hz", "src_intra", "w_intra", "delay_intra",
            "src_inter", "w_inter", "delay_inter")
 OUTGOING_TABLES = ("tgt_intra", "wout_intra", "dout_intra",
                    "tgt_inter", "wout_inter", "dout_inter")
+INBOUND_TABLES = ("tgt_inter_in", "wout_inter_in", "dout_inter_in")
 # Table rows a build or check step handles at once on the device.
 CHUNK_ROWS = 8192
 
@@ -73,6 +91,14 @@ class Network:
     tgt_inter: torch.Tensor | None = None   # [A, n_pad, K_out_e] global target id
     wout_inter: torch.Tensor | None = None  # [A, n_pad, K_out_e] f32
     dout_inter: torch.Tensor | None = None  # [A, n_pad, K_out_e] int8/int32
+    # Optional *inbound* inter tables (:func:`shard_inter_tables`): shard s
+    # of the leading axis holds, for every source row (global id order),
+    # only the synapses whose target lies in shard s, targets as global ids,
+    # padded with -1 / 0 / 1. With a subgroup the slices are cut once more
+    # over the lanes' neuron windows: [S, gsz, A * n_pad, K_in].
+    tgt_inter_in: torch.Tensor | None = None   # [S(, gsz), A * n_pad, K_in] int32
+    wout_inter_in: torch.Tensor | None = None  # [S(, gsz), A * n_pad, K_in] f32
+    dout_inter_in: torch.Tensor | None = None  # [S(, gsz), A * n_pad, K_in] int8/int32
 
     n_pad: int = 0
     n_areas: int = 0
@@ -87,6 +113,14 @@ class Network:
     r_span_intra: int = 0
     steps_lo_inter: int = 1
     r_span_inter: int = 0
+    # How the *_inter_in tables cut their targets: '' (none), 'group' (shard
+    # = area group, the structure-aware placement) or 'window' (shard =
+    # neuron window of every area, the conventional placement).
+    inter_shard_mode: str = ""
+    # The realised area -> area adjacency as nested 0/1 tuples, set by the
+    # host-free build (whose dense inter tensors are zero-row stand-ins);
+    # None where the tables themselves hold it.
+    area_adj: tuple | None = None
 
     @property
     def device(self) -> torch.device:
@@ -126,13 +160,13 @@ def network_from_numpy(arrays: dict, *, device, **static) -> Network:
     ``arrays`` maps each table name (``alive``, ``rate_hz``, ``src_intra``,
     ...) to an array, as ``np.asarray`` of the JAX package's ``Network``
     leaves gives them; ``static`` holds the static fields (``n_pad``,
-    ``ring_len``, ``steps_lo_intra``, ...). The outgoing tables
-    (``tgt_intra``, ...) are carried where ``arrays`` holds them (not None).
-    Other keys in ``arrays`` (tables this port does not hold yet) are
-    ignored.
+    ``ring_len``, ``steps_lo_intra``, ...). The outgoing and inbound tables
+    (``tgt_intra``, ``tgt_inter_in``, ...) are carried where ``arrays``
+    holds them (not None).
     """
     dev = torch.device(device)
-    names = _TABLES + tuple(k for k in OUTGOING_TABLES if arrays.get(k) is not None)
+    names = _TABLES + tuple(k for k in OUTGOING_TABLES + INBOUND_TABLES
+                            if arrays.get(k) is not None)
     tables = {k: torch.from_numpy(np.array(arrays[k])).to(dev) for k in names}
     net = Network(**tables, **static)
     check_outgoing_order(net)
@@ -146,7 +180,7 @@ def check_outgoing_order(net: Network) -> None:
     (``kernels/event_deliver``); :func:`add_outgoing_tables` gives it by
     construction, as the JAX package's stable argsort does. A check, in row
     chunks: nothing is sorted."""
-    for name in ("tgt_intra", "tgt_inter"):
+    for name in ("tgt_intra", "tgt_inter", "tgt_inter_in"):
         tgt = getattr(net, name)
         if tgt is None or tgt.shape[-1] < 2:
             continue
@@ -230,12 +264,13 @@ def _counter_delays(seed, tag_u1, tag_u2, idx, mean_ms, std_ms, lo, hi, dt_ms):
     return torch.clamp(torch.round(d), lo, hi).to(_delay_dtype(hi))
 
 
-def _intra_rows(spec, seed, rows, n_pad, sizes):
-    """(src, w, delay) intra tables ``[R, K_i]`` for global target rows."""
+def _intra_rows(spec, seed, rows, n_pad, sizes, *, weights: bool = True):
+    """(src, w, delay) intra tables ``[R, K_i]`` for global target rows
+    (``w`` None without ``weights``)."""
     idx = _flat_idx(rows, spec.k_intra)
     sz = sizes[rows // n_pad][:, None]
     src = _counter_hash(seed, _TAG_SRC_INTRA, idx) % sz
-    w = _counter_weights(spec, seed, _TAG_W_INTRA, idx, src, sz)
+    w = _counter_weights(spec, seed, _TAG_W_INTRA, idx, src, sz) if weights else None
     d = _counter_delays(seed, _TAG_D_INTRA_U1, _TAG_D_INTRA_U2, idx,
                         spec.delay_intra_mean_ms, spec.delay_intra_std_ms,
                         1, spec.steps_intra_max, spec.dt_ms)
@@ -254,14 +289,16 @@ def _allowed_source_areas(spec: MultiAreaSpec):
     return allowed, n_allowed
 
 
-def _inter_rows(spec, seed, rows, n_pad, sizes, allowed, n_allowed):
-    """(src, w, delay) inter tables ``[R, K_e]`` for global target rows."""
+def _inter_rows(spec, seed, rows, n_pad, sizes, allowed, n_allowed, *, weights: bool = True):
+    """(src, w, delay) inter tables ``[R, K_e]`` for global target rows
+    (``w`` None without ``weights``)."""
     idx = _flat_idx(rows, spec.k_inter)
     a_of = rows // n_pad
     pick = _counter_hash(seed, _TAG_SRC_AREA, idx) % n_allowed[a_of][:, None]
     src_area = torch.gather(allowed[a_of], 1, pick)
     src_idx = _counter_hash(seed, _TAG_SRC_IDX, idx) % sizes[src_area]
-    w = _counter_weights(spec, seed, _TAG_W_INTER, idx, src_idx, sizes[src_area])
+    w = (_counter_weights(spec, seed, _TAG_W_INTER, idx, src_idx, sizes[src_area])
+         if weights else None)
     d = _counter_delays(seed, _TAG_D_INTER_U1, _TAG_D_INTER_U2, idx,
                         spec.delay_inter_mean_ms, spec.delay_inter_std_ms,
                         spec.steps_inter_min, spec.steps_inter_max, spec.dt_ms)
@@ -314,35 +351,60 @@ def _source_counts(src: torch.Tensor, n_src: int, chunk_rows: int) -> torch.Tens
     return counts
 
 
-def _invert_adjacency(tgt, wout, dout, src, w, d, *, chunk_rows: int) -> None:
+def _invert_chunks(tgt, wout, dout, chunks, *, checked: bool = False) -> None:
     """Fill the outgoing rows ``tgt/wout/dout [n_src, K_out]`` (preallocated
-    with their padding) from the incoming ``src/w/d [N_tgt, K]``.
+    with their padding) from incoming tables given as consecutive target-row
+    chunks ``(src [R, K], w, d, tgt_ids [R])``.
 
-    The JAX package sorts all ``N_tgt x K`` entries by source with one
-    stable argsort, so each source's targets come in (target row, k) order.
-    This is a counting sort over target-row chunks in the same order: a
-    per-source cursor, and within a chunk each entry's rank among the
-    chunk's entries of its source (a stable sort of the chunk), so an entry
-    lands at ``cursor[src] + rank``. Temporaries are a few chunk-sized
-    int64 arrays, never the whole table.
+    The JAX package sorts all entries by source with one stable argsort, so
+    each source's targets come in (target row, k) order. This is a counting
+    sort over the chunks in the same order: a per-source cursor, and within
+    a chunk each entry's rank among the chunk's entries of its source (a
+    stable sort of the chunk), so an entry lands at ``cursor[src] + rank``.
+    ``checked`` (for a width fixed beforehand, as a build plan fixes it)
+    raises if a source has more entries than ``K_out`` holds; it reads one
+    count a chunk on the host.
     """
-    n_tgt, k = src.shape
     n_src, k_out = tgt.shape
-    if k == 0 or k_out == 0:
+    if k_out == 0:
         return
-    cursor = torch.zeros(n_src, dtype=torch.int64, device=src.device)
+    cursor = None
     tgt_f, wout_f, dout_f = tgt.view(-1), wout.view(-1), dout.view(-1)
-    for r0 in range(0, n_tgt, chunk_rows):
-        r1 = min(n_tgt, r0 + chunk_rows)
-        flat = src[r0:r1].reshape(-1).long()
+    for src, w, d, tgt_ids in chunks:
+        k = src.shape[1]
+        if k == 0:
+            continue
+        flat = src.reshape(-1).long()
+        counts = torch.bincount(flat, minlength=n_src)
+        cursor = torch.zeros_like(counts) if cursor is None else cursor
+        if checked and int((cursor + counts).max()) > k_out:
+            raise AssertionError(f"a source has more than the table's {k_out} entries")
         key, perm = torch.sort(flat, stable=True)
         rank = (torch.arange(key.numel(), device=key.device)
                 - torch.searchsorted(key, key, side="left"))
         dst = key * k_out + cursor[key] + rank
-        tgt_f[dst] = (r0 + perm // k).to(torch.int32)
-        wout_f[dst] = w[r0:r1].reshape(-1)[perm]
-        dout_f[dst] = d[r0:r1].reshape(-1)[perm]
-        cursor += torch.bincount(flat, minlength=n_src)
+        tgt_f[dst] = tgt_ids[perm // k].to(torch.int32)
+        wout_f[dst] = w.reshape(-1)[perm]
+        dout_f[dst] = d.reshape(-1)[perm]
+        cursor += counts
+
+
+def _invert_adjacency(tgt, wout, dout, src, w, d, *, chunk_rows: int, tgt_ids=None) -> None:
+    """:func:`_invert_chunks` over the incoming tables ``src/w/d [N_tgt, K]``
+    in chunks of ``chunk_rows`` target rows. Target ids are the row indices,
+    or ``tgt_ids [N_tgt]`` (the rows of a shard's cut)."""
+    n_tgt, k = src.shape
+    if k == 0 or tgt.shape[1] == 0:
+        return
+    if tgt_ids is None:
+        tgt_ids = torch.arange(n_tgt, device=src.device)
+
+    def chunks():
+        for r0 in range(0, n_tgt, chunk_rows):
+            r1 = min(n_tgt, r0 + chunk_rows)
+            yield src[r0:r1], w[r0:r1], d[r0:r1], tgt_ids[r0:r1]
+
+    _invert_chunks(tgt, wout, dout, chunks())
 
 
 def _outgoing(src, w, d, n_src: int, chunk_rows: int):
@@ -387,6 +449,15 @@ def add_outgoing_tables(net: Network, outgoing: bool | str = True, *,
     return dataclasses.replace(net, **out)
 
 
+def area_masks(spec: MultiAreaSpec, n_pad: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The network's ``(alive [A, n_pad] bool, rate_hz [A, n_pad] f32)`` on
+    ``device``: live neurons first in each area, ghosts at rate 0."""
+    alive = torch.arange(n_pad)[None, :] < torch.as_tensor(spec.area_sizes())[:, None]
+    rate = torch.where(
+        alive, torch.as_tensor(spec.area_rates(), dtype=torch.float32)[:, None], 0.0)
+    return alive.to(device), rate.to(device)
+
+
 def build_network(
     spec: MultiAreaSpec,
     *,
@@ -414,9 +485,7 @@ def build_network(
     n_rows = A * n_pad
     K_i, K_e = spec.k_intra, spec.k_inter
 
-    alive = torch.arange(n_pad)[None, :] < torch.as_tensor(sizes_np)[:, None]
-    rate = torch.where(
-        alive, torch.as_tensor(spec.area_rates(), dtype=torch.float32)[:, None], 0.0)
+    alive, rate = area_masks(spec, n_pad, dev)
 
     sizes = torch.as_tensor(sizes_np, dtype=torch.int64, device=dev)
     allowed, n_allowed = (torch.as_tensor(x, device=dev)
@@ -450,8 +519,8 @@ def build_network(
     lo_i, span_i = window(delay_intra, 1)
     lo_e, span_e = window(delay_inter, spec.delay_ratio)
     net = Network(
-        alive=alive.to(dev),
-        rate_hz=rate.to(dev),
+        alive=alive,
+        rate_hz=rate,
         src_intra=src_intra.view(A, n_pad, K_i),
         w_intra=w_intra.view(A, n_pad, K_i),
         delay_intra=delay_intra.view(A, n_pad, K_i),
@@ -469,6 +538,375 @@ def build_network(
         r_span_inter=span_e,
     )
     return add_outgoing_tables(net, outgoing, chunk_rows=chunk) if outgoing else net
+
+
+# ---------------------------------------------------------------------------
+# Per-shard cuts: the distributed engine's receive tables
+# ---------------------------------------------------------------------------
+
+
+def _inbound_k_bound(k: int, n_shards: int) -> int:
+    """Deterministic upper estimate of one shard's inbound row width: a
+    source's ``k`` outgoing synapses spread over ``n_shards`` shards, mean +
+    ~6 sigma + 16."""
+    if k <= 0 or n_shards <= 0:
+        return 0
+    k_s = -(-k // n_shards)
+    return int(k_s + math.ceil(6.0 * math.sqrt(k_s)) + 16)
+
+
+def _inbound_target_rows(
+    mode: str, shard: int, n_shards: int, n_areas: int, n_pad: int,
+    subgroup: int = 1, lane: int = 0,
+) -> np.ndarray:
+    """Global row ids of the targets shard ``shard`` (lane ``lane``) owns:
+    :func:`repro_torch.core.partition.shard_pathway_rows`."""
+    return shard_pathway_rows(mode, shard, n_shards, n_areas, n_pad,
+                              subgroup=subgroup, lane=lane)
+
+
+def _inverted(src, w, d, n_src: int, tgt_ids, *, chunk_rows: int = CHUNK_ROWS):
+    """Outgoing ``(tgt, w, d) [n_src, K_out]`` of the incoming ``[R, K]``
+    rows whose targets are ``tgt_ids [R]``; ``K_out`` is the widest source."""
+    counts = _source_counts(src, n_src, chunk_rows)
+    k_out = int(counts.max()) if counts.numel() else 0
+    tgt = torch.full((n_src, k_out), -1, dtype=torch.int32, device=src.device)
+    wout = torch.zeros((n_src, k_out), dtype=torch.float32, device=src.device)
+    dout = torch.ones((n_src, k_out), dtype=d.dtype, device=src.device)
+    _invert_adjacency(tgt, wout, dout, src, w, d, chunk_rows=chunk_rows, tgt_ids=tgt_ids)
+    return tgt, wout, dout
+
+
+def _check_cut(mode: str, n_areas: int, n_pad: int, n_shards: int, subgroup: int) -> None:
+    if mode not in ("group", "window"):
+        raise ValueError(f"unknown inter_shard_mode {mode!r}")
+    if subgroup > 1 and mode != "group":
+        raise ValueError(
+            "subgroup slicing applies to the 'group' mode only (the "
+            "'window' mode is already per-device)")
+    if mode == "group" and n_areas % n_shards != 0:
+        raise ValueError(f"n_areas={n_areas} not divisible by {n_shards} shards")
+    if mode == "window" and n_pad % n_shards != 0:
+        raise ValueError(f"n_pad={n_pad} not divisible by {n_shards} shards")
+    if subgroup > 1 and n_pad % subgroup != 0:
+        raise ValueError(f"n_pad={n_pad} not divisible by subgroup={subgroup}")
+
+
+def inbound_slice(
+    net: Network, n_shards: int, shard: int, *, mode: str = "group",
+    subgroup: int = 1, lane: int = 0, chunk_rows: int = CHUNK_ROWS,
+):
+    """One shard's (lane's) inbound inter table ``(tgt, w, d) [A * n_pad,
+    K]``: slice ``[shard]`` (``[shard, lane]``) of :func:`shard_inter_tables`
+    at its own width, inverted from the incoming rows the shard owns."""
+    A, n_pad, K_e = net.n_areas, net.n_pad, net.k_inter
+    rows = torch.as_tensor(
+        _inbound_target_rows(mode, shard, n_shards, A, n_pad, subgroup, lane),
+        device=net.device)
+
+    def own(x):
+        return x.reshape(A * n_pad, K_e)[rows]
+
+    return _inverted(own(net.src_inter), own(net.w_inter), own(net.delay_inter),
+                     A * n_pad, rows, chunk_rows=chunk_rows)
+
+
+def shard_inter_tables(
+    net: Network, n_shards: int, *, mode: str = "group", subgroup: int = 1,
+    chunk_rows: int = CHUNK_ROWS,
+) -> Network:
+    """Re-cut the inter tables into per-shard inbound slices.
+
+    ``tgt_inter_in[s]`` holds, for every source row, only the synapses whose
+    target lives in shard ``s`` (``'group'``: shards own ``A / S``
+    consecutive areas; ``'window'``: shards own an ``n_pad / S`` neuron
+    window of every area), targets as global ids, padded with -1 / 0 / 1 to
+    the widest slice: a ``[S, A * n_pad, K_in]`` stack. With ``subgroup >
+    1`` (``'group'`` only) each slice is cut once more over the lanes'
+    ``n_pad / subgroup`` windows, ``[S, subgroup, A * n_pad, K_in]``. Built
+    from the incoming tensors; the replicated outgoing inter tables are
+    dropped. Bitwise the JAX package's ``shard_inter_tables``.
+    """
+    _check_cut(mode, net.n_areas, net.n_pad, n_shards, max(subgroup, 1))
+    if net.k_inter == 0:
+        return dataclasses.replace(net, inter_shard_mode=mode)
+    sub = max(subgroup, 1)
+    parts = [inbound_slice(net, n_shards, shard, mode=mode, subgroup=sub, lane=lane,
+                           chunk_rows=chunk_rows)
+             for shard in range(n_shards) for lane in range(sub)]
+    k_in = max(p[0].shape[1] for p in parts)
+    lead = (n_shards, sub) if sub > 1 else (n_shards,)
+
+    def stack(j, fill):
+        out = torch.stack([torch.nn.functional.pad(p[j], (0, k_in - p[j].shape[1]), value=fill)
+                           for p in parts])
+        return out.view(*lead, net.n_areas * net.n_pad, k_in)
+
+    return dataclasses.replace(
+        net, tgt_inter_in=stack(0, -1), wout_inter_in=stack(1, 0.0),
+        dout_inter_in=stack(2, 1), inter_shard_mode=mode,
+        tgt_inter=None, wout_inter=None, dout_inter=None)
+
+
+def _compact(tgt, w, d, keep_fn, *, chunk_rows: int = CHUNK_ROWS):
+    """``(tgt, w, d, widest)``: each row with the entries ``keep_fn(r0, r1,
+    tgt[r0:r1])`` keeps moved to its front in their order (a stable
+    compaction), the rest padding -1 / 0 / 1; same width. ``widest`` is the
+    most entries a row keeps."""
+    out_t = torch.full_like(tgt, -1)
+    out_w = torch.zeros_like(w)
+    out_d = torch.ones_like(d)
+    cols = torch.arange(tgt.shape[1], device=tgt.device)[None, :]
+    widest = 0
+    for r0 in range(0, tgt.shape[0], chunk_rows):
+        r1 = min(tgt.shape[0], r0 + chunk_rows)
+        keep = keep_fn(r0, r1, tgt[r0:r1])
+        order = torch.sort((~keep).to(torch.int8), dim=1, stable=True).indices
+        cnt = keep.sum(dim=1, keepdim=True)
+        valid = cols < cnt
+        out_t[r0:r1] = torch.where(valid, tgt[r0:r1].gather(1, order), -1)
+        out_w[r0:r1] = torch.where(valid, w[r0:r1].gather(1, order), 0.0)
+        out_d[r0:r1] = torch.where(valid, d[r0:r1].gather(1, order), 1).to(d.dtype)
+        if cnt.numel():
+            widest = max(widest, int(cnt.max()))
+    return out_t, out_w, out_d, widest
+
+
+def slice_intra_tables(net: Network, subgroup: int) -> Network:
+    """Cut the outgoing intra tables over the subgroup's neuron windows:
+    lane ``l`` keeps, per source row, only the synapses whose within-area
+    target lies in its ``n_pad / subgroup`` window, in their order, as a
+    ``[subgroup, A, n_pad, K_lane]`` stack. Bitwise the JAX package's
+    ``slice_intra_tables``."""
+    if subgroup <= 1 or net.tgt_intra is None:
+        return net
+    if net.tgt_intra.dim() == 4:
+        raise ValueError("outgoing intra tables are already subgroup-sliced")
+    A, n_pad = net.n_areas, net.n_pad
+    if n_pad % subgroup != 0:
+        raise ValueError(f"n_pad={n_pad} not divisible by subgroup={subgroup}")
+    flat = [x.reshape(A * n_pad, -1) for x in (net.tgt_intra, net.wout_intra, net.dout_intra)]
+    n_loc = n_pad // subgroup
+    lanes = []
+    for lane in range(subgroup):
+        lo = lane * n_loc
+        lanes.append(_compact(*flat, lambda r0, r1, t, lo=lo: (t >= lo) & (t < lo + n_loc)))
+    k_lane = max(ln[3] for ln in lanes)
+
+    def stack(j):
+        return torch.stack([ln[j][:, :k_lane] for ln in lanes]).view(subgroup, A, n_pad, k_lane)
+
+    return dataclasses.replace(net, tgt_intra=stack(0), wout_intra=stack(1), dout_intra=stack(2))
+
+
+# ---------------------------------------------------------------------------
+# Host-free sharded construction. Every synapse is a pure function of (seed,
+# pathway, global target row, k), so a shard can draw exactly its own rows
+# and invert them, bitwise equal to cutting the global network. The only
+# global facts a shard needs are the padded widths and the delay windows,
+# which a counting pass over the draws fixes (sharded_build_plan).
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedBuildPlan:
+    """The global layout facts of a host-free build, from counts of the
+    draws only: the widths every shard's (lane's) tables are padded to, the
+    realised delay windows and the realised area adjacency. Field for field
+    the JAX package's plan."""
+
+    n_shards: int
+    subgroup: int
+    mode: str            # 'group' | 'window' (see shard_pathway_rows)
+    size_multiple: int
+    n_pad: int
+    k_in: int            # inbound inter slice width
+    k_out_intra: int     # outgoing intra width (subgroup == 1 layout)
+    k_lane_intra: int    # lane-cut outgoing intra width (subgroup > 1)
+    steps_lo_intra: int
+    r_span_intra: int
+    steps_lo_inter: int
+    r_span_inter: int
+    area_adj: tuple      # realised area -> area adjacency, nested 0/1 tuples
+
+
+def _plan_row_chunks(rows: torch.Tensor, chunk_rows: int):
+    for i in range(0, rows.numel(), max(1, chunk_rows)):
+        yield rows[i:i + chunk_rows]
+
+
+class _Window:
+    """Running min / max of a pathway's delay draws, on the device."""
+
+    def __init__(self):
+        self.lo = self.hi = None
+
+    def add(self, d):
+        lo, hi = d.min(), d.max()
+        self.lo = lo if self.lo is None else torch.minimum(self.lo, lo)
+        self.hi = hi if self.hi is None else torch.maximum(self.hi, hi)
+
+    def span(self, lo_default: int) -> tuple[int, int]:
+        if self.lo is None:
+            return lo_default, 0
+        lo = int(self.lo)
+        return lo, int(self.hi) - lo + 1
+
+
+def sharded_build_plan(
+    spec: MultiAreaSpec,
+    seed: int,
+    n_shards: int,
+    *,
+    mode: str = "group",
+    subgroup: int = 1,
+    size_multiple: int = 1,
+    device=None,
+    chunk_rows: int = CHUNK_ROWS,
+) -> ShardedBuildPlan:
+    """Pass 1 of the host-free build: one counting pass over the draws, in
+    row chunks on ``device`` (default ``"cuda"``), that fixes what the
+    global build's padding and metadata would (the JAX package's
+    ``sharded_build_plan``, bitwise)."""
+    dev = resolve_device(device)
+    A = spec.n_areas
+    n_pad = spec.padded_area_size(size_multiple)
+    K_i, K_e = spec.k_intra, spec.k_inter
+    sub = max(subgroup, 1)
+    _check_cut(mode, A, n_pad, n_shards, sub)
+    sizes = torch.as_tensor(spec.area_sizes(), dtype=torch.int64, device=dev)
+
+    k_out_intra = k_lane_intra = 0
+    win_i = _Window()
+    n_loc = n_pad // sub
+    if K_i > 0:
+        for a in range(A):
+            counts = torch.zeros(n_pad, dtype=torch.int64, device=dev)
+            lane_counts = torch.zeros(n_pad * sub, dtype=torch.int64, device=dev)
+            area_rows = torch.arange(a * n_pad, (a + 1) * n_pad, dtype=torch.int64, device=dev)
+            for rows in _plan_row_chunks(area_rows, chunk_rows):
+                src, _, d = _intra_rows(spec, seed, rows, n_pad, sizes, weights=False)
+                win_i.add(d)
+                counts += torch.bincount(src.reshape(-1).long(), minlength=n_pad)
+                if sub > 1:
+                    key = src.long() * sub + ((rows % n_pad) // n_loc)[:, None]
+                    lane_counts += torch.bincount(key.reshape(-1), minlength=n_pad * sub)
+            k_out_intra = max(k_out_intra, int(counts.max()))
+            if sub > 1:
+                k_lane_intra = max(k_lane_intra, int(lane_counts.max()))
+
+    k_in = 0
+    win_e = _Window()
+    adj = torch.zeros(A * A, dtype=torch.bool, device=dev)
+    if K_e > 0:
+        allowed, n_allowed = (torch.as_tensor(x, device=dev)
+                              for x in _allowed_source_areas(spec))
+        for shard in range(n_shards):
+            for lane in range(sub):
+                counts = torch.zeros(A * n_pad, dtype=torch.int64, device=dev)
+                own = torch.as_tensor(
+                    _inbound_target_rows(mode, shard, n_shards, A, n_pad, sub, lane), device=dev)
+                for rows in _plan_row_chunks(own, chunk_rows):
+                    src, _, d = _inter_rows(spec, seed, rows, n_pad, sizes, allowed,
+                                            n_allowed, weights=False)
+                    win_e.add(d)
+                    counts += torch.bincount(src.reshape(-1).long(), minlength=A * n_pad)
+                    adj[(src.long() // n_pad) * A + (rows // n_pad)[:, None]] = True
+                k_in = max(k_in, int(counts.max()))
+
+    lo_i, span_i = win_i.span(1)
+    lo_e, span_e = win_e.span(spec.delay_ratio)
+    adj_np = adj.view(A, A).cpu().numpy()
+    return ShardedBuildPlan(
+        n_shards=n_shards, subgroup=sub, mode=mode, size_multiple=size_multiple,
+        n_pad=n_pad, k_in=k_in, k_out_intra=k_out_intra, k_lane_intra=k_lane_intra,
+        steps_lo_intra=lo_i, r_span_intra=span_i, steps_lo_inter=lo_e, r_span_inter=span_e,
+        area_adj=tuple(tuple(int(v) for v in row) for row in adj_np))
+
+
+def _empty_tables(rows: int, k: int, d_dtype, dev):
+    return (torch.full((rows, k), -1, dtype=torch.int32, device=dev),
+            torch.zeros((rows, k), dtype=torch.float32, device=dev),
+            torch.ones((rows, k), dtype=d_dtype, device=dev))
+
+
+def build_shard_tables(
+    spec: MultiAreaSpec,
+    seed: int,
+    shard: int,
+    *,
+    plan: ShardedBuildPlan,
+    lane: int = 0,
+    device=None,
+    chunk_rows: int = CHUNK_ROWS,
+):
+    """Pass 2, inter pathway: one shard's (lane's) inbound inter slice
+    ``(tgt, w, d) [A * n_pad, plan.k_in]`` on ``device``, drawn and inverted
+    from the shard's own rows in chunks: bitwise slice ``[shard]``
+    (``[shard, lane]``) of :func:`shard_inter_tables` on the global network.
+    """
+    dev = resolve_device(device)
+    A, n_pad, K_e = spec.n_areas, plan.n_pad, spec.k_inter
+    out = _empty_tables(A * n_pad, plan.k_in if K_e else 0,
+                        _delay_dtype(spec.steps_inter_max), dev)
+    if K_e == 0:
+        return out
+    rows = torch.as_tensor(_inbound_target_rows(
+        plan.mode, shard, plan.n_shards, A, n_pad, plan.subgroup, lane), device=dev)
+    sizes = torch.as_tensor(spec.area_sizes(), dtype=torch.int64, device=dev)
+    allowed, n_allowed = (torch.as_tensor(x, device=dev) for x in _allowed_source_areas(spec))
+
+    def chunks():
+        for r in _plan_row_chunks(rows, chunk_rows):
+            yield (*_inter_rows(spec, seed, r, n_pad, sizes, allowed, n_allowed), r)
+
+    _invert_chunks(*out, chunks(), checked=True)
+    return out
+
+
+def _intra_tables(spec, seed, areas, lo: int, n_rows: int, k: int, plan, dev, chunk_rows):
+    """Outgoing intra tables ``[len(areas), n_pad, k]`` of the target rows
+    ``[lo, lo + n_rows)`` of each area (targets: indices within the area)."""
+    n_pad = plan.n_pad
+    areas = np.asarray(areas, dtype=np.int64)
+    sizes = torch.as_tensor(spec.area_sizes(), dtype=torch.int64, device=dev)
+    out = _empty_tables(len(areas) * n_pad, k if spec.k_intra else 0,
+                        _delay_dtype(spec.steps_intra_max), dev)
+    tgt_ids = torch.arange(lo, lo + n_rows, dtype=torch.int64, device=dev)
+    for i, a in enumerate(areas):
+        if spec.k_intra:
+            def chunks(a=int(a)):
+                for t in _plan_row_chunks(tgt_ids, chunk_rows):
+                    yield (*_intra_rows(spec, seed, a * n_pad + t, n_pad, sizes), t)
+
+            _invert_chunks(*(x[i * n_pad:(i + 1) * n_pad] for x in out), chunks(), checked=True)
+    return tuple(x.view(len(areas), n_pad, x.shape[-1]) for x in out)
+
+
+def build_group_intra_tables(
+    spec: MultiAreaSpec, seed: int, areas, *, plan: ShardedBuildPlan, device=None,
+    chunk_rows: int = CHUNK_ROWS,
+):
+    """Pass 2, intra pathway (no subgroup cut): the outgoing intra tables of
+    ``areas``, ``[len(areas), n_pad, plan.k_out_intra]``, bitwise those rows
+    of ``build_network(..., outgoing=True)``."""
+    return _intra_tables(spec, seed, areas, 0, plan.n_pad, plan.k_out_intra, plan,
+                         resolve_device(device), chunk_rows)
+
+
+def build_lane_intra_tables(
+    spec: MultiAreaSpec, seed: int, areas, lane: int, *, plan: ShardedBuildPlan,
+    device=None, chunk_rows: int = CHUNK_ROWS,
+):
+    """Pass 2, intra pathway (subgroup cut): lane ``lane``'s cut of the
+    outgoing intra tables of ``areas``, ``[len(areas), n_pad,
+    plan.k_lane_intra]``, bitwise ``slice_intra_tables(...)[lane, areas]``.
+    The lane's cut keeps the synapses onto its window's targets in (target,
+    k) order, which is the inversion of the window's own incoming rows, so
+    only those rows are drawn."""
+    n_loc = plan.n_pad // plan.subgroup
+    return _intra_tables(spec, seed, areas, lane * n_loc, n_loc, plan.k_lane_intra, plan,
+                         resolve_device(device), chunk_rows)
 
 
 def tile_gids(n_areas: int, n_pad: int, copies: int, *, device=None) -> torch.Tensor:
@@ -501,16 +939,21 @@ def tile_network(net: Network, copies: int) -> Network:
     pads with ``-1``, which stays ``-1`` (a shifted sentinel would be a
     valid id in another copy), so the tiled rows still ascend with ``-1``
     last (:func:`check_outgoing_order`); the incoming ``src_inter`` has no
-    sentinels and is offset everywhere. The reference also tiles the
-    network's area adjacency and refuses sharded inbound tables; this
-    ``Network`` holds neither, so there is nothing to tile or refuse.
-    Tables are written copy by copy on ``net``'s device, so the fold needs
-    no temporary beyond one copy of one table.
+    sentinels and is offset everywhere. A realised area adjacency
+    (``area_adj``) is tiled block-diagonally; sharded inbound tables are
+    refused, as the reference refuses them. Tables are written copy by copy
+    on ``net``'s device, so the fold needs no temporary beyond one copy of
+    one table.
     """
     if copies < 1:
         raise ValueError(f"copies must be >= 1, got {copies}")
     if copies == 1:
         return net
+    if net.tgt_inter_in is not None:
+        raise ValueError(
+            "tile_network needs the unsharded network (sharded inbound "
+            "inter tables slice a device layout, not a network axis); "
+            "tile first, then shard_inter_tables")
     A, n_pad = net.alive.shape
     B = copies
     block = A * n_pad
@@ -539,4 +982,8 @@ def tile_network(net: Network, copies: int) -> Network:
         x = getattr(net, name)
         if x is not None:
             arrays[name] = rep_global(x, sentinel=True) if name == "tgt_inter" else rep(x)
-    return dataclasses.replace(net, n_areas=B * A, **arrays)
+    area_adj = None
+    if net.area_adj is not None:
+        big = np.kron(np.eye(B, dtype=np.int64), np.asarray(net.area_adj, dtype=np.int64))
+        area_adj = tuple(tuple(int(x) for x in row) for row in big)
+    return dataclasses.replace(net, n_areas=B * A, area_adj=area_adj, **arrays)

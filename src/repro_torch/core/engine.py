@@ -1,12 +1,14 @@
 """Single-host engine: a thin assembly over the window core.
 
-Port of ``repro.core.engine``. The engine advances the network in windows of
+Port of ``repro.core.engine`` (the distributed assembly is
+:mod:`repro_torch.core.dist_engine`). The engine advances the network in windows of
 ``D`` cycles (``D`` = delay ratio, paper eq. (1)); each cycle is the paper's
 deliver -> update -> collocate sequence. The conventional and structure-aware
 schedules produce bit-identical spike trains. :class:`EngineConfig` keeps the
-JAX package's field names, defaults and rules; a field whose feature is
-not ported yet is reported by :meth:`EngineConfig.validate` with the ROADMAP
-item that ports it.
+JAX package's field names, defaults and rules, the distributed ones
+included; a value whose feature is not ported yet (``exchange='routed'``) is
+reported by :meth:`EngineConfig.validate` with the ROADMAP item that ports
+it.
 """
 
 from __future__ import annotations
@@ -140,6 +142,12 @@ class EngineConfig:
                 f"s_max_burst={self.s_max_burst} would shrink the "
                 "whole-network event bound's burst slack below its floor",
                 "use an integer >= 1 (B for a B-trial folded batch)"))
+        if self.exchange == "routed" and self.schedule != STRUCTURE_AWARE:
+            v.append(ConfigViolation(
+                "exchange",
+                "exchange='routed' routes the structure-aware window's "
+                "lumped global pathway; the conventional schedule has none",
+                "use schedule='structure_aware', or exchange='dense'"))
         if self.superstep is True and self.schedule != STRUCTURE_AWARE:
             v.append(ConfigViolation(
                 "superstep",
@@ -166,15 +174,55 @@ class EngineConfig:
                 "window-end exchange; the conventional schedule has no "
                 "lumped exchange to overlap",
                 "use schedule='structure_aware', or drop overlap_exchange"))
-        if distributed:
-            v.append(_not_ported("mesh", "the distributed engine",
-                                 "distributed engine"))
-        if self.exchange not in ("", "local"):
-            v.append(_not_ported("exchange", f"exchange={self.exchange!r}",
-                                 "distributed engine"))
         if self.sharded_build:
-            v.append(_not_ported("sharded_build", "host-free sharded "
-                                 "construction", "distributed engine"))
+            if self.backend != "event":
+                v.append(ConfigViolation(
+                    "sharded_build",
+                    "sharded_build generates the event path's inbound/"
+                    "outgoing tables; dense backends read the global "
+                    "incoming tensors it never materialises",
+                    "use delivery_backend='event'"))
+            if not self.shard_inter_tables:
+                v.append(ConfigViolation(
+                    "sharded_build",
+                    "sharded_build emits per-shard inbound inter slices; "
+                    "shard_inter_tables=False asks for the replicated "
+                    "layout it exists to avoid",
+                    "keep shard_inter_tables=True"))
+            if self.schedule != STRUCTURE_AWARE:
+                v.append(ConfigViolation(
+                    "sharded_build",
+                    "sharded_build targets the structure-aware placement "
+                    "(area groups x subgroup lanes); the conventional "
+                    "schedule slices a host-built network",
+                    "use schedule='structure_aware'"))
+        if distributed is False:
+            if self.exchange not in ("", "local"):
+                v.append(ConfigViolation(
+                    "exchange",
+                    f"exchange={self.exchange!r} needs a device mesh; the "
+                    "single-host engine is exchange-free "
+                    "(use make_dist_engine)",
+                    "pass mesh=... to make_simulation, or use exchange=''"))
+            if self.sharded_build:
+                v.append(ConfigViolation(
+                    "sharded_build",
+                    "sharded_build is a distributed construction mode; the "
+                    "single-host engine holds the whole network anyway "
+                    "(use make_dist_engine)",
+                    "pass mesh=... to make_simulation"))
+        if distributed is True:
+            if self.superstep_kernel:
+                v.append(ConfigViolation(
+                    "superstep_kernel",
+                    "superstep_kernel is single-host only; the distributed "
+                    "engine fuses the window at the jnp level "
+                    "(use_superstep)",
+                    "drop superstep_kernel (the jnp superstep fusion is "
+                    "the distributed default)"))
+        if self.exchange == "routed":
+            v.append(_not_ported("exchange", "exchange='routed'",
+                                 "distributed engine 5b, RoutedExchange"))
         return v
 
     def check(self, *, distributed: bool | None = None) -> None:
@@ -218,6 +266,16 @@ class Engine:
     window_overlap: Callable | None = None
     drain: Callable | None = None
     init_inflight: Callable | None = None
+    # Static mesh-total wire bytes per window of the exchange (all zeros on
+    # a single host).
+    wire_bytes: dict | None = None
+    # Distributed engines only (None on a single host): shard_state(global
+    # state) -> this rank's block; gather_state(state) / gather_block(block)
+    # -> the whole network's, on every rank; the process mesh.
+    shard_state: Callable | None = None
+    gather_state: Callable | None = None
+    gather_block: Callable | None = None
+    mesh: object = None
 
 
 def make_fused_lif_update(params: neuron_lib.LIFParams):
@@ -401,4 +459,5 @@ def _make_engine(
 
     return Engine(init=init, window=window, run=run, config=cfg,
                   delay_ratio=net.delay_ratio, window_overlap=overlap,
-                  drain=drain, init_inflight=init_inflight)
+                  drain=drain, init_inflight=init_inflight,
+                  wire_bytes=exchange.wire_bytes(net))

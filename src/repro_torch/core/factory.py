@@ -1,10 +1,13 @@
-"""The engine factory (port of ``repro.core.factory``, single-host branch)."""
+"""The engine factory (port of ``repro.core.factory``): no mesh means the
+single-host engine (:mod:`repro_torch.core.engine`), a mesh the distributed
+one (:mod:`repro_torch.core.dist_engine`)."""
 
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core import connectivity as connectivity_lib
+from repro_torch.core import dist_engine as dist_engine_lib
 from repro_torch.core.areas import MultiAreaSpec
 from repro_torch.core.connectivity import Network
 from repro_torch.core.engine import Engine, EngineConfig, _make_engine
@@ -21,19 +24,37 @@ def make_simulation(
     mesh=None,
     build_seed: int = 12,
     gids: torch.Tensor | None = None,
+    trial_leaves: bool = False,
     device=None,
 ) -> Engine:
-    """Build a single-host simulation engine for ``spec`` on ``device``.
+    """Build a simulation engine for ``spec``, dispatching on ``mesh``.
 
-    ``device`` defaults to ``"cuda"`` and raises when no GPU is present; pass
-    ``device="cpu"`` to run on the host. ``net=None`` builds the connectivity
-    on that device (seeded by ``build_seed``, with outgoing tables exactly
-    when the event backend needs them); a given ``net`` must already live
-    there. A ``mesh`` (the distributed engine) is not ported yet. The
-    config is validated in one shot: a bad config raises
-    :class:`~repro_torch.core.engine.ConfigError` listing every broken rule.
+    * ``mesh=None``: the single-host engine on ``device`` (default
+      ``"cuda"``, which raises when no GPU is present; ``device="cpu"`` runs
+      on the host). ``net=None`` builds the connectivity there (seeded by
+      ``build_seed``, with outgoing tables exactly when the event backend
+      needs them); a given ``net`` must already live there.
+    * ``mesh=`` a :class:`~repro_torch.core.mesh.ProcessMesh`: this rank's
+      distributed engine on ``mesh.device`` (``device`` is not used). Every
+      rank passes the same global ``net`` (on its device), or ``net=None``
+      with ``config.sharded_build`` for the host-free build.
+      ``trial_leaves`` makes its state carry per-neuron ``seed`` / ``stim``
+      leaves; the single-host engine takes them in ``init`` directly.
+
+    The config is validated against the target in one shot: a bad config
+    raises :class:`~repro_torch.core.engine.ConfigError` listing every
+    broken rule.
     """
     config.check(distributed=mesh is not None)
+    if mesh is not None:
+        return dist_engine_lib._make_dist_engine(
+            net, spec, mesh, config, build_seed=build_seed, gids=gids,
+            trial_leaves=trial_leaves)
+    if trial_leaves:
+        raise ValueError(
+            "trial_leaves sizes the distributed engine's shard_map state "
+            "specs; the single-host engine takes per-trial seed/stim "
+            "directly via engine.init(seed=..., stim=...)")
     dev = resolve_device(device)
     if net is None:
         net = connectivity_lib.build_network(

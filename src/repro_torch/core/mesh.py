@@ -1,0 +1,108 @@
+"""A mesh of processes: the counterpart of a ``jax.sharding.Mesh``.
+
+The JAX package runs its distributed engine under ``shard_map`` over a device
+mesh such as ``(data, model)`` or ``(pod, data, model)``. The port runs one
+``torch.distributed`` process per mesh position instead: rank ``r`` sits at
+the row-major coordinates of the mesh shape, the order ``jax.make_mesh``
+gives, so the last axis (the intra-area subgroup) varies fastest.
+
+:class:`ProcessMesh` wraps an initialised default process group. It makes
+one process group per mesh axis (the ranks that differ only along that
+axis) and uses the default group for collectives over all axes. Every rank
+creates every group, in one fixed order, once, at construction:
+``dist.new_group`` is collective over the whole world.
+
+The port never starts processes itself: the caller (a launcher, a test, the
+smoke script) spawns the ranks and calls ``init_process_group`` with the
+address, world size and rank.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch.device import resolve_device
+
+__all__ = ["ProcessMesh"]
+
+
+class ProcessMesh:
+    """``shape`` (one extent per axis) over ``axis_names``, one rank a position.
+
+    ``mesh.shape`` maps each axis name to its extent (as a JAX mesh does),
+    ``mesh.size`` is the number of ranks, ``mesh.axis_index(ax)`` this rank's
+    coordinate along ``ax``. ``mesh.group(axes)`` is the process group of the
+    ranks that share this rank's coordinates off ``axes``; its ranks are in
+    row-major order over ``axes``, the order of a tiled ``all_gather``.
+
+    ``device`` is where this rank's tensors live: ``cuda:(local rank %
+    device count)`` by default (the local rank is ``$LOCAL_RANK``, else the
+    global rank), so several ranks share a card when there are fewer cards
+    than ranks. It raises without a GPU, as :func:`resolve_device` does;
+    ``device="cpu"`` runs the rank on the host.
+    """
+
+    def __init__(self, shape, axis_names, *, device=None):
+        shape = tuple(int(s) for s in shape)
+        axis_names = tuple(axis_names)
+        if len(shape) != len(axis_names) or not shape:
+            raise ValueError(f"mesh shape {shape} and axis names {axis_names} must pair up")
+        if len(set(axis_names)) != len(axis_names):
+            raise ValueError(f"repeated mesh axis name in {axis_names}")
+        if not dist.is_initialized():
+            raise RuntimeError(
+                "ProcessMesh needs an initialised default process group "
+                "(torch.distributed.init_process_group with this rank's address, "
+                "world size and rank)")
+        size = math.prod(shape)
+        if size != dist.get_world_size():
+            raise ValueError(f"mesh {dict(zip(axis_names, shape))} has {size} positions, "
+                             f"the world {dist.get_world_size()} ranks")
+        self.axis_names = axis_names
+        self.shape = dict(zip(axis_names, shape))
+        self.size = size
+        self.rank = dist.get_rank()
+        self.coords = dict(zip(axis_names, (int(c) for c in np.unravel_index(self.rank, shape))))
+        if device is None:
+            resolve_device("cuda")
+            local = int(os.environ.get("LOCAL_RANK", self.rank))
+            device = f"cuda:{local % torch.cuda.device_count()}"
+        self.device = resolve_device(device)
+        grid = np.arange(size).reshape(shape)
+        self._groups = {}
+        for i, ax in enumerate(axis_names):
+            # One group per line of the grid along `ax`; every rank makes
+            # them all, in this order, and keeps its own.
+            lines = np.moveaxis(grid, i, -1).reshape(-1, shape[i])
+            for line in lines:
+                ranks = [int(r) for r in line]
+                group = dist.new_group(ranks)
+                if self.rank in ranks:
+                    self._groups[(ax,)] = group
+        self._groups[axis_names] = dist.group.WORLD
+
+    def axis_index(self, ax: str) -> int:
+        """This rank's coordinate along axis ``ax``."""
+        return self.coords[ax]
+
+    def group(self, axes):
+        """The process group over ``axes`` (one axis name, or a tuple: a
+        single axis or all of them) that holds this rank."""
+        key = (axes,) if isinstance(axes, str) else tuple(axes)
+        if key not in self._groups:
+            raise ValueError(f"no process group over {key}: the mesh keeps one per axis "
+                             f"and one over all axes {self.axis_names}")
+        return self._groups[key]
+
+    def extent(self, axes) -> int:
+        """Ranks in :meth:`group` over ``axes``."""
+        key = (axes,) if isinstance(axes, str) else tuple(axes)
+        return math.prod(self.shape[a] for a in key)
+
+    def __repr__(self) -> str:
+        return f"ProcessMesh({self.shape}, rank {self.rank} at {self.coords}, {self.device})"

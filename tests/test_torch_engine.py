@@ -192,13 +192,16 @@ def test_make_simulation_defaults_to_cuda(monkeypatch):
 
 
 def test_unported_features_are_reported_with_their_roadmap_item():
+    # The routed exchange is the one feature left unported; sharded_build
+    # (the host-free distributed build) is accepted by the config rules.
     with pytest.raises(ConfigError) as err:
         EngineConfig(delivery_backend="event", adaptive_exchange=True,
                      overlap_exchange=True, exchange="routed", sharded_build=True)
     fields = [v.field for v in err.value.violations]
-    assert fields == ["exchange", "sharded_build"]
-    assert all("ROADMAP" in v.remedy for v in err.value.violations)
-    with pytest.raises(ConfigError, match="distributed engine"):
-        make_simulation(port_spec("lif"), EngineConfig(), mesh=object(), device="cpu")
+    assert fields == ["exchange"]
+    assert all("ROADMAP" in v.remedy and "5b" in v.remedy for v in err.value.violations)
+    with pytest.raises(ConfigError, match="distributed construction mode"):
+        make_simulation(port_spec("lif"), EngineConfig(
+            delivery_backend="event", sharded_build=True), device="cpu")
     with pytest.raises(ConfigError, match="superstep=True requires"):
         EngineConfig(schedule="conventional", superstep=True)

@@ -28,6 +28,10 @@ def port_modules() -> list[str]:
 def test_importing_every_port_module_loads_no_jax_and_no_repro():
     mods = port_modules()
     assert "repro_torch.core.engine" in mods and "repro_torch.quickstart" in mods
+    # The distributed engine's modules, each a copy rather than an import of
+    # its JAX counterpart (partition.py included, which is pure numpy there).
+    assert {"repro_torch.core.mesh", "repro_torch.core.comm", "repro_torch.core.partition",
+            "repro_torch.core.dist_engine"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
