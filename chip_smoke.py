@@ -103,7 +103,13 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    each run's kernel launches (the subprocess prints its counts after the
    CLI returns) nonzero for the kernels of its path, and the resilient
    legs' per-window times from ``run_windows`` (the first window a cold
-   process's);
+   process's); then (e) the launcher on a process group, ``python -m
+   torch.distributed.run --standalone --nproc-per-node 4`` (four gloo ranks
+   on the card, mesh (4, 1)), routed ``event`` at 4 x 130,000, K 600,
+   ``--t-ms 10 --profile`` (its wire-volume table echoed, its wire as
+   ``comm`` counts it == the static accounting), and (f) the same command
+   on one process: both exit 0, their ``--spikes-out`` files bitwise
+   equal;
 8a. ``[dist]`` the distributed engine (``make_simulation(..., mesh=...)``)
    as four ranks of one gloo world sharing the card (``ProcessMesh((2, 2),
    ("data", "model"))``: 2 area groups x 2 lanes), spawned as processes of
@@ -117,13 +123,28 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    iaf on ``pallas`` and ``event`` under both schedules, against a
    single-host pallas run made here first. Per rank, beside the card's
    name and power limit: build seconds, GB allocated and peak, ms/window,
-   kernel launches per window (asserted), shipped bytes per window (==
-   ``dense_wire_bytes`` on static packets), collective calls per window,
+   kernel launches per window (asserted), the bytes the exchange's
+   collectives took in per window, summed over the ranks (``comm.received``;
+   == ``dense_wire_bytes`` and the engine's ``shipped_bytes`` on static
+   packets), collective calls per window,
    and one profiled window: the time inside the gloo collectives and the
    part of it spent waiting for the other ranks. Kernels 1, 2 and 6 are
-   held to their plain versions at a rank's shard shapes. Four ranks on
-   one card are no scaling measurement: they share its SMs, and gloo's
-   wire goes through host memory;
+   held to their plain versions at a rank's shard shapes. (c) The routed
+   exchange at (a)'s width (host-free build, ``event``): iaf through
+   ``run_windows`` with a ``SimCheckpointer``, preempted after window 3,
+   ``restore_sim`` on the same mesh and 3 more windows (the bytes on the
+   wire == ``routed_wire_bytes`` x 6; the checkpoint's bytes, save and restore
+   seconds), LIF adaptive and overlapped over (a)'s 24 windows. (d) A ring
+   of areas at K 300 on a second mesh, ``(4, 1)``: iaf on ``pallas`` and
+   ``event``, dense and routed (1 routed wire round against 3 dense), and
+   a routed ``event`` run checkpointed on ``(2, 2)`` at window 3 and
+   resumed on ``(4, 1)`` (an elastic reshard from 2 groups to 4), against
+   a single-host run made here first. Kernel 6 is held to its plain version
+   on a routed window's concatenated round packets at (c)'s shape, kernel 2
+   on (d)'s pallas local pathway, and the routed runs' launches join the
+   ``kernels`` line (``routed_launches``). Four ranks on one card are no
+   scaling measurement: they share its SMs, and gloo's wire goes through
+   host memory;
 8b. ``[serve]`` the folded trial server (``repro_torch.launch.serve``) at
    the 32-area MAM (``mam_spec(scale=0.1)``: 418,340 neurons, ``n_pad``
    19,890, K 420/180) in the serve CLI's ``--selftest`` regime (``v_th`` 2.0
@@ -192,6 +213,7 @@ import copy
 import dataclasses
 import gc
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -969,6 +991,7 @@ def phase_cli() -> None:
             if leg == "c":
                 saved = np.load(os.path.join(ckpt_dir, f"step_{PREEMPT_AT:08d}", "arrays.npz"))
                 before = int(saved[".spike_count"].sum())
+        _cli_group(tmp, env)
         a, c = np.load(a_npz), np.load(c_npz)
         total = int(a["spike_count"].sum())
         if int(a["t"]) != int(c["t"]) or not np.array_equal(a["spike_count"], c["spike_count"]):
@@ -981,6 +1004,61 @@ def phase_cli() -> None:
             f"resumed")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _cli_group(tmp: str, env: dict) -> None:
+    """``[cli]`` on a process group: the launcher under ``torch.distributed.run``
+    on four ranks (gloo, all on this card: mesh (4, 1)) and the same command
+    on one process, routed ``event`` at 4 x 130,000, K 600: both exit 0 and
+    their ``--spikes-out`` files are bitwise equal; the four ranks' wire as
+    ``comm`` counts it equals the static accounting; the wire-volume table is
+    echoed."""
+    import os
+
+    import numpy as np
+
+    wrapper = os.path.join(tmp, "cli_wrapper.py")
+    Path(wrapper).write_text(CLI_WRAPPER)
+    flags = ["--model", "mam_benchmark", "--areas", "4", "--n-per-area", "130000", "--k", "600",
+             "--backend", "event", "--exchange", "routed", "--t-ms", "10", "--profile"]
+    outs = {leg: os.path.join(tmp, f"R{leg}.npz") for leg in ("e", "f")}
+    legs = {"e": [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                  "--nproc-per-node", "4", wrapper],
+            "f": [sys.executable, wrapper]}
+    for leg, cmd in legs.items():
+        t0 = time.perf_counter()
+        run = subprocess.run([*cmd, *flags, "--spikes-out", outs[leg]], capture_output=True,
+                             text=True, timeout=600, env=env)
+        lines = [ln for ln in run.stdout.splitlines() if ln.strip()]
+        for ln in lines:
+            log(f"[cli] ({leg}) {ln}")
+        if run.returncode != 0:
+            log(run.stderr[-4000:])
+            raise AssertionError(f"cli ({leg}) exited {run.returncode}")
+        # Ranks print their counts concurrently: lines may run together.
+        counts = [json.loads(x) for x in re.findall(r"launches (\{[^}]*\})", run.stdout)]
+        expect = ["-- wire volume", "spike counts ->"] + (
+            ["mesh: 4 area groups x 1 subgroup devices"] if leg == "e" else [])
+        missing = [x for x in expect if not any(x in ln for ln in lines)]
+        if missing or len(counts) != (4 if leg == "e" else 1) or min(
+                c["event_deliver"] for c in counts) <= 0:
+            raise AssertionError(f"cli ({leg}): missing {missing}, launches {counts}")
+        if leg == "e":
+            # The static run's wire as comm counts it, against the accounting.
+            static = re.findall(r"([\d,]+) wire B/window", run.stdout)
+            measured = re.findall(r"([\d,]+) measured B/window", run.stdout)
+            if len(static) != 1 or static != measured:
+                raise AssertionError(f"cli (e): wire {static} B/window, measured {measured}")
+            log(f"[cli] (e) measured {measured[0]} B/window on the wire (comm's count, all "
+                f"ranks) == routed_wire_bytes")
+        log(f"[cli] ({leg}) exit 0 in {time.perf_counter() - t0:.1f} s "
+            f"({'four ranks' if leg == 'e' else 'one process'}; event_deliver launches "
+            f"{[c['event_deliver'] for c in counts]})")
+    e, f = np.load(outs["e"]), np.load(outs["f"])
+    if int(e["t"]) != int(f["t"]) or not np.array_equal(e["spike_count"], f["spike_count"]):
+        raise AssertionError("cli: the four ranks' spike counts differ from one process's")
+    log(f"[cli] Re.npz (four ranks, routed) == Rf.npz (one process) bitwise: "
+        f"{int(e['spike_count'].sum())} spikes over {int(e['t'])} steps")
 
 
 # ---------------------------------------------------------------------------
@@ -2331,6 +2409,7 @@ DIST_RANKS = 4
 DIST_K_REDUCED = 300
 DIST_IAF_WINDOWS = 6                      # 1 + 5, as the main path's runs
 DIST_LIF_WINDOWS = LIF_RAMP_WINDOWS + 6   # windows 0-23: the ramp, then 18-23
+DIST_PREEMPT_AT = 3                       # (c)/(d): preempted after window 3, resumed
 DIST_TIMEOUT_S = 480
 
 
@@ -2338,17 +2417,21 @@ def dist_references(pallas: dict) -> dict:
     """[dist] (a)'s references, bit-packed on the host: the single-host iaf
     runs' 6 windows and LIF's 24 (the untimed ramp, then the stored
     windows), every one bitwise the event runs' (which ``[event]``
-    checks)."""
+    checks), and each run's final ring."""
     return dict(iaf=[_packed(blk) for blk, _ in pallas["iaf_store"]],
-                lif=pallas["lif_ramp"] + [_packed(blk) for blk, _ in pallas["lif_store"]])
+                lif=pallas["lif_ramp"] + [_packed(blk) for blk, _ in pallas["lif_store"]],
+                iaf_ring=pallas["iaf_store"][-1][1].cpu().numpy(),
+                lif_ring=pallas["lif_store"][-1][1].cpu().numpy())
 
 
-def phase_dist(refs: dict) -> None:
+def phase_dist(refs: dict) -> dict:
     """[dist]: the distributed engine (``make_simulation(..., mesh=...)``)
     as four ranks of one gloo world, all on this card, spawned here as
     processes of this script (``--dist-rank``) and echoed after they end.
-    The single-host references: (a) the main path's runs, (b) the iaf
-    pallas run at K 300, run here first. Every rank must exit 0."""
+    The single-host references: (a)/(c) the main path's runs, (b) and (d)
+    iaf pallas runs at K 300 (all-to-all areas, a ring of areas), run here
+    first. Every rank must exit 0. Returns rank 0's kernel launches on the
+    routed paths, by kernel and run."""
     import socket
     import tempfile
 
@@ -2356,26 +2439,35 @@ def phase_dist(refs: dict) -> None:
     import torch
 
     from repro_torch.core import EngineConfig, build_network, make_simulation, mam_benchmark_spec
+    from repro_torch.core import ring_area_adjacency
 
-    spec = mam_benchmark_spec(n_areas=4, n_per_area=130_000, k_intra=DIST_K_REDUCED,
-                              k_inter=DIST_K_REDUCED)
-    net = build_network(spec, seed=12)
-    eng = make_simulation(spec, EngineConfig(neuron_model="ignore_and_fire",
-                                             delivery_backend="pallas"), net=net)
-    st, ref_b = eng.init(), []
-    for _ in range(DIST_IAF_WINDOWS):
-        st, blk = eng.window(st)
-        ref_b.append(_packed(blk))
-    shape = tuple(blk.shape)
-    del eng, net, st, blk
-    gc.collect()
-    torch.cuda.empty_cache()
-    log(f"[dist] (b) single-host reference: iaf pallas at 4 x 130000, K "
-        f"{DIST_K_REDUCED}/{DIST_K_REDUCED}, {DIST_IAF_WINDOWS} windows; "
-        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB left allocated in this process")
+    ref_blocks, rings = {}, {"iaf": refs["iaf_ring"], "lif": refs["lif_ring"]}
+    for key, adjacency in (("b", None), ("d", ring_area_adjacency(4, width=1))):
+        spec = mam_benchmark_spec(n_areas=4, n_per_area=130_000, k_intra=DIST_K_REDUCED,
+                                  k_inter=DIST_K_REDUCED, area_adjacency=adjacency)
+        net = build_network(spec, seed=12)
+        eng = make_simulation(spec, EngineConfig(neuron_model="ignore_and_fire",
+                                                 delivery_backend="pallas"), net=net)
+        st, ref_blocks[key] = eng.init(), []
+        for _ in range(DIST_IAF_WINDOWS):
+            st, blk = eng.window(st)
+            ref_blocks[key].append(_packed(blk))
+        shape = tuple(blk.shape)
+        fired = int(st.spike_count.sum())
+        rings[key] = st.ring.cpu().numpy()
+        del eng, net, st, blk
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[dist] ({key}) single-host reference: iaf pallas at 4 x 130000, K "
+            f"{DIST_K_REDUCED}/{DIST_K_REDUCED}"
+            f"{', a ring of areas' if adjacency else ''}, {DIST_IAF_WINDOWS} windows, "
+            f"{fired} spikes; {torch.cuda.memory_allocated() / 1e9:.2f} GB left allocated "
+            f"in this process")
     with tempfile.TemporaryDirectory() as tmp:
         arrays = {f"{k}_{w}": b for k, blocks in (("iaf", refs["iaf"]), ("lif", refs["lif"]),
-                                                  ("b", ref_b)) for w, b in enumerate(blocks)}
+                                                  *ref_blocks.items())
+                  for w, b in enumerate(blocks)}
+        arrays.update({f"{k}_ring": ring for k, ring in rings.items()})
         np.savez(f"{tmp}/refs.npz", shape=np.asarray(shape), **arrays)
         with socket.socket() as sock:
             sock.bind(("127.0.0.1", 0))
@@ -2402,6 +2494,7 @@ def phase_dist(refs: dict) -> None:
         log(f"[dist] {DIST_RANKS} ranks exited {rcs} after {time.perf_counter() - t0:.1f} s")
         if any(rcs):
             raise AssertionError(f"[dist] a rank failed: exit codes {rcs}")
+        return json.loads(Path(f"{tmp}/routed_launches.json").read_text())
 
 
 class _DistRank:
@@ -2421,11 +2514,23 @@ class _DistRank:
         bits = np.unpackbits(self.refs[f"{key}_{w}"], count=int(np.prod(self.shape)))
         return torch.from_numpy(bits.astype(bool).reshape(self.shape)).to(self.mesh.device)
 
+    def check_ring(self, name, eng, st, key: str) -> None:
+        """The whole ring of ``st`` (gathered: a collective) bitwise the
+        single host's after the same windows."""
+        import torch
+
+        want = torch.from_numpy(self.refs[f"{key}_ring"]).to(self.mesh.device)
+        if not bitwise_equal(eng.gather_state(st).ring, want):
+            raise AssertionError(f"[dist] {name}: the ring differs from the single host's")
+
     def run(self, name, eng, key, windows, *, expect, static):
         """``windows`` windows of ``eng`` (through its pipeline when it has
         one, drained at the end), each whole block bitwise the reference's,
         overflow 0; each window timed (a synchronize at both ends), its
-        collectives and shipped bytes counted. Returns the final state."""
+        collectives counted, and the bytes they took in summed over the
+        ranks (``comm.received``: the exchange's gathers and rotations; on
+        a static run they must equal the wire accounting and the engine's
+        ``shipped_bytes``). Returns the final state."""
         import collections
 
         import torch
@@ -2437,11 +2542,12 @@ class _DistRank:
         st = eng.init()
         inflight = eng.init_inflight() if eng.window_overlap is not None else None
         cuda.reset_launches()
-        calls, times, shipped = collections.Counter(), [], []
+        calls, times, shipped, received = collections.Counter(), [], [], []
         for w in range(windows):
             dist.barrier()
             torch.cuda.synchronize()
             before, ship0 = collections.Counter(comm.calls), st.shipped_bytes
+            rec0 = comm.wire_received()
             t0 = time.perf_counter()
             if inflight is not None:
                 st, inflight, blk = eng.window_overlap(st, inflight)
@@ -2450,31 +2556,48 @@ class _DistRank:
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
             calls.update(collections.Counter(comm.calls) - before)
-            shipped.append(st.shipped_bytes - ship0)
+            shipped.append(float(st.shipped_bytes - ship0))
+            received.append(float(comm.wire_received() - rec0))
             if not bitwise_equal(eng.gather_block(blk), self.ref(key, w)):
                 raise AssertionError(f"[dist] {name}: window {w} differs from the single host")
         if inflight is not None:
             st = eng.drain(st, inflight)
         per = {k: v / windows for k, v in cuda.launches.items() if v}
+        received = self.mesh_total(received)
         if int(st.overflow) != 0:
             raise AssertionError(f"[dist] {name}: overflow {int(st.overflow)}")
+        self.check_ring(name, eng, st, key)
         if per != {k: float(v) for k, v in expect.items()}:
             raise AssertionError(f"[dist] {name}: launches per window {per}, expected {expect}")
         wb = eng.wire_bytes["total_bytes"]
-        if static and any(x != wb for x in shipped):
-            raise AssertionError(f"[dist] {name}: shipped {shipped} != dense_wire_bytes {wb}")
+        account = f"{eng.wire_bytes['exchange']}_wire_bytes"
+        if static and any(x != wb for x in shipped + received):
+            raise AssertionError(f"[dist] {name}: received {received}, shipped {shipped}, "
+                                 f"{account} {wb}")
         ms = [1e3 * t for t in times]
         if static:
-            wire = f"shipped {shipped[-1]:.0f} B/window == dense_wire_bytes {wb}"
+            wire = (f"measured {received[-1]:.0f} B/window on the wire (comm's count, all "
+                    f"ranks) == {account} {wb} == the engine's shipped_bytes")
         else:
-            wire = (f"shipped {min(shipped):.0f}-{max(shipped):.0f} B/window (adaptive; the "
-                    f"static accounting {wb})")
+            wire = (f"measured {min(received):.0f}-{max(received):.0f} B/window on the wire "
+                    f"(comm's count, all ranks; adaptive), the engine's model "
+                    f"{min(shipped):.0f}-{max(shipped):.0f}, the static accounting {wb}")
         per_call = {f"{op} over {'+'.join(ax)}": n / windows for (op, ax), n in sorted(calls.items())}
-        self.log(f"{name}: {windows} windows bitwise the single host, overflow 0; "
+        self.log(f"{name}: {windows} windows and the final ring bitwise the single host, "
+                 f"overflow 0; "
                  f"{statistics.mean(ms[1:]):.2f} ms/window over windows 1-{windows - 1} "
                  f"({min(ms[1:]):.2f}-{max(ms[1:]):.2f}; window 0 {ms[0]:.2f}); launches/window "
                  f"{per}; {wire}; collective calls/window {per_call}")
         return st
+
+    def mesh_total(self, values) -> list:
+        """Per-rank numbers summed over the ranks (a collective)."""
+        import torch
+
+        from repro_torch.core import comm
+
+        mine = torch.tensor(values, dtype=torch.float64)
+        return comm.all_reduce(mine, self.mesh, self.mesh.axis_names).tolist()
 
     def profile(self, name, fn):
         """One window under torch.profiler: the host time inside the process
@@ -2643,6 +2766,280 @@ def _dist_b(r) -> None:
           f"receive tables {tuple(recv_intra.tgt.shape)}: bitwise == plain")
 
 
+class _Calls:
+    """Records every call of ``module.name`` whose arguments ``keep`` accepts
+    (the call still runs as it was), with a copy of the tensor it updates in
+    place (positional argument ``inplace``) taken before the call; restores
+    the function on exit. ``calls`` holds ``(args, kwargs)`` pairs."""
+
+    def __init__(self, module, name: str, keep, inplace: int | None = None):
+        self.module, self.name, self.keep, self.inplace = module, name, keep, inplace
+        self.calls = []
+
+    def __enter__(self):
+        self.real = getattr(self.module, self.name)
+
+        def call(*args, **kwargs):
+            if self.keep(*args, **kwargs):
+                kept = list(args)
+                if self.inplace is not None:
+                    kept[self.inplace] = args[self.inplace].clone()
+                self.calls.append((kept, dict(kwargs)))
+            return self.real(*args, **kwargs)
+
+        setattr(self.module, self.name, call)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+
+def _per_window(counter, windows: int) -> dict:
+    return {f"{op} over {'+'.join(ax)}": n / windows for (op, ax), n in sorted(counter.items())}
+
+
+def _dist_c(r, tmp: str) -> dict:
+    """(c) the routed exchange at (a)'s width: the host-free build, ``event``,
+    structure-aware, mesh (2, 2). iaf through ``run_windows`` with a
+    checkpointer, preempted after window 3, restored on the same mesh and
+    run 3 more windows; LIF adaptive and overlapped over (a)'s 24 windows.
+    Every window bitwise the single host, overflow 0; the static run ships
+    ``routed_wire_bytes`` a window. Kernel 6 held to its plain version on
+    the last routed window's concatenated round packets. Returns this
+    rank's launches by run."""
+    import collections
+
+    import torch
+
+    from repro_torch.core import EngineConfig, comm, dist_engine, make_simulation
+    from repro_torch.core import faults as faults_lib
+    from repro_torch.core import mam_benchmark_spec
+    from repro_torch.core import schedule as schedule_lib
+    from repro_torch.kernels import cuda, ops
+    from repro_torch.kernels.event_deliver import event_deliver_plain
+
+    mesh = r.mesh
+    spec = mam_benchmark_spec(n_areas=4, n_per_area=130_000, k_intra=3000, k_inter=3000)
+    whole = dist_engine.shape_network(spec, device=mesh.device)
+    launches = {}
+    cfg = EngineConfig(neuron_model="ignore_and_fire", delivery_backend="event",
+                       sharded_build=True, exchange="routed")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = make_simulation(spec, cfg, mesh=mesh, build_seed=12)
+    torch.cuda.synchronize()
+    r.log(f"(c) iaf routed sharded build: {time.perf_counter() - t0:.2f} s, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    wb = eng.wire_bytes
+    if (wb["exchange"], wb["rounds"], wb["dense_rounds"]) != ("routed", 1, 1):
+        raise AssertionError(f"[dist] (c): routing {wb}")
+
+    def check(w, blk):  # w: windows completed, so the block is window w - 1
+        if not bitwise_equal(blk, r.ref("iaf", w - 1)):
+            raise AssertionError(f"[dist] (c) iaf: window {w - 1} differs from the single host")
+
+    ckdir = f"{tmp}/ckpt_c"
+    ckpt = schedule_lib.SimCheckpointer(ckdir, eng, whole, every=0)
+    timing = collections.Counter()
+    for step in ("save", "close"):
+        def timed(*a, _fn=getattr(ckpt, step), _step=step, **k):
+            t = time.perf_counter()
+            out = _fn(*a, **k)
+            timing[_step] += time.perf_counter() - t
+            return out
+        setattr(ckpt, step, timed)
+    window_scatter = _Calls(ops, "event_deliver_block",
+                            lambda ring, ids, *a, **k: ids.shape[0] > 1, inplace=0)
+    cuda.reset_launches()
+    comm.reset_stats()
+    with window_scatter:
+        try:
+            schedule_lib.run_windows(
+                eng, eng.init(), DIST_IAF_WINDOWS, checkpointer=ckpt, on_block=check,
+                faults=faults_lib.FaultConfig(preempt_after_window=DIST_PREEMPT_AT))
+            raise AssertionError("[dist] (c): the injected preemption did not stop the loop")
+        except faults_lib.Preempted as exc:
+            first = exc.result
+        calls, received = collections.Counter(comm.calls), comm.wire_received()
+        t0 = time.perf_counter()
+        st, info = schedule_lib.restore_sim(ckdir, eng, whole)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        comm.reset_stats()
+        second = schedule_lib.run_windows(eng, st, DIST_IAF_WINDOWS - info["step"],
+                                          on_block=check)
+        calls += collections.Counter(comm.calls)
+        received += comm.wire_received()
+    (received,) = r.mesh_total([received])
+    per = {k: v / DIST_IAF_WINDOWS for k, v in cuda.launches.items() if v}
+    launches["(c) iaf routed"] = {k: v for k, v in cuda.launches.items() if v}
+    nbytes = sum(f.stat().st_size for f in Path(ckdir, f"step_{DIST_PREEMPT_AT:08d}").iterdir())
+    shipped = float(second.state.shipped_bytes)
+    if int(second.state.overflow) != 0:
+        raise AssertionError(f"[dist] (c) iaf: overflow {int(second.state.overflow)}")
+    if not received == shipped == DIST_IAF_WINDOWS * wb["total_bytes"]:
+        raise AssertionError(f"[dist] (c) iaf: received {received}, shipped {shipped}, "
+                             f"{DIST_IAF_WINDOWS} x routed_wire_bytes {wb['total_bytes']}")
+    if per != {"event_deliver": 11.0}:
+        raise AssertionError(f"[dist] (c) iaf: launches per window {per}")
+    r.check_ring("(c) iaf", eng, second.state, "iaf")
+    ms = [1e3 * t for t in list(first.window_times_s) + list(second.window_times_s)]
+    spikes = first.spikes_per_window.tolist() + second.spikes_per_window.tolist()
+    r.log(f"(c) iaf event routed through run_windows: {DIST_IAF_WINDOWS} windows and the "
+          f"final ring bitwise the single host (preempted after window {DIST_PREEMPT_AT}, restored on this mesh, "
+          f"resumed), overflow 0; ms/window {', '.join(f'{x:.2f}' for x in ms)} (window 0 "
+          f"and the first resumed window cold); launches/window {per}; measured "
+          f"{received:.0f} B on the wire (comm's count of the exchange's gathers and "
+          f"rotations, all ranks; the state gathers apart) == {DIST_IAF_WINDOWS} x "
+          f"routed_wire_bytes {wb['total_bytes']} == the engine's shipped_bytes "
+          f"(dense_rounds {wb['dense_rounds']}, rounds {wb['rounds']}, edges {wb['edges']}); "
+          f"the loop's collective calls/window {_per_window(calls, DIST_IAF_WINDOWS)}; "
+          f"spikes a window {spikes}")
+    r.log(f"(c) checkpoint at window {DIST_PREEMPT_AT}: {nbytes} bytes on disk (rank 0 "
+          f"writes); save (gather the whole state over gloo, copy to the host) "
+          f"{timing['save']:.3f} s, close (the write, then a barrier) {timing['close']:.3f} s; "
+          f"restore (every rank reads the whole state, cuts its block) {restore_s:.3f} s; "
+          f"peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    ring, ids, tgt, w, d, t_0 = window_scatter.calls[-1][0]
+    got = ops.event_deliver_block(ring.clone(), ids, tgt, w, d, t_0)
+    want = event_deliver_plain(ring.clone(), ids, tgt, w, d, t_0)
+    if not bitwise_equal(got, want):
+        raise AssertionError("[dist] event_deliver on the routed window packets differs from "
+                             "its plain version")
+    r.log(f"[kernel] event_deliver on the routed window's concatenated round packets "
+          f"{tuple(ids.shape)} ({int((ids < tgt.shape[0]).sum())} ids) through receive tables "
+          f"{tuple(tgt.shape)} into {tuple(ring.shape)}: bitwise == plain, max abs err "
+          f"{max_abs_err(got, want)}")
+    del eng, st, first, second, window_scatter, ring, ids, tgt, w, d, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = EngineConfig(neuron_model="lif", delivery_backend="event", sharded_build=True,
+                       exchange="routed", adaptive_exchange=True, overlap_exchange=True,
+                       fused_update=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = make_simulation(spec, cfg, mesh=mesh, build_seed=12)
+    torch.cuda.synchronize()
+    r.log(f"(c) lif routed sharded build: {time.perf_counter() - t0:.2f} s, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    st = r.run("(c) lif event routed adaptive overlap", eng, "lif", DIST_LIF_WINDOWS,
+               expect=dict(event_deliver=11, lif_update=10), static=False)
+    launches["(c) lif routed adaptive overlap"] = {k: v for k, v in cuda.launches.items() if v}
+    r.log(f"(c) lif: peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB over build and "
+          f"run; {int(eng.gather_state(st).spike_count.sum())} spikes")
+    r.profile("(c) lif routed", lambda: eng.window(st))
+    del eng, st
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _dist_d(r, tmp: str) -> dict:
+    """(d) a sparse area graph (a ring, width 1) at K 300: every rank builds
+    the global network and cuts it; iaf on ``pallas`` and ``event``, dense
+    and routed, on mesh (4, 1), where the routed exchange has 1 wire round
+    against the dense exchange's 3; then a routed ``event`` run on (2, 2)
+    preempted after window 3 and resumed on (4, 1) (an elastic reshard
+    from 2 groups to 4). Kernel 2 held to its plain version on the pallas
+    local pathway. Returns this rank's launches by run."""
+    import torch
+
+    from repro_torch.core import EngineConfig, ProcessMesh, build_network, make_simulation
+    from repro_torch.core import faults as faults_lib
+    from repro_torch.core import mam_benchmark_spec, ring_area_adjacency
+    from repro_torch.core import schedule as schedule_lib
+    from repro_torch.kernels import cuda, ops
+    from repro_torch.kernels.spike_deliver import spike_deliver_plain
+
+    spec = mam_benchmark_spec(n_areas=4, n_per_area=130_000, k_intra=DIST_K_REDUCED,
+                              k_inter=DIST_K_REDUCED,
+                              area_adjacency=ring_area_adjacency(4, width=1))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    net = build_network(spec, seed=12, outgoing="intra", device=r.mesh.device)
+    torch.cuda.synchronize()
+    r.log(f"(d) global network K {DIST_K_REDUCED}/{DIST_K_REDUCED}, a ring of areas, built "
+          f"on this rank in {time.perf_counter() - t0:.2f} s, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    r41 = _DistRank(ProcessMesh((4, 1), ("data", "model")), r.refs, r.card)
+    launches = {}
+    runs = {("pallas", "dense"): dict(spike_deliver=20),
+            ("pallas", "routed"): dict(spike_deliver=10, event_deliver=1),
+            ("event", "dense"): dict(event_deliver=11),
+            ("event", "routed"): dict(event_deliver=11)}
+    for (backend, exchange), want in runs.items():
+        cfg = EngineConfig(neuron_model="ignore_and_fire", delivery_backend=backend,
+                           exchange=exchange)
+        eng = make_simulation(spec, cfg, net=net, mesh=r41.mesh)
+        wb = eng.wire_bytes
+        if exchange == "routed" and (wb["rounds"], wb["dense_rounds"]) != (1, 3):
+            raise AssertionError(f"[dist] (d): routing {wb}")
+        local = _Calls(ops, "spike_deliver", lambda *a, **k: "rows_per_area" in k)
+        with local:
+            st = r41.run(f"(d) iaf {backend} {exchange} on (4, 1)", eng, "d", DIST_IAF_WINDOWS,
+                         expect=want, static=True)
+        if exchange == "routed":
+            launches[f"(d) iaf {backend} routed"] = {k: v for k, v in cuda.launches.items() if v}
+        rounds = wb["rounds"] if exchange == "routed" else r41.mesh.shape["data"] - 1
+        r41.log(f"(d) {backend} {exchange}: global pathway {wb['global_bytes']} B/window in "
+                f"{rounds} wire round(s)")
+        r41.profile(f"(d) {backend} {exchange}", lambda: eng.window(st))
+        if (backend, exchange) == ("pallas", "routed"):
+            # The cycle with the most spikes of the run's local pathway.
+            args, kw = max(local.calls, key=lambda c: int(c[0][0].sum()))
+            got = ops.spike_deliver(*args, **kw)
+            plain = spike_deliver_plain(*args, **kw)
+            if not bitwise_equal(got, plain):
+                raise AssertionError("[dist] spike_deliver on the routed pallas local pathway "
+                                     "differs from its plain version")
+            spikes, src = args[0], args[1]
+            r41.log(f"[kernel] spike_deliver on the routed pallas local pathway: "
+                    f"{src.shape[0]} rows x {src.shape[1]} against {spikes.numel()} sources "
+                    f"({int(spikes.sum())} spiking): bitwise == plain, max abs err "
+                    f"{max_abs_err(got, plain)}")
+        del eng, st, local
+    # Elastic resume: 2 groups (the (2, 2) mesh) -> 4 groups (the (4, 1) mesh).
+    cfg = EngineConfig(neuron_model="ignore_and_fire", delivery_backend="event",
+                       exchange="routed")
+
+    def check(w, blk):
+        if not bitwise_equal(blk, r.ref("d", w - 1)):
+            raise AssertionError(f"[dist] (d) elastic: window {w - 1} differs from the single "
+                                 f"host")
+
+    ckdir = f"{tmp}/ckpt_d"
+    eng = make_simulation(spec, cfg, net=net, mesh=r.mesh)
+    ckpt = schedule_lib.SimCheckpointer(ckdir, eng, net, every=0)
+    try:
+        schedule_lib.run_windows(
+            eng, eng.init(), DIST_IAF_WINDOWS, checkpointer=ckpt, on_block=check,
+            faults=faults_lib.FaultConfig(preempt_after_window=DIST_PREEMPT_AT))
+        raise AssertionError("[dist] (d): the injected preemption did not stop the loop")
+    except faults_lib.Preempted:
+        pass
+    del eng
+    eng = make_simulation(spec, cfg, net=net, mesh=r41.mesh)
+    st, info = schedule_lib.restore_sim(ckdir, eng, net)
+    want = {"old_n_groups": 2, "new_n_groups": 4}
+    if {k: info["reshard"][k] for k in want} != want:
+        raise AssertionError(f"[dist] (d) elastic: reshard {info['reshard']}")
+    res = schedule_lib.run_windows(eng, st, DIST_IAF_WINDOWS - info["step"], on_block=check)
+    if int(res.state.overflow) != 0:
+        raise AssertionError(f"[dist] (d) elastic: overflow {int(res.state.overflow)}")
+    r41.check_ring("(d) elastic", eng, res.state, "d")
+    r41.log(f"(d) elastic resume: routed event on (2, 2) preempted after window "
+            f"{DIST_PREEMPT_AT}, restored on (4, 1) ({info['reshard']}), windows "
+            f"{DIST_PREEMPT_AT}-{DIST_IAF_WINDOWS - 1} and the final ring bitwise the single "
+            f"host, overflow 0; "
+            f"peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del eng, st, res, net
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def dist_rank_main(rank: int, tmp: str, port: int) -> int:
     """One rank of [dist] (run as ``chip_smoke.py --dist-rank R DIR PORT``)."""
     import datetime
@@ -2667,6 +3064,13 @@ def dist_rank_main(rank: int, tmp: str, port: int) -> int:
         r.log(f"{mesh}, torch {torch.__version__}, backend {dist.get_backend()}")
         _dist_a(r)
         _dist_b(r)
+        routed = {**_dist_c(r, tmp), **_dist_d(r, tmp)}
+        if rank == 0:
+            by_kernel = {}
+            for run, counts in routed.items():
+                for kernel, n in counts.items():
+                    by_kernel.setdefault(kernel, {})[run] = n
+            Path(f"{tmp}/routed_launches.json").write_text(json.dumps(by_kernel))
     finally:
         dist.destroy_process_group()
     return 0
@@ -2711,8 +3115,13 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[cli] the network freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
-    phase_dist(dist_refs)
+    routed_launches = phase_dist(dist_refs)
     del dist_refs
+    # Kernels 1, 2 and 6 on the routed paths ([dist] (c)/(d), rank 0's
+    # launches in each run), beside their main-path counts.
+    for row in rows:
+        if row["name"] in routed_launches:
+            row["routed_launches"] = routed_launches[row["name"]]
     phase_cli()
     phase_serve()
     phase_device_vs_cpu()

@@ -24,9 +24,27 @@ must call the same collectives in the same order.
   device, so every staged collective is a synchronisation point.
 * ``nccl`` (one card per rank): device tensors go as they are.
 
+:func:`ppermute` (the routed exchange's rotation rounds) has no collective
+in ``torch.distributed``: it is built from point-to-point sends and
+receives on the world group, all posted in one ``batch_isend_irecv``, so
+no blocking send waits on a partner that is itself sending.
+
 ``calls`` counts collectives by ``(op, axes)`` and, while ``times`` is a
 list, each collective appends ``(op, axes, seconds)`` with the host time it
 spent inside ``torch.distributed`` (waiting for the other ranks included).
+``received`` counts, by the same keys, the bytes this rank took in from the
+other ranks: ``n - 1`` times the payload of a gather or a reduction over
+``n`` ranks, and one payload from each partner of a ``ppermute``. Summed
+over the ranks, the ``all_gather`` and ``ppermute`` bytes of a window are
+what the exchange's wire accounting (``exchange.dense_wire_bytes``,
+``routed_wire_bytes``) predicts for its static packets. Whole-state gathers
+(counted as ``"gather_grid"``, the engine's ``gather_state`` / ``gather_block``)
+are kept apart from the exchange's own gathers.
+
+Under ``nccl`` every rank of the world must take part in the first
+point-to-point call, which sets up the communicator, while a ``ppermute``
+round leaves out the ranks with no partner at its offset: call
+:func:`warm_point_to_point` once on every rank before the first round.
 """
 
 from __future__ import annotations
@@ -35,6 +53,7 @@ import collections
 import time
 from typing import Sequence
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -46,25 +65,32 @@ __all__ = [
     "gather_area",
     "gather_global",
     "gather_full",
+    "ppermute",
+    "wire_received",
+    "warm_point_to_point",
     "exchange_bytes",
     "count_max",
     "gather_counts",
     "count_wire_bytes",
     "calls",
+    "received",
     "times",
     "reset_stats",
 ]
 
 calls: collections.Counter = collections.Counter()
+received: collections.Counter = collections.Counter()
 times: list | None = None
 # Pinned host buffers for the gloo wire, by (role, shape, dtype).
 _pinned: dict = {}
 
 
 def reset_stats(*, timed: bool = False) -> None:
-    """Zero ``calls``; start recording ``times`` when ``timed``, else stop."""
+    """Zero ``calls`` and ``received``; start recording ``times`` when
+    ``timed``, else stop."""
     global times
     calls.clear()
+    received.clear()
     times = [] if timed else None
 
 
@@ -109,8 +135,9 @@ def _buffer(role: str, shape, dtype) -> torch.Tensor:
     return buf
 
 
-def _timed(op: str, axes, fn):
+def _timed(op: str, axes, nbytes: int, fn):
     calls[(op, axes)] += 1
+    received[(op, axes)] += nbytes
     if times is None:
         return fn()
     t0 = time.perf_counter()
@@ -119,30 +146,34 @@ def _timed(op: str, axes, fn):
     return out
 
 
-def _gather(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+def _gather(x: torch.Tensor, mesh, axes, count_as: str = "all_gather") -> torch.Tensor:
     """``[n, *x.shape]``: every rank's ``x`` over the group of ``axes``, in
-    row-major order over ``axes``."""
+    row-major order over ``axes``; counted under ``count_as``."""
     axes = _key(axes)
     group = mesh.group(axes)
     n = mesh.extent(axes)
     x = x.contiguous()
+    nbytes = (n - 1) * x.numel() * x.element_size()
     if _staged(group, x):
         src = _buffer("in", x.shape, x.dtype)
         src.copy_(x)  # waits for the device
         out = _buffer("out", (n, *x.shape), x.dtype)
-        _timed("all_gather", axes, lambda: dist.all_gather(list(out.unbind(0)), src, group=group))
+        _timed(count_as, axes, nbytes,
+               lambda: dist.all_gather(list(out.unbind(0)), src, group=group))
         # The next staged collective's copy to the host waits for this copy
         # before anything is written into `out` again.
         return out.to(x.device, non_blocking=True)
     out = torch.empty((n, *x.shape), dtype=x.dtype, device=x.device)
-    _timed("all_gather", axes, lambda: dist.all_gather(list(out.unbind(0)), x, group=group))
+    _timed(count_as, axes, nbytes, lambda: dist.all_gather(list(out.unbind(0)), x, group=group))
     return out
 
 
-def all_gather(x: torch.Tensor, mesh, axes, *, dim: int) -> torch.Tensor:
+def all_gather(x: torch.Tensor, mesh, axes, *, dim: int,
+               count_as: str = "all_gather") -> torch.Tensor:
     """Tiled all_gather: the ranks' ``x`` concatenated along ``dim`` in
-    row-major order over ``axes`` (``jax.lax.all_gather(..., tiled=True)``)."""
-    g = _gather(x, mesh, axes)
+    row-major order over ``axes`` (``jax.lax.all_gather(..., tiled=True)``),
+    counted under ``count_as``."""
+    g = _gather(x, mesh, axes, count_as)
     n = g.shape[0]
     if dim == 0:
         return g.reshape(n * x.shape[0], *x.shape[1:])
@@ -158,7 +189,9 @@ def all_reduce(x: torch.Tensor, mesh, axes, *, op: str = "sum") -> torch.Tensor:
     rop = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
     staged = _staged(group, x)
     buf = x.detach().to("cpu", copy=True) if staged else x.detach().clone()
-    _timed(f"all_reduce_{op}", axes, lambda: dist.all_reduce(buf, op=rop, group=group))
+    nbytes = (mesh.extent(axes) - 1) * buf.numel() * buf.element_size()
+    _timed(f"all_reduce_{op}", axes, nbytes,
+           lambda: dist.all_reduce(buf, op=rop, group=group))
     return buf.to(x.device, non_blocking=True) if staged else buf
 
 
@@ -210,6 +243,73 @@ def gather_full(
     wire = _gather(pack_bits(spikes_local), mesh, tuple(axes))  # [n_sh, A, per]
     out = unpack_bits(wire, n_loc)
     return torch.movedim(out, 0, 1).reshape(spikes_local.shape[0], -1)
+
+
+def _rank_at(mesh, axes: tuple, h: int) -> int:
+    """The global rank at group index ``h`` over ``axes`` (row-major) that
+    shares this rank's coordinates off ``axes``."""
+    coords = dict(mesh.coords)
+    coords.update(zip(axes, (int(c) for c in np.unravel_index(h, [mesh.shape[a] for a in axes]))))
+    return int(np.ravel_multi_index([coords[a] for a in mesh.axis_names],
+                                    [mesh.shape[a] for a in mesh.axis_names]))
+
+
+def ppermute(x: torch.Tensor, mesh, axes, pairs, *, fill=0) -> torch.Tensor:
+    """``jax.lax.ppermute`` over ``axes``: for every ``(src, dst)`` of
+    ``pairs`` (group indices, row-major over ``axes``), the rank of group
+    ``src`` sends its ``x`` to the rank of group ``dst`` at its own
+    coordinates off ``axes``. Returns what arrived; a rank that no pair
+    sends to gets ``x``'s shape filled with ``fill`` (``jax.lax.ppermute``
+    gives zeros there).
+
+    The sends and receives go point to point on the world group, with
+    global ranks, all posted in one ``batch_isend_irecv``; over gloo a
+    device tensor is staged through pinned host buffers."""
+    axes = _key(axes)
+    g = 0
+    for ax in axes:
+        g = g * mesh.shape[ax] + mesh.axis_index(ax)
+    sends = [dst for src, dst in pairs if src == g]
+    recvs = [src for src, dst in pairs if dst == g]
+    if len(recvs) > 1:
+        raise ValueError(f"group {g} receives from {recvs}: ppermute pairs need one source "
+                         f"a destination")
+    x = x.contiguous()
+    staged = _staged(dist.group.WORLD, x)
+    if staged:
+        src = _buffer("ppermute_in", x.shape, x.dtype)
+        src.copy_(x)  # waits for the device
+        out = _buffer("ppermute_out", x.shape, x.dtype)
+    else:
+        src, out = x, torch.empty_like(x)
+    if recvs and recvs[0] == g:
+        out.copy_(src)
+    else:
+        out.fill_(fill)
+    ops = [dist.P2POp(dist.isend, src, _rank_at(mesh, axes, dst)) for dst in sends if dst != g]
+    ops += [dist.P2POp(dist.irecv, out, _rank_at(mesh, axes, s)) for s in recvs if s != g]
+
+    def run():
+        for work in dist.batch_isend_irecv(ops) if ops else ():
+            work.wait()
+
+    inbound = sum(1 for s in recvs if s != g)
+    _timed("ppermute", axes, inbound * x.numel() * x.element_size(), run)
+    return out.to(x.device, non_blocking=True) if staged else out
+
+
+def wire_received() -> int:
+    """This rank's ``received`` bytes in the exchange's own collectives
+    (``all_gather`` and ``ppermute``) since the last :func:`reset_stats`."""
+    return sum(n for (op, _), n in received.items() if op in ("all_gather", "ppermute"))
+
+
+def warm_point_to_point(mesh) -> None:
+    """Under ``nccl``, one barrier of the whole world, so that the world's
+    communicator exists before the first ``ppermute`` round that leaves a
+    rank out (a no-op under gloo)."""
+    if dist.get_backend(dist.group.WORLD) == "nccl":
+        dist.barrier(device_ids=[mesh.device.index])
 
 
 def exchange_bytes(shape_local: tuple[int, ...], n_gather_devices: int,

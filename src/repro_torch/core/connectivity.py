@@ -27,12 +27,20 @@ subgroup's neuron windows. The host-free build (:func:`sharded_build_plan`,
 :func:`build_shard_tables`, :func:`build_group_intra_tables`,
 :func:`build_lane_intra_tables`) draws one shard's tables straight from the
 counter-based rules, bitwise equal to cutting the global network.
+:func:`cached_sharded_build_plan` computes that plan once per key (an
+in-memory memo, and a JSON file under ``$REPRO_PLAN_CACHE`` that other
+ranks read). :func:`area_adjacency` gives the realised area graph the
+routed exchange routes over.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import json
 import math
+import os
+import time
 
 import numpy as np
 import torch
@@ -55,6 +63,9 @@ __all__ = [
     "build_shard_tables",
     "build_group_intra_tables",
     "build_lane_intra_tables",
+    "area_adjacency",
+    "plan_cache_key",
+    "cached_sharded_build_plan",
     "tile_gids",
     "tile_network",
 ]
@@ -907,6 +918,170 @@ def build_lane_intra_tables(
     n_loc = plan.n_pad // plan.subgroup
     return _intra_tables(spec, seed, areas, lane * n_loc, n_loc, plan.k_lane_intra, plan,
                          resolve_device(device), chunk_rows)
+
+
+def area_adjacency(net: Network, spec: MultiAreaSpec | None = None) -> np.ndarray:
+    """The realised area -> area adjacency: ``adj[src, tgt]`` iff any neuron
+    of target area ``tgt`` (live or ghost: ghosts receive deposits too, so
+    the routed exchange must ship to them for bitwise rings) draws a source
+    from area ``src``.
+
+    After a host-free build the plan's adjacency rides on the network
+    (``net.area_adj``); otherwise it is read from the global ``src_inter``
+    tables, area by area in row chunks on their device. ``spec`` is
+    accepted for the reference's signature: the reference falls back to the
+    spec's adjacency only for its shape-only stand-in networks, whose
+    counterpart here (meta tensors) comes with the dry-run tooling.
+    """
+    del spec
+    A = net.n_areas
+    if net.k_inter == 0:
+        return np.zeros((A, A), dtype=bool)
+    if net.area_adj is not None:
+        return np.asarray(net.area_adj, dtype=bool)
+    src = net.src_inter
+    if src.device.type == "meta":
+        raise NotImplementedError(
+            "area_adjacency of a shape-only (meta) network needs the dry-run "
+            "tooling's stand-in networks, not ported yet (ROADMAP queue 1 item 5)")
+    if tuple(src.shape[:2]) != (A, net.n_pad):
+        raise ValueError(
+            f"area_adjacency reads the global src_inter tables, not a "
+            f"{tuple(src.shape)} cut (pass the global network)")
+    adj = torch.zeros(A * A, dtype=torch.bool, device=src.device)
+    rows = src.reshape(A * net.n_pad, -1)
+    for r0 in range(0, rows.shape[0], CHUNK_ROWS):
+        part = rows[r0:r0 + CHUNK_ROWS].long()
+        tgt = (torch.arange(r0, r0 + part.shape[0], device=src.device) // net.n_pad)[:, None]
+        adj[(part // net.n_pad) * A + tgt] = True
+    return adj.view(A, A).cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# The plan cache. The planning pass is deterministic in (spec, seed, shard
+# layout) but sweeps every synapse draw; the keyed cache computes it once
+# and shares it: an in-memory memo for repeat builds in one process, an
+# atomic JSON file for the other ranks (the plan is counts only, so JSON
+# round-trips it exactly).
+# ---------------------------------------------------------------------------
+
+_PLAN_MEMO: dict = {}
+
+# Seconds a rank that does not compute waits for the computing rank's file.
+_PLAN_CACHE_WAIT_S = 600.0
+
+
+def plan_cache_key(
+    spec: MultiAreaSpec,
+    seed: int,
+    n_shards: int,
+    *,
+    mode: str = "group",
+    subgroup: int = 1,
+    size_multiple: int = 1,
+) -> str:
+    """Content digest keying one planning pass (spec, draw and layout): the
+    JAX package's key for the same arguments."""
+    payload = json.dumps(
+        {
+            "spec": dataclasses.asdict(spec),
+            "seed": int(seed),
+            "n_shards": int(n_shards),
+            "mode": mode,
+            "subgroup": int(subgroup),
+            "size_multiple": int(size_multiple),
+        },
+        sort_keys=True,
+        default=repr,
+    )
+    return hashlib.sha256(payload.encode()).hexdigest()[:24]
+
+
+def _plan_to_json(plan: ShardedBuildPlan) -> dict:
+    return dataclasses.asdict(plan)
+
+
+def _plan_from_json(d: dict) -> ShardedBuildPlan:
+    d = dict(d)
+    d["area_adj"] = tuple(tuple(int(v) for v in row) for row in d["area_adj"])
+    return ShardedBuildPlan(**d)
+
+
+def _world() -> tuple[int, int]:
+    """``(rank, world size)`` of the default process group, ``(0, 1)``
+    without one."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def cached_sharded_build_plan(
+    spec: MultiAreaSpec,
+    seed: int,
+    n_shards: int,
+    *,
+    mode: str = "group",
+    subgroup: int = 1,
+    size_multiple: int = 1,
+    cache_dir: str | None = None,
+    process_index: int | None = None,
+    wait_s: float = _PLAN_CACHE_WAIT_S,
+    device=None,
+) -> ShardedBuildPlan:
+    """:func:`sharded_build_plan`, computed once per key instead of per call.
+
+    Resolution order: the in-memory memo, then the ``cache_dir`` JSON file,
+    then the counting pass on ``device``. ``cache_dir`` defaults to
+    ``$REPRO_PLAN_CACHE``; with it set in a multi-rank run, rank 0 computes
+    and atomically publishes the plan while every other rank polls for the
+    file instead of repeating the pass (``process_index`` defaults to the
+    rank, 0 without a process group). Without a cache directory every
+    caller computes its own. The distributed engine calls it on rank 0
+    alone and broadcasts the plan, with or without a cache directory.
+    """
+    key = plan_cache_key(spec, seed, n_shards, mode=mode, subgroup=subgroup,
+                         size_multiple=size_multiple)
+    if key in _PLAN_MEMO:
+        return _PLAN_MEMO[key]
+    if cache_dir is None:
+        cache_dir = os.environ.get("REPRO_PLAN_CACHE") or None
+    path = os.path.join(cache_dir, f"plan_{key}.json") if cache_dir else None
+
+    def read() -> ShardedBuildPlan | None:
+        if path is None or not os.path.exists(path):
+            return None
+        with open(path) as f:
+            return _plan_from_json(json.load(f))
+
+    plan = read()
+    if plan is None:
+        rank, world = _world()
+        if process_index is None:
+            process_index = rank
+        if path is not None and world > 1 and process_index != 0:
+            # Rank 0 computes; wait for its publish.
+            deadline = time.monotonic() + wait_s
+            while plan is None and time.monotonic() < deadline:
+                time.sleep(0.2)
+                plan = read()
+            if plan is None:
+                raise TimeoutError(
+                    f"process {process_index} waited {wait_s:.0f}s for {path} (is "
+                    f"process 0 running with the same REPRO_PLAN_CACHE?)")
+        else:
+            plan = sharded_build_plan(spec, seed, n_shards, mode=mode, subgroup=subgroup,
+                                      size_multiple=size_multiple, device=device)
+            if path is not None:
+                # Atomic publish: readers only ever see a complete file.
+                os.makedirs(cache_dir, exist_ok=True)
+                tmp = f"{path}.tmp.{os.getpid()}"
+                with open(tmp, "w") as f:
+                    json.dump(_plan_to_json(plan), f)
+                os.replace(tmp, path)
+    _PLAN_MEMO[key] = plan
+    return plan
 
 
 def tile_gids(n_areas: int, n_pad: int, copies: int, *, device=None) -> torch.Tensor:

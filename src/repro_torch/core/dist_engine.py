@@ -14,16 +14,19 @@ carry the spikes between ranks. Placement:
 * **conventional**: every rank holds an ``n_pad / size`` neuron window of
   every area, and the whole spike vector crosses all ranks every cycle.
 
-Only the ``'dense'`` exchange is ported (:class:`~repro_torch.core.exchange.
-DenseMeshExchange`); ``'routed'`` is refused by the config rules.
+The global pathway is the ``'dense'`` exchange's mesh-wide gathers
+(:class:`~repro_torch.core.exchange.DenseMeshExchange`, the default) or the
+``'routed'`` exchange's packet rounds along the area graph's group edges
+(:class:`~repro_torch.core.exchange.RoutedExchange`, structure-aware only).
 
 A rank's view of the network (:func:`shard_network`, or the host-free
 :func:`build_network_sharded`) holds the tables the JAX package's
-``shard_map`` gives that device. On the ``event`` backend the engine turns
-the view's outgoing and inbound tables into receive tables whose targets
-are the rank's ring rows (ascending, ``-1`` last, as the event kernel needs
+``shard_map`` gives that device. On the ``event`` backend (and for the
+routed exchange's global pathway on every backend) the engine turns the
+view's outgoing and inbound tables into receive tables whose targets are
+the rank's ring rows (ascending, ``-1`` last, as the event kernel needs
 them; rows of the replicated layouts, which also hold other ranks' targets,
-are compacted), and drops the rest.
+are compacted), and drops the tables it no longer reads.
 
 The engine's state and blocks are the rank's shards; ``gather_state`` and
 ``gather_block`` assemble the whole network's (every rank gets them), as
@@ -57,12 +60,14 @@ from repro_torch.core.engine import (
     resolve_params,
 )
 from repro_torch.core.exchange import ReceiveTables
+from repro_torch.device import resolve_device
 
 __all__ = [
     "make_dist_engine",
     "build_network_sharded",
     "shard_network",
     "shard_state",
+    "shape_network",
 ]
 
 
@@ -173,9 +178,15 @@ def _draw_rows(spec, seed, rows: torch.Tensor, pathway: str, k: int, d_dtype, si
     return out
 
 
-def _shared_plan(mesh, compute):
-    """``compute()`` on rank 0, sent to every rank (the plan is counts only)."""
-    box = [compute() if mesh.rank == 0 else None]
+def _shared_plan(mesh, spec, seed, n_shards, *, subgroup, size_multiple):
+    """The host-free build's plan: rank 0 takes it from the plan cache
+    (:func:`~repro_torch.core.connectivity.cached_sharded_build_plan`: its
+    memo, the file under ``$REPRO_PLAN_CACHE`` when that is set, else a
+    counting pass, which it then publishes there) and broadcasts it (the
+    plan is counts only), so no other rank waits on the file system."""
+    kw = dict(mode="group", subgroup=subgroup, size_multiple=size_multiple, device=mesh.device)
+    box = [connectivity_lib.cached_sharded_build_plan(spec, seed, n_shards, **kw)
+           if mesh.rank == 0 else None]
     dist.broadcast_object_list(box, src=0)
     return box[0]
 
@@ -205,6 +216,28 @@ def build_network_sharded(
                        incoming=True)
 
 
+def shape_network(spec: MultiAreaSpec, *, device, size_multiple: int = 1) -> Network:
+    """The global network's masks and static fields with zero-row tables:
+    what the run loop reads of a network (its shapes, the resume hash, the
+    reshard plan's area sizes) when every rank built its tables host-free
+    and no rank holds the global network."""
+    dev = resolve_device(device)
+    n_pad = spec.padded_area_size(size_multiple)
+    alive, rate = connectivity_lib.area_masks(spec, n_pad, dev)
+    d_i = connectivity_lib._delay_dtype(spec.steps_intra_max)
+    d_e = connectivity_lib._delay_dtype(spec.steps_inter_max)
+    empty = {f: torch.zeros((0, 0, k), dtype=dt, device=dev)
+             for f, k, dt in (("src_intra", spec.k_intra, torch.int32),
+                              ("w_intra", spec.k_intra, torch.float32),
+                              ("delay_intra", spec.k_intra, d_i),
+                              ("src_inter", spec.k_inter, torch.int32),
+                              ("w_inter", spec.k_inter, torch.float32),
+                              ("delay_inter", spec.k_inter, d_e))}
+    return Network(alive=alive, rate_hz=rate, n_pad=n_pad, n_areas=spec.n_areas,
+                   ring_len=spec.ring_len, delay_ratio=spec.delay_ratio, dt_ms=spec.dt_ms,
+                   **empty)
+
+
 def _build_view(spec, mesh, config, *, seed, size_multiple, incoming: bool) -> Network:
     """:func:`build_network_sharded`; without ``incoming`` the incoming
     intra tables are zero-row stand-ins too (the engine's build: its event
@@ -226,9 +259,7 @@ def _build_view(spec, mesh, config, *, seed, size_multiple, incoming: bool) -> N
         raise ValueError(f"padded area size {n_pad} not divisible by subgroup {gsz}")
     sub = gsz if (cfg.subgroup_inter_tables and gsz > 1) else 1
     K_i, K_e = spec.k_intra, spec.k_inter
-    plan = _shared_plan(mesh, lambda: connectivity_lib.sharded_build_plan(
-        spec, seed, n_groups, mode="group", subgroup=sub, size_multiple=size_multiple,
-        device=dev))
+    plan = _shared_plan(mesh, spec, seed, n_groups, subgroup=sub, size_multiple=size_multiple)
     c = _cut(mesh, STRUCTURE_AWARE, A, n_pad)
     alive, rate = connectivity_lib.area_masks(spec, n_pad, dev)
     areas = np.arange(c.aoff, c.aoff + c.a_loc)
@@ -326,6 +357,9 @@ def _make_exchange(net: Network, mesh, cfg: EngineConfig, **tables):
         raise ValueError(
             "exchange='local' is the single-host identity; the distributed "
             "engine needs 'dense' or 'routed'")
+    if name == "routed":
+        return exchange_lib.RoutedExchange(net, cfg, mesh, connectivity_lib.area_adjacency(net),
+                                           **tables)
     return exchange_lib.DenseMeshExchange(net, cfg, mesh, **tables)
 
 
@@ -342,7 +376,8 @@ def _inter_cut(net: Network, mesh, cfg: EngineConfig):
 
 def _check_prebuilt(net: Network, mesh, cfg: EngineConfig) -> None:
     """Refuse pre-cut tables that do not match the mesh (as the JAX engine)."""
-    if cfg.backend == "event" and net.k_inter > 0 and net.tgt_inter_in is not None:
+    receives = cfg.backend == "event" or cfg.exchange == "routed"
+    if receives and net.k_inter > 0 and net.tgt_inter_in is not None:
         n_shards, gsz, mode, _ = _inter_cut(net, mesh, cfg)
         four = net.tgt_inter_in.dim() == 4
         got_sub = net.tgt_inter_in.shape[1] if four else 1
@@ -366,12 +401,13 @@ def _check_prebuilt(net: Network, mesh, cfg: EngineConfig) -> None:
 
 
 def _event_tables(net: Network, view: Network, mesh, cfg: EngineConfig, c: _Cut,
-                  *, owned: bool = False):
-    """The rank's ``(recv_intra, recv_inter)`` receive tables. ``net`` is
-    the global network (None after a host-free build), ``view`` the rank's;
-    ``owned``: the view's tables are the engine's own, mapped in place."""
+                  *, owned: bool = False, intra_too: bool = True):
+    """The rank's ``(recv_intra, recv_inter)`` receive tables (``recv_intra``
+    only with ``intra_too``). ``net`` is the global network (None after a
+    host-free build), ``view`` the rank's; ``owned``: the view's tables are
+    the engine's own, mapped in place."""
     intra = inter = None
-    if view.k_intra > 0:
+    if intra_too and view.k_intra > 0:
         x = [getattr(view, f) for f in ("tgt_intra", "wout_intra", "dout_intra")]
         if x[0].dim() == 4:
             x = [t[0] for t in x]
@@ -416,12 +452,13 @@ def _gather_grid(x: torch.Tensor, mesh, schedule: str, dim: int = 0) -> torch.Te
     is_bool = x.dtype == torch.bool
     if is_bool:
         x = x.to(torch.uint8)
+    label = "gather_grid"  # counted apart from the exchange's gathers
     if schedule == STRUCTURE_AWARE:
-        x = comm.all_gather(x, mesh, _subgroup_axis(mesh), dim=dim + 1)
+        x = comm.all_gather(x, mesh, _subgroup_axis(mesh), dim=dim + 1, count_as=label)
         for ax in reversed(_area_axes(mesh)):
-            x = comm.all_gather(x, mesh, ax, dim=dim)
+            x = comm.all_gather(x, mesh, ax, dim=dim, count_as=label)
     else:
-        x = comm.all_gather(x, mesh, tuple(mesh.axis_names), dim=dim + 1)
+        x = comm.all_gather(x, mesh, tuple(mesh.axis_names), dim=dim + 1, count_as=label)
     return x.bool() if is_bool else x
 
 
@@ -489,16 +526,20 @@ def _make_dist_engine(
     A, n_pad = view.n_areas, view.n_pad
     c = _cut(mesh, cfg.schedule, A, n_pad)
     tables = {}
-    if backend == "event":
-        tables = dict(zip(("recv_intra", "recv_inter"),
-                          _event_tables(net, view, mesh, cfg, c, owned=net is None)))
-        # The receive tables replace every other table the view held: the
-        # event path reads no incoming table, so those become zero-row
-        # stand-ins (k_intra / k_inter read their last axis).
+    if backend == "event" or cfg.exchange == "routed":
+        # The routed global pathway ships id packets on every backend, so it
+        # needs the inter receive tables; the dense backends' local pathway
+        # keeps reading the incoming intra tables.
+        tables = dict(zip(("recv_intra", "recv_inter"), _event_tables(
+            net, view, mesh, cfg, c, owned=net is None, intra_too=backend == "event")))
+        # The receive tables replace the outgoing and inbound tables; the
+        # event path reads no incoming table either, so those become
+        # zero-row stand-ins (k_intra / k_inter read their last axis).
         drop = {f: None for f in connectivity_lib.OUTGOING_TABLES + connectivity_lib.INBOUND_TABLES}
-        drop.update({f: torch.zeros((0, 0, getattr(view, f).shape[-1]),
-                                    dtype=getattr(view, f).dtype, device=dev)
-                     for f in connectivity_lib._TABLES[2:]})
+        if backend == "event":
+            drop.update({f: torch.zeros((0, 0, getattr(view, f).shape[-1]),
+                                        dtype=getattr(view, f).dtype, device=dev)
+                         for f in connectivity_lib._TABLES[2:]})
         view = dataclasses.replace(view, **drop)
     exchange = _make_exchange(glob, mesh, cfg, **tables)
     wire_bytes = exchange.wire_bytes(glob)
@@ -512,7 +553,7 @@ def _make_dist_engine(
     gids_global = (torch.arange(A * n_pad, dtype=torch.int32).view(A, n_pad)
                    if gids is None else torch.as_tensor(gids))
     gids_local = _block(gids_global, c).to(dev)
-    counts_overflow = backend == "event" and not cfg.adaptive_exchange
+    counts_overflow = schedule_lib.counts_overflow(cfg)
 
     def reduce_overflow(before: SimState, after: SimState) -> SimState:
         """The window's spills summed over the ranks (every rank the same)."""

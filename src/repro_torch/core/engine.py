@@ -6,9 +6,7 @@ Port of ``repro.core.engine`` (the distributed assembly is
 deliver -> update -> collocate sequence. The conventional and structure-aware
 schedules produce bit-identical spike trains. :class:`EngineConfig` keeps the
 JAX package's field names, defaults and rules, the distributed ones
-included; a value whose feature is not ported yet (``exchange='routed'``) is
-reported by :meth:`EngineConfig.validate` with the ROADMAP item that ports
-it.
+included.
 """
 
 from __future__ import annotations
@@ -65,12 +63,6 @@ class ConfigError(ValueError):
         super().__init__(
             f"invalid EngineConfig ({n} rule"
             f"{'s' if n != 1 else ''} violated):\n{lines}")
-
-
-def _not_ported(field: str, what: str, item: str) -> ConfigViolation:
-    return ConfigViolation(
-        field, f"{what} is not ported to repro_torch yet",
-        f"drop it for now (ROADMAP: {item})")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -220,9 +212,6 @@ class EngineConfig:
                     "(use_superstep)",
                     "drop superstep_kernel (the jnp superstep fusion is "
                     "the distributed default)"))
-        if self.exchange == "routed":
-            v.append(_not_ported("exchange", "exchange='routed'",
-                                 "distributed engine 5b, RoutedExchange"))
         return v
 
     def check(self, *, distributed: bool | None = None) -> None:

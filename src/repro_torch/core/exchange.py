@@ -17,7 +17,7 @@ on the dense backends. The overlapped pipeline splits ``window_end`` into
 and ``finish_window_end`` (the receive scatter, run at the top of the next
 window or by a drain).
 
-Two implementations:
+Three implementations:
 
 * :class:`LocalExchange` -- the single host: no wire, 0 bytes shipped;
 * :class:`DenseMeshExchange` -- the mesh collectives of the distributed
@@ -26,28 +26,126 @@ Two implementations:
   packets for the event backend. Each rank runs the hooks on its own shard;
   the collectives make every rank receive what the JAX package's
   ``shard_map`` bodies receive.
+* :class:`RoutedExchange` -- the connectivity-routed global pathway: the
+  area adjacency folded onto the device-group graph (:func:`build_routing`),
+  and at each window's end id packets shipped only along group -> group
+  edges that exist, one ``comm.ppermute`` rotation round per offset that
+  crosses an edge, each packet compacted per destination group under a
+  per-edge bound whose spill feeds ``SimState.overflow``.
 
-The connectivity-routed exchange (``'routed'``) is not ported yet (ROADMAP).
+The wire reports (:func:`dense_wire_bytes`, :func:`routed_wire_bytes`,
+:func:`adaptive_wire_bytes`, :func:`inter_table_report`,
+:func:`priced_inter_table_report`, :func:`wire_report`) are the JAX
+package's static accounting: shape arithmetic on the host, no device.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import comm
 from repro_torch.core import delivery as delivery_lib
 from repro_torch.core.connectivity import Network
-from repro_torch.core.schedule import CONVENTIONAL
+from repro_torch.core.schedule import CONVENTIONAL, STRUCTURE_AWARE
 from repro_torch.kernels import ops as kops
 
 __all__ = ["EXCHANGES", "Exchange", "InflightWindow", "LocalExchange", "DenseMeshExchange",
-           "ReceiveTables", "dense_wire_bytes"]
+           "RoutedExchange", "ReceiveTables", "RouteRound", "Routing", "build_routing",
+           "dense_wire_bytes", "routed_wire_bytes", "adaptive_wire_bytes",
+           "inter_table_report", "priced_inter_table_report", "wire_report"]
 
 EXCHANGES = ("local", "dense", "routed")
 
 _I32_BYTES = 4
+
+
+# ---------------------------------------------------------------------------
+# Group routing tables (the connectivity-derived structure of RoutedExchange)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class RouteRound:
+    """One ppermute rotation round of the routed global pathway."""
+
+    offset: int                           # destination group = (g + offset) % G
+    pairs: tuple[tuple[int, int], ...]    # existing edges at this offset
+    s_max: int                            # per-edge packet bound (ids/cycle)
+
+
+@dataclasses.dataclass(frozen=True)
+class Routing:
+    """Per-destination-group routing tables over the area adjacency.
+
+    ``proj[a, h]``: does source area ``a`` project into any area of group
+    ``h`` (groups own ``A / n_groups`` consecutive areas, row-major over the
+    mesh's area axes). ``group_adj[g, h]``: the folded group graph.
+    ``rounds`` holds only the rotation offsets that cross at least one edge.
+    """
+
+    n_groups: int
+    proj: np.ndarray        # [A, G] bool
+    group_adj: np.ndarray   # [G, G] bool
+    rounds: tuple[RouteRound, ...]
+
+    @property
+    def n_edges(self) -> int:
+        return int(self.group_adj.sum())
+
+    @property
+    def n_wire_rounds(self) -> int:
+        """Rounds that move bytes (offset 0 stays in the group)."""
+        return sum(1 for r in self.rounds if r.offset != 0)
+
+
+def build_routing(
+    adj: np.ndarray,
+    n_groups: int,
+    *,
+    exp_area_spikes: float,
+    headroom: float,
+    floor: int,
+    intra_tier: int | None = None,
+) -> Routing:
+    """Fold the ``[A, A]`` area adjacency onto ``n_groups`` device groups.
+
+    Each edge's packet bound is ``headroom x exp_area_spikes x`` (the source
+    areas projecting along it) ``+ 4 x floor``; absent edges get no packet.
+    ``intra_tier`` (groups per pod) orders the rounds hierarchically: the
+    group-local offset 0, then the offsets whose edges all stay inside a
+    pod, then the pod-crossing ones. Ordering only: each round ships the
+    same packets either way.
+    """
+    adj = np.asarray(adj, dtype=bool)
+    a = adj.shape[0]
+    if a % n_groups != 0:
+        raise ValueError(f"n_areas={a} not divisible by n_groups={n_groups}")
+    a_loc = a // n_groups
+    proj = adj.reshape(a, n_groups, a_loc).any(axis=2)          # [A, G]
+    group_adj = proj.reshape(n_groups, a_loc, n_groups).any(axis=1)
+    n_src = proj.reshape(n_groups, a_loc, n_groups).sum(axis=1)  # [G, G]
+    slack = 4 * max(floor, 1)
+    rounds = []
+    for k in range(n_groups):
+        pairs = tuple((g, (g + k) % n_groups) for g in range(n_groups)
+                      if group_adj[g, (g + k) % n_groups])
+        if not pairs:
+            continue
+        s_max = max(int(headroom * exp_area_spikes * n_src[g, h]) + slack for g, h in pairs)
+        rounds.append(RouteRound(offset=k, pairs=pairs, s_max=s_max))
+    if intra_tier is not None and 0 < intra_tier < n_groups:
+        def tier(rnd: RouteRound) -> int:
+            if rnd.offset == 0:
+                return 0
+            if all(g // intra_tier == h // intra_tier for g, h in rnd.pairs):
+                return 1
+            return 2
+        rounds.sort(key=lambda r: (tier(r), r.offset))
+    return Routing(n_groups=n_groups, proj=proj, group_adj=group_adj, rounds=tuple(rounds))
 
 
 class InflightWindow(NamedTuple):
@@ -316,8 +414,9 @@ class DenseMeshExchange(Exchange):
                 packets, counts = kops.compact_ids_block(
                     spikes, self._lane_ids, size=s_max, fill_id=self.n_pad)
                 wire = comm.all_gather(packets, self.mesh, self.subgroup, dim=1)
+                # reshape: a one-id packet gathers into a transposed view.
                 ids = torch.where(wire < self.n_pad, wire + self._area_base,
-                                  a_loc * self.n_pad).view(1, -1)
+                                  a_loc * self.n_pad).reshape(1, -1)
                 kops.event_deliver_block(ring.view(a_loc * n_loc, ring.shape[-1]), ids,
                                          *self.recv_intra, t)
                 return ring, counts
@@ -347,7 +446,7 @@ class DenseMeshExchange(Exchange):
             def exchange_cycle(s_max, ring):
                 packet, count = delivery_lib.compact_fired(spikes, gids, s_max=s_max,
                                                            invalid=A * n_pad)
-                wire = comm.all_gather(packet, self.mesh, self.all_axes, dim=0).view(1, -1)
+                wire = comm.all_gather(packet, self.mesh, self.all_axes, dim=0).reshape(1, -1)
                 # Global ids index both receive tables' rows directly.
                 flat = ring.view(-1, ring.shape[-1])
                 if net.k_intra > 0:
@@ -436,9 +535,184 @@ class DenseMeshExchange(Exchange):
         return self._receive(ring, inflight.wire, inflight.t0, net, blocked=blocked)
 
     def wire_bytes(self, net: Network) -> dict:
-        rep = dense_wire_bytes(net, backend=self.backend, schedule=self.schedule,
-                               n_groups=self.n_groups, gsz=self.gsz,
-                               headroom=self.headroom, floor=self.floor)
+        kw = dict(backend=self.backend, schedule=self.schedule, n_groups=self.n_groups,
+                  gsz=self.gsz, headroom=self.headroom, floor=self.floor)
+        rep = dense_wire_bytes(net, **kw)
+        rep["adaptive"] = adaptive_wire_bytes(net, **kw)
+        rep["adaptive_on"] = self.adaptive
+        return rep
+
+
+class RoutedExchange(DenseMeshExchange):
+    """The connectivity-routed global pathway (see the module docstring).
+
+    The local pathway is :class:`DenseMeshExchange`'s. At the window's end
+    each rank compacts its fired ids, the subgroup completes the group's
+    packet, and every rotation round re-compacts it for its destination
+    group (only ids whose source area projects along the edge, bound
+    ``RouteRound.s_max``), ships it by ``comm.ppermute`` along the edges
+    that exist, and the arrivals scatter through the rank's inter receive
+    tables (event_deliver, on every delivery backend: the routed wire is id
+    packets). The static path scatters all rounds at once; the adaptive
+    path sizes each packet from the gathered ``[D, A]`` count table, which
+    every rank reads alike, and scatters each round on arrival.
+
+    Each rank holds its own ``[D, L]`` in-flight wire (the reference keeps a
+    leading group axis in its global in-flight state). An edge's spill is
+    counted by subgroup lane 0 only: every lane of a group compacts the
+    same packet.
+    """
+
+    name = "routed"
+
+    def __init__(self, net: Network, cfg, mesh, adjacency: np.ndarray, *,
+                 recv_intra: ReceiveTables | None = None,
+                 recv_inter: ReceiveTables | None = None):
+        if cfg.schedule != STRUCTURE_AWARE:
+            raise ValueError(
+                "RoutedExchange routes the structure-aware window's lumped "
+                "global pathway; the conventional schedule has none")
+        super().__init__(net, cfg, mesh, recv_intra=recv_intra, recv_inter=recv_inter)
+        if net.k_inter > 0 and recv_inter is None:
+            raise ValueError(
+                "RoutedExchange ships id packets and scatters them through the "
+                "rank's inter receive tables, on every delivery backend")
+        # The routed global pathway ships id packets on every backend, so the
+        # device bound exists for the dense ones too.
+        if self.backend != "event":
+            _, self.s_max_dev = _mesh_bounds(net, n_groups=self.n_groups, gsz=self.gsz,
+                                             headroom=cfg.s_max_headroom,
+                                             floor=cfg.s_max_floor)
+        # Hierarchical round order on a multi-pod mesh: the leading area
+        # axis is the pod tier.
+        intra_tier = (self.n_groups // mesh.shape[self.area_axes[0]]
+                      if len(self.area_axes) > 1 else None)
+        self.routing = build_routing(
+            adjacency, self.n_groups, exp_area_spikes=delivery_lib.expected_area_spikes(net),
+            headroom=cfg.s_max_headroom, floor=cfg.s_max_floor, intra_tier=intra_tier)
+        G, A, n_pad = self.n_groups, self.n_areas, self.n_pad
+        a_grp = A // G
+        self.invalid = A * n_pad
+        # The edge ladder tops out at a whole source group's population; each
+        # round's [G, A/G] mask picks the areas feeding its edges out of the
+        # phase-1 count table.
+        self.ladder_edge = delivery_lib.bucket_ladder(cfg.s_max_floor, a_grp * n_pad)
+        proj_r = self.routing.proj.reshape(G, a_grp, G)
+        self._round_masks = {
+            rnd.offset: np.stack([proj_r[g, :, (g + rnd.offset) % G] for g in range(G)])
+            .astype(np.int64) for rnd in self.routing.rounds}
+        g = 0
+        for ax in self.area_axes:
+            g = g * mesh.shape[ax] + mesh.axis_index(ax)
+        self.lane0 = mesh.axis_index(self.subgroup) == 0
+        # Per round: which source areas (row A: the fill id) project into
+        # this rank's destination group at that offset.
+        proj = np.concatenate([self.routing.proj, np.zeros((1, G), bool)], axis=0)
+        self._keep = {rnd.offset: torch.as_tensor(proj[:, (g + rnd.offset) % G],
+                                                  device=mesh.device)
+                      for rnd in self.routing.rounds}
+        self._window_wire = float(routed_wire_bytes(
+            net, self.routing, backend=self.backend, gsz=self.gsz,
+            headroom=self.headroom, floor=self.floor)["global_bytes"])
+        comm.warm_point_to_point(mesh)
+
+    def _assemble(self, block, gids, size):
+        """The group's window packet: this rank's ``[D, size]`` fired ids,
+        completed over the subgroup to ``[D, gsz * size]``; and this rank's
+        counts ``[D]``."""
+        packets, counts = delivery_lib.compact_fired_block(block, gids, s_max=size,
+                                                           invalid=self.invalid)
+        return comm.all_gather(packets, self.mesh, self.subgroup, dim=1), counts
+
+    def _edge_packet(self, rnd: RouteRound, gwire, size):
+        """Round ``rnd``'s packet: the ids whose source area projects into
+        the destination group, compacted to ``[D, size]`` and shipped along
+        the round's edges; ``(received, this rank's kept counts [D])``. A
+        rank with no inbound edge at the offset receives the fill id."""
+        src_area = torch.where(gwire < self.invalid, gwire // self.n_pad, self.n_areas).long()
+        pkt, cnt = kops.compact_ids_block(self._keep[rnd.offset][src_area], gwire, size=size,
+                                          fill_id=self.invalid)
+        if rnd.offset:
+            pkt = comm.ppermute(pkt, self.mesh, self.area_axes, rnd.pairs, fill=self.invalid)
+        return pkt, cnt
+
+    def _static(self, block, gids):
+        """Static packets: ``(wire [D, sum of s_max], overflow, shipped)``."""
+        gwire, counts = self._assemble(block, gids, self.s_max_dev)
+        over = torch.clamp(counts - self.s_max_dev, min=0).sum(dtype=torch.int32)
+        received = []
+        for rnd in self.routing.rounds:
+            pkt, cnt = self._edge_packet(rnd, gwire, rnd.s_max)
+            if self.lane0:
+                over = over + torch.clamp(cnt - rnd.s_max, min=0).sum(dtype=torch.int32)
+            received.append(pkt)
+        return torch.cat(received, dim=1), over, self._window_wire
+
+    def _adaptive(self, block, gids, on_round):
+        """The two-phase window: the ``[D, A]`` count table and the device
+        maximum (phase 1), then the group packet at its rung and every round
+        at the rung its edges' exact need selects, each handed to
+        ``on_round`` on arrival. Returns the shipped bytes."""
+        d_win = block.shape[0]
+        counts_local = block.sum(dim=-1, dtype=torch.int32)          # [D, a_loc]
+        counts_all = comm.gather_counts(counts_local, self.mesh, area_axes=self.area_axes,
+                                        subgroup_axis=self.subgroup)  # [D, A]
+        dev_need = self._count_max(counts_local.sum(dim=-1).max())
+        shipped = float(comm.count_wire_bytes(d_win * self.n_areas + 1, self.n_dev))
+        rung_dev = kops.ladder_rung(self.ladder_dev, dev_need)
+        gwire, _ = self._assemble(block, gids, rung_dev)
+        shipped += float(self.n_dev * (self.gsz - 1) * d_win * _I32_BYTES) * rung_dev
+        # Every rank holds the same table, so every rank picks the same rungs.
+        cg = counts_all.cpu().numpy().astype(np.int64).reshape(d_win, self.n_groups, -1)
+        for rnd in self.routing.rounds:
+            need = int((cg * self._round_masks[rnd.offset][None]).sum(axis=-1).max())
+            rung = kops.ladder_rung(self.ladder_edge, need)
+            pkt, _ = self._edge_packet(rnd, gwire, rung)
+            on_round(pkt)
+            if rnd.offset:
+                shipped += float(len(rnd.pairs) * self.gsz * d_win * _I32_BYTES) * rung
+        return shipped
+
+    def _scatter(self, ring, wire, t0):
+        a_loc, n_loc, r_len = ring.shape
+        kops.event_deliver_block(ring.view(a_loc * n_loc, r_len), wire, *self.recv_inter, t0)
+        return ring
+
+    def window_end(self, ring, block, t0, net, gids, *, blocked: bool):
+        # The routed receive is always one blocked scatter a round set; a
+        # window of per-cycle scatters would add the same (1/256 grid).
+        del blocked
+        if net.k_inter == 0 or not self.routing.rounds:
+            return ring, 0, 0.0
+        ring = ring.contiguous()
+        if self.adaptive:
+            return ring, 0, self._adaptive(block, gids, lambda p: self._scatter(ring, p, t0))
+        wire, over, shipped = self._static(block, gids)
+        return self._scatter(ring, wire, t0), over, shipped
+
+    def start_window_end(self, block, t0, net, gids, *, blocked: bool):
+        del blocked
+        if net.k_inter == 0 or not self.routing.rounds:
+            return InflightWindow(wire=None, t0=t0), 0, 0.0
+        if self.adaptive:
+            received = []
+            shipped = self._adaptive(block, gids, received.append)
+            return InflightWindow(wire=torch.cat(received, dim=1), t0=t0), 0, shipped
+        wire, over, shipped = self._static(block, gids)
+        return InflightWindow(wire=wire, t0=t0), over, shipped
+
+    def finish_window_end(self, ring, inflight, net, gids, *, blocked: bool):
+        del gids, blocked
+        if net.k_inter == 0 or inflight.wire is None:
+            return ring
+        return self._scatter(ring.contiguous(), inflight.wire, inflight.t0)
+
+    def wire_bytes(self, net: Network) -> dict:
+        rep = routed_wire_bytes(net, self.routing, backend=self.backend, gsz=self.gsz,
+                                headroom=self.headroom, floor=self.floor)
+        rep["adaptive"] = adaptive_wire_bytes(
+            net, backend=self.backend, schedule=STRUCTURE_AWARE, n_groups=self.n_groups,
+            gsz=self.gsz, headroom=self.headroom, floor=self.floor, routing=self.routing)
         rep["adaptive_on"] = self.adaptive
         return rep
 
@@ -493,3 +767,257 @@ def dense_wire_bytes(
         glob = n_dev * d_win * a_loc * per * ((gsz - 1) + (n_groups - 1) * gsz)
     return dict(exchange="dense", schedule=schedule, backend=backend,
                 local_bytes=local, global_bytes=glob, total_bytes=local + glob)
+
+
+def routed_wire_bytes(
+    net: Network, routing: Routing, *, backend: str,
+    gsz: int, headroom: float = 8.0, floor: int = 16,
+) -> dict:
+    """Mesh-total received bytes per window of :class:`RoutedExchange` with
+    static packets: the dense structure-aware local pathway, and for the
+    global pathway the subgroup assembly plus one ``[D, s_max]`` id packet
+    per existing edge per subgroup lane (offsets with no edge ship
+    nothing)."""
+    n_groups = routing.n_groups
+    n_dev = n_groups * gsz
+    d_win = net.delay_ratio
+    base = dense_wire_bytes(net, backend=backend, schedule=STRUCTURE_AWARE,
+                            n_groups=n_groups, gsz=gsz, headroom=headroom, floor=floor)
+    _, s_max_dev = _mesh_bounds(net, n_groups=n_groups, gsz=gsz, headroom=headroom,
+                                floor=floor)
+    if net.k_inter == 0:
+        glob = 0
+    else:
+        assembly = n_dev * (gsz - 1) * d_win * s_max_dev * _I32_BYTES
+        edges = sum(len(r.pairs) * gsz * d_win * r.s_max * _I32_BYTES
+                    for r in routing.rounds if r.offset != 0)
+        glob = assembly + edges
+    return dict(exchange="routed", schedule=STRUCTURE_AWARE, backend=backend,
+                local_bytes=base["local_bytes"], global_bytes=glob,
+                total_bytes=base["local_bytes"] + glob,
+                rounds=routing.n_wire_rounds,
+                dense_rounds=max(n_groups - 1, 0),
+                edges=routing.n_edges)
+
+
+def adaptive_wire_bytes(
+    net: Network,
+    *,
+    backend: str,
+    schedule: str = STRUCTURE_AWARE,
+    n_groups: int,
+    gsz: int,
+    headroom: float = 8.0,
+    floor: int = 16,
+    routing: Routing | None = None,
+) -> dict:
+    """The adaptive two-phase exchange's byte model (the JAX package's).
+
+    Per window: ``counts_bytes`` (the phase-1 count collectives),
+    ``payload_bytes_expected`` (phase-2 packets at the rung an
+    expectation-sized window lands on, :func:`~repro_torch.core.delivery.
+    expected_bucket`), ``payload_bytes_worst`` (every ladder at its top
+    rung), ``saved_bytes`` (the expected window's saving against the static
+    packets). ``applies=False`` marks a wire with no id packets to size
+    (the dense exchange's bit-packed backends): the numbers restate the
+    static case."""
+    n_dev = n_groups * gsz
+    d_win = net.delay_ratio
+    A, n_pad = net.n_areas, net.n_pad
+    exp_area = delivery_lib.expected_area_spikes(net)
+    if routing is not None:
+        static = routed_wire_bytes(net, routing, backend=backend, gsz=gsz,
+                                   headroom=headroom, floor=floor)
+    else:
+        static = dense_wire_bytes(net, backend=backend, schedule=schedule, n_groups=n_groups,
+                                  gsz=gsz, headroom=headroom, floor=floor)
+    out = dict(
+        exchange=static["exchange"], backend=backend, applies=False,
+        static_total_bytes=static["total_bytes"], counts_bytes=0,
+        payload_bytes_expected=static["total_bytes"],
+        payload_bytes_worst=static["total_bytes"],
+        total_bytes_expected=static["total_bytes"],
+        saved_bytes=0, buckets={},
+    )
+    if routing is None and backend != "event":
+        return out  # the bit-packed dense wire: nothing to size
+    out["applies"] = True
+    buckets: dict = {}
+    counts = payload_exp = payload_worst = 0
+    if schedule == CONVENTIONAL:
+        n_loc = n_pad // n_dev
+        ladder = delivery_lib.bucket_ladder(floor, A * n_loc)
+        b = delivery_lib.expected_bucket(ladder, exp_area * A / n_dev)
+        buckets["device"] = b
+        counts = d_win * comm.count_wire_bytes(1, n_dev)
+        payload_exp = n_dev * d_win * (n_dev - 1) * b * _I32_BYTES
+        payload_worst = n_dev * d_win * (n_dev - 1) * ladder[-1] * _I32_BYTES
+    else:
+        a_loc, n_loc = A // n_groups, n_pad // gsz
+        if net.k_intra > 0 and backend == "event":
+            ladder_loc = delivery_lib.bucket_ladder(floor, n_loc)
+            bl = delivery_lib.expected_bucket(ladder_loc, exp_area / gsz)
+            buckets["local"] = bl
+            counts += d_win * comm.count_wire_bytes(1, n_dev)
+            payload_exp += n_dev * d_win * a_loc * (gsz - 1) * bl * _I32_BYTES
+            payload_worst += n_dev * d_win * a_loc * (gsz - 1) * ladder_loc[-1] * _I32_BYTES
+        else:
+            # The dense local pathway stays bit-packed: its static bytes.
+            payload_exp += static["local_bytes"]
+            payload_worst += static["local_bytes"]
+        if net.k_inter > 0:
+            ladder_dev = delivery_lib.bucket_ladder(floor, a_loc * n_loc)
+            bd = delivery_lib.expected_bucket(ladder_dev, exp_area * A / n_dev)
+            if routing is None:
+                buckets["device"] = bd
+                counts += comm.count_wire_bytes(1, n_dev)
+                payload_exp += n_dev * d_win * (n_dev - 1) * bd * _I32_BYTES
+                payload_worst += n_dev * d_win * (n_dev - 1) * ladder_dev[-1] * _I32_BYTES
+            else:
+                G = routing.n_groups
+                buckets["assembly"] = bd
+                counts += comm.count_wire_bytes(d_win * A + 1, n_dev)
+                payload_exp += n_dev * (gsz - 1) * d_win * bd * _I32_BYTES
+                payload_worst += n_dev * (gsz - 1) * d_win * ladder_dev[-1] * _I32_BYTES
+                ladder_edge = delivery_lib.bucket_ladder(floor, a_loc * n_pad)
+                proj_r = routing.proj.reshape(G, A // G, G)
+                round_buckets = {}
+                for rnd in routing.rounds:
+                    if rnd.offset == 0:
+                        continue
+                    n_src = max(int(proj_r[g, :, h].sum()) for g, h in rnd.pairs)
+                    br = delivery_lib.expected_bucket(ladder_edge, exp_area * n_src)
+                    round_buckets[rnd.offset] = br
+                    payload_exp += len(rnd.pairs) * gsz * d_win * br * _I32_BYTES
+                    payload_worst += (len(rnd.pairs) * gsz * d_win * ladder_edge[-1]
+                                      * _I32_BYTES)
+                buckets["rounds"] = round_buckets
+    out.update(
+        counts_bytes=counts,
+        payload_bytes_expected=payload_exp,
+        payload_bytes_worst=payload_worst,
+        total_bytes_expected=counts + payload_exp,
+        saved_bytes=static["total_bytes"] - (counts + payload_exp),
+        buckets=buckets,
+    )
+    return out
+
+
+def inter_table_report(
+    net: Network,
+    *,
+    n_groups: int,
+    gsz: int,
+    schedule: str = STRUCTURE_AWARE,
+    headroom: float = 8.0,
+    floor: int = 16,
+    routing: Routing | None = None,
+    subgroup: int = 1,
+) -> dict:
+    """Per-rank inter receive-table bytes and receive-side scatter work,
+    replicated against sharded (the JAX package's accounting).
+
+    ``table_bytes.replicated`` prices every rank holding the whole
+    ``[A * n_pad, K_out]`` outgoing tables; ``table_bytes.sharded`` one
+    rank's inbound slice (:func:`~repro_torch.core.connectivity.
+    shard_inter_tables`; its shard count from the table's rank, or from
+    ``subgroup`` when the network holds no slices, then priced at the width
+    bound). ``receive`` counts synapse touches per rank per window of the
+    event receive scatter (ids scattered x table width)."""
+    from repro_torch.core import connectivity as connectivity_lib
+
+    n_dev = n_groups * gsz
+    d_win = net.delay_ratio
+    rows = net.n_areas * net.n_pad
+    n_shards = n_groups if schedule == STRUCTURE_AWARE else n_dev
+    k_e = net.k_inter
+    syn_b = net.bytes_per_synapse()
+    if net.tgt_inter is not None:
+        k_rep = net.tgt_inter.shape[-1]
+    else:
+        k_rep = connectivity_lib._outgoing_k_bound(k_e)
+    if net.tgt_inter_in is not None:
+        k_sh = net.tgt_inter_in.shape[-1]
+        # [S, rows, K] -> S shards; [S, gsz, rows, K] -> S * gsz slices.
+        n_shards = int(np.prod(tuple(net.tgt_inter_in.shape[:-2])))
+    else:
+        n_shards = n_shards * max(subgroup, 1)
+        k_sh = connectivity_lib._inbound_k_bound(k_e, n_shards)
+    bytes_rep = rows * k_rep * syn_b
+    bytes_sh = rows * k_sh * syn_b
+    _, s_max_dev = _mesh_bounds(net, n_groups=n_groups, gsz=gsz, headroom=headroom,
+                                floor=floor)
+    ids = {"dense": d_win * n_dev * s_max_dev}
+    if routing is not None:
+        ids["routed"] = d_win * sum(r.s_max for r in routing.rounds)
+    receive = {name: dict(ids_per_window=n, syn_touches_replicated=n * k_rep,
+                          syn_touches_sharded=n * k_sh)
+               for name, n in ids.items()}
+    return dict(
+        rows=rows,
+        n_shards=n_shards,
+        k_out_replicated=k_rep,
+        k_in_sharded=k_sh,
+        table_bytes=dict(
+            replicated=bytes_rep,
+            sharded=bytes_sh,
+            reduction=bytes_rep / bytes_sh if bytes_sh else float("inf"),
+        ),
+        receive=receive,
+    )
+
+
+def priced_inter_table_report(
+    net: Network,
+    *,
+    n_groups: int,
+    gsz: int,
+    schedule: str = STRUCTURE_AWARE,
+    headroom: float = 8.0,
+    floor: int = 16,
+    routing: Routing | None = None,
+    subgroup: int = 1,
+) -> dict:
+    """:func:`inter_table_report` with both layouts priced from one network:
+    a network holding only the replicated outgoing tables gets its sharded
+    slices cut (:func:`~repro_torch.core.connectivity.shard_inter_tables`)
+    and keeps its replicated ones, so the report never falls back to the
+    width bound's slack for either side."""
+    if net.k_inter > 0 and net.tgt_inter is not None and net.tgt_inter_in is None:
+        from repro_torch.core import connectivity as connectivity_lib
+
+        n_shards = n_groups if schedule == STRUCTURE_AWARE else n_groups * gsz
+        mode = "group" if schedule == STRUCTURE_AWARE else "window"
+        sharded = connectivity_lib.shard_inter_tables(
+            net, n_shards, mode=mode, subgroup=subgroup if mode == "group" else 1)
+        net = dataclasses.replace(sharded, tgt_inter=net.tgt_inter, wout_inter=net.wout_inter,
+                                  dout_inter=net.dout_inter)
+    return inter_table_report(net, n_groups=n_groups, gsz=gsz, schedule=schedule,
+                              headroom=headroom, floor=floor, routing=routing,
+                              subgroup=subgroup)
+
+
+def wire_report(
+    net: Network,
+    adjacency: np.ndarray,
+    *,
+    backend: str,
+    n_groups: int,
+    gsz: int,
+    headroom: float = 8.0,
+    floor: int = 16,
+) -> dict:
+    """Dense against routed wire volume for a hypothetical ``n_groups x gsz``
+    mesh (no ranks needed): each entry's static worst case, with the
+    adaptive two-phase model under ``["adaptive"]``."""
+    routing = build_routing(adjacency, n_groups,
+                            exp_area_spikes=delivery_lib.expected_area_spikes(net),
+                            headroom=headroom, floor=floor)
+    kw = dict(backend=backend, schedule=STRUCTURE_AWARE, n_groups=n_groups, gsz=gsz,
+              headroom=headroom, floor=floor)
+    dense = dense_wire_bytes(net, **kw)
+    dense["adaptive"] = adaptive_wire_bytes(net, **kw)
+    routed = routed_wire_bytes(net, routing, backend=backend, gsz=gsz, headroom=headroom,
+                               floor=floor)
+    routed["adaptive"] = adaptive_wire_bytes(net, routing=routing, **kw)
+    return dict(dense=dense, routed=routed)

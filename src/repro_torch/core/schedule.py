@@ -17,7 +17,11 @@ therefore one loop whether ``superstep_unroll`` is set or not; the legacy
 The resilient run loop (:func:`run_windows` with a :class:`SimCheckpointer`,
 a fault plan or a stop flag) and :func:`restore_sim` keep the JAX package's
 checkpoint format, config hash and manifest, so a checkpoint written by
-either package resumes bitwise in the other.
+either package resumes bitwise in the other. They run the single-host
+engine and the distributed one alike: on a mesh every rank runs the loop on
+its own shard, and the loop answers for the whole network (spike counts,
+blocks, one checkpoint, one stop window), as the reference's single
+controller does.
 """
 
 from __future__ import annotations
@@ -25,14 +29,18 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
+import math
 import time
 from typing import Any, Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch.core import comm
 from repro_torch.core import faults as faults_lib
 from repro_torch.core import neuron as neuron_lib
+from repro_torch.core import partition as partition_lib
 from repro_torch.core import ring_buffer
 
 __all__ = [
@@ -40,6 +48,7 @@ __all__ = [
     "STRUCTURE_AWARE",
     "SimState",
     "SimCheckpointer",
+    "area_groups",
     "state_from_numpy",
     "host_state",
     "check_seed_stim",
@@ -331,14 +340,28 @@ def resume_config_hash(cfg, net, *, exchange: str | None = None):
     return digest, payload
 
 
+def area_groups(engine) -> int:
+    """The group count a checkpoint records: the product of a distributed
+    engine's area axes (the reference CLI records ``mesh.shape['data']``), 1
+    on a single host."""
+    mesh = engine.mesh
+    if mesh is None:
+        return 1
+    return math.prod(mesh.shape[a] for a in mesh.axis_names[:-1])
+
+
 class SimCheckpointer:
     """Windowed ``SimState`` checkpoints through ``checkpoint.AsyncWriter``.
 
     ``save`` copies the whole state to the host (:func:`host_state`, on the
     caller's thread) and submits it with the reference's manifest: window
-    phase, seed, group count (1: the single-host engine) and resume-config
-    hash. The step id is the
-    count of completed windows (``t // D``).
+    phase, seed, group count (:func:`area_groups`) and resume-config hash.
+    The step id is the count of completed windows (``t // D``).
+
+    On a distributed engine every rank holds one: ``save`` gathers the
+    whole state on every rank (a collective, so every rank calls it), rank
+    0 alone writes it, and ``close`` holds every rank at a barrier until
+    rank 0's writes are on disk.
     """
 
     def __init__(
@@ -360,14 +383,19 @@ class SimCheckpointer:
         self.every = every
         self.delay_ratio = int(engine.delay_ratio)
         self.seed = int(engine.config.seed)
+        self.n_groups = area_groups(engine)
+        self.mesh = engine.mesh
+        self._gather = engine.gather_state
         self.config_hash, self.config_payload = resume_config_hash(
             engine.config, net, exchange=exchange)
         save_fn = None
         if injector is not None and injector.cfg.ckpt_write_failures > 0:
             save_fn = injector.wrap_save(ckpt_manager.save)
-        self.writer = ckpt_manager.AsyncWriter(
-            directory, keep=keep, retries=retries, backoff_s=backoff_s,
-            save_fn=save_fn)
+        self.writer = None
+        if self.mesh is None or self.mesh.rank == 0:
+            self.writer = ckpt_manager.AsyncWriter(
+                directory, keep=keep, retries=retries, backoff_s=backoff_s,
+                save_fn=save_fn)
         self.saved_windows: list[int] = []
 
     def due(self, window: int) -> bool:
@@ -405,27 +433,33 @@ class SimCheckpointer:
             "ring_len": ring_len,
             "ring_phase": t % ring_len,
             "seed": self.seed,
-            "n_groups": 1,
+            "n_groups": self.n_groups,
             "config_hash": self.config_hash,
             "config": self.config_payload,
         }
-        self.writer.submit(w, host_state(state), extra=extra)
+        if self.mesh is not None:
+            state = self._gather(state)
+        if self.writer is not None:
+            self.writer.submit(w, host_state(state), extra=extra)
         self.saved_windows.append(w)
         return w
 
     @property
     def retry_count(self) -> int:
-        return self.writer.retry_count
+        return 0 if self.writer is None else self.writer.retry_count
 
     def close(self) -> None:
-        self.writer.close()
+        if self.writer is not None:
+            self.writer.close()
+        if self.mesh is not None:
+            dist.barrier(group=self.mesh.group(self.mesh.axis_names))
 
 
 def _state_template(cfg, net, keys) -> SimState:
-    """A ``SimState`` of meta tensors with the engine's shapes and dtypes
-    (no device memory), with ``seed`` / ``stim`` where the checkpoint has
-    them."""
-    a, n_pad = net.alive.shape
+    """A whole-network ``SimState`` of meta tensors with the engine's shapes
+    and dtypes (no device memory), with ``seed`` / ``stim`` where the
+    checkpoint has them."""
+    a, n_pad = net.n_areas, net.n_pad
 
     def meta(dtype, *tail):
         return torch.empty((a, n_pad, *tail), dtype=dtype, device="meta")
@@ -442,6 +476,24 @@ def _state_template(cfg, net, keys) -> SimState:
         stim=meta(torch.float32) if ".stim" in keys else None)
 
 
+def _permute_areas(state: SimState, order: np.ndarray) -> SimState:
+    """Re-order the leading area axis of every area-keyed leaf."""
+    n_areas = int(state.spike_count.shape[0])
+    idx = torch.as_tensor(np.asarray(order), dtype=torch.long)
+
+    def permute(x):
+        if isinstance(x, torch.Tensor) and x.dim() >= 2 and x.shape[0] == n_areas:
+            return x.index_select(0, idx.to(x.device))
+        return x
+
+    neuron = dataclasses.replace(state.neuron, **{
+        f.name: permute(getattr(state.neuron, f.name))
+        for f in dataclasses.fields(state.neuron)})
+    return dataclasses.replace(
+        state, neuron=neuron, ring=permute(state.ring), spike_count=permute(state.spike_count),
+        seed=permute(state.seed), stim=permute(state.stim))
+
+
 def restore_sim(
     directory: str,
     engine,
@@ -449,19 +501,29 @@ def restore_sim(
     *,
     exchange: str | None = None,
 ):
-    """Restore the latest ``SimState`` checkpoint into ``engine`` on ``net``'s
-    device.
+    """Restore the latest ``SimState`` checkpoint into ``engine``,
+    resharding when the group count changed.
 
     Fails fast, before any array is read, when the checkpoint's
     resume-config hash differs from this run's (the reference's
-    field-by-field error), when its window phase is unaligned, when it was
-    taken on more than one group (elastic resharding comes with the
-    distributed engine), or when it holds ``seed`` / ``stim`` leaves the
-    engine would ignore (``Engine.init``'s refusals). The arrays load straight into device tensors of
-    the engine's shapes; ``overflow`` comes back as the engine's windows
-    keep it (an int32 device scalar where the static event packets count
-    drops, else an int), ``seed`` / ``stim`` where the checkpoint has them.
-    Returns ``(state, info)``, ``info`` holding the manifest and the step.
+    field-by-field error), when its window phase is unaligned, when its
+    areas cannot rebalance onto this engine's group count
+    (:func:`area_groups`), or when it holds ``seed`` / ``stim`` leaves the
+    engine would ignore (``Engine.init``'s refusals). On another group count
+    the elastic reshard plan (:func:`~repro_torch.core.partition.
+    elastic_reshard_plan`) re-orders the area rows (the identity for the
+    contiguous plans it makes), as the reference does.
+
+    ``net`` is the whole network (its ``alive`` gives the area sizes): on a
+    mesh the global one every rank built, or
+    :func:`~repro_torch.core.dist_engine.shape_network` after a host-free
+    build. A single host loads the arrays straight into device tensors on
+    ``net``'s device; on a mesh every rank reads the whole state to the host
+    and keeps its own block (``engine.shard_state``). ``overflow`` comes
+    back as the engine's windows keep it (an int32 device scalar where the
+    static packets count drops, else an int), ``seed`` / ``stim`` where the
+    checkpoint has them. Returns ``(state, info)``, ``info`` holding the
+    manifest, the step and the reshard accounting.
     """
     from repro_torch.checkpoint import manager as ckpt_manager
 
@@ -486,20 +548,40 @@ def restore_sim(
             f"checkpoint at step {step} is not window-phase aligned "
             f"(window_phase={extra.get('window_phase')}); only "
             f"window-boundary checkpoints can resume the D-cycle superstep")
-    old_groups = int(extra.get("n_groups", 1))
-    if old_groups != 1:
-        raise ValueError(
-            f"checkpoint at step {step} was taken on {old_groups} group(s), this "
-            f"run has 1: elastic resharding needs the distributed engine's "
-            f"partition plan, not ported yet (ROADMAP: distributed engine)")
     if ".seed" in manifest["keys"] or ".stim" in manifest["keys"]:
         check_seed_stim(cfg)
+    n_groups = area_groups(engine)
+    old_groups = int(extra.get("n_groups", n_groups))
+    order = reshard_info = None
+    if n_groups != old_groups:
+        sizes = net.alive.sum(dim=1).cpu().numpy().astype(int)
+        placement = partition_lib.placement_from_sizes(sizes, old_groups, n_pad=int(net.n_pad))
+        # Raises (before any array is read) when the areas cannot rebalance.
+        plan = partition_lib.elastic_reshard_plan(placement, n_groups)
+        order = partition_lib.reshard_area_order(plan)
+        reshard_info = {"old_n_groups": old_groups, "new_n_groups": n_groups,
+                        "moved_areas": partition_lib.reshard_moves(plan)}
 
+    mesh = engine.mesh
+    dev = net.device if mesh is None else torch.device("cpu")
     state, _ = ckpt_manager.restore(
-        directory, _state_template(cfg, net, manifest["keys"]), step, device=net.device)
-    if cfg.backend == "event" and not cfg.adaptive_exchange:
-        state.overflow = torch.tensor(state.overflow, dtype=torch.int32, device=net.device)
-    return state, {"step": step, "manifest": manifest, "reshard": None}
+        directory, _state_template(cfg, net, manifest["keys"]), step, device=dev)
+    if order is not None and not np.array_equal(order, np.arange(order.size)):
+        state = _permute_areas(state, order)
+    if mesh is not None:
+        state = engine.shard_state(state)
+        dev = mesh.device
+    if counts_overflow(cfg):
+        state.overflow = torch.tensor(state.overflow, dtype=torch.int32, device=dev)
+    return state, {"step": step, "manifest": manifest, "reshard": reshard_info}
+
+
+def counts_overflow(cfg) -> bool:
+    """Whether the engine's windows keep ``overflow`` as a device scalar:
+    the static event packets, and the routed exchange's static packets on
+    every backend."""
+    return ((cfg.backend == "event" or cfg.exchange == "routed")
+            and not cfg.adaptive_exchange)
 
 
 @dataclasses.dataclass
@@ -557,13 +639,23 @@ def run_windows(
     ``on_block(w, block)`` fires after every window with its ``[D, A, n]``
     bool spike block, ``on_window(w, state)`` with the new state (under the
     pipeline its ring may still lack the window's long-range deposits).
+
+    On a distributed engine every rank runs the loop. The spikes a window
+    are the whole network's (one sum over the ranks), ``on_block`` gets the
+    whole block (gathered only when it is set), the injector draws for
+    ``mesh.size`` devices (keyed by ``(seed, window)``, so every rank sleeps
+    the same jitter), and ``stop_requested()`` is agreed by one max over the
+    ranks a window: a signal that reaches one rank stops every rank at the
+    same window. ``on_window`` gets this rank's shard of the state.
     """
+    mesh = engine.mesh
     fault_arg = faults if faults is not None else engine.config.faults
     if isinstance(fault_arg, faults_lib.FaultInjector):
         injector = fault_arg
     elif fault_arg is not None and fault_arg.any_enabled:
         injector = faults_lib.FaultInjector(
-            fault_arg, n_devices=1, delay_ratio=engine.delay_ratio)
+            fault_arg, n_devices=1 if mesh is None else mesh.size,
+            delay_ratio=engine.delay_ratio)
     else:
         injector = None
 
@@ -615,25 +707,33 @@ def run_windows(
         w_done += 1
         if injector is not None:
             comp = injector.window_jitter_s(w_done)
-            comm = injector.window_comm_jitter_s(w_done)
+            comm_s = injector.window_comm_jitter_s(w_done)
             if overlapped:
                 # This window's compute straggler overlaps the previous
                 # window's exchange; its own exchange is next window's
                 # in-flight time.
                 slept += injector.inject(max(comp, pending_comm))
-                pending_comm = comm
+                pending_comm = comm_s
             else:
-                slept += injector.inject(comp + comm)
+                slept += injector.inject(comp + comm_s)
         times.append(time.perf_counter() - t0)
-        spikes.append(int(block.sum()))
+        if mesh is None:
+            spikes.append(int(block.sum()))
+        else:
+            total = comm.all_reduce(block.sum(dtype=torch.int64).reshape(1), mesh,
+                                    mesh.axis_names, op="sum")
+            spikes.append(int(total[0]))
         if on_block is not None:
-            on_block(w_done, block)
+            on_block(w_done, block if mesh is None else engine.gather_block(block))
         if checkpointer is not None and checkpointer.due(w_done):
             drain_pipeline()
             checkpointer.maybe_save(state, window=w_done)
         if on_window is not None:
             on_window(w_done, state)
         stop = stop_requested is not None and stop_requested()
+        if stop_requested is not None and mesh is not None:
+            asked = torch.tensor([int(stop)], dtype=torch.int64, device=mesh.device)
+            stop = bool(comm.all_reduce(asked, mesh, mesh.axis_names, op="max")[0])
         if (injector is not None and injector.preempt_now(w_done)) or stop:
             drain_pipeline()
             path = None

@@ -156,8 +156,15 @@ def comm_cases(mesh, data):
     counts = torch.arange(D * A_LOC, dtype=torch.int32).view(D, A_LOC) * 100 + rank
     out["counts"] = comm.gather_counts(counts, mesh, area_axes=("pod", "data"),
                                        subgroup_axis="model").numpy()
+    # ppermute over the (pod, data) group index: every group sends to the
+    # next but one, group 3 to nobody; group 1 receives nothing.
+    x = torch.full((D, 2), 10 * g + lane, dtype=torch.int32)
+    out["ppermute"] = comm.ppermute(x, mesh, ("pod", "data"), PPERMUTE_PAIRS, fill=-7).numpy()
     out["calls"] = dict(comm.calls)
     return out
+
+
+PPERMUTE_PAIRS = ((0, 2), (1, 3), (2, 0))
 
 
 def test_gathers_and_counts_on_a_2x2x2_world(tmp_path):
@@ -166,7 +173,9 @@ def test_gathers_and_counts_on_a_2x2x2_world(tmp_path):
     every rank receives exactly the global arrays its shard was cut from,
     global areas in row-major (pod, data) order. ``count_max`` is the
     maximum over the axes asked for, ``gather_counts`` the subgroup sum
-    concatenated over the area groups."""
+    concatenated over the area groups. ``ppermute`` moves each group's
+    tensor to its pair's destination at the same lane (``jax.lax.ppermute``
+    on the (pod, data) axes), and a group no pair sends to gets the fill."""
     data = {}
     for n_loc in (24, 4):
         rng = np.random.default_rng(n_loc)
@@ -187,6 +196,10 @@ def test_gathers_and_counts_on_a_2x2x2_world(tmp_path):
         base = np.arange(D * A_LOC).reshape(D, A_LOC) * 100
         want = np.concatenate([2 * base + (2 * gg) + (2 * gg + 1) for gg in range(4)], axis=1)
         assert np.array_equal(got["counts"], want), rank
+        sender = {dst: src for src, dst in PPERMUTE_PAIRS}.get(g)
+        assert np.array_equal(got["ppermute"], np.full(
+            (D, 2), -7 if sender is None else 10 * sender + lane)), rank
+        assert got["calls"][("ppermute", ("pod", "data"))] == 1
         # One gather per pathway stage: the subgroup, then each area axis.
         calls = got["calls"]
         assert calls[("all_gather", ("model",))] == 2 * 2 * 2

@@ -192,14 +192,14 @@ def test_make_simulation_defaults_to_cuda(monkeypatch):
 
 
 def test_unported_features_are_reported_with_their_roadmap_item():
-    # The routed exchange is the one feature left unported; sharded_build
-    # (the host-free distributed build) is accepted by the config rules.
-    with pytest.raises(ConfigError) as err:
-        EngineConfig(delivery_backend="event", adaptive_exchange=True,
-                     overlap_exchange=True, exchange="routed", sharded_build=True)
-    fields = [v.field for v in err.value.violations]
-    assert fields == ["exchange"]
-    assert all("ROADMAP" in v.remedy and "5b" in v.remedy for v in err.value.violations)
+    # Every feature of the config is ported: the routed exchange and the
+    # host-free build are accepted by the construction rules, and only the
+    # single-host rules refuse them (they need a mesh).
+    cfg = EngineConfig(delivery_backend="event", adaptive_exchange=True,
+                       overlap_exchange=True, exchange="routed", sharded_build=True)
+    assert cfg.validate() == [] and cfg.validate(distributed=True) == []
+    assert [v.field for v in cfg.validate(distributed=False)] == ["exchange", "sharded_build"]
+    assert not any("ROADMAP" in v.remedy for v in cfg.validate(distributed=False))
     with pytest.raises(ConfigError, match="distributed construction mode"):
         make_simulation(port_spec("lif"), EngineConfig(
             delivery_backend="event", sharded_build=True), device="cpu")

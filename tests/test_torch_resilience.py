@@ -265,14 +265,23 @@ def test_checkpoint_rejects_mid_window_state():
 def test_restore_refuses_an_unaligned_phase_and_another_group_count(tmp_path):
     eng, net = quick_engine()
     ckpt = schedule_lib.SimCheckpointer(str(tmp_path), eng, net, every=0)
-    ckpt.save(eng.window(eng.init())[0])
+    saved = eng.window(eng.init())[0]
+    ckpt.save(saved)
     ckpt.close()
     path = tmp_path / "step_00000001" / "manifest.json"
     manifest = json.loads(path.read_text())
     assert manifest["extra"]["n_groups"] == 1
-    manifest["extra"]["n_groups"] = 2  # as a two-group distributed run writes it
+    # A two-group distributed run's checkpoint reshards onto the one group
+    # of the single host, bitwise; three groups cannot hold the two areas.
+    manifest["extra"]["n_groups"] = 2
     path.write_text(json.dumps(manifest))
-    with pytest.raises(ValueError, match="taken on 2 group.*distributed engine"):
+    restored, info = schedule_lib.restore_sim(str(tmp_path), eng, net)
+    assert info["reshard"] == {"old_n_groups": 2, "new_n_groups": 1, "moved_areas": 2}
+    assert {k: np.asarray(v).tolist() for k, v in leaves(restored).items()} == {
+        k: np.asarray(v).tolist() for k, v in leaves(saved).items()}
+    manifest["extra"]["n_groups"] = 3
+    path.write_text(json.dumps(manifest))
+    with pytest.raises(ValueError, match="not divisible by n_groups=3"):
         schedule_lib.restore_sim(str(tmp_path), eng, net)
     manifest["extra"]["n_groups"] = 1
     manifest["extra"]["window_phase"] = 3

@@ -8,10 +8,13 @@ Checkpoints cross between the two CLIs (preempt in one, resume in the
 other; LIF on the MAM, spiking on both sides of the preemption). Both
 refuse the same flag conflicts with the same exit. A real
 SIGTERM stops the port's run loop at a window boundary. The JAX CLI runs on
-one CPU device (``XLA_FLAGS`` cleared, ``JAX_PLATFORMS=cpu``).
+one CPU device (``XLA_FLAGS`` cleared, ``JAX_PLATFORMS=cpu``), except in
+the process-group case: there the port's CLI runs on four ranks under
+``torch.distributed.run`` and the JAX CLI on four forced host devices.
 """
 
 import os
+import re
 import signal
 import subprocess
 import sys
@@ -133,6 +136,76 @@ def test_a_cli_checkpoint_resumes_in_the_other_cli(runs, writer):
     for key in twin.files:
         assert last[key].dtype == twin[key].dtype, key
         assert np.array_equal(last[key], twin[key]), key
+
+
+# The process-group leg: four ranks (torch.distributed.run, gloo on the
+# CPU) against the JAX CLI on four forced host devices; both pick the (4, 1)
+# mesh. Preempted after window 3 with the wire-volume table, then resumed.
+GROUP = ["--areas", "4", "--n-per-area", "32", "--k", "8", "--exchange", "routed",
+         "--backend", "event", "--t-ms", "6"]
+
+
+def run_on_four(package, args):
+    """``package``'s CLI on four ranks (the port) or four devices (JAX)."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"), JAX_PLATFORMS="cpu",
+               OMP_NUM_THREADS="1")
+    if package == "repro_torch":
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc-per-node", "4", "-m", "repro_torch.launch.simulate", *args,
+               "--device", "cpu"]
+        env.pop("XLA_FLAGS", None)
+    else:
+        cmd = [sys.executable, "-m", "repro.launch.simulate", *args]
+        env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    return subprocess.run(cmd, capture_output=True, text=True, env=env, timeout=600)
+
+
+def preempt_resume_on_four(package, out):
+    ck = ["--checkpoint-dir", str(out / f"ck-{package}")]
+    first = run_on_four(package, GROUP + ck + ["--inject-fault", "preempt:window=3",
+                                               "--profile"])
+    second = run_on_four(package, GROUP + ck + ["--resume", "--spikes-out",
+                                                str(out / f"{package}.npz")])
+    return first, second
+
+
+def wire_volume_lines(stdout: str) -> list[str]:
+    lines = stdout.splitlines()
+    start = next(i for i, ln in enumerate(lines) if ln.startswith("-- wire volume"))
+    end = next(i for i, ln in enumerate(lines) if ln.startswith("-- inter receive tables"))
+    return lines[start:end + 1]
+
+
+def test_cli_on_a_process_group_matches_the_jax_cli_on_four_devices(tmp_path):
+    """The port's CLI on four gloo ranks, routed exchange on ``event``,
+    checkpointing and preempted after window 3 with ``--profile``, then
+    resumed: the same exit codes as the JAX CLI on four forced host
+    devices, its wire-volume table line for line, one checkpoint written
+    (rank 0 alone prints), and a ``--spikes-out`` file bitwise the JAX
+    CLI's."""
+    with ThreadPoolExecutor(2) as pool:
+        jobs = {p: pool.submit(preempt_resume_on_four, p, tmp_path)
+                for p in ("repro", "repro_torch")}
+        (j1, j2), (t1, t2) = jobs["repro"].result(), jobs["repro_torch"].result()
+    for want, got in ((j1, t1), (j2, t2)):
+        assert want.returncode == 0, want.stderr[-3000:]
+        assert got.returncode == want.returncode, got.stderr[-3000:]
+    assert "mesh: 4 area groups x 1 subgroup devices" in t1.stdout
+    assert t1.stdout.count("PREEMPTED (simulated preemption) after window 3") == 1
+    assert wire_volume_lines(t1.stdout) == wire_volume_lines(j1.stdout)
+    assert t2.stdout.count("resumed window 3") == 1
+    # The resumed leg's wire as comm counts it is the static accounting,
+    # which the JAX CLI reports from its engine's counter.
+    static = re.findall(r"([\d,]+) wire B/window", t2.stdout)
+    measured = re.findall(r"([\d,]+) measured B/window", t2.stdout)
+    assert len(static) == 1, t2.stdout
+    assert static == measured == re.findall(r"([\d,]+) measured B/window", j2.stdout)
+    a, b = np.load(tmp_path / "repro_torch.npz"), np.load(tmp_path / "repro.npz")
+    assert int(a["t"]) == int(b["t"]) > 0
+    assert np.array_equal(a["spike_count"], b["spike_count"]) and a["spike_count"].sum() > 0
+    saved = np.load(tmp_path / "ck-repro_torch" / "step_00000003" / "arrays.npz")
+    assert saved[".ring"].shape == np.load(
+        tmp_path / "ck-repro" / "step_00000003" / "arrays.npz")[".ring"].shape
 
 
 REFUSALS = {
