@@ -165,6 +165,38 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    at ``tests/test_serve.py``'s size on the card == on the CPU, both routes;
    (f) ``python -m repro_torch.launch.serve --selftest --scale 0.1 --batch
    B`` as a subprocess, exit 0 and its ``selftest OK`` line;
+8c. ``[mam]`` the paper's workload driver (``repro_torch.mam_simulation``):
+   (a) ``python -m repro_torch.mam_simulation --scale 0.002 --t-ms 1000``
+   as a subprocess on the card, exit 0, its report lines echoed and its
+   per-area spike counts bitwise those of the same function run on the CPU
+   here meanwhile; (b) the 32-area MAM at ``mam_spec(scale=0.2)`` (836,680
+   neurons, K 840/360, 1.53 G incoming synapse slots), built once on the
+   card with its outgoing tables (build seconds, incoming and outgoing GB,
+   peak), then 100 ms of model time (the driver's 1 untimed + 99 timed
+   windows), LIF structure-aware, on five routes: ``scatter`` (the
+   driver's own), ``pallas`` unfused with ``fused_update`` (kernels
+   ``lif_update`` and ``spike_deliver``), ``pallas`` with
+   ``superstep_kernel=True`` (``superstep_lif``, ``spike_deliver``),
+   ``event`` with adaptive packets (``event_deliver``) and ``pallas`` under
+   the conventional schedule: every route's per-area spike counts, final
+   ring and neuron state bitwise the others' with ``overflow == 0``, every
+   kernel of a route launched (counts reset just before each run, read just
+   after; the ``kernels`` line's ``mam_launches``), ms/window and RTF per
+   route, the network mean rate and the top 8 areas as the driver prints
+   them, and one profiled window of ``pallas`` and of ``event``;
+8d. ``[dryrun]`` the dry-run tooling: (a) ``python -m
+   repro_torch.launch.dryrun --arch mam-snn --snn-schedule
+   conventional,structure_aware --mesh both --build-rss`` on the card (the
+   production MAM priced on 16 x 16 and 2 x 16 x 16 ranks from meta-device
+   shapes, the HBM gate at the card's memory, the build peaks measured with
+   ``torch.cuda.max_memory_allocated``), exit 0 and every row OK; (b) the
+   width bounds of ``network_sds`` held against the tables instantiated on
+   the card at [dist] (a)'s spec and cut (4 x 130,000, K 3000/3000, 2 groups
+   x 2 lanes: ``shard_inter_tables(mode='group', subgroup=2)`` and
+   ``slice_intra_tables``): equal lead axes and delay dtypes, bound widths
+   at least the instantiated ones, and the slack; (c)
+   ``construction_cost_model``'s bytes for that cut beside the peak of one
+   rank's sharded build on the card (a reading, not a gate);
 9. the port on the card against the port on the CPU at the quickstart size
    (4 x 256 neurons, K 32/32), bitwise over 10 windows (40 for LIF, which
    first spikes in window 18 at this size), ``overflow`` included:
@@ -1339,6 +1371,227 @@ def phase_serve() -> None:
         raise AssertionError(f"serve cli: no selftest OK line or no launches: {launches}")
     log(f"[serve] (f) the serve CLI's selftest exit 0 in {time.perf_counter() - t0:.1f} s "
         f"(process start, build, serving, 16 references) ({card})")
+
+
+# [mam]: the paper's MAM driver (repro_torch.mam_simulation).
+MAM_SCALE = 0.2      # 1.53 G incoming synapse slots: the main path's 1.56 G
+# 1 untimed + 99 timed windows (100 ms): the driver's own 1 s is 1,000
+# windows, and on scatter (plain PyTorch over every slot) they take ~12 min.
+MAM_T_MS = 100.0
+# The driver's CLI, run as ``-m`` runs it (its main on the command line's
+# flags); after it returns, the run's per-area spike counts and the
+# process's kernel launch counts.
+MAM_CLI_WRAPPER = (
+    "import json, sys\n"
+    "from repro_torch import mam_simulation\n"
+    "from repro_torch.kernels import cuda\n"
+    "res = mam_simulation.main(sys.argv[1:])\n"
+    "print('counts ' + json.dumps(res.counts.tolist()), flush=True)\n"
+    "print('launches ' + json.dumps(cuda.launches), flush=True)\n")
+
+
+def phase_mam() -> dict:
+    """``[mam]``: the paper's driver on the card. (a) ``python -m
+    repro_torch.mam_simulation --scale 0.002 --t-ms 1000`` as a subprocess,
+    its per-area spike counts bitwise those of the same function run on the
+    CPU here meanwhile; (b) ``mam_spec(scale=0.2)`` built once with its
+    outgoing tables, 100 ms of model time on five routes, bitwise equal, with
+    ``overflow == 0``; one window of ``pallas`` and of ``event`` profiled.
+    Returns each route's kernel launches (counts reset just before each
+    run, read just after)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from repro_torch import mam_simulation
+    from repro_torch.core import EngineConfig, make_simulation, mam_spec
+    from repro_torch.core.connectivity import add_outgoing_tables
+    from repro_torch.kernels import cuda
+
+    card = card_name_power()
+    lif = dict(neuron_model="lif")
+    # (a) The CLI on the card; the same run on the CPU while it runs.
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-c", MAM_CLI_WRAPPER, "--scale", "0.002", "--t-ms", "1000"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(max(1, threads // 2))  # the rest for the CLI's process
+    try:
+        host = mam_simulation.simulate(
+            mam_spec(scale=0.002), EngineConfig(delivery_backend="scatter", **lif),
+            device="cpu", t_ms=1000.0)
+        out, err = proc.communicate(timeout=600)
+    finally:
+        torch.set_num_threads(threads)
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    cli_s = time.perf_counter() - t0
+    lines = [ln for ln in out.splitlines() if ln.strip()]
+    for ln in lines[:-2]:
+        log(f"[mam] (a) {ln}")
+    if proc.returncode != 0:
+        log(err[-4000:])
+        raise AssertionError(f"[mam] the driver's CLI exited {proc.returncode}")
+    counts = np.asarray(json.loads(lines[-2].split(" ", 1)[1]))
+    if host.counts.sum() <= 0 or not np.array_equal(counts, host.counts):
+        raise AssertionError(f"[mam] the CLI's per-area spike counts on the card {counts} "
+                             f"!= the CPU's {host.counts}")
+    log(f"[mam] (a) the CLI on the card exit 0 in {cli_s:.1f} s (process start, build, run); "
+        f"its per-area spike counts == the driver's on the CPU, bitwise ({int(counts.sum())} "
+        f"spikes; the CPU run {host.wall_s:.1f} s wall) ({card})")
+
+    # (b) The 32-area MAM at scale 0.2, built once, on five routes.
+    spec = mam_spec(scale=MAM_SCALE)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    net = mam_simulation.build_mam_network(spec, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    incoming_gb = _tables_gb(net, INCOMING)
+    t0 = time.perf_counter()
+    net = add_outgoing_tables(net)
+    torch.cuda.synchronize()
+    invert_s = time.perf_counter() - t0
+    log(f"[mam] (b) mam_spec(scale={MAM_SCALE}): {spec.n_total} neurons in {spec.n_areas} "
+        f"areas, n_pad {net.n_pad}, K {net.k_intra}/{net.k_inter}, K_out "
+        f"{net.tgt_intra.shape[-1]}/{net.tgt_inter.shape[-1]}, ring {net.ring_len}; built on "
+        f"the card in {build_s:.2f} s (incoming) + {invert_s:.2f} s (outgoing): "
+        f"{incoming_gb:.2f} GB incoming, {_tables_gb(net, OUTGOING):.2f} GB outgoing tables, "
+        f"peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB ({card})")
+    routes = {
+        "scatter": (EngineConfig(delivery_backend="scatter", **lif), ()),
+        "pallas": (EngineConfig(delivery_backend="pallas", fused_update=True, **lif),
+                   ("lif_update", "spike_deliver")),
+        "pallas superstep": (EngineConfig(delivery_backend="pallas", superstep_kernel=True,
+                                          **lif), ("superstep_lif", "spike_deliver")),
+        "event adaptive": (EngineConfig(delivery_backend="event", adaptive_exchange=True,
+                                        **lif), ("event_deliver",)),
+        "pallas conventional": (EngineConfig(delivery_backend="pallas",
+                                             schedule="conventional", **lif),
+                                ("lif_update", "spike_deliver")),
+    }
+    n_windows = spec.steps_for(MAM_T_MS) // spec.delay_ratio
+    launches, first = {}, None
+    for name, (cfg, kernels) in routes.items():
+        cuda.reset_launches()
+        res = mam_simulation.simulate(spec, cfg, device="cuda", net=net, t_ms=MAM_T_MS)
+        launches[name] = dict(cuda.launches)
+        ran = {k: v for k, v in launches[name].items() if v}
+        if res.overflow != 0:
+            raise AssertionError(f"[mam] {name}: overflow {res.overflow}")
+        if any(launches[name][k] <= 0 for k in kernels):
+            raise AssertionError(f"[mam] {name}: a kernel of the route did not launch: {ran}")
+        log(f"[mam] (b) {name}: {1e3 * res.wall_s / (n_windows - 1):.2f} ms/window, RTF "
+            f"{res.wall_s / res.t_s:.2f} ({n_windows - 1} timed windows), "
+            f"{int(res.counts.sum())} spikes, overflow 0, launches {ran}")
+        if first is None:
+            first = res
+            continue
+        st, st0 = res.state, first.state
+        same = (np.array_equal(res.counts, first.counts) and st.t == st0.t
+                and bitwise_equal(st.ring, st0.ring) and all(
+                    bitwise_equal(getattr(st.neuron, f), getattr(st0.neuron, f))
+                    for f in ("v", "i_syn", "refrac")))
+        if not same:
+            raise AssertionError(f"[mam] {name} differs from scatter (counts, ring or state)")
+    log(f"[mam] (b) all {len(routes)} routes bitwise equal: per-area spike counts, t "
+        f"{first.state.t}, the final ring and v / i_syn / refrac, overflow 0")
+    for ln in mam_simulation.report(spec, first):
+        if ln.strip():
+            log(f"[mam] (b) scatter | {ln.strip()}")
+    for name in ("pallas", "event adaptive"):
+        eng = make_simulation(spec, routes[name][0], net=net, device="cuda")
+        eng.window(first.state)  # warm
+        profile_window(f"mam x{MAM_SCALE} {name}", lambda: eng.window(first.state),
+                       what=f"window {first.state.t // spec.delay_ratio}")
+    del net, first, res, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_dryrun() -> None:
+    """``[dryrun]``: (a) ``python -m repro_torch.launch.dryrun`` on both
+    schedules and meshes with ``--build-rss`` on the card, every row OK; (b)
+    the width bounds held against tables instantiated at [dist] (a)'s spec
+    and cut (4 x 130,000, K 3000/3000, 2 groups x 2 lanes); (c)
+    ``construction_cost_model``'s bytes for that cut beside the peak of one
+    rank's sharded build on the card."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.core import connectivity as conn
+    from repro_torch.core import mam_benchmark_spec
+    from repro_torch.launch import dryrun
+
+    card = card_name_power()
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    try:
+        out = os.path.join(tmp, "rows.json")
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "mam-snn",
+             "--snn-schedule", "conventional,structure_aware", "--mesh", "both",
+             "--build-rss", "--out", out],
+            capture_output=True, text=True, timeout=600, env=env)
+        for ln in run.stdout.splitlines():
+            if ln.strip():
+                log(f"[dryrun] (a) {ln.strip()}")
+        if run.returncode != 0:
+            log(run.stderr[-4000:])
+            raise AssertionError(f"[dryrun] the dry run exited {run.returncode}")
+        rows = json.loads(Path(out).read_text())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if len(rows) != 7 or any(r["status"] != "OK" for r in rows):
+        raise AssertionError(f"[dryrun] rows not all OK: {[r['status'] for r in rows]}")
+    log(f"[dryrun] (a) exit 0 in {time.perf_counter() - t0:.1f} s, {len(rows)} rows OK, HBM "
+        f"budget {rows[-1]['hbm_gib_budget']:.2f} GiB a rank (the card's memory) ({card})")
+
+    # (b) The width bounds against tables instantiated on the card.
+    spec = mam_benchmark_spec(n_areas=4, n_per_area=130_000, k_intra=3000, k_inter=3000)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    row = dryrun.verify_inter_table_bounds(2, 2, 12, spec=spec, device="cuda")
+    torch.cuda.synchronize()
+    cut_peak = torch.cuda.max_memory_allocated()
+    log(f"[dryrun] (b) width bounds at 4 x 130000, K 3000/3000, 2 groups x 2 lanes: lead "
+        f"axes and delay dtypes equal, bounds >= the instantiated widths; one rank's inbound "
+        f"slice {row['bytes_per_device_modelled']} B at the bound against "
+        f"{row['bytes_per_device_instantiated']} B instantiated (slack {row['bound_slack']}x), "
+        f"lane intra width slack {row['intra_bound_slack']}x; built and cut in "
+        f"{time.perf_counter() - t0:.1f} s, peak {cut_peak / 1e9:.2f} GB ({card})")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) The construction model beside one rank's sharded build.
+    cm = conn.construction_cost_model(spec, n_shards=2, subgroup=2, size_multiple=8)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    plan = conn.sharded_build_plan(spec, 12, 2, mode="group", subgroup=2, size_multiple=8,
+                                   device="cuda")
+    tables = (conn.build_shard_tables(spec, 12, 0, plan=plan, lane=0, device="cuda")
+              + conn.build_lane_intra_tables(spec, 12, [0, 1], 0, plan=plan, device="cuda"))
+    torch.cuda.synchronize()
+    held = sum(t.numel() * t.element_size() for t in tables)
+    log(f"[dryrun] (c) construction at that cut, modelled (construction_cost_model, the "
+        f"reference's host build): {cm['build_bytes_host_modelled'] / 1e9:.2f} GB for the "
+        f"host build, {cm['build_bytes_shard_modelled'] / 1e9:.2f} GB for a shard's; "
+        f"measured on the card: one rank's sharded build (plan, its inbound slice and lane "
+        f"intra tables) holds {held / 1e9:.2f} GB, peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB in {time.perf_counter() - t0:.1f} "
+        f"s; the cuts of (b), one after the other, peak {cut_peak / 1e9:.2f} GB")
+    del tables, plan
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def profile_window(name, fn, what="window") -> list[tuple[float, int, str]]:
@@ -3124,6 +3377,8 @@ def main() -> int:
             row["routed_launches"] = routed_launches[row["name"]]
     phase_cli()
     phase_serve()
+    mam_launches = phase_mam()
+    phase_dryrun()
     phase_device_vs_cpu()
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 products in f32 (the default,
     torch.backends.cudnn.allow_tf32 = False        # stated): the f32 bars assume it
@@ -3133,6 +3388,9 @@ def main() -> int:
     phase_lm_danube()
     rows.append(phase_kernel_flash(lm_launches))
     phase_lm_device_vs_cpu()
+    # Each kernel's launches on the MAM driver's routes ([mam] (b)).
+    for row in rows:
+        row["mam_launches"] = {route: n[row["name"]] for route, n in mam_launches.items()}
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0

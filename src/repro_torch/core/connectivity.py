@@ -41,6 +41,7 @@ import json
 import math
 import os
 import time
+from fractions import Fraction
 
 import numpy as np
 import torch
@@ -64,6 +65,8 @@ __all__ = [
     "build_group_intra_tables",
     "build_lane_intra_tables",
     "area_adjacency",
+    "network_sds",
+    "construction_cost_model",
     "plan_cache_key",
     "cached_sharded_build_plan",
     "tile_gids",
@@ -566,6 +569,128 @@ def _inbound_k_bound(k: int, n_shards: int) -> int:
     return int(k_s + math.ceil(6.0 * math.sqrt(k_s)) + 16)
 
 
+def _drawn_k_bound(spec: MultiAreaSpec, pathway: str, windows, rows, slack: int) -> int:
+    """Width bound of a table that keeps, per source neuron, its synapses
+    onto one window's targets: ``rows`` target rows of each area of one of
+    ``windows`` (tuples of areas), the widest window and source area taken.
+
+    The draws fix the expectation. Every target row of area ``b``, ghost
+    rows too, draws ``K`` sources: an intra one uniformly in ``b``, an inter
+    one from an allowed area picked uniformly and then uniformly within it.
+    So a neuron of area ``a`` expects ``rows x K / n_a`` synapses from each
+    area of the window (intra: only ``a``; inter: times ``adj[a, b] /
+    n_allowed[b]``). The bound is the largest expectation, rounded up, + 6
+    sigma + ``slack``. The reference's bounds (:func:`_outgoing_k_bound`,
+    :func:`_inbound_k_bound`) assume ``K / S`` instead: they agree where
+    every source's synapses spread evenly (equal areas without ghost rows;
+    the window cut) and fall short where they do not (a few areas a group;
+    the MAM's areas of unequal size).
+    """
+    k = spec.k_intra if pathway == "intra" else spec.k_inter
+    if k <= 0:
+        return 0
+    sizes = spec.area_sizes()
+    adj = spec.adjacency_matrix()
+    n_allowed = adj.sum(axis=0)
+
+    def share(a: int, b: int) -> Fraction:
+        if pathway == "intra":
+            return Fraction(int(a == b))
+        return Fraction(int(adj[a, b]), int(n_allowed[b])) if adj[a, b] else Fraction(0)
+
+    mean = max(sum((share(a, b) for b in window), Fraction(0)) * Fraction(rows) * k
+               / int(sizes[a]) for a in range(spec.n_areas) for window in windows)
+    k_s = math.ceil(mean)
+    return int(k_s + math.ceil(6.0 * math.sqrt(k_s)) + slack)
+
+
+def network_sds(
+    spec: MultiAreaSpec,
+    *,
+    size_multiple: int = 1,
+    outgoing: bool = False,
+    inter_shards: int = 0,
+    inter_shard_mode: str = "group",
+    subgroup: int = 1,
+) -> Network:
+    """A shape-only stand-in for :func:`build_network`: a :class:`Network`
+    whose tensors live on the ``meta`` device (nothing is allocated).
+
+    The JAX package's ``network_sds`` (its ``ShapeDtypeStruct`` leaves),
+    field for field, dtype for dtype and shape for shape but the widths, so
+    the dry run can price the production MAM (~25 G synapses) on any host.
+    ``outgoing=True`` adds the outgoing tables; ``inter_shards > 0``
+    carries the ``[S, A * n_pad, K_in]`` inbound inter tables of
+    :func:`shard_inter_tables` instead of the replicated ones; ``subgroup >
+    1`` cuts them once more over the lanes, ``[S, subgroup, A * n_pad,
+    K_in]``, and the outgoing intra tables likewise, ``[subgroup, A, n_pad,
+    K_lane]`` (:func:`slice_intra_tables`). The instantiated widths are
+    data-dependent; the stand-ins take the bound of the draws
+    (:func:`_drawn_k_bound`), which the reference's bounds undercut where a
+    source's synapses do not spread evenly. The delay windows are the
+    spec's tier cutoffs, a superset of any instantiated window.
+    """
+    A = spec.n_areas
+    n_pad = spec.padded_area_size(size_multiple)
+    K_i, K_e = spec.k_intra, spec.k_inter
+    dt_i = _delay_dtype(spec.steps_intra_max)
+    dt_e = _delay_dtype(spec.steps_inter_max)
+
+    def s(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    def trio(names, shape, d_dtype):
+        """Targets or sources (int32), weights (f32) and delays of one table."""
+        return dict(zip(names, (s(shape, torch.int32), s(shape, torch.float32),
+                                s(shape, d_dtype))))
+
+    every = (tuple(range(A)),)
+    out: dict = {}
+    if outgoing:
+        if subgroup > 1:
+            k_li = _drawn_k_bound(spec, "intra", every, Fraction(n_pad, subgroup), 16)
+            shape = (subgroup, A, n_pad, k_li)
+        else:
+            shape = (A, n_pad, _drawn_k_bound(spec, "intra", every, n_pad, 8))
+        out.update(trio(OUTGOING_TABLES[:3], shape, dt_i))
+        if K_e > 0 and inter_shards > 0:
+            if subgroup > 1 and inter_shard_mode != "group":
+                raise ValueError(
+                    "subgroup slicing applies to the 'group' mode only "
+                    "(the 'window' mode is already per-device)")
+            if inter_shard_mode == "group":
+                # A shard owns A / S whole areas; a lane, a window of each.
+                a_loc = A // inter_shards
+                windows = tuple(tuple(range(g * a_loc, (g + 1) * a_loc))
+                                for g in range(inter_shards))
+                rows = Fraction(n_pad, max(subgroup, 1))
+            else:  # a shard owns an n_pad / S window of every area
+                windows, rows = every, Fraction(n_pad, inter_shards)
+            k_ie = _drawn_k_bound(spec, "inter", windows, rows, 16)
+            lead = (inter_shards, subgroup) if subgroup > 1 else (inter_shards,)
+            out.update(trio(INBOUND_TABLES, (*lead, A * n_pad, k_ie), dt_e))
+            out["inter_shard_mode"] = inter_shard_mode
+        elif K_e > 0:
+            k_oe = _drawn_k_bound(spec, "inter", every, n_pad, 8)
+            out.update(trio(OUTGOING_TABLES[3:], (A, n_pad, k_oe), dt_e))
+    return Network(
+        alive=s((A, n_pad), torch.bool),
+        rate_hz=s((A, n_pad), torch.float32),
+        **trio(_TABLES[2:5], (A, n_pad, K_i), dt_i),
+        **trio(_TABLES[5:], (A, n_pad, K_e), dt_e),
+        n_pad=n_pad,
+        n_areas=A,
+        ring_len=spec.ring_len,
+        delay_ratio=spec.delay_ratio,
+        dt_ms=spec.dt_ms,
+        steps_lo_intra=1,
+        r_span_intra=spec.steps_intra_max if K_i > 0 else 0,
+        steps_lo_inter=spec.steps_inter_min,
+        r_span_inter=(spec.steps_inter_max - spec.steps_inter_min + 1) if K_e > 0 else 0,
+        **out,
+    )
+
+
 def _inbound_target_rows(
     mode: str, shard: int, n_shards: int, n_areas: int, n_pad: int,
     subgroup: int = 1, lane: int = 0,
@@ -920,6 +1045,71 @@ def build_lane_intra_tables(
                          resolve_device(device), chunk_rows)
 
 
+def construction_cost_model(
+    spec: MultiAreaSpec,
+    *,
+    n_shards: int,
+    subgroup: int = 1,
+    size_multiple: int = 1,
+) -> dict:
+    """Modelled peak bytes of constructing the network, host build against
+    sharded build: the JAX package's byte arithmetic, unchanged (nothing is
+    allocated).
+
+    * **host build** (``build_network(outgoing=True)`` +
+      ``shard_inter_tables`` + ``slice_intra_tables``): the global incoming
+      tables, the outgoing intra inversion, all S x subgroup inbound inter
+      slices plus the stack's copy, and the lane intra cuts likewise.
+    * **sharded build** (plan + per-shard builders): one (shard, lane)'s own
+      draws and inversion temporaries, the planning pass's global counts,
+      and that shard's output slice.
+
+    It prices the reference's host build. This package's builds run on the
+    device in row chunks (:data:`CHUNK_ROWS`) and stack no slice copies, so
+    their measured peaks differ from it. Widths are the reference's bounds
+    (:func:`_outgoing_k_bound`, :func:`_inbound_k_bound`), which fall short
+    of the draws on unequal areas (:func:`_drawn_k_bound`).
+    """
+    A = spec.n_areas
+    n_pad = spec.padded_area_size(size_multiple)
+    K_i, K_e = spec.k_intra, spec.k_inter
+    sub = max(subgroup, 1)
+    n_rows = A * n_pad
+    by_i = 8 + _delay_dtype(spec.steps_intra_max).itemsize
+    by_e = 8 + _delay_dtype(spec.steps_inter_max).itemsize
+
+    k_oi = _outgoing_k_bound(K_i)
+    k_ie = _inbound_k_bound(K_e, n_shards * sub)
+    k_li = _inbound_k_bound(K_i, sub) if sub > 1 else k_oi
+
+    incoming = n_rows * (K_i * by_i + K_e * by_e)
+    outgoing_intra = n_rows * k_oi * by_i
+    inbound_slices = n_shards * sub * n_rows * k_ie * by_e
+    lane_intra = sub * n_rows * k_li * by_i if sub > 1 else 0
+    # Slices accumulate, then the stack copies them once more (x2 transient).
+    host_peak = incoming + outgoing_intra + 2 * inbound_slices + 2 * lane_intra
+
+    rows_loc = n_rows // (n_shards * sub) if spec.k_inter else 0
+    # One shard's draws (src int32 + w f32 + d) + inversion temporaries
+    # (int64 flat order/sort/repeat ~ 3 x 8 B per synapse) + the planning
+    # pass's global counts array + the single output slice.
+    shard_draws = rows_loc * K_e * (by_e + 24)
+    shard_intra = n_pad * K_i * (by_i + 24)
+    shard_out = n_rows * k_ie * by_e + n_pad * max(k_li, k_oi) * by_i
+    counts_arr = n_rows * 8
+    shard_peak = max(shard_draws, shard_intra) + shard_out + counts_arr
+
+    return dict(
+        n_shards=n_shards,
+        subgroup=sub,
+        build_bytes_host_modelled=int(host_peak),
+        build_bytes_shard_modelled=int(shard_peak),
+        host_incoming_bytes=int(incoming),
+        host_inbound_slice_bytes=int(inbound_slices),
+        reduction=float(host_peak) / float(max(shard_peak, 1)),
+    )
+
+
 def area_adjacency(net: Network, spec: MultiAreaSpec | None = None) -> np.ndarray:
     """The realised area -> area adjacency: ``adj[src, tgt]`` iff any neuron
     of target area ``tgt`` (live or ghost: ghosts receive deposits too, so
@@ -928,12 +1118,13 @@ def area_adjacency(net: Network, spec: MultiAreaSpec | None = None) -> np.ndarra
 
     After a host-free build the plan's adjacency rides on the network
     (``net.area_adj``); otherwise it is read from the global ``src_inter``
-    tables, area by area in row chunks on their device. ``spec`` is
-    accepted for the reference's signature: the reference falls back to the
-    spec's adjacency only for its shape-only stand-in networks, whose
-    counterpart here (meta tensors) comes with the dry-run tooling.
+    tables, area by area in row chunks on their device. A shape-only
+    network (:func:`network_sds`, meta tensors: nothing to read) gets the
+    spec's adjacency (``MultiAreaSpec.adjacency_matrix``, all-to-all by
+    default; without a spec, every pair of distinct areas): a superset of
+    any instantiation, so routing over it ships some empty packets but never
+    drops a synapse.
     """
-    del spec
     A = net.n_areas
     if net.k_inter == 0:
         return np.zeros((A, A), dtype=bool)
@@ -941,9 +1132,7 @@ def area_adjacency(net: Network, spec: MultiAreaSpec | None = None) -> np.ndarra
         return np.asarray(net.area_adj, dtype=bool)
     src = net.src_inter
     if src.device.type == "meta":
-        raise NotImplementedError(
-            "area_adjacency of a shape-only (meta) network needs the dry-run "
-            "tooling's stand-in networks, not ported yet (ROADMAP queue 1 item 5)")
+        return ~np.eye(A, dtype=bool) if spec is None else spec.adjacency_matrix()
     if tuple(src.shape[:2]) != (A, net.n_pad):
         raise ValueError(
             f"area_adjacency reads the global src_inter tables, not a "

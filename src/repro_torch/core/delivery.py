@@ -51,13 +51,21 @@ BACKENDS = ("onehot", "scatter", "pallas", "event")
 # for the one-hot backend that materialises an [N, D*K, R] tensor. Above
 # this element count (1 GiB f32) the blocked call deposits per cycle.
 ONEHOT_FOLD_LIMIT = 2**28
+# The scatter backend's deposits take at most this many synapse slots at a
+# time (each slot costs ~30 B of int64 index and f32 value temporaries), in
+# row chunks: a whole-table pass at the 32-area MAM's scale 0.2 (1.5 G
+# slots) would need tens of GB of them.
+SCATTER_CHUNK_SLOTS = 2**26
 
 
 def expected_area_spikes(net: Network) -> float:
     """Expected spikes per (padded) area per cycle, the packet-sizing rule:
     ``n_pad x mean rate x dt``, the mean taken in f32 as the JAX package
-    takes it."""
-    mean_rate = float(net.rate_hz.float().mean())
+    takes it. A shape-only network (meta tensors, ``network_sds``) carries
+    no rates and takes the 2.5 Hz MAM ground state, as the reference's
+    stand-ins do."""
+    rate = net.rate_hz
+    mean_rate = 2.5 if rate.device.type == "meta" else float(rate.float().mean())
     return net.alive.shape[1] * mean_rate * net.dt_ms * 1e-3
 
 
@@ -105,12 +113,23 @@ def expected_bucket(ladder: tuple[int, ...], expected_count: float) -> int:
     return ladder[-1]
 
 
-def _deposit(ring, vals, delays, t, *, onehot: bool):
+def _deposit_onehot(ring, vals, delays, t):
     a, n, r = ring.shape
     k = vals.shape[-1]
-    fn = ring_buffer.deposit if onehot else ring_buffer.deposit_scatter
-    fn(ring.view(a * n, r), vals.reshape(a * n, k), delays.reshape(a * n, k), t)
+    ring_buffer.deposit(ring.view(a * n, r), vals.reshape(a * n, k), delays.reshape(a * n, k), t)
     return ring
+
+
+def _scatter_rows(ring, k: int, chunk, t: int) -> None:
+    """The scatter backend's deposit into ``ring [N, R]`` in row chunks of
+    at most :data:`SCATTER_CHUNK_SLOTS` slots: ``chunk(r0, r1)`` gives rows
+    ``[r0, r1)``'s ``(values, delays)``, ``[r1 - r0, k]`` each. Exact in any
+    order (the 1/256 grid)."""
+    n = ring.shape[0]
+    step = max(1, SCATTER_CHUNK_SLOTS // max(k, 1))
+    for r0 in range(0, n, step):
+        r1 = min(n, r0 + step)
+        ring_buffer.deposit_scatter(ring[r0:r1], *chunk(r0, r1), t)
 
 
 def deliver_intra(
@@ -149,9 +168,23 @@ def deliver_intra(
             rows_per_area=n, src_stride=n_src)
         kops.apply_contrib(ring.view(a * n, r), contrib, t, net.steps_lo_intra)
         return ring
+    if backend == "scatter":
+        # Row r of the flat table belongs to area r // n, whose sources start
+        # at (r // n) * n_src of the flat spike vector.
+        n_src = area_spikes.shape[-1]
+        flat = area_spikes.reshape(-1)
+        src, w, d = (x.reshape(a * n, k)
+                     for x in (net.src_intra, net.w_intra, net.delay_intra))
+
+        def chunk(r0, r1):
+            base = torch.arange(r0, r1, device=ring.device)[:, None] // n * n_src
+            return w[r0:r1] * flat[base + src[r0:r1].long()], d[r0:r1]
+
+        _scatter_rows(ring.view(a * n, r), k, chunk, t)
+        return ring
     src = net.src_intra.reshape(a, n * k).long()
     vals = net.w_intra * torch.gather(area_spikes, 1, src).view(a, n, k)
-    return _deposit(ring, vals, net.delay_intra, t, onehot=(backend == "onehot"))
+    return _deposit_onehot(ring, vals, net.delay_intra, t)
 
 
 def deliver_inter(
@@ -183,8 +216,14 @@ def deliver_inter(
             steps_lo=net.steps_lo_inter, r_span=net.r_span_inter)
         kops.apply_contrib(ring.view(a * n, r), contrib, t, net.steps_lo_inter)
         return ring
+    if backend == "scatter":
+        src, w, d = (x.reshape(a * n, k)
+                     for x in (net.src_inter, net.w_inter, net.delay_inter))
+        _scatter_rows(ring.view(a * n, r), k,
+                      lambda r0, r1: (w[r0:r1] * flat_spikes[src[r0:r1].long()], d[r0:r1]), t)
+        return ring
     vals = net.w_inter * flat_spikes[net.src_inter.long()]
-    return _deposit(ring, vals, net.delay_inter, t, onehot=(backend == "onehot"))
+    return _deposit_onehot(ring, vals, net.delay_inter, t)
 
 
 def deliver_inter_block(
@@ -205,7 +244,7 @@ def deliver_inter_block(
     accumulates their ``[N, r_span]`` contributions, shifted by ``s``, into
     one ``[N, D-1+r_span]`` buffer in place, added into the ring once; the
     dense backends fold the cycle axis into the synapse axis and deposit
-    once.
+    once (the scatter backend row chunk by row chunk).
     """
     a, n, r = ring.shape
     k = net.k_inter
@@ -232,17 +271,31 @@ def deliver_inter_block(
                 steps_lo=net.steps_lo_inter, r_span=span)
         kops.apply_contrib(ring.view(a * n, r), wide, t0, net.steps_lo_inter)
         return ring
-    if backend == "onehot" and a * n * d_win * k * r > ONEHOT_FOLD_LIMIT:
+    if backend == "scatter":
+        # The cycle axis folded into the synapse axis, row chunk by row
+        # chunk: cycle s's synapses deposit at delay + s from t0.
+        src, w, d = (x.reshape(a * n, k)
+                     for x in (net.src_inter, net.w_inter, net.delay_inter))
+        shift = torch.arange(d_win, device=ring.device)[None, :, None]
+
+        def chunk(r0, r1):
+            vals = w[r0:r1, None] * block[:, src[r0:r1].long()].movedim(0, 1)
+            delays = d[r0:r1, None].long() + shift
+            return vals.reshape(r1 - r0, d_win * k), delays.reshape(r1 - r0, d_win * k)
+
+        _scatter_rows(ring.view(a * n, r), d_win * k, chunk, t0)
+        return ring
+    if a * n * d_win * k * r > ONEHOT_FOLD_LIMIT:
         for s in range(d_win):
             vals = net.w_inter * block[s][net.src_inter.long()]
-            _deposit(ring, vals, net.delay_inter, t0 + s, onehot=True)
+            _deposit_onehot(ring, vals, net.delay_inter, t0 + s)
         return ring
     vals = net.w_inter[None] * block[:, net.src_inter.long()]      # [D, A, n, K]
     delays = net.delay_inter[None].long() + torch.arange(
         d_win, device=ring.device)[:, None, None, None]             # [D, A, n, K]
     vals = torch.movedim(vals, 0, 2).reshape(a, n, d_win * k)
     delays = torch.movedim(delays, 0, 2).reshape(a, n, d_win * k)
-    return _deposit(ring, vals, delays, t0, onehot=(backend == "onehot"))
+    return _deposit_onehot(ring, vals, delays, t0)
 
 
 # ---------------------------------------------------------------------------

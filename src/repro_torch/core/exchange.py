@@ -982,7 +982,14 @@ def priced_inter_table_report(
     a network holding only the replicated outgoing tables gets its sharded
     slices cut (:func:`~repro_torch.core.connectivity.shard_inter_tables`)
     and keeps its replicated ones, so the report never falls back to the
-    width bound's slack for either side."""
+    width bound's slack for either side. A shape-only network (meta
+    tensors) has nothing to cut: it must carry its inbound slices
+    (``network_sds(inter_shards=...)``), as the dry run gives it."""
+    if net.k_inter > 0 and net.tgt_inter_in is None and net.device.type == "meta":
+        raise ValueError(
+            "priced_inter_table_report: a shape-only (meta) network has no tables to "
+            "cut; build it with network_sds(inter_shards=...) so it carries the "
+            "inbound slices")
     if net.k_inter > 0 and net.tgt_inter is not None and net.tgt_inter_in is None:
         from repro_torch.core import connectivity as connectivity_lib
 

@@ -32,6 +32,10 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
     # its JAX counterpart (partition.py included, which is pure numpy there).
     assert {"repro_torch.core.mesh", "repro_torch.core.comm", "repro_torch.core.partition",
             "repro_torch.core.dist_engine"} <= set(mods)
+    # The paper's driver and the dry-run tooling, with their own copies of
+    # the cost model and the byte arithmetic.
+    assert {"repro_torch.mam_simulation", "repro_torch.core.cost_model",
+            "repro_torch.launch.dryrun"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
