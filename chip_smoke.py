@@ -233,7 +233,30 @@ card from seed 0, f32 products in f32):
     spills and shared memory from the build report;
 15. ``[cpu]`` reduced qwen2-0.5b in f32 on the card against the CPU, with
     ``FLASH_THRESHOLD`` lowered so the forward runs the kernel: the forward
-    (<= 1e-4) and prefill + 4 decode steps (<= 5e-4).
+    (<= 1e-4) and prefill + 4 decode steps (<= 5e-4);
+16. ``[train]`` LM training, no kernel launch on its path (the streaming
+    attention under autograd; ``flash_attention`` refuses grad): (a) the
+    sync trainer (``make_train_artifacts``) on qwen2-0.5b as published
+    (bf16 parameters, f32 moments, remat "dots"), B 8 x S 4096 in 4
+    microbatches, the same batch: 1 warm-up + 3 timed steps, finite losses
+    and grad norms, the loss falling, ms/step, tokens/s, the peak memory and
+    the profile of a one-microbatch step; (b) the hierarchical trainer, 2 pods, int8
+    every 2 steps, 2 x 4096 a pod, 4 steps: replicas differ before each
+    sync and are equal after it, residuals nonzero; ms per local step and
+    sync, the int8 payload's bytes; (c) ``python -m
+    repro_torch.launch.train`` at that config (B 4 x S 4096, 4 steps,
+    checkpoints every 2), then its step-2 checkpoint ``--resume``d to 4
+    by a second run: the resumed losses print as the uninterrupted run's and its step-4
+    checkpoint is bitwise the uninterrupted one (the CLI runs
+    deterministic algorithms); the step-2 state restored on the card is
+    bitwise the saved one; bytes, restore and save seconds; (d) reduced
+    qwen2-0.5b and olmo-1b in f32, the sync and the hierarchical trainer,
+    card == CPU (losses and grad norms <= 1e-4 relative, parameters
+    within 2 x lr x steps and 99% within 1e-5 of the largest, plus an int8
+    grid step after the sync); (e) olmo-1b (16 layers) and gemma3-27b (6 of its 62
+    layers, one 5:1 period) at full width: bf16 with the kernel, B 1 x S
+    4096, ``n_layers`` launches a forward and ms/forward; in f32 the kernel
+    against the streaming path (<= 1e-4).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -245,6 +268,7 @@ import copy
 import dataclasses
 import gc
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -2654,6 +2678,403 @@ def phase_lm_device_vs_cpu() -> None:
 
 
 # ---------------------------------------------------------------------------
+# [train]: LM training (loss, autograd, AdamW, the hierarchical trainer, the
+# CLI) at qwen2-0.5b's published width, depth and dtypes; gemma3 and olmo
+# forwards at full width.
+
+TRAIN_SEQ = 4096  # SHAPES["train_4k"]'s length
+
+
+def _trainer(bundle, opt_cfg, **kw):
+    """Training artifacts, weights drawn on the card from seed 0 (trainable)
+    and their AdamW state."""
+    import torch
+
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.train.steps import make_train_artifacts
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = bundle.model.init_params(gen).requires_grad_()
+    return make_train_artifacts(bundle, opt_cfg, **kw), params, adamw_init(params, opt_cfg)
+
+
+def _no_flash(before, what):
+    from repro_torch.kernels import cuda
+
+    if dict(cuda.launches) != before:
+        raise AssertionError(f"{what} launched a kernel: {dict(cuda.launches)}, before {before}")
+
+
+def phase_train_sync() -> None:
+    """(a) The sync trainer on qwen2-0.5b as published (bf16 parameters, f32
+    moments, remat "dots"), S 4096, global batch 8 in 4 microbatches, the
+    same batch every step: 1 warm-up + 3 timed steps, finite losses and
+    grad norms, the loss falling (and under the reference test's bar, loss
+    + 0.5), no kernel launch; then the profile of a one-microbatch step."""
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.pipeline import SyntheticLM, host_batch
+    from repro_torch.kernels import cuda
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.steps import make_train_artifacts
+
+    bundle = get_arch("qwen2-0.5b")
+    cfg = bundle.cfg
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=1, moment_dtype=bundle.moment_dtype)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    art, params, opt = _trainer(bundle, opt_cfg, n_micro=4)
+    b = 8
+    batch = host_batch(SyntheticLM(cfg.vocab, TRAIN_SEQ, b, seed=0).batch(0), "cuda")
+    before = dict(cuda.launches)
+    losses, gnorms, times = [], [], []
+    for i in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = art.step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+    _no_flash(before, "the training step")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    ms = 1e3 * statistics.mean(times[1:])
+    log(f"[train] (a) qwen2-0.5b sync trainer, {cfg.param_dtype} params, "
+        f"{opt_cfg.moment_dtype} moments, remat {cfg.remat!r}, B {b} x S {TRAIN_SEQ} in 4 "
+        f"microbatches, the same batch: losses {[round(x, 4) for x in losses]}, grad norms "
+        f"{[round(x, 3) for x in gnorms]}; {ms:.1f} ms/step (mean of 3 after 1; "
+        f"{[round(1e3 * t, 1) for t in times]}), {b * TRAIN_SEQ / ms * 1e3:,.0f} tokens/s, "
+        f"{6 * cfg.param_count() * b * TRAIN_SEQ / ms / 1e9:.1f} TFLOP/s of 6ND, peak "
+        f"{peak:.2f} GB (max_memory_allocated), flash_attention launches 0; {card_name_power()}")
+    if not all(map(math.isfinite, losses + gnorms)):
+        raise AssertionError(f"(a): non-finite losses {losses} or grad norms {gnorms}")
+    if not (losses[-1] < losses[0] and losses[1] < losses[0] + 0.5):
+        raise AssertionError(f"(a): the loss does not fall on the repeated batch: {losses}")
+    # The profile of a step of one microbatch (2 x 4096 and the AdamW
+    # update): the trace of all four takes about a minute to process.
+    one = make_train_artifacts(bundle, opt_cfg)
+    micro = {k: v[:2] for k, v in batch.items()}
+    kernels = profile_window("qwen2-0.5b train step, one microbatch (2 x 4096)",
+                             lambda: one.step_fn(params, opt, micro), what="step")
+    busy = sum(k[0] for k in kernels)
+    gemm = sum(k[0] for k in kernels
+               if any(w in k[2].lower() for w in ("gemm", "nvjet", "xmma", "cutlass")))
+    log(f"[train] (a) step device time: matrix products {gemm / 1e3:.1f} ms "
+        f"({100 * gemm / busy:.1f}%), other {(busy - gemm) / 1e3:.1f} ms")
+    del art, one, params, opt, batch, micro, m
+    torch.cuda.empty_cache()
+
+
+def phase_train_hier() -> None:
+    """(b) The hierarchical trainer on qwen2-0.5b as published: 2 pods,
+    int8 slow tier every 2 steps, global batch 4 (2 a pod), S 4096, 4
+    steps. Before each sync the replicas differ; after it they are equal,
+    with a nonzero error residual (the reference's invariants,
+    tests/test_distributed.py:132-171, on one device)."""
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.pipeline import SyntheticLM, host_batch
+    from repro_torch.kernels import cuda
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.optim.hierarchical import HierarchicalConfig
+
+    bundle = get_arch("qwen2-0.5b")
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=1, moment_dtype=bundle.moment_dtype)
+    torch.cuda.reset_peak_memory_stats()
+    art, params, opt = _trainer(bundle, opt_cfg, n_pods=2,
+                                hier_cfg=HierarchicalConfig(sync_every=2, compression="int8"))
+    hier = art.hier
+    sync = hier.init_sync_state(params)
+    pparams, popt = hier.replicate(params), hier.replicate(opt)
+    del params, opt
+    torch.cuda.empty_cache()
+    ds = SyntheticLM(bundle.cfg.vocab, TRAIN_SEQ, 4, seed=1)
+    before = dict(cuda.launches)
+    local_ms, sync_ms, losses = [], [], []
+    for step in range(4):
+        batch = host_batch(ds.batch(step), "cuda", n_pods=2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pparams, popt, m = art.step_fn(pparams, popt, batch)
+        torch.cuda.synchronize()
+        local_ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append([round(float(x), 4) for x in m["loss"]])
+        if (step + 1) % 2:
+            continue
+        differ = sum(not torch.equal(x[0], x[1]) for x in pparams.parameters())
+        t0 = time.perf_counter()
+        pparams, sync = art.sync_fn(pparams, sync)
+        torch.cuda.synchronize()
+        sync_ms.append(1e3 * (time.perf_counter() - t0))
+        unequal = sum(not torch.equal(x[0], x[1]) for x in pparams.parameters())
+        ef = sum(bool(e.any()) for e in sync["ef"].values())
+        n = len(list(pparams.parameters()))
+        if not (differ > 0 and unequal == 0 and ef > 0):
+            raise AssertionError(f"(b) sync after step {step + 1}: {differ} of {n} leaves "
+                                 f"differed before, {unequal} after, {ef} residuals nonzero")
+    _no_flash(before, "the hierarchical trainer")
+    log(f"[train] (b) qwen2-0.5b hierarchical trainer, 2 pods, int8 every 2 steps, B 2 x S "
+        f"{TRAIN_SEQ} a pod: per-pod losses {losses}; local step (both pods) "
+        f"{[round(x, 1) for x in local_ms]} ms, sync {[round(x, 2) for x in sync_ms]} ms; "
+        f"int8 payload {hier.wire_bytes / 2:,.0f} B a pod ({hier.wire_bytes:,} B both); "
+        f"replicas differed before each sync and were equal after it, residuals nonzero; "
+        f"peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; {card_name_power()}")
+    del pparams, popt, sync, art, m
+    torch.cuda.empty_cache()
+
+
+def _same_as_saved(tree, path: str) -> bool:
+    """Every tensor leaf of ``tree`` (keyed as the checkpoint keys it)
+    bitwise the array saved under its key in ``path``, bf16 as its bits."""
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint.manager import _leaves
+
+    with np.load(path) as saved:
+        for key, leaf in _leaves(tree):
+            x = leaf.detach().cpu()
+            if x.dtype == torch.bfloat16:
+                x = x.view(torch.int16)
+            if not np.array_equal(x.numpy().view(saved[key].dtype), saved[key]):
+                return False
+        return sorted(saved.files) == sorted(k for k, _ in _leaves(tree))
+
+
+def _npz_equal(a: str, b: str) -> bool:
+    import numpy as np
+
+    with np.load(a) as x, np.load(b) as y:
+        return sorted(x.files) == sorted(y.files) and all(
+            np.array_equal(x[k], y[k]) for k in x.files)
+
+
+def phase_train_cli() -> None:
+    """(c) ``python -m repro_torch.launch.train`` at qwen2-0.5b's published
+    config: 4 steps of B 4 x S 4096 checkpointed every 2; that run's step-2
+    checkpoint, alone in a directory, resumed to step 4 by a second run.
+    The step is deterministic (the CLI sets
+    torch.use_deterministic_algorithms), so the resumed run's step-3/4
+    losses print as the uninterrupted run's and its step-4 checkpoint is
+    bitwise the uninterrupted one; the restored state is bitwise the saved
+    one (restored on the card and saved again), with the checkpoint's bytes
+    and the save and restore seconds."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.train import train_state_tree
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+
+    src = str(Path(__file__).resolve().parent / "src")
+    env = {**os.environ, "PYTHONPATH": src}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    log(f"[train] (c) checkpoints under {tmp}: {shutil.disk_usage(tmp).free / 1e9:.1f} GB free")
+    base = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "qwen2-0.5b",
+            "--global-batch", "4", "--seq-len", str(TRAIN_SEQ), "--ckpt-every", "2",
+            "--log-every", "1"]
+    step_line = re.compile(r"^step\s+(\d+) loss\s+(\S+)", re.M)
+
+    def run(what, *argv):
+        t0 = time.perf_counter()
+        out = subprocess.run([*base, *argv], capture_output=True, text=True, env=env,
+                             timeout=600)
+        for line in out.stdout.splitlines():
+            if line.strip():
+                log(f"[train] (c) {what}: {line}")
+        if out.returncode != 0:
+            raise AssertionError(f"(c) {what}: exit {out.returncode}\n{out.stderr[-3000:]}")
+        log(f"[train] (c) {what}: exit 0 in {time.perf_counter() - t0:.1f} s")
+        return dict(step_line.findall(out.stdout))
+
+    def npz(d, step):
+        return os.path.join(d, f"step_{step:08d}", "arrays.npz")
+
+    try:
+        full_dir, cut_dir = os.path.join(tmp, "full"), os.path.join(tmp, "cut")
+        full = run("uninterrupted", "--steps", "4", "--ckpt-dir", full_dir)
+        if sorted(full) != ["1", "2", "3", "4"]:
+            raise AssertionError(f"(c) the uninterrupted run's steps: {full}")
+        os.makedirs(cut_dir)
+        shutil.copytree(os.path.join(full_dir, f"step_{2:08d}"),
+                        os.path.join(cut_dir, f"step_{2:08d}"))
+        # The restore on the card, timed, held to the saved arrays; then the
+        # restored state saved again, timed.
+        bundle = get_arch("qwen2-0.5b")
+        meta = bundle.model.init_params(None, device="meta")
+        like = train_state_tree(meta, adamw_init(meta, AdamWConfig(
+            moment_dtype=bundle.moment_dtype)))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restored, step = ckpt.restore(cut_dir, like, device="cuda")
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(npz(cut_dir, 2))
+        if not _same_as_saved(restored, npz(cut_dir, 2)):
+            raise AssertionError("(c) the state restored on the card differs from the saved one")
+        t0 = time.perf_counter()
+        ckpt.save(os.path.join(tmp, "again"), step, restored)
+        save_s = time.perf_counter() - t0
+        del restored
+        shutil.rmtree(os.path.join(tmp, "again"))
+        log(f"[train] (c) checkpoint of step 2: {nbytes:,} B; restored onto the card in "
+            f"{restore_s:.2f} s, saved again (device to host + write) in {save_s:.2f} s, "
+            f"bitwise the saved state; {card_name_power()}")
+        resumed = run("resumed", "--steps", "4", "--ckpt-dir", cut_dir, "--resume")
+        want = {k: v for k, v in full.items() if int(k) > 2}
+        if resumed != want:
+            raise AssertionError(f"(c) resumed losses {resumed} against {want}")
+        if not _npz_equal(npz(cut_dir, 4), npz(full_dir, 4)):
+            raise AssertionError("(c) the resumed run's step-4 checkpoint differs")
+        log(f"[train] (c) the resumed run's steps 3-4 {resumed} print as the uninterrupted "
+            f"run's, and its step-4 checkpoint is bitwise the uninterrupted one")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _train_small(arch, mode, device):
+    """Reduced ``arch`` in f32 from weights drawn on the CPU (seed 0): 3
+    sync steps, or 3 hierarchical steps (2 pods, int8) and a sync. Returns
+    the losses, grad norms and final parameters on the host."""
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.pipeline import SyntheticLM, host_batch
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.optim.hierarchical import HierarchicalConfig
+    from repro_torch.train.steps import make_train_artifacts
+
+    bundle = get_arch(arch, reduced=True)
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=2)
+    hier = HierarchicalConfig(sync_every=3, compression="int8") if mode == "hier" else None
+    art = make_train_artifacts(bundle, opt_cfg, hier_cfg=hier, n_pods=2)
+    params = bundle.model.init_params(torch.Generator().manual_seed(0))
+    params = params.to(device).requires_grad_()
+    opt = adamw_init(params, opt_cfg)
+    if hier is not None:
+        sync = art.hier.init_sync_state(params)
+        params, opt = art.hier.replicate(params), art.hier.replicate(opt)
+    ds = SyntheticLM(bundle.cfg.vocab, 32, 4, seed=2)
+    metrics = []
+    for step in range(3):
+        batch = host_batch(ds.batch(step), device, n_pods=None if hier is None else 2)
+        params, opt, m = art.step_fn(params, opt, batch)
+        metrics.append(torch.stack([m["loss"].reshape(-1), m["grad_norm"].reshape(-1)]).cpu())
+    if hier is not None:
+        params, sync = art.sync_fn(params, sync)
+    return metrics, {n: p.detach().cpu() for n, p in params.named_parameters()}
+
+
+def phase_train_device_vs_cpu() -> None:
+    """(d) Reduced qwen2-0.5b and olmo-1b in f32, the sync trainer and the
+    hierarchical one, on the card against the CPU: losses and grad norms
+    within 1e-4 relative at every step; the parameters under the CPU
+    tests' bar: every element within 2 * lr * steps (AdamW's normalised
+    step can flip with a gradient's sign within rounding of zero), and 99%
+    within 1e-5 of the largest parameter, plus one step of an int8 grid
+    spanning 2 * lr * steps after the int8 sync."""
+    from repro_torch.kernels import cuda
+
+    lr, steps = 1e-3, 3
+    worst = {}
+    for arch in ("qwen2-0.5b", "olmo-1b"):
+        for mode in ("sync", "hier"):
+            before = dict(cuda.launches)
+            card, p_card = _train_small(arch, mode, "cuda")
+            _no_flash(before, f"reduced {arch} {mode}")
+            host, p_host = _train_small(arch, mode, "cpu")
+            err = max(float((c - h).abs().max() / h.abs().max()) for c, h in zip(card, host))
+            diffs = [(p_card[n] - x).abs() for n, x in p_host.items()]
+            top = max(float(x.abs().max()) for x in p_host.values())
+            bar = 1e-5 * top + (2 * lr * steps / 127 if mode == "hier" else 0.0)
+            perr = max(float(d.max()) for d in diffs)
+            close = sum(int((d <= bar).sum()) for d in diffs) / sum(d.numel() for d in diffs)
+            worst[f"{arch} {mode}"] = (err, perr, close, bar)
+            if not (err < 1e-4 and perr <= 2 * lr * steps and close >= 0.99):
+                raise AssertionError(f"(d) {arch} {mode}: metrics rel {err}, params max "
+                                     f"{perr}, {close:.4%} within {bar:.3g}")
+    log("[train] (d) reduced f32, card vs cpu (losses and grad norms rel, bar 1e-4; params "
+        f"max abs, bar {2 * lr * steps:g}; share within 1e-5 of the largest (+ an int8 grid "
+        "step after a sync), bar 99%): " + ", ".join(
+            f"{k} {e:.3g} / {p:.3g} / {c:.4%} within {b:.3g}"
+            for k, (e, p, c, b) in worst.items()))
+
+
+def phase_train_forwards() -> None:
+    """(e) olmo-1b (16 layers) and gemma3-27b (6 of its 62 layers, one 5:1
+    period) at full width: bf16 with the kernel, B 1 x S 4096, exactly
+    ``n_layers`` flash_attention launches a forward and ms/forward; in f32
+    the kernel against the streaming path (<= 1e-4 of the largest logit).
+    gemma3's 1024-token windows run the kernel's window path at d_head 128."""
+    import torch
+
+    from repro_torch.kernels import cuda
+
+    for arch, layers_kw in (("olmo-1b", {}), ("gemma3-27b", {"n_layers": 6})):
+        bundle, params = _lm(arch, use_pallas_attention=True, **layers_kw)
+        cfg = bundle.cfg
+        toks = _tokens(cfg.vocab, 1, TRAIN_SEQ)
+        times = []
+        with torch.inference_mode():
+            for i in range(3):
+                before = dict(cuda.launches)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, _ = bundle.model.forward(params, toks)
+                torch.cuda.synchronize()
+                if i:
+                    times.append(1e3 * (time.perf_counter() - t0))
+                _expect_launches(before, cfg.n_layers, 1, f"{arch} forward")
+            if not bool(torch.isfinite(logits).all()):
+                raise AssertionError(f"{arch} logits not finite")
+        ms = statistics.mean(times)
+        del logits, params
+        torch.cuda.empty_cache()
+        kernel, params = _lm(arch, param_dtype="float32", compute_dtype="float32",
+                             use_pallas_attention=True, **layers_kw)
+        plain = _bundle(arch, param_dtype="float32", compute_dtype="float32", **layers_kw)
+        with torch.inference_mode():
+            got, _ = kernel.model.forward(params, toks)
+            want, _ = plain.model.forward(params, toks)
+            err = rel_err(got, want)
+        log(f"[train] (e) {arch} ({cfg.n_layers} of {_bundle(arch).cfg.n_layers} layers, "
+            f"d_model {cfg.d_model}, windows {sorted(set(cfg.window_pattern))}) bf16 forward "
+            f"B 1 x S {TRAIN_SEQ}: {ms:.2f} ms (mean of 2 after 1; {[round(t, 2) for t in times]}),"
+            f" {TRAIN_SEQ / ms * 1e3:,.0f} tok/s, {cfg.n_layers} flash_attention launches a "
+            f"forward, logits finite; f32 kernel vs streaming path rel {err:.3g} (bar 1e-4)")
+        if not err <= 1e-4:
+            raise AssertionError(f"{arch} f32: kernel vs streaming {err} > 1e-4")
+        del got, want, params
+        torch.cuda.empty_cache()
+
+
+def phase_train() -> dict:
+    """(a)-(e); returns each kernel's launches in this process over the
+    training legs (a), (b), (d) (none: they launch no kernel) and over
+    the forwards (e). (c)'s CLI runs in subprocesses."""
+    from repro_torch.kernels import cuda
+
+    t0 = time.perf_counter()
+    before = dict(cuda.launches)
+    for leg in (phase_train_sync, phase_train_hier, phase_train_cli,
+                phase_train_device_vs_cpu):
+        leg()
+        log(f"[time] [train] {leg.__name__} done at {time.perf_counter() - t0:.1f} s")
+    mid = dict(cuda.launches)
+    phase_train_forwards()
+    after = dict(cuda.launches)
+    log(f"[train] all phases in {time.perf_counter() - t0:.1f} s")
+    return {k: {"training": mid[k] - before[k], "forwards": after[k] - mid[k]}
+            for k in cuda.KERNELS}
+
+
+# ---------------------------------------------------------------------------
 # [dist]: the distributed engine, four gloo ranks sharing the card
 # ---------------------------------------------------------------------------
 
@@ -3329,6 +3750,14 @@ def dist_rank_main(rank: int, tmp: str, port: int) -> int:
     return 0
 
 
+_T0 = time.perf_counter()
+
+
+def lap(phase: str) -> None:
+    """The script's elapsed time at the end of ``phase``."""
+    log(f"[time] {phase} done at {time.perf_counter() - _T0:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -3340,18 +3769,24 @@ def main() -> int:
     from repro_torch.core import mam_benchmark_spec
 
     device = phase_device()
+    lap('phase_device')
     phase_build()
+    lap('phase_build')
     spec = mam_benchmark_spec(n_areas=4, n_per_area=130_000, k_intra=3000, k_inter=3000)
     net = phase_build_network(spec)
+    lap('phase_build_network')
     pallas = phase_main_path(spec, net)
+    lap('phase_main_path')
     dist_refs = dist_references(pallas)
     event_launches = phase_event_runs(spec, net, pallas)
+    lap('phase_event_runs')
     steady, lif_steady_start = phase_lif_steady(spec, net, pallas["lif_start"])
     block, ring = pallas["iaf_store"][-1]  # the iaf runs' last window, from t0 = 5 D
     event_row = phase_kernel_event(
         net, {"iaf": (block, ring, 5 * net.delay_ratio, False), "steady": (*steady, True)},
         event_launches)
     phase_resilience(spec, net, lif_steady_start)
+    lap('phase_resilience')
     del lif_steady_start
     # The outgoing tables and the runs' stores go before the kernel phases'
     # large temporaries.
@@ -3362,6 +3797,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     log(f"[full] outgoing tables freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
     rows = phase_kernels(net, launches, profiled) + [event_row]
+    lap('phase_kernels')
     log(f"[kernel] peak in the kernel phases after the outgoing tables were freed: "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     del net
@@ -3369,6 +3805,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"[cli] the network freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
     routed_launches = phase_dist(dist_refs)
+    lap('phase_dist')
     del dist_refs
     # Kernels 1, 2 and 6 on the routed paths ([dist] (c)/(d), rank 0's
     # launches in each run), beside their main-path counts.
@@ -3376,21 +3813,34 @@ def main() -> int:
         if row["name"] in routed_launches:
             row["routed_launches"] = routed_launches[row["name"]]
     phase_cli()
+    lap('phase_cli')
     phase_serve()
+    lap('phase_serve')
     mam_launches = phase_mam()
+    lap('phase_mam')
     phase_dryrun()
+    lap('phase_dryrun')
     phase_device_vs_cpu()
+    lap('phase_device_vs_cpu')
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 products in f32 (the default,
     torch.backends.cudnn.allow_tf32 = False        # stated): the f32 bars assume it
     lm_launches = phase_lm_main()
+    lap('phase_lm_main')
     phase_lm_f32()
+    lap('phase_lm_f32')
     phase_lm_serve()
+    lap('phase_lm_serve')
     phase_lm_danube()
+    lap('phase_lm_danube')
     rows.append(phase_kernel_flash(lm_launches))
     phase_lm_device_vs_cpu()
+    lap('phase_lm_device_vs_cpu')
+    train_launches = phase_train()
+    lap('phase_train')
     # Each kernel's launches on the MAM driver's routes ([mam] (b)).
     for row in rows:
         row["mam_launches"] = {route: n[row["name"]] for route, n in mam_launches.items()}
+        row["train_launches"] = train_launches[row["name"]]
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0

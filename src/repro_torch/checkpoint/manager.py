@@ -1,7 +1,8 @@
 """Checkpointing: atomic, async-capable, in the JAX package's on-disk format.
 
 Port of ``repro.checkpoint.manager`` (``save``, ``restore``,
-``read_manifest``, ``latest_step``, ``AsyncWriter``). One ``step_<N>/``
+``read_manifest``, ``latest_step``, ``AsyncWriter``,
+``elastic_pod_resize``). One ``step_<N>/``
 directory holds ``arrays.npz`` (leaves keyed by their tree paths) and
 ``manifest.json`` (``step``, ``keys``, ``shapes``, ``dtypes``, ``extra``).
 Writes go to ``<dir>.tmp`` and are renamed atomically, so a crash mid-write
@@ -42,6 +43,7 @@ __all__ = [
     "read_manifest",
     "latest_step",
     "AsyncWriter",
+    "elastic_pod_resize",
 ]
 
 
@@ -97,11 +99,13 @@ def _from_numpy(arr: np.ndarray, dtype_str: str, like, device):
     """The stored ``arr`` as a leaf of ``like``'s kind and dtype; tensors go
     straight to ``device`` (``like``'s device when None)."""
     if isinstance(like, torch.Tensor):
+        # (ascontiguousarray makes a 0-d array 1-d: the reshape keeps scalars 0-d)
         if dtype_str == "bfloat16":
-            host = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)).view(torch.bfloat16)
+            host = torch.from_numpy(
+                np.ascontiguousarray(arr).reshape(arr.shape).view(np.int16)).view(torch.bfloat16)
         else:
             want = torch.empty(0, dtype=like.dtype).numpy().dtype
-            host = torch.from_numpy(np.ascontiguousarray(arr, dtype=want))
+            host = torch.from_numpy(np.ascontiguousarray(arr, dtype=want).reshape(arr.shape))
         return host.to(device=like.device if device is None else device, dtype=like.dtype)
     if isinstance(like, (np.ndarray, np.generic)):
         return np.asarray(arr, dtype=like.dtype)
@@ -178,8 +182,7 @@ def restore(directory: str, like: Any, step: int | None = None, *,
         if tuple(arr.shape) != _shape(leaf):
             raise ValueError(
                 f"checkpoint leaf {key}: shape {arr.shape} != expected "
-                f"{_shape(leaf)} (a pod-count change needs elastic_pod_resize, "
-                f"not ported yet: ROADMAP training)")
+                f"{_shape(leaf)} (use elastic_pod_resize for pod-count changes)")
         return _from_numpy(arr, manifest["dtypes"].get(key, ""), leaf, device)
 
     return _rebuild(like, load), step
@@ -272,3 +275,21 @@ class AsyncWriter:
         self._worker.join()
         if self._errors:
             raise self._errors.pop(0)
+
+
+def elastic_pod_resize(tree_pods: Any, new_n_pods: int) -> Any:
+    """Re-target per-pod replicated state to a different pod count.
+
+    Leaves carry a leading [n_pods] axis; resizing averages the replicas in
+    f32 (the slow-tier sync point) and re-broadcasts in the leaf's dtype, so
+    resuming after a pod loss is semantically one early sync. Takes and
+    returns trees of dicts and dataclasses (tensor leaves stay on their
+    device; numpy leaves come back as numpy)."""
+    def resize(_key, x):
+        if isinstance(x, torch.Tensor):
+            mean = x.float().mean(dim=0)
+            return mean[None].expand((new_n_pods,) + tuple(mean.shape)).to(x.dtype).clone()
+        mean = np.asarray(x, dtype=np.float32).mean(axis=0)
+        return np.broadcast_to(mean[None], (new_n_pods,) + mean.shape).astype(x.dtype)
+
+    return _rebuild(tree_pods, resize)

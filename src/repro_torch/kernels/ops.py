@@ -214,6 +214,18 @@ def superstep_iaf(
 
 def flash_attention(q, k, v, window, k_len):
     """Causal (optionally windowed) GQA attention ``[B, Sq, H, Dh]`` over
-    k, v ``[B, Sk, Hkv, Dh]``; see :mod:`.flash_attention`."""
+    k, v ``[B, Sk, Hkv, Dh]``; see :mod:`.flash_attention`.
+
+    Forward only, on both devices: with grad mode on and an input that
+    requires grad it raises, because the kernel has no backward (its output
+    would carry no autograd history) and the JAX kernel cannot be
+    differentiated either. Training takes the streaming path
+    (``use_pallas_attention=False``), as the JAX configs do."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention is forward only: the kernel has no backward and the "
+            "JAX Pallas kernel cannot be differentiated either; train with "
+            "use_pallas_attention=False (the streaming path) or run under "
+            "torch.no_grad() / torch.inference_mode()")
     fn = _pick(q, _fa.flash_attention_plain, _fa.flash_attention_cuda)
     return fn(q, k, v, window, k_len)

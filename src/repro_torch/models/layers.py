@@ -16,6 +16,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.kernels import ops
@@ -36,11 +37,16 @@ __all__ = [
     "gqa_attention",
     "swiglu_init",
     "swiglu",
+    "cross_entropy",
+    "chunked_cross_entropy",
 ]
 
 
 def _param(x: torch.Tensor) -> nn.Parameter:
-    # The slice is forward only (no backward kernel yet): no autograd state.
+    # Frozen by default, for serving: training turns the weights on with
+    # ``TransformerParams.requires_grad_()``. The flash kernel has no
+    # backward (nor has the JAX one), so ``ops.flash_attention`` refuses
+    # inputs that require grad.
     return nn.Parameter(x, requires_grad=False)
 
 
@@ -64,12 +70,13 @@ class RMSNorm(nn.Module):
 
 
 def dense_init(
-    d_in: int, d_out: int, *, generator: torch.Generator, bias: bool = False,
-    dtype=torch.float32,
+    d_in: int, d_out: int, *, generator: torch.Generator | None, bias: bool = False,
+    dtype=torch.float32, device=None,
 ) -> Dense:
     """``normal(0, 1) / sqrt(d_in)`` drawn in f32, cast to ``dtype``; zero
-    bias. On ``generator``'s device."""
-    dev = generator.device
+    bias. On ``generator``'s device (``device`` without a generator, such as
+    ``meta`` for shapes alone)."""
+    dev = generator.device if generator is not None else device
     w = (torch.randn(d_in, d_out, generator=generator, device=dev)
          / math.sqrt(d_in)).to(dtype)
     return Dense(w, torch.zeros(d_out, dtype=dtype, device=dev) if bias else None)
@@ -290,10 +297,12 @@ def gqa_attention(
 
 def attention_init(
     d_model: int, n_heads: int, n_kv: int, d_head: int, *,
-    generator: torch.Generator, bias: bool = False, dtype=torch.float32,
+    generator: torch.Generator | None, bias: bool = False, dtype=torch.float32,
+    device=None,
 ) -> nn.ModuleDict:
     def make(d_in, d_out, b):
-        return dense_init(d_in, d_out, generator=generator, bias=b, dtype=dtype)
+        return dense_init(d_in, d_out, generator=generator, bias=b, dtype=dtype,
+                          device=device)
 
     return nn.ModuleDict({
         "q": make(d_model, n_heads * d_head, bias),
@@ -307,14 +316,73 @@ def attention_init(
 # feed-forward
 
 
-def swiglu_init(d_model: int, d_ff: int, *, generator: torch.Generator,
-                dtype=torch.float32) -> nn.ModuleDict:
+def swiglu_init(d_model: int, d_ff: int, *, generator: torch.Generator | None,
+                dtype=torch.float32, device=None) -> nn.ModuleDict:
+    kw = dict(generator=generator, dtype=dtype, device=device)
     return nn.ModuleDict({
-        "gate": dense_init(d_model, d_ff, generator=generator, dtype=dtype),
-        "up": dense_init(d_model, d_ff, generator=generator, dtype=dtype),
-        "down": dense_init(d_ff, d_model, generator=generator, dtype=dtype),
+        "gate": dense_init(d_model, d_ff, **kw),
+        "up": dense_init(d_model, d_ff, **kw),
+        "down": dense_init(d_ff, d_model, **kw),
     })
 
 
 def swiglu(p: nn.ModuleDict, x: torch.Tensor) -> torch.Tensor:
     return dense(p["down"], F.silu(dense(p["gate"], x)) * dense(p["up"], x))
+
+
+# ---------------------------------------------------------------------------
+# loss
+
+
+def cross_entropy(
+    logits: torch.Tensor,              # [B, S, V]
+    labels: torch.Tensor,              # [B, S] int
+    mask: torch.Tensor | None = None,  # [B, S] bool
+) -> torch.Tensor:
+    """Mean next-token cross entropy, f32 accumulation."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        nll = nll * mask
+        return nll.sum() / torch.clamp(mask.sum(), min=1)
+    return nll.mean()
+
+
+def _chunk_nll(unembed_fn, h_i: torch.Tensor, y_i: torch.Tensor) -> torch.Tensor:
+    logits = unembed_fn(h_i).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, y_i[..., None].long())[..., 0]
+    return (logz - gold).sum()
+
+
+def chunked_cross_entropy(
+    unembed_fn,
+    h: torch.Tensor,        # [B, S, D] final hidden states
+    labels: torch.Tensor,   # [B, S]
+    chunk: int = 1024,
+) -> torch.Tensor:
+    """CE without ever materialising the full ``[B, S, V]`` logits.
+
+    The unembedding and the log-softmax run per sequence chunk in a Python
+    loop (one chunk when ``S % chunk``), summed in f32 and divided by
+    ``B * S``, as the JAX scan does. Under autograd each chunk is a
+    checkpoint: only its hidden states are kept, and the backward recomputes
+    its ``[B, chunk, V]`` logits, so one chunk's logits exist at a time in
+    the backward too (the unembedding weight's gradient accumulates over the
+    chunks)."""
+    b, s, _ = h.shape
+    if s % chunk != 0:
+        chunk = s
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    remat = torch.is_grad_enabled()
+    for c0 in range(0, s, chunk):
+        h_i, y_i = h[:, c0:c0 + chunk], labels[:, c0:c0 + chunk]
+        if remat:
+            nll = torch.utils.checkpoint.checkpoint(_chunk_nll, unembed_fn, h_i, y_i,
+                                                    use_reentrant=False)
+        else:
+            nll = _chunk_nll(unembed_fn, h_i, y_i)
+        total = total + nll
+    return total / (b * s)

@@ -9,6 +9,14 @@ argument. Layers run in a Python loop where JAX scans; the per-layer window
 sizes and rope bases stay data (``window_array`` / ``theta_array``, on the
 host, so reading one costs no device synchronisation).
 
+Training: the weights are frozen as drawn; ``params.requires_grad_()``
+(``nn.Module``'s own switch) makes them trainable, and ``hidden`` then
+honours ``cfg.remat`` around each layer as the JAX group body does
+(:func:`_dots_policy` says what ``"dots"`` keeps). :func:`to_jax_layout` /
+:func:`from_jax_layout` map the parameters (or anything keyed by their
+names, such as optimizer moments) to the JAX tree and back, so checkpoints
+of training state cross between the packages.
+
 The dense paths are ported; a config with ``moe`` raises (MoE is a later
 slice of the LM stack).
 """
@@ -16,16 +24,19 @@ slice of the LM stack).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Mapping
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.models import layers
 
-__all__ = ["TransformerConfig", "Transformer", "TransformerParams", "params_from_numpy"]
+__all__ = ["TransformerConfig", "Transformer", "TransformerParams", "params_from_numpy",
+           "params_to_numpy", "to_jax_layout", "from_jax_layout"]
 
 _MOE_TODO = ("MoE layers (models/moe.py: llama4, grok) are not ported to repro_torch "
              "yet (ROADMAP: LM stack, MoE)")
@@ -105,10 +116,35 @@ class TransformerConfig:
         return n + self.n_layers * per_dense
 
 
+_DOTS_SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``remat="dots"``: the JAX ``checkpoint_dots_with_no_batch_dims``.
+
+    Saves the outputs of ``aten.mm`` and ``aten.addmm``, the products
+    without a batch dimension: every weight product (``x @ w`` on a
+    ``[B, S, D]`` activation folds to ``mm`` of ``[B*S, D]``). Everything
+    else is recomputed in the backward, attention's batched products
+    (``aten.bmm``) and the elementwise work included."""
+    if op in _DOTS_SAVED:
+        return torch.utils.checkpoint.CheckpointPolicy.MUST_SAVE
+    return torch.utils.checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+# torch.utils.checkpoint arguments per cfg.remat ('none' checkpoints nothing).
+_REMAT = {
+    "full": {},
+    "dots": {"context_fn": functools.partial(
+        torch.utils.checkpoint.create_selective_checkpoint_contexts, _dots_policy)},
+}
+
+
 class TransformerParams(nn.Module):
     """The weights: ``embed`` ``[V, D]``, ``layers[i]`` (a ``ModuleDict`` of
     ``attn``, ``ffn`` and, for RMS norms, ``ln1`` / ``ln2``), ``final_norm``
-    and, untied, ``lm_head`` ``[D, V]``."""
+    and, untied, ``lm_head`` ``[D, V]``. Frozen as made; training calls
+    ``requires_grad_()``."""
 
     def __init__(self, embed: torch.Tensor, layer_list: list[nn.ModuleDict],
                  final_norm: layers.RMSNorm | None, lm_head: torch.Tensor | None):
@@ -127,12 +163,16 @@ class Transformer:
 
     # ------------------------------------------------------------------ init
 
-    def init_params(self, generator: torch.Generator) -> TransformerParams:
+    def init_params(self, generator: torch.Generator | None, *,
+                    device=None) -> TransformerParams:
         """Weights on ``generator``'s device, drawn with the JAX package's
         distributions and scales (embedding N(0, 0.02^2), dense N(0, 1/d_in),
-        lm_head N(0, 1/d_model), zero biases, unit norm scales)."""
+        lm_head N(0, 1/d_model), zero biases, unit norm scales). Without a
+        generator they go to ``device``: ``"meta"`` gives the shapes and
+        dtypes alone (the JAX package's ``eval_shape``)."""
         cfg = self.cfg
-        pd, dev = cfg.pdtype, generator.device
+        pd = cfg.pdtype
+        dev = generator.device if generator is not None else device
         embed = (torch.randn(cfg.vocab, cfg.d_model, generator=generator, device=dev)
                  * 0.02).to(pd)
         layer_list = []
@@ -140,9 +180,9 @@ class Transformer:
             sub = nn.ModuleDict({
                 "attn": layers.attention_init(
                     cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.d_head,
-                    generator=generator, bias=cfg.qkv_bias, dtype=pd),
+                    generator=generator, bias=cfg.qkv_bias, dtype=pd, device=dev),
                 "ffn": layers.swiglu_init(cfg.d_model, cfg.d_ff, generator=generator,
-                                          dtype=pd),
+                                          dtype=pd, device=dev),
             })
             if cfg.norm == "rms":
                 sub["ln1"] = layers.rms_norm_init(cfg.d_model, pd, dev)
@@ -169,25 +209,43 @@ class Transformer:
 
     # ------------------------------------------------------------- layers
 
+    def _layer(self, sub, h, positions, theta, window, kv=None, cache_index=None,
+               cache_mode="inplace"):
+        """One layer (the JAX group body for a dense group of one)."""
+        cfg = self.cfg
+        attn_out, kv_i = layers.gqa_attention(
+            sub["attn"], self._norm(sub, "ln1", h), positions,
+            n_heads=cfg.n_heads, n_kv=cfg.n_kv, d_head=cfg.d_head,
+            rope_theta=theta, window=window,
+            kv_cache=kv, cache_index=cache_index, cache_mode=cache_mode,
+            use_pallas=cfg.use_pallas_attention)
+        h = h + attn_out
+        h = h + layers.swiglu(sub["ffn"], self._norm(sub, "ln2", h))
+        return h, kv_i
+
     def _layers(self, params, h, positions, *, cache=None, cache_index=None,
                 cache_mode="inplace"):
         """Every layer in order; with a cache, also each layer's new K/V
-        (fresh slices, or the whole updated cache in ``inplace`` mode)."""
+        (fresh slices, or the whole updated cache in ``inplace`` mode).
+        Without a cache and under autograd, each layer is a checkpoint as
+        ``cfg.remat`` asks."""
         cfg = self.cfg
         windows, thetas = cfg.window_array(), cfg.theta_array()
+        remat = cfg.remat if cache is None and torch.is_grad_enabled() else "none"
         new_kv = []
         for i, sub in enumerate(params.layers):
+            theta, window = thetas[i, 0], int(windows[i, 0])
+            if remat != "none":
+                h = torch.utils.checkpoint.checkpoint(
+                    lambda x, sub=sub, theta=theta, window=window:
+                        self._layer(sub, x, positions, theta, window)[0],
+                    h, use_reentrant=False, **_REMAT[remat])
+                continue
             kv = None
             if cache is not None:
                 kv = (cache["sub_0"]["k"][i], cache["sub_0"]["v"][i])
-            attn_out, kv_i = layers.gqa_attention(
-                sub["attn"], self._norm(sub, "ln1", h), positions,
-                n_heads=cfg.n_heads, n_kv=cfg.n_kv, d_head=cfg.d_head,
-                rope_theta=thetas[i, 0], window=int(windows[i, 0]),
-                kv_cache=kv, cache_index=cache_index, cache_mode=cache_mode,
-                use_pallas=cfg.use_pallas_attention)
-            h = h + attn_out
-            h = h + layers.swiglu(sub["ffn"], self._norm(sub, "ln2", h))
+            h, kv_i = self._layer(sub, h, positions, theta, window, kv, cache_index,
+                                  cache_mode)
             new_kv.append(kv_i)
         return h, new_kv
 
@@ -265,27 +323,88 @@ class Transformer:
 
 def params_from_numpy(cfg: TransformerConfig, tree: Mapping, device=None) -> TransformerParams:
     """The JAX parameter tree (numpy arrays; per-layer leaves with a leading
-    ``[n_groups]`` axis under ``layers.sub_0``) as the port's parameters."""
+    ``[n_groups]`` axis under ``layers.sub_0``) as the port's parameters:
+    the meta-device skeleton of ``cfg`` filled through
+    :func:`from_jax_layout` (shapes and names checked, frozen as made)."""
     def t(x) -> torch.Tensor:
         a = np.array(x)
         if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: torch reads no such numpy dtype
             return torch.from_numpy(a.astype(np.float32)).to(device, torch.bfloat16)
         return torch.from_numpy(a).to(device)
 
-    def dense(d: Mapping, i: int) -> layers.Dense:
-        return layers.Dense(t(d["w"][i]), t(d["b"][i]) if "b" in d else None)
+    def walk(node):
+        return {k: walk(v) for k, v in node.items()} if isinstance(node, Mapping) else t(node)
 
-    sub = tree["layers"]["sub_0"]
-    layer_list = []
-    for i in range(cfg.n_layers):
-        mods = nn.ModuleDict({
-            "attn": nn.ModuleDict({n: dense(sub["attn"][n], i) for n in ("q", "k", "v", "o")}),
-            "ffn": nn.ModuleDict({n: dense(sub["ffn"][n], i) for n in ("gate", "up", "down")}),
-        })
-        if cfg.norm == "rms":
-            mods["ln1"] = layers.RMSNorm(t(sub["ln1"]["scale"][i]))
-            mods["ln2"] = layers.RMSNorm(t(sub["ln2"]["scale"][i]))
-        layer_list.append(mods)
-    final_norm = layers.RMSNorm(t(tree["final_norm"]["scale"])) if cfg.norm == "rms" else None
-    lm_head = t(tree["lm_head"]) if "lm_head" in tree else None
-    return TransformerParams(t(tree["embed"]), layer_list, final_norm, lm_head)
+    params = Transformer(cfg).init_params(None, device="meta")
+    params.load_state_dict({n: x.clone() for n, x in from_jax_layout(walk(tree)).items()},
+                           assign=True)
+    return params
+
+
+def _jax_path(name: str) -> tuple[tuple[str, ...], int | None]:
+    """A parameter name (``layers.3.attn.q.w``) as its JAX tree path
+    (``layers/sub_0/attn/q/w``) and layer index (3; None off the layers)."""
+    parts = name.split(".")
+    if parts[0] == "layers":
+        return ("layers", "sub_0", *parts[2:]), int(parts[1])
+    return tuple(parts), None
+
+
+def to_jax_layout(named: Mapping[str, Any], lead: int = 0) -> dict:
+    """Tensors keyed by parameter name (``dict(params.named_parameters())``,
+    or optimizer moments keyed the same) as the JAX parameter tree: nested
+    dicts, each layer leaf stacked over the layers at axis ``lead`` (0, or 1
+    after the hierarchical trainer's pod axis)."""
+    tree: dict = {}
+    stacks: dict[tuple[str, ...], dict[int, Any]] = {}
+    for name, x in named.items():
+        path, i = _jax_path(name)
+        if i is None:
+            node = tree
+            for part in path[:-1]:
+                node = node.setdefault(part, {})
+            node[path[-1]] = x
+        else:
+            stacks.setdefault(path, {})[i] = x
+    for path, by_layer in stacks.items():
+        node = tree
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = torch.stack([by_layer[i] for i in sorted(by_layer)], dim=lead)
+    return tree
+
+
+def from_jax_layout(tree: Mapping, lead: int = 0) -> dict[str, Any]:
+    """The inverse of :func:`to_jax_layout`: tensors keyed by parameter name,
+    the layer leaves unstacked (views) along axis ``lead``."""
+    out: dict[str, Any] = {}
+
+    def walk(node, path):
+        if not isinstance(node, Mapping):
+            if path[0] == "layers":
+                rest = ".".join(path[2:])
+                for i, x in enumerate(torch.unbind(node, dim=lead)):
+                    out[f"layers.{i}.{rest}"] = x
+            else:
+                out[".".join(path)] = node
+            return
+        for k, v in node.items():
+            walk(v, path + (k,))
+
+    walk(tree, ())
+    return out
+
+
+def params_to_numpy(params: TransformerParams) -> dict:
+    """The inverse of :func:`params_from_numpy`: the port's parameters as the
+    JAX parameter tree of numpy arrays (layer leaves stacked
+    ``[n_groups, ...]`` under ``layers.sub_0``). numpy has no bfloat16, so a
+    bf16 leaf comes back as its exact float32 widening."""
+    def host(p: torch.Tensor) -> torch.Tensor:
+        x = p.detach().cpu()
+        return x.float() if x.dtype == torch.bfloat16 else x
+
+    def to_np(node):
+        return {k: to_np(v) for k, v in node.items()} if isinstance(node, dict) else node.numpy()
+
+    return to_np(to_jax_layout({n: host(p) for n, p in params.named_parameters()}))

@@ -755,3 +755,92 @@ def test_mam_driver_on_the_card_matches_the_cpu(dev, schedule):
     for leaf in ("v", "i_syn", "refrac"):
         assert torch.equal(getattr(card.state.neuron, leaf).cpu(),
                            getattr(host.state.neuron, leaf)), leaf
+
+
+# ---------------------------------------------------------------------------
+# LM training
+
+
+def _train_run(arch, mode, device, steps=3):
+    """Reduced ``arch`` in f32: ``steps`` steps of the sync trainer, or of
+    the hierarchical one (2 pods, int8) and a sync, from the weights drawn
+    on the CPU (seed 0) and the synthetic batches. Returns the per-step
+    losses and grad norms and the final parameters, on the host."""
+    import copy
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.pipeline import SyntheticLM, host_batch
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.optim.hierarchical import HierarchicalConfig
+    from repro_torch.train.steps import make_train_artifacts
+
+    bundle = get_arch(arch, reduced=True)
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=2)
+    hier = HierarchicalConfig(sync_every=steps, compression="int8") if mode == "hier" else None
+    art = make_train_artifacts(bundle, opt_cfg, hier_cfg=hier, n_pods=2)
+    params = copy.deepcopy(bundle.model.init_params(torch.Generator().manual_seed(0)))
+    params = params.to(device).requires_grad_()
+    opt = adamw_init(params, opt_cfg)
+    if hier is not None:
+        sync = art.hier.init_sync_state(params)
+        params, opt = art.hier.replicate(params), art.hier.replicate(opt)
+    ds = SyntheticLM(bundle.cfg.vocab, 32, 4, seed=2)
+    out = []
+    for step in range(steps):
+        batch = host_batch(ds.batch(step), device, n_pods=None if hier is None else 2)
+        params, opt, m = art.step_fn(params, opt, batch)
+        out.append((m["loss"].cpu(), m["grad_norm"].cpu()))
+    if hier is not None:
+        params, sync = art.sync_fn(params, sync)
+    return out, {n: p.detach().cpu() for n, p in params.named_parameters()}
+
+
+def _params_close(got, want, *, steps, int8, lr=1e-3) -> None:
+    """``tests/test_torch_train.py``'s bar for parameters after ``steps``
+    AdamW steps: every element within ``2 * lr * steps`` (the normalised
+    step can flip with the sign of a gradient within rounding of zero), and
+    99% of them within 1e-5 of the largest parameter, plus one step of an
+    int8 grid spanning ``2 * lr * steps`` after an int8 sync."""
+    top = max(float(x.abs().max()) for x in want.values())
+    bar = 1e-5 * top + (2 * lr * steps / 127 if int8 else 0.0)
+    close = total = 0
+    for name, x in want.items():
+        err = (got[name] - x).abs()
+        assert float(err.max()) <= 2 * lr * steps, name
+        close += int((err <= bar).sum())
+        total += err.numel()
+    assert close >= 0.99 * total, close / total
+
+
+@pytest.mark.parametrize("mode", ["sync", "hier"])
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "olmo-1b", "gemma3-27b"])
+def test_train_steps_on_the_card_match_the_cpu(dev, arch, mode):
+    """The training step (loss, autograd, AdamW, the int8 sync) card ==
+    CPU: losses and grad norms within 1e-4 relative at every step, the
+    parameters within ``tests/test_torch_train.py``'s bar; no kernel
+    launches."""
+    before = dict(cuda.launches)
+    card, p_card = _train_run(arch, mode, dev)
+    assert dict(cuda.launches) == before
+    host, p_host = _train_run(arch, mode, "cpu")
+    for (lc, gc), (lh, gh) in zip(card, host):
+        assert float((lc - lh).abs().max() / lh.abs().max()) < 1e-4
+        assert float((gc - gh).abs().max() / gh.abs().max()) < 1e-4
+    _params_close(p_card, p_host, steps=3, int8=mode == "hier")
+
+
+def test_flash_attention_refuses_grad_on_the_card(dev):
+    """The kernel has no backward: with an input that requires grad its
+    entry point raises before any launch; under ``no_grad`` it launches."""
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    q = torch.randn(1, 512, 2, 64, device=dev, generator=g).requires_grad_()
+    k, v = (torch.randn(1, 512, 1, 64, device=dev, generator=g) for _ in range(2))
+    before = cuda.launches["flash_attention"]
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.flash_attention(q, k, v, 0, 512)
+    assert cuda.launches["flash_attention"] == before
+    with torch.no_grad():
+        out = ops.flash_attention(q, k, v, 0, 512)
+    assert cuda.launches["flash_attention"] == before + 1 and not out.requires_grad

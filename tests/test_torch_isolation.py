@@ -36,6 +36,14 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
     # the cost model and the byte arithmetic.
     assert {"repro_torch.mam_simulation", "repro_torch.core.cost_model",
             "repro_torch.launch.dryrun"} <= set(mods)
+    # LM training: the optimizer, the slow tier, the data, the CLI and the
+    # example, and the configs registered with it (the data pipeline keeps
+    # its own copy of the numpy mixer).
+    assert {"repro_torch.optim", "repro_torch.optim.adamw", "repro_torch.optim.compress",
+            "repro_torch.optim.hierarchical", "repro_torch.optim.tree",
+            "repro_torch.data.pipeline", "repro_torch.launch.train",
+            "repro_torch.train_lm", "repro_torch.configs.olmo_1b",
+            "repro_torch.configs.gemma3_27b"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

@@ -19,12 +19,15 @@ import torch
 
 import repro.models.layers as jl
 from repro.configs.common import ShapeSpec as JShapeSpec
+from repro.configs.registry import arch_cells as jarch_cells
+from repro.configs.registry import arch_skips as jarch_skips
 from repro.configs.registry import get_arch as jget_arch
 from repro.models.transformer import Transformer as JTransformer
 from repro.models.transformer import TransformerConfig as JTransformerConfig
 from repro.train.steps import make_serve_artifacts as jmake_serve_artifacts
 from repro_torch.configs.common import ShapeSpec
-from repro_torch.configs.registry import NOT_PORTED, get_arch, list_archs
+from repro_torch.configs.registry import (
+    NOT_PORTED, arch_cells, arch_skips, get_arch, list_archs)
 from repro_torch.kernels import cuda
 from repro_torch.models import layers as tl
 from repro_torch.models.transformer import Transformer, TransformerConfig, params_from_numpy
@@ -191,8 +194,11 @@ def test_init_params_match_the_jax_tree():
                 assert torch.equal(x, y), name
 
 
+DENSE_ARCHS = ["qwen2-0.5b", "h2o-danube-1.8b", "olmo-1b", "gemma3-27b"]
+
+
 @pytest.mark.parametrize("path", ["dense", "streaming", "kernel"])
-@pytest.mark.parametrize("arch", ["qwen2-0.5b", "h2o-danube-1.8b"])
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
 def test_reduced_forward_matches_jax(arch, path, monkeypatch):
     """32 tokens: below the default FLASH_THRESHOLD the dense path; with it
     lowered to 16 in both packages, the streaming path or the kernel."""
@@ -227,7 +233,7 @@ def test_windowed_kernel_path_matches_streaming_and_jax(lowered_threshold):
     assert rel(kernel, np.asarray(want)) < 1e-4
 
 
-@pytest.mark.parametrize("arch", ["qwen2-0.5b", "h2o-danube-1.8b"])
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
 def test_prefill_and_decode_match_jax_serving_and_the_full_forward(arch):
     """16 prompt tokens, then 4 decode steps fed the same tokens on both
     sides; every step against JAX's make_serve_artifacts and against the
@@ -279,13 +285,20 @@ def test_inplace_cache_mode_decode_matches_append_slice():
 
 
 def test_registry_has_the_dense_archs_and_names_the_roadmap_for_the_rest():
-    assert sorted(list_archs()) == ["h2o-danube-1.8b", "qwen2-0.5b"]
+    assert sorted(list_archs()) == sorted(DENSE_ARCHS)
     for arch in list_archs():
-        jc, pc = jget_arch(arch).cfg, get_arch(arch).cfg
-        assert {f.name: getattr(pc, f.name) for f in dataclasses.fields(pc)} == \
-            {f.name: getattr(jc, f.name) for f in dataclasses.fields(jc)}
-        assert pc.param_count() == jc.param_count()
-    assert len(NOT_PORTED) == 8
+        for reduced in (False, True):
+            jb, pb = jget_arch(arch, reduced=reduced), get_arch(arch, reduced=reduced)
+            jc, pc = jb.cfg, pb.cfg
+            assert {f.name: getattr(pc, f.name) for f in dataclasses.fields(pc)} == \
+                {f.name: getattr(jc, f.name) for f in dataclasses.fields(jc)}
+            assert pc.param_count() == jc.param_count()
+            assert (pb.arch_id, pb.family, pb.moment_dtype, pb.extra_inputs) == \
+                (jb.arch_id, jb.family, jb.moment_dtype, jb.extra_inputs)
+        assert arch_skips(arch) == jarch_skips(arch)
+        cells = [(shape.name, skip) for shape, skip in arch_cells(arch)]
+        assert cells == [(shape.name, skip) for shape, skip in jarch_cells(arch)]
+    assert len(NOT_PORTED) == 6 and not set(NOT_PORTED) & set(list_archs())
     for arch in NOT_PORTED:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_arch(arch)
