@@ -256,7 +256,29 @@ card from seed 0, f32 products in f32):
     grid step after the sync); (e) olmo-1b (16 layers) and gemma3-27b (6 of its 62
     layers, one 5:1 period) at full width: bf16 with the kernel, B 1 x S
     4096, ``n_layers`` launches a forward and ms/forward; in f32 the kernel
-    against the streaming path (<= 1e-4).
+    against the streaming path (<= 1e-4);
+17. ``[families]`` the six other LM families at their published widths and
+   dtypes (bf16), weights drawn on the card from seed 0, each freed before
+   the next: llama4-maverick at 2 of its 48 layers (a dense and a
+   128-expert MoE sub-layer), grok-1 at 4 of 64, internvl2-76b at 8 of its
+   80 backbone layers (256 patches of 1024), mamba2-2.7b (64 layers),
+   zamba2-1.2b (38) and whisper-medium (24 + 24, 1500 frames) at their
+   published depths: (a) a forward at B 1 x S 4096, with
+   ``use_pallas_attention=True`` for the three transformer families, 1
+   warm-up + 2 timed, exactly 2 / 4 / 8 ``flash_attention`` launches a
+   forward (0 for the others; counts reset just before each architecture,
+   read just after its (b)), finite logits, ms, tok/s and peak GB, and the
+   MoE configs' dispatch / expert-product / combine times over one forward
+   (CUDA events around each stage of ``models.moe``; llama4's forward also
+   profiled); (b) ``serve_lm.serve`` at B 2, a 4096-token prompt (whisper
+   448; zamba2 4088, so its cache is 4096 positions), 8 tokens: prefill ms
+   and ms a decode step, after a warm-up; (c) internvl in f32 at 2
+   backbone layers: the kernel against the streaming path (<= 1e-4); (d)
+   the six reduced configs in f32, card == CPU with ``FLASH_THRESHOLD``
+   lowered to 16 (the transformer families launch the kernel): the forward
+   (<= 1e-4) and prefill + 4 decode steps (<= 5e-4), the MoE outputs held
+   on the sequences whose expert choices agree, every flip logged with its
+   gate margin and failing above 1e-5.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -2564,7 +2586,11 @@ def phase_kernel_flash(launches: dict) -> dict:
     rng = np.random.default_rng(5)
     shapes = [("qwen2-0.5b", (2, 4096, 14, 2, 64), 0, 4096),
               ("h2o-danube-1.8b", (1, 8192, 32, 8, 80), 4096, 8192),
-              ("k_len < S, windowed", (2, 4096, 14, 2, 64), 1024, 3000)]
+              ("k_len < S, windowed", (2, 4096, 14, 2, 64), 1024, 3000),
+              # [families] (a): d_head 128 at 5, 6 and 8 query heads a KV head
+              ("llama4-maverick-400b-a17b", (1, 4096, 40, 8, 128), 0, 4096),
+              ("grok-1-314b", (1, 4096, 48, 8, 128), 0, 4096),
+              ("internvl2-76b", (1, 4096, 64, 8, 128), 0, 4096)]
     row = None
     for name, (b, s, h, hkv, dh), window, k_len in shapes:
         f32 = [torch.from_numpy(rng.normal(size=shape).astype(np.float32)).cuda()
@@ -3072,6 +3098,340 @@ def phase_train() -> dict:
     log(f"[train] all phases in {time.perf_counter() - t0:.1f} s")
     return {k: {"training": mid[k] - before[k], "forwards": after[k] - mid[k]}
             for k in cuda.KERNELS}
+
+
+# ---------------------------------------------------------------------------
+# [families]: the six other LM families at their published widths, depth
+# cut to fit the card and the phase's time; weights drawn on the card from
+# seed 0, each architecture's memory freed before the next.
+
+# arch: (depth overrides, flash_attention launches a forward, prompt for
+# serving). llama4 keeps one group (a dense and a 128-expert MoE sub-layer),
+# grok 4 of its 64 MoE layers, internvl 8 of its 80 backbone layers: their
+# published depths are 0.8 TB, 0.63 TB and 0.15 TB of bf16 weights. zamba2
+# serves a 4088-token prompt so its cache is 4096 positions: its shared
+# block attends over the whole cache through the streaming path, whose key
+# blocks of 1024 must tile it (as in the reference).
+FAMILIES = {
+    "llama4-maverick-400b-a17b": ({"n_layers": 2}, 2, 4096),
+    "grok-1-314b": ({"n_layers": 4}, 4, 4096),
+    "internvl2-76b": ({"n_layers": 8}, 8, 4096),
+    "mamba2-2.7b": ({}, 0, 4096),
+    "zamba2-1.2b": ({}, 0, 4088),
+    "whisper-medium": ({}, 0, 448),
+}
+FAMILY_SEQ = 4096
+FAMILY_DECODE_TOKENS = 8
+MOE_STAGES = ("route", "dispatch_slots", "dispatch", "expert_ffn", "combine")
+
+
+def _family_bundle(arch, reduced=False, **overrides):
+    """``arch``'s bundle with config fields replaced (on the backbone for
+    internvl), the model rebuilt on the new config."""
+    from repro_torch.configs.registry import get_arch
+
+    bundle = get_arch(arch, reduced=reduced)
+    cfg = bundle.cfg
+    if hasattr(cfg, "backbone"):
+        cfg = dataclasses.replace(cfg, backbone=dataclasses.replace(cfg.backbone, **overrides))
+    else:
+        cfg = dataclasses.replace(cfg, **overrides)
+    return dataclasses.replace(bundle, cfg=cfg, model=type(bundle.model)(cfg))
+
+
+def _uses_flash(arch) -> bool:
+    return FAMILIES[arch][1] > 0
+
+
+def _family_inputs(bundle, b, s, device, seed=1):
+    """Tokens and the stub frontends' outputs (standard normal), drawn on
+    ``device`` from ``seed``."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    toks = torch.randint(0, bundle.cfg.vocab, (b, s), generator=gen, device=device)
+    extra = {n: torch.randn(make(b, s).shape, generator=gen, device=device).to(make(b, s).dtype)
+             for n, make in bundle.extra_inputs.items()}
+    return toks, extra
+
+
+class _MoEStageTimer:
+    """CUDA events around each stage of ``models.moe`` (route, dispatch,
+    expert products, combine) while installed: device time per stage, summed
+    over the calls, read after a synchronize."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+
+        self.moe, self.events, self.saved = moe, {k: [] for k in MOE_STAGES}, {}
+
+    def __enter__(self):
+        import torch
+
+        def timed(name, fn):
+            def wrapper(*args, **kwargs):
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                out = fn(*args, **kwargs)
+                end.record()
+                self.events[name].append((start, end))
+                return out
+            return wrapper
+
+        for name in MOE_STAGES:
+            self.saved[name] = getattr(self.moe, name)
+            setattr(self.moe, name, timed(name, self.saved[name]))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.moe, name, fn)
+
+    def ms(self) -> dict:
+        import torch
+
+        torch.cuda.synchronize()
+        return {k: sum(s.elapsed_time(e) for s, e in v) for k, v in self.events.items()}
+
+
+class _RoutingTap:
+    """Records each MoE layer's ``(expert_idx, gates)`` on the host, in call
+    order, from ``models.moe.route`` inside ``moe_apply``, while installed."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+
+        self.moe, self.calls, self.route = moe, [], moe.route
+
+    def __enter__(self):
+        def tapped(p, x, cfg):
+            gates, gate_vals, idx = self.route(p, x, cfg)
+            self.calls.append((idx.cpu(), gates.cpu()))
+            return gates, gate_vals, idx
+
+        self.moe.route = tapped
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.route
+
+    def take(self) -> list:
+        calls, self.calls = self.calls, []
+        return calls
+
+
+def agreeing_rows(card: list, host: list, what: str):
+    """The rows (sequences) whose expert choices agree in every MoE layer,
+    card against CPU; each row's first flip is logged with its gate margin
+    and must be a rounding's (< 1e-5). None where there is no MoE layer."""
+    import torch
+
+    if len(card) != len(host):
+        raise AssertionError(f"{what}: {len(card)} MoE calls on the card, {len(host)} on the CPU")
+    if not host:
+        return None
+    agree = torch.ones(host[0][0].shape[0], dtype=torch.bool)
+    flips = 0
+    for layer, ((ci, _), (hi, hg)) in enumerate(zip(card, host)):
+        for b, s in torch.nonzero((ci != hi).any(-1)).tolist():
+            if not agree[b]:
+                continue
+            k = hi.shape[-1]
+            top = torch.sort(hg[b, s], descending=True).values[:k + 1]
+            margin = float((top[:-1] - top[1:]).min())
+            log(f"[families] (d) {what}: routing flip in MoE layer {layer}, row {b}, token "
+                f"{s}: card {ci[b, s].tolist()}, cpu {hi[b, s].tolist()}, gate margin "
+                f"{margin:.3g}")
+            if margin >= 1e-5:
+                raise AssertionError(f"{what}: a routing flip at gate margin {margin}")
+            agree[b] = False
+            flips += 1
+    if not bool(agree.any()):
+        raise AssertionError(f"{what}: every row's routing flipped")
+    return agree
+
+
+def _family_forward_bf16(arch) -> dict:
+    """(a) and (b) at full width, bf16: 1 warm-up + 2 timed forwards at
+    B 1 x S 4096 (the kernel where the config has attention through the
+    transformer), the exact launch count, finite logits, ms, tok/s, peak GB;
+    MoE stage times over one forward; then serving at B 2. Returns the
+    kernels' launches over (a) and (b), counted from 0."""
+    import torch
+
+    from repro_torch import serve_lm
+    from repro_torch.kernels import cuda
+
+    overrides, flash, prompt = FAMILIES[arch]
+    pallas = {"use_pallas_attention": True} if _uses_flash(arch) else {}
+    torch.cuda.reset_peak_memory_stats()
+    t_init = time.perf_counter()
+    bundle = _family_bundle(arch, **overrides, **pallas)
+    params = bundle.model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t_init
+    weights_gb = sum(p.numel() * p.element_size() for p in params.parameters()) / 1e9
+    toks, extra = _family_inputs(bundle, 1, FAMILY_SEQ, "cuda")
+    cuda.reset_launches()
+    times = []
+    with torch.inference_mode():
+        for i in range(3):
+            before = dict(cuda.launches)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, aux = bundle.model.forward(params, toks, **extra)
+            torch.cuda.synchronize()
+            if i:
+                times.append(1e3 * (time.perf_counter() - t0))
+            _expect_launches(before, flash, 1, f"{arch} forward")
+        vocab = logits.shape[-1]
+        if logits.shape[:2] != (1, FAMILY_SEQ) or not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"{arch}: logits {tuple(logits.shape)} not finite")
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        del logits
+        stages = ""
+        if getattr(bundle.cfg, "moe", None) is not None:
+            with _MoEStageTimer() as timer:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                bundle.model.forward(params, toks)
+                torch.cuda.synchronize()
+                fwd = 1e3 * (time.perf_counter() - t0)
+            st = timer.ms()
+            stages = ("; one forward's MoE stages (CUDA events, summed over its MoE layers): "
+                      + ", ".join(f"{k} {v:.3f} ms ({100 * v / fwd:.1f}%)" for k, v in st.items())
+                      + f" of {fwd:.2f} ms")
+            if arch.startswith("llama4"):
+                profile_window(f"{arch} forward (B 1 x S {FAMILY_SEQ})",
+                               lambda: bundle.model.forward(params, toks), what="forward")
+    ms = statistics.mean(times)
+    depth = overrides.get("n_layers")
+    log(f"[families] (a) {arch} ({'published depth' if depth is None else f'{depth} layers'}, "
+        f"{weights_gb:.2f} GB of weights drawn in {t_init:.1f} s) bf16 forward B 1 x S "
+        f"{FAMILY_SEQ}: {ms:.2f} ms (mean of 2 after 1; {[round(t, 2) for t in times]}), "
+        f"{FAMILY_SEQ / ms * 1e3:,.0f} tok/s, {flash} flash_attention launches a forward, "
+        f"logits [1, {FAMILY_SEQ}, {vocab}] finite, aux {float(aux):.4g}, peak "
+        f"{peak:.2f} GB" + stages)
+    for run in ("warm-up", "timed"):
+        r = serve_lm.serve(bundle, params, batch=2, prompt_len=prompt,
+                           tokens=FAMILY_DECODE_TOKENS, seed=3)
+    steps = r["decode_steps"]
+    if r["tokens"].shape != (2, FAMILY_DECODE_TOKENS) or not bool(
+            torch.isfinite(r["logits"]).all()):
+        raise AssertionError(f"{arch} serving: wrong shape or non-finite logits")
+    log(f"[families] (b) {arch} serve_lm.serve B 2, prompt {prompt}, "
+        f"{FAMILY_DECODE_TOKENS} tokens (timed after a warm-up): prefill "
+        f"{r['prefill_s'] * 1e3:.2f} ms ({2 * prompt / r['prefill_s']:,.0f} tok/s), decode "
+        f"{r['decode_s'] / steps * 1e3:.3f} ms/step ({2 * steps / r['decode_s']:,.0f} tok/s), "
+        f"peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    launches = dict(cuda.launches)
+    # serving attends with a cache: no launch beyond (a)'s forwards (3, one
+    # more timing the MoE stages, one more profiled for llama4)
+    moe = getattr(bundle.cfg, "moe", None) is not None
+    runs = 3 + moe + arch.startswith("llama4")
+    want = {k: (flash * runs if k == "flash_attention" else 0) for k in cuda.KERNELS}
+    if launches != want:
+        raise AssertionError(f"{arch}: launches over (a) and (b) {launches}, expected {want}")
+    del params, r
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _family_internvl_f32() -> None:
+    """(c) internvl2-76b in f32 at 2 backbone layers, B 1 x S 4096 with its
+    256 patches: the kernel against the streaming path, <= 1e-4 of the
+    largest logit."""
+    import torch
+
+    arch = "internvl2-76b"
+    f32 = dict(n_layers=2, param_dtype="float32", compute_dtype="float32")
+    kernel = _family_bundle(arch, use_pallas_attention=True, **f32)
+    plain = _family_bundle(arch, **f32)
+    params = kernel.model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    toks, extra = _family_inputs(kernel, 1, FAMILY_SEQ, "cuda")
+    extra = {k: v.float() for k, v in extra.items()}
+    with torch.inference_mode():
+        got, _ = kernel.model.forward(params, toks, **extra)
+        want, _ = plain.model.forward(params, toks, **extra)
+        err = rel_err(got, want)
+    log(f"[families] (c) {arch} f32 (2 backbone layers) B 1 x S {FAMILY_SEQ}: kernel vs "
+        f"streaming path rel {err:.3g} (bar 1e-4)")
+    if not err <= 1e-4:
+        raise AssertionError(f"{arch} f32: kernel vs streaming {err} > 1e-4")
+    del params, got, want
+    torch.cuda.empty_cache()
+
+
+def _family_device_vs_cpu(arch) -> None:
+    """(d) reduced ``arch`` in f32, the same weights on the card and the
+    CPU, ``FLASH_THRESHOLD`` lowered to 16 so the transformer families'
+    32-token forward launches the kernel: the forward (<= 1e-4) and prefill
+    + 4 decode steps (<= 5e-4), MoE outputs held where the choices agree."""
+    import torch
+
+    from repro_torch.configs.common import ShapeSpec
+    from repro_torch.kernels import cuda
+    from repro_torch.train.steps import make_serve_artifacts
+
+    bundle = _family_bundle(arch, reduced=True,
+                            **({"use_pallas_attention": True} if _uses_flash(arch) else {}))
+    params = {"cpu": bundle.model.init_params(torch.Generator().manual_seed(0))}
+    params["cuda"] = copy.deepcopy(params["cpu"]).to("cuda")
+    toks, extra = _family_inputs(bundle, 2, 32, "cpu")
+    n_flash = bundle.cfg.n_layers if _uses_flash(arch) else 0
+    art = make_serve_artifacts(bundle, ShapeSpec("check", "prefill", 32, 2),
+                               cache_dtype=torch.float32)
+    out, routing = {}, {}
+    with _RoutingTap() as tap, torch.inference_mode():
+        for d in ("cuda", "cpu"):
+            before = dict(cuda.launches)
+            moved = {k: v.to(d) for k, v in extra.items()}
+            t = toks.to(d)
+            res = [bundle.model.forward(params[d], t, **moved)[0]]
+            if d == "cuda":
+                _expect_launches(before, n_flash, 1, f"reduced {arch} forward on the card")
+            steps = [tap.take()]
+            lp, state = art.prefill_fn(params[d], {"tokens": t[:, :28], **moved})
+            res.append(lp)
+            steps.append(tap.take())
+            for i in range(28, 32):
+                lp, state = art.decode_fn(params[d], state, t[:, i:i + 1], i)
+                res.append(lp)
+                steps.append(tap.take())
+            out[d], routing[d] = [x.cpu() for x in res], steps
+    errs = []
+    for i, (g, w) in enumerate(zip(out["cuda"], out["cpu"])):
+        rows = agreeing_rows(routing["cuda"][i], routing["cpu"][i], f"reduced {arch} step {i}")
+        rows = slice(None) if rows is None else rows
+        errs.append(rel_err(g[rows], w[rows]))
+    log(f"[families] (d) reduced {arch} f32 card vs cpu: forward rel {errs[0]:.3g} (bar 1e-4, "
+        f"{n_flash} kernel launches on the card); prefill + 4 decode steps rel "
+        f"{max(errs[1:]):.3g} (bar 5e-4)")
+    if not (errs[0] <= 1e-4 and max(errs[1:]) <= 5e-4):
+        raise AssertionError(f"reduced {arch} cuda vs cpu: forward {errs[0]}, serving {errs[1:]}")
+
+
+def phase_families() -> dict:
+    """(a)-(d) for each of the six families; returns each kernel's launches
+    per architecture over (a) and (b), each counted from 0."""
+    from repro_torch.models import layers
+
+    t0 = time.perf_counter()
+    launches = {}
+    for arch in FAMILIES:
+        launches[arch] = _family_forward_bf16(arch)
+        log(f"[time] [families] {arch} done at {time.perf_counter() - t0:.1f} s")
+    _family_internvl_f32()
+    threshold = layers.FLASH_THRESHOLD
+    layers.FLASH_THRESHOLD = 16
+    try:
+        for arch in FAMILIES:
+            _family_device_vs_cpu(arch)
+    finally:
+        layers.FLASH_THRESHOLD = threshold
+    log(f"[families] all phases in {time.perf_counter() - t0:.1f} s")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -3837,10 +4197,14 @@ def main() -> int:
     lap('phase_lm_device_vs_cpu')
     train_launches = phase_train()
     lap('phase_train')
+    families_launches = phase_families()
+    lap('phase_families')
     # Each kernel's launches on the MAM driver's routes ([mam] (b)).
     for row in rows:
         row["mam_launches"] = {route: n[row["name"]] for route, n in mam_launches.items()}
         row["train_launches"] = train_launches[row["name"]]
+        row["families_launches"] = {arch: n[row["name"]]
+                                    for arch, n in families_launches.items()}
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0

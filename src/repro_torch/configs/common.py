@@ -50,8 +50,9 @@ class Bundle:
     """What every architecture exposes: its model (``init_params``,
     ``hidden`` / ``unembed`` / ``forward``, cache methods) and config.
 
-    ``extra_inputs`` maps additional forward kwargs (stub frontends) to
-    shape-builders ``(batch, seq) -> meta tensor``; the dense LMs have none.
+    ``extra_inputs`` maps additional forward kwargs (stub frontends:
+    whisper's ``frames``, internvl's ``patch_embeds``) to shape-builders
+    ``(batch, seq) -> meta tensor``.
     """
 
     arch_id: str

@@ -1,9 +1,5 @@
-"""Architecture registry: ``--arch <id>`` resolution.
-
-The JAX package registers ten architectures; the port has the four dense
-transformers so far. Asking for another raises and names the ROADMAP item
-that ports it.
-"""
+"""Architecture registry: ``--arch <id>`` resolution. The ten
+architectures of the JAX package, in its order."""
 
 from __future__ import annotations
 
@@ -11,7 +7,7 @@ import importlib
 
 from repro_torch.configs.common import SHAPES, Bundle, ShapeSpec
 
-__all__ = ["ARCH_MODULES", "NOT_PORTED", "list_archs", "get_arch", "arch_skips",
+__all__ = ["ARCH_MODULES", "list_archs", "get_arch", "arch_skips",
            "arch_cells", "SHAPES"]
 
 # arch id -> module name under repro_torch.configs
@@ -20,16 +16,12 @@ ARCH_MODULES: dict[str, str] = {
     "gemma3-27b": "gemma3_27b",
     "olmo-1b": "olmo_1b",
     "qwen2-0.5b": "qwen2_0_5b",
-}
-
-# arch id -> the ROADMAP item (LM stack) that ports what it needs
-NOT_PORTED: dict[str, str] = {
-    "llama4-maverick-400b-a17b": "LM stack, MoE",
-    "grok-1-314b": "LM stack, MoE",
-    "zamba2-1.2b": "LM stack, mamba2 and zamba2",
-    "mamba2-2.7b": "LM stack, mamba2 and zamba2",
-    "whisper-medium": "LM stack, whisper",
-    "internvl2-76b": "LM stack, internvl",
+    "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
+    "grok-1-314b": "grok_1_314b",
+    "zamba2-1.2b": "zamba2_1_2b",
+    "mamba2-2.7b": "mamba2_2_7b",
+    "whisper-medium": "whisper_medium",
+    "internvl2-76b": "internvl2_76b",
 }
 
 
@@ -38,10 +30,6 @@ def list_archs() -> list[str]:
 
 
 def _module(arch_id: str):
-    if arch_id in NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {arch_id!r} is not ported to repro_torch yet "
-            f"(ROADMAP: {NOT_PORTED[arch_id]})")
     if arch_id not in ARCH_MODULES:
         raise KeyError(f"unknown arch {arch_id!r}; available: {', '.join(ARCH_MODULES)}")
     return importlib.import_module(f"repro_torch.configs.{ARCH_MODULES[arch_id]}")

@@ -1,0 +1,128 @@
+"""The JAX package's parameter trees and the port's parameter modules.
+
+The JAX models keep their weights in nested dicts whose per-layer leaves are
+stacked along a leading layer axis (a ``lax.scan`` reads them so). The port
+keeps one module per layer: a parameter ``layers.3.attn.q.w`` is row 3 of the
+JAX leaf ``layers/.../attn/q/w``. A model names its stacks by a mapping from
+the prefix of its layer list (``"layers"``, ``"lm.layers"``,
+``"enc_layers"``) to the size of its groups:
+
+* ``None``: the JAX leaf is ``prefix/rest``, stacked over the layers;
+* ``G`` (the transformer's group, 1 for a dense one): layer ``i`` is
+  sub-layer ``i % G`` of group ``i // G``, the JAX leaf
+  ``prefix/sub_{i % G}/rest``, stacked over the groups.
+
+:func:`stack` and :func:`unstack` map tensors keyed by parameter name (the
+parameters, or anything keyed by their names, such as optimizer moments) to
+the tree and back; :func:`from_numpy` / :func:`to_numpy` carry a tree of
+numpy arrays into a model's parameter module and out.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+__all__ = ["stack", "unstack", "from_numpy", "to_numpy"]
+
+Stacks = Mapping[str, "int | None"]
+
+
+def _split(name: str, stacks: Stacks):
+    """``(prefix, layer index, rest)`` for a name inside a stack, else None."""
+    for prefix in stacks:
+        head = prefix + "."
+        if name.startswith(head):
+            idx, _, rest = name[len(head):].partition(".")
+            return prefix, int(idx), rest
+    return None
+
+
+def _set(tree: dict, path: tuple[str, ...], x) -> None:
+    for part in path[:-1]:
+        tree = tree.setdefault(part, {})
+    tree[path[-1]] = x
+
+
+def stack(named: Mapping[str, Any], stacks: Stacks, lead: int = 0) -> dict:
+    """Tensors keyed by parameter name as the JAX tree: nested dicts, each
+    layer leaf stacked over its stack's layers (or groups) at axis ``lead``
+    (0, or 1 after the hierarchical trainer's pod axis)."""
+    tree: dict = {}
+    rows: dict[tuple[str, ...], dict[int, Any]] = {}
+    for name, x in named.items():
+        hit = _split(name, stacks)
+        if hit is None:
+            _set(tree, tuple(name.split(".")), x)
+            continue
+        prefix, i, rest = hit
+        g = stacks[prefix]
+        path = tuple(prefix.split(".")) + (() if g is None else (f"sub_{i % g}",))
+        rows.setdefault(path + tuple(rest.split(".")), {})[i if g is None else i // g] = x
+    for path, by_row in rows.items():
+        _set(tree, path, torch.stack([by_row[i] for i in sorted(by_row)], dim=lead))
+    return tree
+
+
+def unstack(tree: Mapping, stacks: Stacks, lead: int = 0) -> dict[str, Any]:
+    """The inverse of :func:`stack`: tensors keyed by parameter name, the
+    layer leaves unstacked (views) along axis ``lead``."""
+    def leaves(node, path):
+        if not isinstance(node, Mapping):
+            yield path, node
+            return
+        for k, v in node.items():
+            yield from leaves(v, path + (k,))
+
+    out: dict[str, Any] = {}
+    for path, x in leaves(tree, ()):
+        for prefix, g in stacks.items():
+            head = tuple(prefix.split("."))
+            if path[:len(head)] != head:
+                continue
+            rest = path[len(head) + (g is not None):]
+            sub = 0 if g is None else int(path[len(head)].removeprefix("sub_"))
+            for r, row in enumerate(torch.unbind(x, dim=lead)):
+                layer = r if g is None else r * g + sub
+                out[".".join((prefix, str(layer)) + rest)] = row
+            break
+        else:
+            out[".".join(path)] = x
+    return out
+
+
+def _tensor(x, device) -> torch.Tensor:
+    a = np.array(x)
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: torch reads no such numpy dtype
+        return torch.from_numpy(a.astype(np.float32)).to(device, torch.bfloat16)
+    return torch.from_numpy(a).to(device)
+
+
+def from_numpy(skeleton: nn.Module, tree: Mapping, stacks: Stacks, device=None) -> nn.Module:
+    """A JAX parameter tree of numpy arrays loaded into ``skeleton`` (a
+    model's parameters on the ``meta`` device): names and shapes checked by
+    ``load_state_dict(assign=True)``, frozen as made."""
+    def walk(node):
+        return ({k: walk(v) for k, v in node.items()} if isinstance(node, Mapping)
+                else _tensor(node, device))
+
+    named = unstack(walk(tree), stacks)
+    skeleton.load_state_dict({n: x.clone() for n, x in named.items()}, assign=True)
+    return skeleton
+
+
+def to_numpy(params: nn.Module, stacks: Stacks) -> dict:
+    """The inverse of :func:`from_numpy`: the parameters as the JAX tree of
+    numpy arrays. numpy has no bfloat16, so a bf16 leaf comes back as its
+    exact float32 widening."""
+    def host(p: torch.Tensor) -> torch.Tensor:
+        x = p.detach().cpu()
+        return x.float() if x.dtype == torch.bfloat16 else x
+
+    def to_np(node):
+        return {k: to_np(v) for k, v in node.items()} if isinstance(node, dict) else node.numpy()
+
+    return to_np(stack({n: host(p) for n, p in params.named_parameters()}, stacks))

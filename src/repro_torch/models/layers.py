@@ -29,6 +29,12 @@ __all__ = [
     "rms_norm_init",
     "rms_norm",
     "nonparam_layer_norm",
+    "LayerNorm",
+    "layer_norm_init",
+    "layer_norm",
+    "gelu_mlp_init",
+    "gelu_mlp",
+    "sinusoidal_positions",
     "rope",
     "attention_scores",
     "causal_window_mask",
@@ -63,6 +69,13 @@ class RMSNorm(nn.Module):
     def __init__(self, scale: torch.Tensor):
         super().__init__()
         self.scale = _param(scale)
+
+
+class LayerNorm(nn.Module):
+    def __init__(self, scale: torch.Tensor, bias: torch.Tensor):
+        super().__init__()
+        self.scale = _param(scale)
+        self.bias = _param(bias)
 
 
 # ---------------------------------------------------------------------------
@@ -106,6 +119,45 @@ def nonparam_layer_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     mu = torch.mean(x32, dim=-1, keepdim=True)
     var = torch.var(x32, dim=-1, keepdim=True, correction=0)
     return ((x32 - mu) * torch.rsqrt(var + eps)).to(x.dtype)
+
+
+def layer_norm_init(d: int, dtype=torch.float32, device=None) -> LayerNorm:
+    return LayerNorm(torch.ones(d, dtype=dtype, device=device),
+                     torch.zeros(d, dtype=dtype, device=device))
+
+
+def layer_norm(p: LayerNorm, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm with scale and bias, statistics in f32."""
+    x32 = x.float()
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.var(x32, dim=-1, keepdim=True, correction=0)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * p.scale.float() + p.bias.float()).to(x.dtype)
+
+
+def gelu_mlp_init(d_model: int, d_ff: int, *, generator: torch.Generator | None,
+                  dtype=torch.float32, device=None) -> nn.ModuleDict:
+    kw = dict(generator=generator, bias=True, dtype=dtype, device=device)
+    return nn.ModuleDict({"up": dense_init(d_model, d_ff, **kw),
+                          "down": dense_init(d_ff, d_model, **kw)})
+
+
+def gelu_mlp(p: nn.ModuleDict, x: torch.Tensor) -> torch.Tensor:
+    """``down(gelu(up(x)))`` with the tanh approximation of GELU:
+    ``jax.nn.gelu``'s default."""
+    return dense(p["down"], F.gelu(dense(p["up"], x), approximate="tanh"))
+
+
+def sinusoidal_positions(positions: torch.Tensor, d_model: int,
+                         dtype=torch.float32) -> torch.Tensor:
+    """``[B, S]`` positions -> ``[B, S, D]`` sinusoidal embeddings
+    (Whisper-style): ``sin`` then ``cos`` of ``pos * exp(-log(1e4) i / (D/2 - 1))``."""
+    half = d_model // 2
+    log_base = float(torch.log(torch.tensor(10_000.0)))   # log in f32, as the reference
+    freq = torch.exp(-log_base * torch.arange(half, dtype=torch.float32,
+                                              device=positions.device) / max(half - 1, 1))
+    ang = positions.float()[..., None] * freq
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -228,6 +280,7 @@ def gqa_attention(
     window: int = 0,
     kv_cache: tuple[torch.Tensor, torch.Tensor] | None = None,  # [B, S_max, Hkv, Dh]
     cache_index: int | None = None,   # number of valid cache entries
+    use_rope: bool = True,
     cache_mode: str = "inplace",      # 'inplace' | 'append_slice' | 'fresh_only'
     use_pallas: bool = False,         # the flash kernel (full-sequence path only)
 ):
@@ -246,8 +299,9 @@ def gqa_attention(
     q = dense(p["q"], x).reshape(b, s, n_heads, d_head)
     k = dense(p["k"], x).reshape(b, s, n_kv, d_head)
     v = dense(p["v"], x).reshape(b, s, n_kv, d_head)
-    q = rope(q, positions, rope_theta)
-    k = rope(k, positions, rope_theta)
+    if use_rope:
+        q = rope(q, positions, rope_theta)
+        k = rope(k, positions, rope_theta)
 
     if kv_cache is None or cache_mode == "fresh_only":
         new_cache = None if kv_cache is None else (k, v)

@@ -1,13 +1,16 @@
-"""Decoder-only dense transformer: the port of ``repro.models.transformer``.
+"""Decoder-only transformer (dense / GQA / SWA / MoE): the port of
+``repro.models.transformer``.
 
 ``TransformerConfig`` is the JAX config field for field. ``Transformer``
 holds a config and, like the JAX class, keeps no weights: ``init_params``
 draws them into a :class:`TransformerParams` module (or
 :func:`params_from_numpy` carries a JAX parameter tree over), and
 ``hidden`` / ``forward`` / ``forward_with_cache`` take it as their first
-argument. Layers run in a Python loop where JAX scans; the per-layer window
-sizes and rope bases stay data (``window_array`` / ``theta_array``, on the
-host, so reading one costs no device synchronisation).
+argument. Layers run in a Python loop where JAX scans over groups of
+``group_size`` sub-layers (the MoE interleave: the last sub-layer of each
+group is the MoE one); the per-layer window sizes and rope bases stay data
+(``window_array`` / ``theta_array``, on the host, so reading one costs no
+device synchronisation).
 
 Training: the weights are frozen as drawn; ``params.requires_grad_()``
 (``nn.Module``'s own switch) makes them trainable, and ``hidden`` then
@@ -16,9 +19,6 @@ honours ``cfg.remat`` around each layer as the JAX group body does
 :func:`from_jax_layout` map the parameters (or anything keyed by their
 names, such as optimizer moments) to the JAX tree and back, so checkpoints
 of training state cross between the packages.
-
-The dense paths are ported; a config with ``moe`` raises (MoE is a later
-slice of the LM stack).
 """
 
 from __future__ import annotations
@@ -28,18 +28,15 @@ import functools
 import math
 from typing import Any, Mapping
 
-import numpy as np
 import torch
 import torch.utils.checkpoint
 from torch import nn
 
-from repro_torch.models import layers
+from repro_torch.models import jax_layout, layers
+from repro_torch.models.moe import MoEConfig, moe_apply, moe_init
 
 __all__ = ["TransformerConfig", "Transformer", "TransformerParams", "params_from_numpy",
            "params_to_numpy", "to_jax_layout", "from_jax_layout"]
-
-_MOE_TODO = ("MoE layers (models/moe.py: llama4, grok) are not ported to repro_torch "
-             "yet (ROADMAP: LM stack, MoE)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,7 +56,7 @@ class TransformerConfig:
     window_pattern: tuple[int, ...] = (0,)
     qkv_bias: bool = False
     norm: str = "rms"  # 'rms' | 'nonparam' (olmo)
-    moe: Any = None
+    moe: MoEConfig | None = None
     tie_embeddings: bool = False
     embed_scale: bool = False
     param_dtype: str = "float32"
@@ -70,18 +67,24 @@ class TransformerConfig:
     use_pallas_attention: bool = False
 
     def __post_init__(self) -> None:
-        if self.moe is not None:
-            raise NotImplementedError(f"{self.name}: {_MOE_TODO}")
+        if self.n_layers % self.group_size != 0:
+            raise ValueError(
+                f"{self.name}: n_layers={self.n_layers} not divisible by the "
+                f"MoE interleave group {self.group_size}")
         if self.n_heads % self.n_kv != 0:
             raise ValueError(f"{self.name}: n_heads must divide by n_kv")
 
     @property
     def group_size(self) -> int:
-        return 1  # moe is None
+        return self.moe.interleave if self.moe is not None else 1
 
     @property
     def n_groups(self) -> int:
         return self.n_layers // self.group_size
+
+    def sub_is_moe(self, i: int) -> bool:
+        """Within a group, the *last* sub-layer is the MoE one."""
+        return self.moe is not None and i == self.group_size - 1
 
     @property
     def pdtype(self) -> torch.dtype:
@@ -106,14 +109,36 @@ class TransformerConfig:
         return torch.tensor(th, dtype=torch.float32).reshape(self.n_groups, self.group_size)
 
     def param_count(self) -> int:
-        """Total parameters (dense)."""
+        """Total parameters (for 6ND roofline accounting)."""
         d, ff, v = self.d_model, self.d_ff, self.vocab
         attn = d * self.n_heads * self.d_head * 2 + d * self.n_kv * self.d_head * 2
         per_dense = attn + 3 * d * ff + 2 * d
-        n = v * d + d
+        n = v * d + d  # embed + final norm
         if not self.tie_embeddings:
             n += d * v
-        return n + self.n_layers * per_dense
+        if self.moe is None:
+            return n + self.n_layers * per_dense
+        g = self.group_size
+        moe_ffn = self.moe.n_experts * 3 * d * self.moe.d_ff + d * self.moe.n_experts
+        if self.moe.shared_expert:
+            moe_ffn += 3 * d * self.moe.d_ff
+        per_group = (g - 1) * per_dense + (attn + moe_ffn + 2 * d)
+        return n + self.n_groups * per_group
+
+    def active_param_count(self) -> int:
+        """Active parameters per token (MoE: only routed top-k experts)."""
+        if self.moe is None:
+            return self.param_count()
+        d = self.d_model
+        attn = d * self.n_heads * self.d_head * 2 + d * self.n_kv * self.d_head * 2
+        per_dense = attn + 3 * d * self.d_ff + 2 * d
+        active_ffn = self.moe.top_k * 3 * d * self.moe.d_ff
+        if self.moe.shared_expert:
+            active_ffn += 3 * d * self.moe.d_ff
+        per_moe = attn + active_ffn + 2 * d
+        g = self.group_size
+        n = self.vocab * d + d + (0 if self.tie_embeddings else d * self.vocab)
+        return n + self.n_groups * ((g - 1) * per_dense + per_moe)
 
 
 _DOTS_SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
@@ -142,7 +167,9 @@ _REMAT = {
 
 class TransformerParams(nn.Module):
     """The weights: ``embed`` ``[V, D]``, ``layers[i]`` (a ``ModuleDict`` of
-    ``attn``, ``ffn`` and, for RMS norms, ``ln1`` / ``ln2``), ``final_norm``
+    ``attn``, ``ffn`` or, on an MoE sub-layer, ``moe``, and for RMS norms
+    ``ln1`` / ``ln2``; layer ``i`` is sub-layer ``i % group_size`` of group
+    ``i // group_size``), ``final_norm``
     and, untied, ``lm_head`` ``[D, V]``. Frozen as made; training calls
     ``requires_grad_()``."""
 
@@ -176,14 +203,16 @@ class Transformer:
         embed = (torch.randn(cfg.vocab, cfg.d_model, generator=generator, device=dev)
                  * 0.02).to(pd)
         layer_list = []
-        for _ in range(cfg.n_layers):
-            sub = nn.ModuleDict({
-                "attn": layers.attention_init(
-                    cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.d_head,
-                    generator=generator, bias=cfg.qkv_bias, dtype=pd, device=dev),
-                "ffn": layers.swiglu_init(cfg.d_model, cfg.d_ff, generator=generator,
-                                          dtype=pd, device=dev),
-            })
+        for i in range(cfg.n_layers):
+            sub = nn.ModuleDict({"attn": layers.attention_init(
+                cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.d_head,
+                generator=generator, bias=cfg.qkv_bias, dtype=pd, device=dev)})
+            if cfg.sub_is_moe(i % cfg.group_size):
+                sub["moe"] = moe_init(cfg.d_model, cfg.moe, generator=generator, dtype=pd,
+                                      device=dev)
+            else:
+                sub["ffn"] = layers.swiglu_init(cfg.d_model, cfg.d_ff, generator=generator,
+                                                dtype=pd, device=dev)
             if cfg.norm == "rms":
                 sub["ln1"] = layers.rms_norm_init(cfg.d_model, pd, dev)
                 sub["ln2"] = layers.rms_norm_init(cfg.d_model, pd, dev)
@@ -211,7 +240,8 @@ class Transformer:
 
     def _layer(self, sub, h, positions, theta, window, kv=None, cache_index=None,
                cache_mode="inplace"):
-        """One layer (the JAX group body for a dense group of one)."""
+        """One sub-layer of the JAX group body: (h, its MoE aux loss or None
+        for a dense sub-layer, its K/V)."""
         cfg = self.cfg
         attn_out, kv_i = layers.gqa_attention(
             sub["attn"], self._norm(sub, "ln1", h), positions,
@@ -220,34 +250,43 @@ class Transformer:
             kv_cache=kv, cache_index=cache_index, cache_mode=cache_mode,
             use_pallas=cfg.use_pallas_attention)
         h = h + attn_out
-        h = h + layers.swiglu(sub["ffn"], self._norm(sub, "ln2", h))
-        return h, kv_i
+        hn = self._norm(sub, "ln2", h)
+        if "moe" in sub:
+            y, aux = moe_apply(sub["moe"], hn, cfg.moe)
+        else:
+            y, aux = layers.swiglu(sub["ffn"], hn), None
+        return h + y, aux, kv_i
 
     def _layers(self, params, h, positions, *, cache=None, cache_index=None,
                 cache_mode="inplace"):
-        """Every layer in order; with a cache, also each layer's new K/V
-        (fresh slices, or the whole updated cache in ``inplace`` mode).
-        Without a cache and under autograd, each layer is a checkpoint as
-        ``cfg.remat`` asks."""
+        """Every layer in order: (h, the summed MoE aux loss, and with a cache
+        each layer's new K/V: fresh slices, or the whole updated cache in
+        ``inplace`` mode). Without a cache and under autograd, each layer is
+        a checkpoint as ``cfg.remat`` asks."""
         cfg = self.cfg
+        g = cfg.group_size
         windows, thetas = cfg.window_array(), cfg.theta_array()
         remat = cfg.remat if cache is None and torch.is_grad_enabled() else "none"
+        aux = torch.zeros((), device=h.device)
         new_kv = []
         for i, sub in enumerate(params.layers):
-            theta, window = thetas[i, 0], int(windows[i, 0])
+            theta, window = thetas[i // g, i % g], int(windows[i // g, i % g])
             if remat != "none":
-                h = torch.utils.checkpoint.checkpoint(
+                h, aux_i = torch.utils.checkpoint.checkpoint(
                     lambda x, sub=sub, theta=theta, window=window:
-                        self._layer(sub, x, positions, theta, window)[0],
+                        self._layer(sub, x, positions, theta, window)[:2],
                     h, use_reentrant=False, **_REMAT[remat])
+                aux = aux if aux_i is None else aux + aux_i
                 continue
             kv = None
             if cache is not None:
-                kv = (cache["sub_0"]["k"][i], cache["sub_0"]["v"][i])
-            h, kv_i = self._layer(sub, h, positions, theta, window, kv, cache_index,
-                                  cache_mode)
+                c = cache[f"sub_{i % g}"]
+                kv = (c["k"][i // g], c["v"][i // g])
+            h, aux_i, kv_i = self._layer(sub, h, positions, theta, window, kv, cache_index,
+                                         cache_mode)
+            aux = aux if aux_i is None else aux + aux_i
             new_kv.append(kv_i)
-        return h, new_kv
+        return h, aux, new_kv
 
     # --------------------------------------------------------------- forward
 
@@ -262,42 +301,56 @@ class Transformer:
             return h @ params.embed.T.to(h.dtype)
         return h @ params.lm_head.to(h.dtype)
 
-    def hidden(self, params: TransformerParams, tokens: torch.Tensor):
-        """Full-sequence forward up to the final norm. Returns (h [B, S, D],
-        aux loss 0: dense layers have none)."""
+    def hidden(self, params: TransformerParams, tokens: torch.Tensor, *,
+               embeds_override: torch.Tensor | None = None,
+               positions: torch.Tensor | None = None):
+        """Full-sequence forward up to the final norm. ``embeds_override``
+        ``[B, S, D]`` replaces the token embeddings (the VLM's spliced
+        input). Returns (h [B, S, D], MoE aux loss; 0 for dense layers)."""
         b, s = tokens.shape
         h = self._embed(params, tokens)
-        positions = torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
-        h, _ = self._layers(params, h, positions)
-        return self._final_norm(params, h), torch.zeros((), device=h.device)
+        if embeds_override is not None:
+            h = embeds_override.to(self.cfg.cdtype)
+        if positions is None:
+            positions = torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
+        h, aux, _ = self._layers(params, h, positions)
+        return self._final_norm(params, h), aux
 
-    def forward(self, params: TransformerParams, tokens: torch.Tensor):
+    def forward(self, params: TransformerParams, tokens: torch.Tensor, *,
+                embeds_override: torch.Tensor | None = None,
+                positions: torch.Tensor | None = None):
         """Full-sequence forward. Returns (logits [B, S, V], aux loss)."""
-        h, aux = self.hidden(params, tokens)
+        h, aux = self.hidden(params, tokens, embeds_override=embeds_override,
+                             positions=positions)
         return self.unembed(params, h), aux
 
     # ------------------------------------------------------------- serving
 
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16,
                    device=None) -> dict:
-        """``{"sub_0": {"k", "v"}}``, each ``[n_layers, B, max_len, Hkv, Dh]``
-        zeros, the JAX cache layout."""
+        """``{"sub_i": {"k", "v"}}`` for each sub-layer of a group, each
+        ``[n_groups, B, max_len, Hkv, Dh]`` zeros: the JAX cache layout."""
         cfg = self.cfg
         shape = (cfg.n_groups, batch, max_len, cfg.n_kv, cfg.d_head)
-        return {"sub_0": {"k": torch.zeros(shape, dtype=dtype, device=device),
-                          "v": torch.zeros(shape, dtype=dtype, device=device)}}
+        return {f"sub_{i}": {"k": torch.zeros(shape, dtype=dtype, device=device),
+                             "v": torch.zeros(shape, dtype=dtype, device=device)}
+                for i in range(cfg.group_size)}
 
     def forward_with_cache(self, params: TransformerParams, tokens: torch.Tensor,
-                           cache: dict, cache_index: int, *, last_only: bool = False):
+                           cache: dict, cache_index: int, *, last_only: bool = False,
+                           embeds_override: torch.Tensor | None = None):
         """Prefill (``S`` > 1) or decode (``S`` = 1) against ``cache``.
 
         Returns (logits, cache). The cache is updated in place: the fresh
         K/V of every layer are merged into it at ``cache_index`` with one copy
-        per call (JAX does the same with one dynamic update of a donated
-        buffer)."""
+        per sub-layer and call (JAX does the same with one dynamic update of
+        a donated buffer). An MoE layer's capacity follows this call's
+        ``S``, as in the reference."""
         cfg = self.cfg
         b, s = tokens.shape
         h = self._embed(params, tokens)
+        if embeds_override is not None:
+            h = embeds_override.to(cfg.cdtype)
         positions = cache_index + torch.arange(
             s, dtype=torch.int32, device=tokens.device).expand(b, s)
         if s > 1:
@@ -306,105 +359,64 @@ class Transformer:
             cache_mode = "inplace"
         else:
             cache_mode = "append_slice"
-        h, new_kv = self._layers(params, h, positions, cache=cache,
-                                 cache_index=cache_index, cache_mode=cache_mode)
-        for j, name in enumerate(("k", "v")):
-            buf = cache["sub_0"][name]
-            fresh = torch.stack([kv[j] for kv in new_kv])
-            if cache_mode == "inplace":
-                buf.copy_(fresh)  # the layers returned whole updated caches
-            else:
-                buf[:, :, cache_index:cache_index + s] = fresh.to(buf.dtype)
+        h, _, new_kv = self._layers(params, h, positions, cache=cache,
+                                    cache_index=cache_index, cache_mode=cache_mode)
+        g = cfg.group_size
+        for i in range(g):
+            for j, name in enumerate(("k", "v")):
+                buf = cache[f"sub_{i}"][name]
+                fresh = torch.stack([kv[j] for kv in new_kv[i::g]])
+                if cache_mode == "inplace":
+                    buf.copy_(fresh)  # the layers returned whole updated caches
+                else:
+                    buf[:, :, cache_index:cache_index + s] = fresh.to(buf.dtype)
         h = self._final_norm(params, h)
         if last_only:
             h = h[:, -1:]
         return self.unembed(params, h), cache
 
+    # ------------------------------------------------- weights across packages
+
+    def params_from_numpy(self, tree: Mapping, device=None) -> TransformerParams:
+        return params_from_numpy(self.cfg, tree, device)
+
+    def params_to_numpy(self, params: TransformerParams) -> dict:
+        return params_to_numpy(params)
+
+
+def _stacks(named) -> dict:
+    """The layer stack of a parameter tree keyed by name: groups of one,
+    or up to the first MoE sub-layer (the last of each group)."""
+    moe = [int(n.split(".")[1]) for n in named if n.startswith("layers.") and ".moe." in n]
+    return {"layers": min(moe) + 1 if moe else 1}
+
 
 def params_from_numpy(cfg: TransformerConfig, tree: Mapping, device=None) -> TransformerParams:
     """The JAX parameter tree (numpy arrays; per-layer leaves with a leading
-    ``[n_groups]`` axis under ``layers.sub_0``) as the port's parameters:
+    ``[n_groups]`` axis under ``layers.sub_i``) as the port's parameters:
     the meta-device skeleton of ``cfg`` filled through
-    :func:`from_jax_layout` (shapes and names checked, frozen as made)."""
-    def t(x) -> torch.Tensor:
-        a = np.array(x)
-        if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: torch reads no such numpy dtype
-            return torch.from_numpy(a.astype(np.float32)).to(device, torch.bfloat16)
-        return torch.from_numpy(a).to(device)
-
-    def walk(node):
-        return {k: walk(v) for k, v in node.items()} if isinstance(node, Mapping) else t(node)
-
-    params = Transformer(cfg).init_params(None, device="meta")
-    params.load_state_dict({n: x.clone() for n, x in from_jax_layout(walk(tree)).items()},
-                           assign=True)
-    return params
-
-
-def _jax_path(name: str) -> tuple[tuple[str, ...], int | None]:
-    """A parameter name (``layers.3.attn.q.w``) as its JAX tree path
-    (``layers/sub_0/attn/q/w``) and layer index (3; None off the layers)."""
-    parts = name.split(".")
-    if parts[0] == "layers":
-        return ("layers", "sub_0", *parts[2:]), int(parts[1])
-    return tuple(parts), None
+    :func:`jax_layout.from_numpy` (shapes and names checked, frozen as
+    made)."""
+    return jax_layout.from_numpy(Transformer(cfg).init_params(None, device="meta"), tree,
+                                 {"layers": cfg.group_size}, device)
 
 
 def to_jax_layout(named: Mapping[str, Any], lead: int = 0) -> dict:
     """Tensors keyed by parameter name (``dict(params.named_parameters())``,
     or optimizer moments keyed the same) as the JAX parameter tree: nested
-    dicts, each layer leaf stacked over the layers at axis ``lead`` (0, or 1
-    after the hierarchical trainer's pod axis)."""
-    tree: dict = {}
-    stacks: dict[tuple[str, ...], dict[int, Any]] = {}
-    for name, x in named.items():
-        path, i = _jax_path(name)
-        if i is None:
-            node = tree
-            for part in path[:-1]:
-                node = node.setdefault(part, {})
-            node[path[-1]] = x
-        else:
-            stacks.setdefault(path, {})[i] = x
-    for path, by_layer in stacks.items():
-        node = tree
-        for part in path[:-1]:
-            node = node.setdefault(part, {})
-        node[path[-1]] = torch.stack([by_layer[i] for i in sorted(by_layer)], dim=lead)
-    return tree
+    dicts, each layer leaf stacked over the groups at axis ``lead`` (0, or 1
+    after the hierarchical trainer's pod axis) under ``layers.sub_i``."""
+    return jax_layout.stack(named, _stacks(named), lead)
 
 
 def from_jax_layout(tree: Mapping, lead: int = 0) -> dict[str, Any]:
     """The inverse of :func:`to_jax_layout`: tensors keyed by parameter name,
     the layer leaves unstacked (views) along axis ``lead``."""
-    out: dict[str, Any] = {}
-
-    def walk(node, path):
-        if not isinstance(node, Mapping):
-            if path[0] == "layers":
-                rest = ".".join(path[2:])
-                for i, x in enumerate(torch.unbind(node, dim=lead)):
-                    out[f"layers.{i}.{rest}"] = x
-            else:
-                out[".".join(path)] = node
-            return
-        for k, v in node.items():
-            walk(v, path + (k,))
-
-    walk(tree, ())
-    return out
+    return jax_layout.unstack(tree, {"layers": len(tree["layers"])}, lead)
 
 
 def params_to_numpy(params: TransformerParams) -> dict:
     """The inverse of :func:`params_from_numpy`: the port's parameters as the
-    JAX parameter tree of numpy arrays (layer leaves stacked
-    ``[n_groups, ...]`` under ``layers.sub_0``). numpy has no bfloat16, so a
-    bf16 leaf comes back as its exact float32 widening."""
-    def host(p: torch.Tensor) -> torch.Tensor:
-        x = p.detach().cpu()
-        return x.float() if x.dtype == torch.bfloat16 else x
-
-    def to_np(node):
-        return {k: to_np(v) for k, v in node.items()} if isinstance(node, dict) else node.numpy()
-
-    return to_np(to_jax_layout({n: host(p) for n, p in params.named_parameters()}))
+    JAX parameter tree of numpy arrays. numpy has no bfloat16, so a bf16 leaf
+    comes back as its exact float32 widening."""
+    return jax_layout.to_numpy(params, _stacks(dict(params.named_parameters())))

@@ -1,0 +1,218 @@
+"""Whisper-style encoder-decoder (audio frontend stubbed): the port of
+``repro.models.whisper``.
+
+The conv frontend is a stub: the caller supplies frame embeddings
+``[B, T_enc, D]``. A pre-LN transformer encoder (bidirectional, full mask),
+and a decoder with causal self-attention (no rope, a KV cache) and
+cross-attention to the encoder output; GELU (tanh) MLPs, LayerNorm with bias,
+sinusoidal positions in both stacks, the unembedding tied to the embedding.
+Its attention passes no ``use_pallas``, so this model launches no kernel, as
+in the reference. The sharded specs wait for the port's sharded LM paths.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Mapping
+
+import torch
+from torch import nn
+
+from repro_torch.models import jax_layout, layers
+
+__all__ = ["WhisperConfig", "Whisper", "WhisperParams"]
+
+
+@dataclasses.dataclass(frozen=True)
+class WhisperConfig:
+    """The JAX package's whisper config, field for field."""
+
+    name: str
+    n_enc_layers: int
+    n_dec_layers: int
+    d_model: int
+    n_heads: int
+    d_ff: int
+    vocab: int
+    n_frames: int = 1500  # encoder positions (30 s of audio at 50 Hz)
+    param_dtype: str = "float32"
+    compute_dtype: str = "float32"
+    remat: str = "none"
+    act_batch_axes: tuple[str, ...] | None = None
+    attn_sharding: str | None = None
+
+    @property
+    def d_head(self) -> int:
+        return self.d_model // self.n_heads
+
+    @property
+    def pdtype(self) -> torch.dtype:
+        return getattr(torch, self.param_dtype)
+
+    @property
+    def cdtype(self) -> torch.dtype:
+        return getattr(torch, self.compute_dtype)
+
+    def param_count(self) -> int:
+        d, ff = self.d_model, self.d_ff
+        attn = 4 * d * d
+        mlp = 2 * d * ff + d + ff
+        enc = self.n_enc_layers * (attn + mlp + 4 * d)
+        dec = self.n_dec_layers * (2 * attn + mlp + 6 * d)
+        return self.vocab * d + enc + dec + 4 * d
+
+    def active_param_count(self) -> int:
+        return self.param_count()
+
+
+class WhisperParams(nn.Module):
+    """``embed`` ``[V, D]``, ``enc_layers[i]`` (``ln1``, ``attn``, ``ln2``,
+    ``mlp``), ``enc_final_ln``, ``dec_layers[i]`` (``ln1``, ``self_attn``,
+    ``ln_x``, ``cross_attn``, ``ln2``, ``mlp``), ``dec_final_ln``: the JAX
+    dict's names."""
+
+    def __init__(self, embed, enc_layers, enc_final_ln, dec_layers, dec_final_ln):
+        super().__init__()
+        self.embed = layers._param(embed)
+        self.enc_layers = nn.ModuleList(enc_layers)
+        self.enc_final_ln = enc_final_ln
+        self.dec_layers = nn.ModuleList(dec_layers)
+        self.dec_final_ln = dec_final_ln
+
+
+STACKS = {"enc_layers": None, "dec_layers": None}
+
+
+class Whisper:
+    """Functional model: all methods are static given a config."""
+
+    def __init__(self, cfg: WhisperConfig):
+        self.cfg = cfg
+
+    # ------------------------------------------------------------------ init
+
+    def init_params(self, generator: torch.Generator | None, *, device=None) -> WhisperParams:
+        cfg = self.cfg
+        pd = cfg.pdtype
+        dev = generator.device if generator is not None else device
+        kw = dict(generator=generator, dtype=pd, device=dev)
+
+        def attn():
+            return layers.attention_init(cfg.d_model, cfg.n_heads, cfg.n_heads, cfg.d_head,
+                                         bias=True, **kw)
+
+        def ln():
+            return layers.layer_norm_init(cfg.d_model, pd, dev)
+
+        def mlp():
+            return layers.gelu_mlp_init(cfg.d_model, cfg.d_ff, **kw)
+
+        embed = (torch.randn(cfg.vocab, cfg.d_model, generator=generator, device=dev)
+                 * 0.02).to(pd)
+        enc = [nn.ModuleDict({"ln1": ln(), "attn": attn(), "ln2": ln(), "mlp": mlp()})
+               for _ in range(cfg.n_enc_layers)]
+        dec = [nn.ModuleDict({"ln1": ln(), "self_attn": attn(), "ln_x": ln(),
+                              "cross_attn": attn(), "ln2": ln(), "mlp": mlp()})
+               for _ in range(cfg.n_dec_layers)]
+        return WhisperParams(embed, enc, ln(), dec, ln())
+
+    # ----------------------------------------------------------- components
+
+    def _mha(self, p, q_x, kv_x, mask):
+        """Full multi-head attention with separate query and key-value
+        streams."""
+        cfg = self.cfg
+        b, sq, _ = q_x.shape
+        sk = kv_x.shape[1]
+        q = layers.dense(p["q"], q_x).reshape(b, sq, cfg.n_heads, cfg.d_head)
+        k = layers.dense(p["k"], kv_x).reshape(b, sk, cfg.n_heads, cfg.d_head)
+        v = layers.dense(p["v"], kv_x).reshape(b, sk, cfg.n_heads, cfg.d_head)
+        out = layers.attention_scores(q, k, v, mask)
+        return layers.dense(p["o"], out.reshape(b, sq, cfg.n_heads * cfg.d_head))
+
+    def encode(self, params: WhisperParams, frames: torch.Tensor) -> torch.Tensor:
+        """``frames [B, T_enc, D]`` (the stub frontend's output) -> the
+        encoder output ``[B, T_enc, D]``."""
+        cfg = self.cfg
+        b, t, _ = frames.shape
+        pos = torch.arange(t, dtype=torch.int32, device=frames.device).expand(b, t)
+        h = frames.to(cfg.cdtype) + layers.sinusoidal_positions(pos, cfg.d_model, cfg.cdtype)
+        full = torch.ones(b, 1, t, t, dtype=torch.bool, device=frames.device)
+        for p in params.enc_layers:
+            x = layers.layer_norm(p["ln1"], h)
+            h = h + self._mha(p["attn"], x, x, full)
+            h = h + layers.gelu_mlp(p["mlp"], layers.layer_norm(p["ln2"], h))
+        return layers.layer_norm(params.enc_final_ln, h)
+
+    # --------------------------------------------------------------- decoder
+
+    def _decoder(self, params: WhisperParams, tokens, enc_out, *, cache=None,
+                 cache_index=None, last_only: bool = False):
+        """The decoder up to the final LayerNorm; with a cache, each layer's
+        self-attention K/V are written in place at ``cache_index`` (the
+        reference's ``inplace`` mode)."""
+        cfg = self.cfg
+        b, s = tokens.shape
+        base = cache_index if cache_index is not None else 0
+        pos = base + torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
+        h = params.embed[tokens].to(cfg.cdtype)
+        h = h + layers.sinusoidal_positions(pos, cfg.d_model, cfg.cdtype)
+        cross = torch.ones(b, 1, s, enc_out.shape[1], dtype=torch.bool, device=h.device)
+        for i, p in enumerate(params.dec_layers):
+            kv = None if cache is None else (cache["k"][i], cache["v"][i])
+            attn_out, new_kv = layers.gqa_attention(
+                p["self_attn"], layers.layer_norm(p["ln1"], h), pos,
+                n_heads=cfg.n_heads, n_kv=cfg.n_heads, d_head=cfg.d_head,
+                use_rope=False, kv_cache=kv, cache_index=cache_index)
+            h = h + attn_out
+            h = h + self._mha(p["cross_attn"], layers.layer_norm(p["ln_x"], h), enc_out, cross)
+            h = h + layers.gelu_mlp(p["mlp"], layers.layer_norm(p["ln2"], h))
+            if cache is not None:
+                cache["k"][i], cache["v"][i] = new_kv
+        h = layers.layer_norm(params.dec_final_ln, h)
+        return h[:, -1:] if last_only else h
+
+    def unembed(self, params: WhisperParams, h: torch.Tensor) -> torch.Tensor:
+        return h @ params.embed.T.to(h.dtype)  # tied
+
+    def hidden(self, params: WhisperParams, tokens: torch.Tensor, *,
+               frames: torch.Tensor, positions=None):
+        """(the decoder's hidden states after the final LayerNorm, aux 0)."""
+        del positions
+        h = self._decoder(params, tokens, self.encode(params, frames))
+        return h, torch.zeros((), device=h.device)
+
+    # ----------------------------------------------------------- public API
+
+    def forward(self, params: WhisperParams, tokens: torch.Tensor, *,
+                frames: torch.Tensor, positions=None):
+        """(frames, decoder tokens) -> (logits, aux 0)."""
+        h, aux = self.hidden(params, tokens, frames=frames, positions=positions)
+        return self.unembed(params, h), aux
+
+    def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16, device=None) -> dict:
+        """Self-attention K/V ``[n_dec_layers, B, max_len, H, Dh]``."""
+        cfg = self.cfg
+        kv = (cfg.n_dec_layers, batch, max_len, cfg.n_heads, cfg.d_head)
+        return {"k": torch.zeros(kv, dtype=dtype, device=device),
+                "v": torch.zeros(kv, dtype=dtype, device=device)}
+
+    def forward_with_cache(self, params: WhisperParams, tokens: torch.Tensor, cache: dict,
+                           cache_index: int, *, enc_out: torch.Tensor,
+                           last_only: bool = False):
+        """Prefill or decode against a precomputed encoder output. Returns
+        (logits, cache updated in place)."""
+        h = self._decoder(params, tokens, enc_out, cache=cache, cache_index=cache_index,
+                          last_only=last_only)
+        return self.unembed(params, h), cache
+
+    # ------------------------------------------------- weights across packages
+
+    def params_from_numpy(self, tree: Mapping, device=None) -> WhisperParams:
+        """The JAX parameter tree (numpy arrays; layer leaves stacked
+        ``[n_layers, ...]``) as the port's parameters."""
+        return jax_layout.from_numpy(self.init_params(None, device="meta"), tree, STACKS,
+                                     device)
+
+    def params_to_numpy(self, params: WhisperParams) -> dict:
+        return jax_layout.to_numpy(params, STACKS)

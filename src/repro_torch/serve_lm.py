@@ -5,10 +5,18 @@ of random prompts, then a decode loop emits one greedy token per step.
 Reports prefill and decode throughput (host clock around work that ends in a
 device synchronisation). By default the model runs at its published width
 and dtypes on the GPU, weights drawn from ``--seed``; ``--reduced`` takes
-the smoke-scale config, which runs on the CPU in seconds:
+the smoke-scale config, which runs on the CPU in seconds. ``--arch`` takes
+any of the ten registered architectures; whisper's frame embeddings and
+internvl's patch embeddings (their stubbed frontends' outputs) are drawn
+from ``--seed`` on the device:
 
     PYTHONPATH=src python -m repro_torch.serve_lm                       # GPU, full width
-    PYTHONPATH=src python -m repro_torch.serve_lm --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.serve_lm --reduced --device cpu --arch whisper-medium
+
+zamba2's shared attention block attends over its whole cache in place, so
+from ``FLASH_THRESHOLD`` prompt tokens on, ``--prompt-len`` + ``--tokens``
+must be a multiple of 1024 (the streaming path's key block), as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -33,20 +41,25 @@ def _sync(device: torch.device) -> None:
 
 @torch.inference_mode()
 def serve(bundle, params, *, batch: int, prompt_len: int, tokens: int, seed: int = 0) -> dict:
-    """Prefill ``batch`` random prompts of ``prompt_len`` tokens and decode
+    """Prefill ``batch`` random prompts of ``prompt_len`` tokens (with the
+    bundle's extra inputs drawn from ``seed``, standard normal) and decode
     ``tokens`` greedy tokens (the first comes from the prefill), with a KV
     cache in the compute dtype. Returns the generated tokens
     ``[batch, tokens]``, the last logits and the timings."""
     cfg = bundle.cfg
-    device = params.embed.device
+    device = next(params.parameters()).device
     gen = torch.Generator(device=device).manual_seed(seed)
-    prompt = torch.randint(0, cfg.vocab, (batch, prompt_len), generator=gen, device=device)
+    prompt = {"tokens": torch.randint(0, cfg.vocab, (batch, prompt_len), generator=gen,
+                                      device=device)}
+    for name, make in bundle.extra_inputs.items():
+        spec = make(batch, prompt_len)
+        prompt[name] = torch.randn(spec.shape, generator=gen, device=device).to(spec.dtype)
     shape = ShapeSpec("serve", "prefill", prompt_len + tokens, batch)
     art = make_serve_artifacts(bundle, shape, cache_dtype=cfg.cdtype)
 
     _sync(device)
     t0 = time.perf_counter()
-    logits, state = art.prefill_fn(params, {"tokens": prompt})
+    logits, state = art.prefill_fn(params, prompt)
     tok = torch.argmax(logits, dim=-1)
     _sync(device)
     prefill_s = time.perf_counter() - t0

@@ -118,19 +118,30 @@ def make_serve_artifacts(bundle: Bundle, shape: ShapeSpec, *,
     cache of ``seq_len`` positions of ``cache_dtype``, on the parameters'
     device). Prefill fills the cache from an empty one and returns the last
     position's logits; decode appends one token per call. Both update the
-    serve state's cache in place."""
+    serve state's cache in place. The audio family encodes ``frames`` once at
+    prefill and keeps the encoder output in the serve state for every
+    decode; the VLM family takes ``patch_embeds`` at prefill only."""
     model = bundle.model
     b, s = shape.global_batch, shape.seq_len
+    is_audio = bundle.family == "audio"
+    is_vlm = bundle.family == "vlm"
 
     def prefill(params, batch):
-        cache = model.init_cache(b, s, cache_dtype, device=params.embed.device)
+        device = next(params.parameters()).device
+        cache = model.init_cache(b, s, cache_dtype, device=device)
+        kwargs, state = {}, {}
+        if is_audio:
+            state["enc_out"] = kwargs["enc_out"] = model.encode(params, batch["frames"])
+        if is_vlm:
+            kwargs["patch_embeds"] = batch["patch_embeds"]
         logits, cache = model.forward_with_cache(params, batch["tokens"], cache, 0,
-                                                 last_only=True)
-        return logits, {"cache": cache}
+                                                 last_only=True, **kwargs)
+        return logits, {"cache": cache, **state}
 
     def decode(params, serve_state, tokens, cache_index):
+        kwargs = {"enc_out": serve_state["enc_out"]} if is_audio else {}
         logits, cache = model.forward_with_cache(params, tokens, serve_state["cache"],
-                                                 cache_index)
+                                                 cache_index, **kwargs)
         return logits, {**serve_state, "cache": cache}
 
     return ServeArtifacts(prefill_fn=prefill, decode_fn=decode)

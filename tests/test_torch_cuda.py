@@ -18,6 +18,7 @@ from repro_torch.kernels import cuda  # noqa: E402
 from repro_torch.kernels import cycle as cyc  # noqa: E402
 from repro_torch.kernels import lif_update as lif  # noqa: E402
 from repro_torch.kernels import spike_deliver as dlv  # noqa: E402
+from test_torch_moe_routing import agreeing_rows, routing_tap  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -844,3 +845,101 @@ def test_flash_attention_refuses_grad_on_the_card(dev):
     with torch.no_grad():
         out = ops.flash_attention(q, k, v, 0, 512)
     assert cuda.launches["flash_attention"] == before + 1 and not out.requires_grad
+
+
+# ---------------------------------------------------------------------------
+# The six other LM families: MoE (llama4, grok), mamba2, zamba2, whisper and
+# internvl, reduced, in f32, card == CPU
+
+
+FAMILY_ARCHS = ["llama4-maverick-400b-a17b", "grok-1-314b", "mamba2-2.7b", "zamba2-1.2b",
+                "whisper-medium", "internvl2-76b"]
+
+
+def _family_run(bundle, params, toks, extra, device, calls):
+    """Forward, then prefill of all but 4 tokens and 4 decode steps, on
+    ``device``: the logits of each, and the routing recorded per call."""
+    from repro_torch.configs.common import ShapeSpec
+    from repro_torch.train.steps import make_serve_artifacts
+
+    moved = {k: v.to(device) for k, v in extra.items()}
+    t = toks.to(device)
+    out, routing = [], []
+    with torch.inference_mode():
+        out.append(bundle.model.forward(params, t, **moved)[0].cpu())
+        routing.append(list(calls)); calls.clear()
+        s = t.shape[1] - 4
+        art = make_serve_artifacts(bundle, ShapeSpec("check", "prefill", t.shape[1], 2),
+                                   cache_dtype=torch.float32)
+        logits, state = art.prefill_fn(params, {"tokens": t[:, :s], **moved})
+        out.append(logits.cpu())
+        routing.append(list(calls)); calls.clear()
+        for i in range(s, s + 4):
+            logits, state = art.decode_fn(params, state, t[:, i:i + 1], i)
+            out.append(logits.cpu())
+            routing.append(list(calls)); calls.clear()
+    return out, routing
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_on_the_card_matches_the_cpu(dev, arch, monkeypatch):
+    """Reduced ``arch`` in f32, the same weights on both devices, with
+    ``FLASH_THRESHOLD`` lowered to 16 so the transformer families' forward
+    launches the kernel (``use_pallas_attention=True``): the forward within
+    1e-4 of the largest logit, prefill + 4 decode steps within 5e-4; MoE
+    outputs held only on rows whose expert choices agree."""
+    import copy
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import layers
+
+    monkeypatch.setattr(layers, "FLASH_THRESHOLD", 16)
+    pallas = arch in ("llama4-maverick-400b-a17b", "grok-1-314b", "internvl2-76b")
+    bundle = get_arch(arch, reduced=True, **({"use_pallas_attention": True} if pallas else {}))
+    gen = torch.Generator().manual_seed(0)
+    host = bundle.model.init_params(gen)
+    card = copy.deepcopy(host).to(dev)
+    toks = torch.randint(0, bundle.cfg.vocab, (2, 32), generator=gen)
+    extra = {n: torch.randn(make(2, 32).shape, generator=gen)
+             for n, make in bundle.extra_inputs.items()}
+    calls = routing_tap(monkeypatch)
+    before = cuda.launches["flash_attention"]
+    got, r_card = _family_run(bundle, card, toks, extra, dev, calls)
+    assert cuda.launches["flash_attention"] - before == (bundle.cfg.n_layers if pallas else 0)
+    want, r_host = _family_run(bundle, host, toks, extra, "cpu", calls)
+    for i, (g, w) in enumerate(zip(got, want)):
+        rows = torch.from_numpy(agreeing_rows(r_card[i], r_host[i])) if r_host[i] \
+            else slice(None)
+        err = float((g[rows] - w[rows]).abs().max() / w[rows].abs().max())
+        assert err <= (1e-4 if i == 0 else 5e-4), (i, err)
+
+
+def test_moe_forward_through_the_kernel_matches_the_streaming_path(dev, monkeypatch):
+    """Reduced llama4 on the card in f32 with ``FLASH_THRESHOLD`` lowered:
+    the kernel (one launch a layer, both the dense and the MoE sub-layer)
+    against the streaming path within 1e-4 of the largest logit, where the
+    expert choices agree."""
+    import dataclasses
+
+    import repro_torch.models.transformer as tr
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import layers
+
+    monkeypatch.setattr(layers, "FLASH_THRESHOLD", 16)
+    plain = get_arch("llama4-maverick-400b-a17b", reduced=True)
+    kernel = dataclasses.replace(plain, model=tr.Transformer(
+        dataclasses.replace(plain.cfg, use_pallas_attention=True)))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = plain.model.init_params(gen)
+    toks = torch.randint(0, plain.cfg.vocab, (2, 64), generator=gen, device=dev)
+    calls = routing_tap(monkeypatch)
+    with torch.inference_mode():
+        before = cuda.launches["flash_attention"]
+        got, _ = kernel.model.forward(params, toks)
+        assert cuda.launches["flash_attention"] - before == plain.cfg.n_layers
+        r_kernel = list(calls)
+        calls.clear()
+        want, _ = plain.model.forward(params, toks)
+    rows = torch.from_numpy(agreeing_rows(r_kernel, calls))
+    got, want = got.cpu()[rows], want.cpu()[rows]
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-4

@@ -44,6 +44,15 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
             "repro_torch.data.pipeline", "repro_torch.launch.train",
             "repro_torch.train_lm", "repro_torch.configs.olmo_1b",
             "repro_torch.configs.gemma3_27b"} <= set(mods)
+    # The six other families and their configs, each module the port's own
+    # copy (the MoE layer, the SSD scan, the encoder-decoder, the VLM).
+    assert {"repro_torch.models.moe", "repro_torch.models.mamba2",
+            "repro_torch.models.zamba2", "repro_torch.models.whisper",
+            "repro_torch.models.internvl", "repro_torch.models.jax_layout",
+            "repro_torch.configs.llama4_maverick_400b_a17b",
+            "repro_torch.configs.grok_1_314b", "repro_torch.configs.mamba2_2_7b",
+            "repro_torch.configs.zamba2_1_2b", "repro_torch.configs.whisper_medium",
+            "repro_torch.configs.internvl2_76b"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

@@ -22,12 +22,12 @@ from repro.configs.common import ShapeSpec as JShapeSpec
 from repro.configs.registry import arch_cells as jarch_cells
 from repro.configs.registry import arch_skips as jarch_skips
 from repro.configs.registry import get_arch as jget_arch
+from repro.configs.registry import list_archs as jlist_archs
 from repro.models.transformer import Transformer as JTransformer
 from repro.models.transformer import TransformerConfig as JTransformerConfig
 from repro.train.steps import make_serve_artifacts as jmake_serve_artifacts
 from repro_torch.configs.common import ShapeSpec
-from repro_torch.configs.registry import (
-    NOT_PORTED, arch_cells, arch_skips, get_arch, list_archs)
+from repro_torch.configs.registry import arch_cells, arch_skips, get_arch, list_archs
 from repro_torch.kernels import cuda
 from repro_torch.models import layers as tl
 from repro_torch.models.transformer import Transformer, TransformerConfig, params_from_numpy
@@ -177,12 +177,13 @@ def test_swiglu_matches_jax():
 
 
 def test_init_params_match_the_jax_tree():
-    """Same leaves, shapes and dtypes as the JAX init, and the same scales."""
+    """Same leaves, shapes and dtypes as the JAX init, and the same scales,
+    for all ten architectures."""
     for arch in list_archs():
         jb, pb = jget_arch(arch, reduced=True), get_arch(arch, reduced=True)
         jp = jax_params(jb.model, 0)
         tp = pb.model.init_params(torch.Generator().manual_seed(0))
-        carried = params_from_numpy(pb.cfg, jp)
+        carried = pb.model.params_from_numpy(jp)
         drawn = dict(tp.named_parameters())
         assert dict(carried.named_parameters()).keys() == drawn.keys()
         for name, x in carried.named_parameters():
@@ -285,26 +286,50 @@ def test_inplace_cache_mode_decode_matches_append_slice():
 
 
 def test_registry_has_the_dense_archs_and_names_the_roadmap_for_the_rest():
-    assert sorted(list_archs()) == sorted(DENSE_ARCHS)
+    """All ten architectures of the JAX registry, in its order (nothing is
+    left to port): equal configs (nested ones too: MoE, the VLM backbone),
+    parameter counts, bundles, extra inputs' shapes and dtypes, skips and
+    cells; and TransformerConfig takes ``moe``."""
+    assert list_archs() == jlist_archs()
+    assert set(DENSE_ARCHS) < set(list_archs())
     for arch in list_archs():
         for reduced in (False, True):
             jb, pb = jget_arch(arch, reduced=reduced), get_arch(arch, reduced=reduced)
             jc, pc = jb.cfg, pb.cfg
-            assert {f.name: getattr(pc, f.name) for f in dataclasses.fields(pc)} == \
-                {f.name: getattr(jc, f.name) for f in dataclasses.fields(jc)}
+            assert dataclasses.asdict(pc) == dataclasses.asdict(jc)
             assert pc.param_count() == jc.param_count()
-            assert (pb.arch_id, pb.family, pb.moment_dtype, pb.extra_inputs) == \
-                (jb.arch_id, jb.family, jb.moment_dtype, jb.extra_inputs)
+            assert pc.active_param_count() == jc.active_param_count()
+            assert (pb.arch_id, pb.family, pb.moment_dtype) == \
+                (jb.arch_id, jb.family, jb.moment_dtype)
+            assert pb.extra_inputs.keys() == jb.extra_inputs.keys()
+            for name, make in pb.extra_inputs.items():
+                spec, jspec = make(2, 32), jb.extra_inputs[name](2, 32)
+                assert tuple(spec.shape) == jspec.shape and spec.device.type == "meta"
+                assert str(spec.dtype).removeprefix("torch.") == jspec.dtype.name
         assert arch_skips(arch) == jarch_skips(arch)
         cells = [(shape.name, skip) for shape, skip in arch_cells(arch)]
         assert cells == [(shape.name, skip) for shape, skip in jarch_cells(arch)]
-    assert len(NOT_PORTED) == 6 and not set(NOT_PORTED) & set(list_archs())
-    for arch in NOT_PORTED:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_arch(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP: LM stack, MoE"):
-        TransformerConfig(name="m", n_layers=2, d_model=8, n_heads=2, n_kv=1, d_head=4,
-                          d_ff=8, vocab=8, moe=object())
+    moe = get_arch("grok-1-314b").cfg.moe
+    cfg = TransformerConfig(name="m", n_layers=2, d_model=8, n_heads=2, n_kv=1, d_head=4,
+                            d_ff=8, vocab=8, moe=dataclasses.replace(moe, interleave=2))
+    assert (cfg.group_size, cfg.n_groups, cfg.sub_is_moe(0), cfg.sub_is_moe(1)) == \
+        (2, 1, False, True)
+
+
+@pytest.mark.parametrize("arch", jlist_archs())
+def test_every_reduced_forward_is_finite(arch):
+    """Each registered architecture, reduced, drawn by the port: the
+    forward (with its stub inputs) gives finite logits of the vocab's width."""
+    pb = get_arch(arch, reduced=True)
+    gen = torch.Generator().manual_seed(0)
+    params = pb.model.init_params(gen)
+    vocab = pb.cfg.vocab
+    toks = torch.randint(0, vocab, (2, 32), generator=gen)
+    extra = {n: torch.randn(make(2, 32).shape, generator=gen)
+             for n, make in pb.extra_inputs.items()}
+    logits, aux = pb.model.forward(params, toks, **extra)
+    assert logits.shape == (2, 32, vocab)
+    assert bool(torch.isfinite(logits).all()) and bool(torch.isfinite(aux))
 
 
 def test_window_and_theta_arrays_match_jax():
@@ -324,11 +349,27 @@ def test_serve_lm_runs_reduced_on_the_cpu(capsys):
     assert "prefill: batch 2 x 32 tokens" in out and "decode:  2 steps" in out
 
 
+@pytest.mark.parametrize("arch", ["grok-1-314b", "mamba2-2.7b", "whisper-medium",
+                                  "internvl2-76b"])
+def test_serve_lm_runs_every_family_reduced_on_the_cpu(arch, capsys):
+    """``--arch`` takes the other families; whisper's frames and internvl's
+    patch embeddings are drawn from the seed."""
+    from repro_torch import serve_lm
+
+    r = serve_lm.main(["--reduced", "--device", "cpu", "--batch", "2", "--tokens", "3",
+                       "--arch", arch])
+    assert r["tokens"].shape == (2, 3) and bool(torch.isfinite(r["logits"]).all())
+    assert f"{arch}-smoke on cpu" in capsys.readouterr().out
+
+
 def test_the_isolation_test_reaches_the_lm_modules():
     """tests/test_torch_isolation.py imports every module its rglob finds."""
     from test_torch_isolation import port_modules
 
     mods = set(port_modules())
     assert {"repro_torch.models.layers", "repro_torch.models.transformer",
-            "repro_torch.configs.registry", "repro_torch.train.steps",
-            "repro_torch.serve_lm", "repro_torch.kernels.flash_attention"} <= mods
+            "repro_torch.models.moe", "repro_torch.models.mamba2", "repro_torch.models.zamba2",
+            "repro_torch.models.whisper", "repro_torch.models.internvl",
+            "repro_torch.models.jax_layout", "repro_torch.configs.registry",
+            "repro_torch.train.steps", "repro_torch.serve_lm",
+            "repro_torch.kernels.flash_attention"} <= mods
