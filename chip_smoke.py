@@ -228,7 +228,8 @@ card from seed 0, f32 products in f32):
     to bf16), timed (as in 7, median of 20) beside its bound, the plain
     version and SDPA (the library time, and its own error);
     the bf16 route runs on the tensor cores, the f32 route (timed at qwen2's
-    shape) on the CUDA cores; the tensor-core kernel's wgmma and TMA
+    shape beside its bound at the f32 CUDA-core peak and SDPA on the same
+    f32 inputs, TF32 off) on the CUDA cores; the tensor-core kernel's wgmma and TMA
     instructions counted in its SASS (none fails the run), its registers,
     spills and shared memory from the build report;
 15. ``[cpu]`` reduced qwen2-0.5b in f32 on the card against the CPU, with
@@ -244,10 +245,10 @@ card from seed 0, f32 products in f32):
     every 2 steps, 2 x 4096 a pod, 4 steps: replicas differ before each
     sync and are equal after it, residuals nonzero; ms per local step and
     sync, the int8 payload's bytes; (c) ``python -m
-    repro_torch.launch.train`` at that config (B 4 x S 4096, 4 steps,
-    checkpoints every 2), then its step-2 checkpoint ``--resume``d to 4
-    by a second run: the resumed losses print as the uninterrupted run's and its step-4
-    checkpoint is bitwise the uninterrupted one (the CLI runs
+    repro_torch.launch.train`` at that config (B 2 x S 4096, 3 steps,
+    checkpoints at 2 and 3), then its step-2 checkpoint ``--resume``d to 3
+    by a second run: the resumed loss prints as the uninterrupted run's and
+    its step-3 checkpoint is bitwise the uninterrupted one (the CLI runs
     deterministic algorithms); the step-2 state restored on the card is
     bitwise the saved one; bytes, restore and save seconds; (d) reduced
     qwen2-0.5b and olmo-1b in f32, the sync and the hierarchical trainer,
@@ -256,7 +257,25 @@ card from seed 0, f32 products in f32):
     grid step after the sync); (e) olmo-1b (16 layers) and gemma3-27b (6 of its 62
     layers, one 5:1 period) at full width: bf16 with the kernel, B 1 x S
     4096, ``n_layers`` launches a forward and ms/forward; in f32 the kernel
-    against the streaming path (<= 1e-4);
+    against the streaming path (<= 1e-4); (f) mamba2-2.7b (64 layers),
+    zamba2-1.2b (38), whisper-medium (24 + 24; decoder 448 tokens on 1500
+    frames) as published, internvl2-76b at 4 of its 80 backbone layers and
+    grok-1 at 1 of its 64 (the card's memory: 8 B a parameter with bf16
+    moments), bf16, remat and moment dtype as published, B 1 x S 4096: 1 +
+    3 AdamW steps on one repeated batch, the second loss below the first,
+    finite losses and grad norms, no kernel launch, ms/step, tokens/s and
+    peak GB; a line on why llama4-maverick's full-width step does not fit
+    the card; (g) the six reduced configs in f32, card == CPU (the loss
+    within 1e-5 relative, every gradient within 1e-4 of its leaf's largest,
+    floor 1e-8), no MoE routing flip, and on the card ``remat`` as
+    published against ``"none"`` bitwise (deterministic algorithms); (h)
+    the CLI's crash-resume on reduced mamba2 (4 steps checkpointed every 2,
+    the step-2 checkpoint resumed to 4): the same losses, the step-4
+    checkpoint bitwise, its layer leaves stacked as in the JAX CLI; (i)
+    ``train.pipeline.pipeline_apply`` on four gloo ranks sharing the card
+    (``--pipe-rank``): qwen2-0.5b as published, 4 stages of 6 layers, each
+    rank holding its stage alone, 4 microbatches of B 1 x S 4096, every
+    rank's outputs bitwise the 24 layers run in sequence here;
 17. ``[families]`` the six other LM families at their published widths and
    dtypes (bf16), weights drawn on the card from seed 0, each freed before
    the next: llama4-maverick at 2 of its 48 layers (a dense and a
@@ -336,7 +355,7 @@ def bitwise_equal(a, b) -> bool:
 
     if a.dtype != b.dtype or a.shape != b.shape:
         return False
-    as_bytes = lambda x: x.contiguous().view(torch.uint8)  # noqa: E731
+    as_bytes = lambda x: x.contiguous().reshape(-1).view(torch.uint8)  # noqa: E731
     return bool(torch.equal(as_bytes(a), as_bytes(b.to(a.device))))
 
 
@@ -2574,7 +2593,8 @@ def log_flash_build() -> None:
 def phase_kernel_flash(launches: dict) -> dict:
     """flash_attention against its plain version at the main paths' shapes
     and with k_len < S; timed beside its bound, the plain version and SDPA,
-    and the f32 route at qwen2-0.5b's shape."""
+    and the f32 route at qwen2-0.5b's shape beside its own bound (the f32
+    CUDA-core peak) and SDPA on the f32 inputs."""
     import numpy as np
     import torch
 
@@ -2614,13 +2634,27 @@ def phase_kernel_flash(launches: dict) -> dict:
         ms = time_ms(lambda: fa.flash_attention_cuda(*bf, window, k_len), flush=flush)
         plain_ms = time_ms(lambda: fa.flash_attention_plain(*bf, window, k_len), flush=flush,
                            host_paced_ok=True)
-        f32_ms = None
-        if row is None:  # the f32 route (CUDA cores) at the main path's shape
-            f32_ms = time_ms(lambda: fa.flash_attention_cuda(*f32, window, k_len), flush=flush)
         pairs = _valid_pairs(s, s, window, k_len)
         flops = 4 * b * h * dh * pairs
         nbytes = sum(x.numel() * 2 for x in bf) + got.numel() * 2
         bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / BF16_OPS_PER_S) * 1e3
+        f32_row = None
+        if row is None:
+            # The f32 route (CUDA cores) at the main path's shape, beside
+            # its bound at the f32 CUDA-core peak and SDPA on the same f32
+            # inputs (TF32 is off: f32 products in f32).
+            f32_ms = time_ms(lambda: fa.flash_attention_cuda(*f32, window, k_len), flush=flush)
+            f32_bound = max(2 * nbytes / HBM_BYTES_PER_S, flops / F32_OPS_PER_S) * 1e3
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in f32)
+            f32_sdpa_err = max_abs_err(
+                sdpa(qt, kt, vt, is_causal=True, enable_gqa=True).transpose(1, 2),
+                fa.flash_attention_plain(*f32, window, k_len))
+            f32_sdpa_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True),
+                                  flush=flush)
+            f32_row = dict(ms=f32_ms, bound_ms=f32_bound, bound_by="operations",
+                           library_ms=f32_sdpa_ms, max_abs_err=err32)
+            del qt, kt, vt
         library_ms = None
         if window == 0 and k_len == s:
             sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -2645,9 +2679,12 @@ def phase_kernel_flash(launches: dict) -> dict:
             f"({flops / ms / 1e9:.1f} TFLOP/s, {100 * bound_ms / ms:.1f}% of the bound "
             f"{bound_ms:.4f} ms by operations, {flops / 1e9:.1f} GFLOP), plain "
             f"{plain_ms:.3f} ms, SDPA {library_ms if library_ms is None else round(library_ms, 4)} ms"
-            + ("" if f32_ms is None else
-               f"; f32 (CUDA cores) {f32_ms:.3f} ms ({flops / f32_ms / 1e9:.1f} TFLOP/s; "
-               f"f32 CUDA-core bound {flops / F32_OPS_PER_S * 1e3:.3f} ms)"))
+            + ("" if f32_row is None else
+               f"; f32 (CUDA cores) {f32_row['ms']:.3f} ms ({flops / f32_row['ms'] / 1e9:.1f} "
+               f"TFLOP/s; {100 * f32_row['bound_ms'] / f32_row['ms']:.1f}% of the bound "
+               f"{f32_row['bound_ms']:.3f} ms by operations at the f32 CUDA-core peak), SDPA "
+               f"on the f32 inputs (TF32 off) {f32_row['library_ms']:.4f} ms (max abs vs "
+               f"plain {f32_sdpa_err:.3g})"))
         if row is None:  # the row is the qwen2-0.5b main path's shape
             row = dict(
                 name="flash_attention", route="cuda",
@@ -2655,7 +2692,7 @@ def phase_kernel_flash(launches: dict) -> dict:
                 replaces="src/repro/kernels/flash_attention.py:79",
                 launches=launches["flash_attention"], max_abs_err=err16, ms=ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by="operations",
-                library_ms=library_ms, checked=True)
+                library_ms=library_ms, checked=True, f32=f32_row)
         del f32, bf, got, want
     del flush
     torch.cuda.empty_cache()
@@ -2879,14 +2916,14 @@ def _npz_equal(a: str, b: str) -> bool:
 
 def phase_train_cli() -> None:
     """(c) ``python -m repro_torch.launch.train`` at qwen2-0.5b's published
-    config: 4 steps of B 4 x S 4096 checkpointed every 2; that run's step-2
-    checkpoint, alone in a directory, resumed to step 4 by a second run.
-    The step is deterministic (the CLI sets
-    torch.use_deterministic_algorithms), so the resumed run's step-3/4
-    losses print as the uninterrupted run's and its step-4 checkpoint is
-    bitwise the uninterrupted one; the restored state is bitwise the saved
-    one (restored on the card and saved again), with the checkpoint's bytes
-    and the save and restore seconds."""
+    config: 3 steps of B 2 x S 4096 checkpointed every 2 (and at the end);
+    that run's step-2 checkpoint, alone in a directory, resumed to step 3
+    by a second run. The step is deterministic (the CLI sets
+    torch.use_deterministic_algorithms), so the resumed run's step-3 loss
+    prints as the uninterrupted run's and its step-3 checkpoint is bitwise
+    the uninterrupted one; the restored state is bitwise the saved one
+    (restored on the card and saved again), with the checkpoint's bytes and
+    the save and restore seconds."""
     import os
     import shutil
     import tempfile
@@ -2898,43 +2935,29 @@ def phase_train_cli() -> None:
     from repro_torch.launch.train import train_state_tree
     from repro_torch.optim.adamw import AdamWConfig, adamw_init
 
-    src = str(Path(__file__).resolve().parent / "src")
-    env = {**os.environ, "PYTHONPATH": src}
+    env = {**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parent / "src")}
     tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
     log(f"[train] (c) checkpoints under {tmp}: {shutil.disk_usage(tmp).free / 1e9:.1f} GB free")
-    base = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "qwen2-0.5b",
-            "--global-batch", "4", "--seq-len", str(TRAIN_SEQ), "--ckpt-every", "2",
-            "--log-every", "1"]
-    step_line = re.compile(r"^step\s+(\d+) loss\s+(\S+)", re.M)
-
-    def run(what, *argv):
-        t0 = time.perf_counter()
-        out = subprocess.run([*base, *argv], capture_output=True, text=True, env=env,
-                             timeout=600)
-        for line in out.stdout.splitlines():
-            if line.strip():
-                log(f"[train] (c) {what}: {line}")
-        if out.returncode != 0:
-            raise AssertionError(f"(c) {what}: exit {out.returncode}\n{out.stderr[-3000:]}")
-        log(f"[train] (c) {what}: exit 0 in {time.perf_counter() - t0:.1f} s")
-        return dict(step_line.findall(out.stdout))
+    argv = ["--arch", "qwen2-0.5b", "--steps", "3", "--global-batch", "2", "--seq-len",
+            str(TRAIN_SEQ), "--ckpt-every", "2", "--log-every", "1"]
 
     def npz(d, step):
         return os.path.join(d, f"step_{step:08d}", "arrays.npz")
 
     try:
         full_dir, cut_dir = os.path.join(tmp, "full"), os.path.join(tmp, "cut")
-        full = run("uninterrupted", "--steps", "4", "--ckpt-dir", full_dir)
-        if sorted(full) != ["1", "2", "3", "4"]:
+        full = _train_cli("(c)", "uninterrupted", [*argv, "--ckpt-dir", full_dir], env)
+        if sorted(full) != ["1", "2", "3"]:
             raise AssertionError(f"(c) the uninterrupted run's steps: {full}")
         os.makedirs(cut_dir)
+        # hard links: the resumed run reads the step-2 files and writes new ones
         shutil.copytree(os.path.join(full_dir, f"step_{2:08d}"),
-                        os.path.join(cut_dir, f"step_{2:08d}"))
+                        os.path.join(cut_dir, f"step_{2:08d}"), copy_function=os.link)
         # The restore on the card, timed, held to the saved arrays; then the
         # restored state saved again, timed.
         bundle = get_arch("qwen2-0.5b")
         meta = bundle.model.init_params(None, device="meta")
-        like = train_state_tree(meta, adamw_init(meta, AdamWConfig(
+        like = train_state_tree(bundle.model, meta, adamw_init(meta, AdamWConfig(
             moment_dtype=bundle.moment_dtype)))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2952,14 +2975,14 @@ def phase_train_cli() -> None:
         log(f"[train] (c) checkpoint of step 2: {nbytes:,} B; restored onto the card in "
             f"{restore_s:.2f} s, saved again (device to host + write) in {save_s:.2f} s, "
             f"bitwise the saved state; {card_name_power()}")
-        resumed = run("resumed", "--steps", "4", "--ckpt-dir", cut_dir, "--resume")
+        resumed = _train_cli("(c)", "resumed", [*argv, "--ckpt-dir", cut_dir, "--resume"], env)
         want = {k: v for k, v in full.items() if int(k) > 2}
         if resumed != want:
             raise AssertionError(f"(c) resumed losses {resumed} against {want}")
-        if not _npz_equal(npz(cut_dir, 4), npz(full_dir, 4)):
-            raise AssertionError("(c) the resumed run's step-4 checkpoint differs")
-        log(f"[train] (c) the resumed run's steps 3-4 {resumed} print as the uninterrupted "
-            f"run's, and its step-4 checkpoint is bitwise the uninterrupted one")
+        if not _npz_equal(npz(cut_dir, 3), npz(full_dir, 3)):
+            raise AssertionError("(c) the resumed run's step-3 checkpoint differs")
+        log(f"[train] (c) the resumed run's step 3 {resumed} prints as the uninterrupted "
+            f"run's, and its step-3 checkpoint is bitwise the uninterrupted one")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3080,16 +3103,378 @@ def phase_train_forwards() -> None:
         torch.cuda.empty_cache()
 
 
+# [train] (f)-(i): the six other families (MoE, SSM, hybrid, audio, VLM)
+# trained, and the GPipe wrapper.
+
+# arch: config overrides (depth cut only where the card forces it) for (f).
+# Reckoned at 8 B a parameter (bf16 weights, grads and moments; 20 B with
+# f32 moments): grok-1 keeps 1 of its 64 layers (~6.5 G parameters, the
+# 131,072-vocab embedding and head included), internvl2 4 of its 80
+# backbone layers (~5.5 G with its 128,256-vocab embedding and head).
+TRAIN_FAMILIES = {
+    "mamba2-2.7b": {},
+    "zamba2-1.2b": {},
+    "whisper-medium": {},
+    "internvl2-76b": {"n_layers": 4},
+    "grok-1-314b": {"n_layers": 1},
+}
+TRAIN_FAMILY_STEPS = 4    # 1 + 3 on one repeated batch
+WHISPER_DECODER_SEQ = 448  # whisper-medium's decoder length
+PIPE_STAGES = 4           # (i): qwen2-0.5b's 24 layers in 4 stages of 6
+PIPE_MICRO = 4            # microbatches of B 1 x S 4096
+PIPE_TIMEOUT_S = 300
+
+
+def _published_remat(arch) -> str:
+    from repro_torch.configs.registry import get_arch
+
+    cfg = get_arch(arch).cfg
+    return getattr(cfg, "backbone", cfg).remat
+
+
+def _family_train(arch) -> None:
+    """(f) ``arch`` at its published width and dtypes (depth as
+    ``TRAIN_FAMILIES`` cuts it), remat and moment dtype as published, B 1
+    x S 4096 (whisper: decoder 448 tokens on 1500 frames): 1 + 3 AdamW
+    steps on one repeated batch, no kernel launch; ms/step, tokens/s, peak
+    GB; the second loss below the first, finite losses and grad norms."""
+    import torch
+
+    from repro_torch.data.pipeline import SyntheticLM, host_batch
+    from repro_torch.kernels import cuda
+    from repro_torch.optim.adamw import AdamWConfig
+
+    overrides = TRAIN_FAMILIES[arch]
+    bundle = _family_bundle(arch, **overrides)
+    cfg = bundle.cfg
+    s = WHISPER_DECODER_SEQ if bundle.family == "audio" else TRAIN_SEQ
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=1, moment_dtype=bundle.moment_dtype)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_init = time.perf_counter()
+    art, params, opt = _trainer(bundle, opt_cfg)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t_init
+    n_params = sum(p.numel() for p in params.parameters())
+    batch = host_batch(SyntheticLM(cfg.vocab, s, 1, seed=0).batch(0), "cuda")
+    batch.update(_family_inputs(bundle, 1, s, "cuda")[1])
+    before = dict(cuda.launches)
+    losses, gnorms, times = [], [], []
+    for _ in range(TRAIN_FAMILY_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = art.step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+    _no_flash(before, f"the {arch} training step")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    ms = 1e3 * statistics.mean(times[1:])
+    depth = overrides.get("n_layers")
+    cut = ("published depth" if depth is None
+           else f"{depth} of {_family_bundle(arch).cfg.n_layers} layers")
+    frames = f" (decoder; {cfg.n_frames} frames)" if bundle.family == "audio" else ""
+    log(f"[train] (f) {arch} ({cut}, {n_params / 1e9:.3f} G parameters drawn in "
+        f"{t_init:.1f} s), {getattr(cfg, 'backbone', cfg).param_dtype} params, "
+        f"{opt_cfg.moment_dtype} moments, remat {_published_remat(arch)!r}, B 1 x S {s}"
+        f"{frames}, the same batch: losses "
+        f"{[round(x, 4) for x in losses]}, grad norms {[round(x, 3) for x in gnorms]}; "
+        f"{ms:.1f} ms/step (mean of 3 after 1; {[round(1e3 * t, 1) for t in times]}), "
+        f"{s / ms * 1e3:,.0f} tokens/s, peak {peak:.2f} GB (max_memory_allocated), "
+        f"flash_attention launches 0; {card_name_power()}")
+    if not all(map(math.isfinite, losses + gnorms)):
+        raise AssertionError(f"(f) {arch}: non-finite losses {losses} or grad norms {gnorms}")
+    if not losses[1] < losses[0]:
+        raise AssertionError(f"(f) {arch}: the second loss does not fall: {losses}")
+    del art, params, opt, batch, m
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_train_families() -> None:
+    """(f) Each family trained at its published width; llama4-maverick's
+    full-width step does not fit the card (a line says why)."""
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+
+    for arch in TRAIN_FAMILIES:
+        _family_train(arch)
+    cfg = get_arch("llama4-maverick-400b-a17b").cfg
+    experts = cfg.moe.n_experts * 3 * cfg.d_model * cfg.moe.d_ff
+    card = torch.cuda.get_device_properties(0).total_memory
+    log(f"[train] (f) llama4-maverick-400b-a17b: one MoE sub-layer's {cfg.moe.n_experts} "
+        f"experts are {experts / 1e9:.1f} G parameters, {8 * experts / 1e9:.0f} GB at 8 B a "
+        f"parameter (bf16 weights, grads and moments) against the card's {card / 1e9:.1f} GB: "
+        f"trained on the card only at its reduced config ((g)); its full-width step waits "
+        f"for expert parallelism over 4 cards")
+
+
+def _family_grads(bundle, params, batch, tap):
+    """(loss, gradients by parameter name, this call's MoE routing)."""
+    import torch
+
+    named = dict(params.named_parameters())
+    loss = bundle.loss(params, batch)
+    grads = torch.autograd.grad(loss, list(named.values()))
+    return loss.detach(), dict(zip(named, grads)), tap.take()
+
+
+def phase_train_families_device_vs_cpu() -> None:
+    """(g) The six reduced configs in f32, the same weights and batch
+    (B 2 x S 32, the stub inputs normal) on the card and the CPU: the loss
+    within 1e-5 relative and every gradient within 1e-4 of its leaf's
+    largest magnitude (floor 1e-8), no MoE routing flip; on the card,
+    ``remat`` as published against ``"none"``, the loss and every gradient
+    bitwise (deterministic algorithms on)."""
+    import copy
+
+    import torch
+
+    from repro_torch.data.pipeline import SyntheticLM, host_batch
+
+    worst = {}
+    for arch in FAMILIES:
+        bundle = _family_bundle(arch, reduced=True)
+        params = {"cpu": bundle.model.init_params(torch.Generator().manual_seed(0))}
+        params["cuda"] = copy.deepcopy(params["cpu"]).to("cuda")
+        host = host_batch(SyntheticLM(bundle.cfg.vocab, 32, 2, seed=4).batch(0), "cpu")
+        host.update(_family_inputs(bundle, 2, 32, "cpu", seed=5)[1])
+        batch = {d: {k: v.to(d) for k, v in host.items()} for d in ("cuda", "cpu")}
+        out = {}
+        with _RoutingTap() as tap:
+            for d in ("cuda", "cpu"):
+                params[d].requires_grad_()
+                out[d] = _family_grads(bundle, params[d], batch[d], tap)
+            rows = agreeing_rows(out["cuda"][2], out["cpu"][2], f"reduced {arch} training",
+                                 tag="[train] (g)")
+            if rows is not None and not bool(rows.all()):
+                raise AssertionError(f"(g) {arch}: a routing flip between the card and the CPU")
+            want = float(out["cpu"][0])
+            loss_err = abs(float(out["cuda"][0]) - want) / abs(want)
+            # per leaf: max abs over max(its largest |g|, 1e-4), so that the
+            # 1e-4 bar floors at 1e-8 on leaves whose exact gradient is 0
+            grad_err = max(max_abs_err(out["cuda"][1][n].cpu(), g)
+                           / max(float(g.abs().max()), 1e-4)
+                           for n, g in out["cpu"][1].items())
+            mode = _published_remat(arch)
+            remat = _family_bundle(arch, reduced=True, remat=mode)
+            deterministic = torch.are_deterministic_algorithms_enabled()
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                runs = [_family_grads(b, params["cuda"], batch["cuda"], tap)
+                        for b in (bundle, remat)]
+            finally:
+                torch.use_deterministic_algorithms(deterministic)
+        same = bitwise_equal(runs[0][0], runs[1][0]) and all(
+            bitwise_equal(runs[0][1][n], runs[1][1][n]) for n in runs[0][1])
+        worst[arch] = (loss_err, grad_err, mode, same)
+        if not (loss_err <= 1e-5 and grad_err <= 1e-4 and same):
+            raise AssertionError(f"(g) {arch}: loss rel {loss_err}, gradients {grad_err}, "
+                                 f"remat {mode!r} bitwise 'none': {same}")
+    log("[train] (g) reduced f32 training, card vs cpu (loss rel, bar 1e-5; gradients max abs "
+        "over the leaf's largest, bar 1e-4), and remat as published against 'none' on the "
+        "card: " + ", ".join(f"{a} {le:.3g} / {ge:.3g}, {m!r} {'bitwise' if s else 'DIFFERS'}"
+                             for a, (le, ge, m, s) in worst.items()) + "; no routing flip")
+
+
+def _train_cli(tag: str, what: str, argv: list, env: dict) -> dict:
+    """``python -m repro_torch.launch.train`` with ``argv`` on the card, its
+    lines echoed; fails unless it exits 0. Returns its printed losses by
+    step."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", *argv],
+                         capture_output=True, text=True, env=env, timeout=600)
+    for line in out.stdout.splitlines():
+        if line.strip():
+            log(f"[train] {tag} {what}: {line}")
+    if out.returncode != 0:
+        raise AssertionError(f"{tag} {what}: exit {out.returncode}\n{out.stderr[-3000:]}")
+    log(f"[train] {tag} {what}: exit 0 in {time.perf_counter() - t0:.1f} s")
+    return dict(re.findall(r"^step\s+(\d+) loss\s+(\S+)", out.stdout, re.M))
+
+
+def phase_train_cli_family() -> None:
+    """(h) The CLI's crash-resume on reduced mamba2 (its own stacks in the
+    checkpoint): 4 steps of B 2 x S 64 checkpointed every 2, then the
+    step-2 checkpoint alone in a directory resumed to 4 by a second run:
+    its losses print as the uninterrupted run's and its step-4 checkpoint
+    is bitwise the uninterrupted one (the CLI runs deterministic
+    algorithms)."""
+    import os
+    import shutil
+    import tempfile
+
+    env = {**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parent / "src")}
+    argv = ["--arch", "mamba2-2.7b", "--reduced", "--steps", "4", "--global-batch", "2",
+            "--seq-len", "64", "--ckpt-every", "2", "--log-every", "1"]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_family_")
+    try:
+        full_dir, cut_dir = os.path.join(tmp, "full"), os.path.join(tmp, "cut")
+        full = _train_cli("(h)", "mamba2 uninterrupted", [*argv, "--ckpt-dir", full_dir], env)
+        os.makedirs(cut_dir)
+        shutil.copytree(os.path.join(full_dir, f"step_{2:08d}"),
+                        os.path.join(cut_dir, f"step_{2:08d}"))
+        resumed = _train_cli("(h)", "mamba2 resumed",
+                             [*argv, "--ckpt-dir", cut_dir, "--resume"], env)
+        want = {k: v for k, v in full.items() if int(k) > 2}
+        if sorted(full) != ["1", "2", "3", "4"] or resumed != want:
+            raise AssertionError(f"(h) resumed losses {resumed} against {full}")
+        step4 = [os.path.join(d, f"step_{4:08d}", "arrays.npz") for d in (cut_dir, full_dir)]
+        if not _npz_equal(*step4):
+            raise AssertionError("(h) the resumed run's step-4 checkpoint differs")
+        import numpy as np
+
+        with np.load(step4[1]) as z:
+            stacked = "['params']/['layers']/['A_log']" in z.files
+        if not stacked:
+            raise AssertionError("(h) the checkpoint lacks mamba2's stacked layer leaves")
+        log(f"[train] (h) reduced mamba2: the resumed run's steps 3-4 {resumed} print as the "
+            f"uninterrupted run's, its step-4 checkpoint is bitwise the uninterrupted one, "
+            f"with mamba2's layer leaves stacked under ['layers'] as in the JAX CLI")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _pipe_stage_fn(model, cfg, first: int, positions):
+    """Stage function of (i): layers ``first``... of qwen2-0.5b on ``h``."""
+    thetas, windows = cfg.theta_array(), cfg.window_array()
+    g = cfg.group_size
+
+    def stage(layers_, h):
+        for j, sub in enumerate(layers_):
+            i = first + j
+            h = model._layer(sub, h, positions, thetas[i // g, i % g],
+                             int(windows[i // g, i % g]))[0]
+        return h
+
+    return stage
+
+
+def phase_train_pipeline() -> None:
+    """(i) ``train.pipeline.pipeline_apply`` run by four gloo ranks on the
+    card (processes of this script, ``--pipe-rank``): qwen2-0.5b as
+    published (bf16) cut into 4 stages of 6 layers, each rank holding only
+    its stage, on 4 microbatches of B 1 x S 4096 (the token embeddings);
+    every rank's outputs against the 24 layers run in sequence here."""
+    import socket
+    import tempfile
+
+    import torch
+
+    bundle, params = _lm("qwen2-0.5b")
+    cfg, model = bundle.cfg, bundle.model
+    per = cfg.n_layers // PIPE_STAGES
+    positions = torch.arange(TRAIN_SEQ, dtype=torch.int32, device="cuda").expand(1, TRAIN_SEQ)
+    with torch.inference_mode():
+        x = model._embed(params, _tokens(cfg.vocab, PIPE_MICRO, TRAIN_SEQ))[:, None]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = torch.stack([_pipe_stage_fn(model, cfg, 0, positions)(params.layers, xm)
+                           for xm in x])
+        torch.cuda.synchronize()
+        seq_ms = 1e3 * (time.perf_counter() - t0)
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(x.cpu(), f"{tmp}/x.pt")
+        for s in range(PIPE_STAGES):
+            torch.save(params.layers[s * per:(s + 1) * per].cpu(), f"{tmp}/stage{s}.pt")
+        del params
+        torch.cuda.empty_cache()
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        t0 = time.perf_counter()
+        procs = []
+        for rank in range(PIPE_STAGES):
+            with open(f"{tmp}/rank{rank}.log", "w") as out:
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(Path(__file__).resolve()), "--pipe-rank", str(rank),
+                     tmp, str(port)], stdout=out, stderr=subprocess.STDOUT))
+        try:
+            for p in procs:
+                p.wait(timeout=max(1.0, PIPE_TIMEOUT_S - (time.perf_counter() - t0)))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for rank in range(PIPE_STAGES):
+            for line in Path(f"{tmp}/rank{rank}.log").read_text().splitlines():
+                log(line if line.startswith("[train]") else f"[train] (i) rank {rank}| {line}")
+        rcs = [p.returncode for p in procs]
+        if any(rcs):
+            raise AssertionError(f"(i) a pipeline rank failed: exit codes {rcs}")
+        outs = [torch.load(f"{tmp}/out{r}.pt") for r in range(PIPE_STAGES)]
+    ref = ref.cpu()
+    diffs = [max_abs_err(o, ref) for o in outs]
+    same = all(bitwise_equal(o, ref) for o in outs)
+    log(f"[train] (i) pipeline_apply, qwen2-0.5b {cfg.param_dtype} in {PIPE_STAGES} stages of "
+        f"{per} layers on {PIPE_STAGES} gloo ranks sharing the card, {PIPE_MICRO} microbatches "
+        f"of B 1 x S {TRAIN_SEQ}: every rank's outputs {'bitwise' if same else 'NOT bitwise'} "
+        f"the {cfg.n_layers} layers in sequence (largest difference {max(diffs):.3g}); ranks "
+        f"exited {rcs} after {time.perf_counter() - t0:.1f} s; the sequence here "
+        f"{seq_ms:.1f} ms; {card_name_power()}")
+    if not same:
+        raise AssertionError(f"(i) pipeline outputs differ from the sequence: {diffs}")
+
+
+def pipe_rank_main(rank: int, tmp: str, port: int) -> int:
+    """One rank of (i) (run as ``chip_smoke.py --pipe-rank R DIR PORT``)."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(2)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=PIPE_STAGES, rank=rank,
+                            timeout=datetime.timedelta(seconds=PIPE_TIMEOUT_S))
+    try:
+        from repro_torch.core import ProcessMesh, comm
+        from repro_torch.train.pipeline import pipeline_apply
+
+        mesh = ProcessMesh((PIPE_STAGES,), ("pipe",))
+        bundle = _bundle("qwen2-0.5b")
+        per = bundle.cfg.n_layers // PIPE_STAGES
+        stage = torch.load(f"{tmp}/stage{rank}.pt", weights_only=False).to(mesh.device)
+        x = torch.load(f"{tmp}/x.pt").to(mesh.device)
+        positions = torch.arange(TRAIN_SEQ, dtype=torch.int32,
+                                 device=mesh.device).expand(1, TRAIN_SEQ)
+        fn = _pipe_stage_fn(bundle.model, bundle.cfg, rank * per, positions)
+        comm.reset_stats()
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            out = pipeline_apply(fn, stage, x, mesh)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        torch.save(out.cpu(), f"{tmp}/out{rank}.pt")
+        held = sum(p.numel() for p in stage.parameters())
+        log(f"[train] (i) rank {rank}: stage {rank} (layers {rank * per}-"
+            f"{rank * per + per - 1}, {held / 1e6:.1f} M parameters), "
+            f"{PIPE_MICRO + PIPE_STAGES - 1} steps in {ms:.1f} ms, collectives "
+            f"{dict(comm.calls)}, bytes in {dict(comm.received)}")
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
 def phase_train() -> dict:
-    """(a)-(e); returns each kernel's launches in this process over the
-    training legs (a), (b), (d) (none: they launch no kernel) and over
-    the forwards (e). (c)'s CLI runs in subprocesses."""
+    """(a)-(i); returns each kernel's launches in this process over the
+    training legs (a), (b), (d), (f), (g) (none: they launch no kernel) and
+    over the forwards (e). (c)'s and (h)'s CLI runs and (i)'s ranks run in
+    subprocesses."""
     from repro_torch.kernels import cuda
 
     t0 = time.perf_counter()
     before = dict(cuda.launches)
     for leg in (phase_train_sync, phase_train_hier, phase_train_cli,
-                phase_train_device_vs_cpu):
+                phase_train_device_vs_cpu, phase_train_families,
+                phase_train_families_device_vs_cpu, phase_train_cli_family,
+                phase_train_pipeline):
         leg()
         log(f"[time] [train] {leg.__name__} done at {time.perf_counter() - t0:.1f} s")
     mid = dict(cuda.launches)
@@ -3220,7 +3605,7 @@ class _RoutingTap:
         return calls
 
 
-def agreeing_rows(card: list, host: list, what: str):
+def agreeing_rows(card: list, host: list, what: str, tag: str = "[families] (d)"):
     """The rows (sequences) whose expert choices agree in every MoE layer,
     card against CPU; each row's first flip is logged with its gate margin
     and must be a rounding's (< 1e-5). None where there is no MoE layer."""
@@ -3239,7 +3624,7 @@ def agreeing_rows(card: list, host: list, what: str):
             k = hi.shape[-1]
             top = torch.sort(hg[b, s], descending=True).values[:k + 1]
             margin = float((top[:-1] - top[1:]).min())
-            log(f"[families] (d) {what}: routing flip in MoE layer {layer}, row {b}, token "
+            log(f"{tag} {what}: routing flip in MoE layer {layer}, row {b}, token "
                 f"{s}: card {ci[b, s].tolist()}, cpu {hi[b, s].tolist()}, gate margin "
                 f"{margin:.3g}")
             if margin >= 1e-5:
@@ -4123,6 +4508,8 @@ def main() -> int:
 
     if len(sys.argv) == 5 and sys.argv[1] == "--dist-rank":
         return dist_rank_main(int(sys.argv[2]), sys.argv[3], int(sys.argv[4]))
+    if len(sys.argv) == 5 and sys.argv[1] == "--pipe-rank":
+        return pipe_rank_main(int(sys.argv[2]), sys.argv[3], int(sys.argv[4]))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2

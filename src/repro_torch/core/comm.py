@@ -62,6 +62,7 @@ __all__ = [
     "unpack_bits",
     "all_gather",
     "all_reduce",
+    "broadcast",
     "gather_area",
     "gather_global",
     "gather_full",
@@ -195,6 +196,21 @@ def all_reduce(x: torch.Tensor, mesh, axes, *, op: str = "sum") -> torch.Tensor:
     return buf.to(x.device, non_blocking=True) if staged else buf
 
 
+def broadcast(x: torch.Tensor, mesh, axes, *, src: int) -> torch.Tensor:
+    """The ``x`` of the rank at group index ``src`` over ``axes`` (row-major)
+    on every rank of the group: a new tensor on ``x``'s device, bitwise the
+    source's (where the reference takes a ``psum`` of the source's value
+    and zeros elsewhere)."""
+    axes = _key(axes)
+    group = mesh.group(axes)
+    staged = _staged(group, x)
+    buf = x.detach().to("cpu", copy=True) if staged else x.detach().clone()
+    nbytes = 0 if _group_index(mesh, axes) == src else buf.numel() * buf.element_size()
+    _timed("broadcast", axes, nbytes,
+           lambda: dist.broadcast(buf, src=_rank_at(mesh, axes, src), group=group))
+    return buf.to(x.device, non_blocking=True) if staged else buf
+
+
 def gather_area(
     spikes_local: torch.Tensor, mesh, *, subgroup_axis: str = "model", packed: bool = True,
 ) -> torch.Tensor:
@@ -245,6 +261,14 @@ def gather_full(
     return torch.movedim(out, 0, 1).reshape(spikes_local.shape[0], -1)
 
 
+def _group_index(mesh, axes: tuple) -> int:
+    """This rank's index in the group over ``axes`` (row-major)."""
+    g = 0
+    for ax in axes:
+        g = g * mesh.shape[ax] + mesh.axis_index(ax)
+    return g
+
+
 def _rank_at(mesh, axes: tuple, h: int) -> int:
     """The global rank at group index ``h`` over ``axes`` (row-major) that
     shares this rank's coordinates off ``axes``."""
@@ -266,9 +290,7 @@ def ppermute(x: torch.Tensor, mesh, axes, pairs, *, fill=0) -> torch.Tensor:
     global ranks, all posted in one ``batch_isend_irecv``; over gloo a
     device tensor is staged through pinned host buffers."""
     axes = _key(axes)
-    g = 0
-    for ax in axes:
-        g = g * mesh.shape[ax] + mesh.axis_index(ax)
+    g = _group_index(mesh, axes)
     sends = [dst for src, dst in pairs if src == g]
     recvs = [src for src, dst in pairs if dst == g]
     if len(recvs) > 1:

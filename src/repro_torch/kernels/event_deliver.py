@@ -23,8 +23,9 @@ An id outside ``[0, n_src)`` is packet padding, and a target outside
 ``[0, n_tgt)`` (the tables pad with -1) is table padding: neither adds
 anything. The JAX package adds ``+0.0`` into ring row 0 for both instead;
 that is bitwise the same, because rings never hold ``-0.0`` (they start at
-``+0.0`` and exact sums that cancel give ``+0.0``). The plain version adds
-those ``+0.0`` as the JAX package does; the kernel skips them. Every add is
+``+0.0`` and exact sums that cancel give ``+0.0``). The plain version skips
+the packet padding and adds the table padding's ``+0.0`` as the JAX package
+does; the kernel skips both. Every add is
 exact in any order: weights lie on the 1/256 grid.
 
 The kernel needs every row of ``tgt`` ascending as unsigned 32-bit values:
@@ -91,14 +92,17 @@ def event_deliver_plain(ring, ids, tgt, w, d, t0: int, *, rows_per_area: int | N
     else:
         off, step = row * rows_per_area, zero
     flat_ids = ids.reshape(-1).long()
+    # Packet padding adds nothing: only the real entries are gathered (a
+    # packet sized by a high floor is mostly padding).
+    real = torch.nonzero((flat_ids >= 0) & (flat_ids < n_src))[:, 0]
+    flat_ids, off, step = flat_ids[real], off[real], step[real]
     flat_ring = ring.view(-1)
     chunk = max(1, PLAIN_CHUNK_SYNAPSES // k)
     for e0 in range(0, flat_ids.numel(), chunk):
         i, o, s = flat_ids[e0:e0 + chunk], off[e0:e0 + chunk, None], step[e0:e0 + chunk, None]
-        valid = (i >= 0) & (i < n_src)
-        safe = torch.where(valid, i + o[:, 0], 0)
+        safe = i + o[:, 0]
         tg = tgt[safe].long()
-        ok = valid[:, None] & (tg >= 0) & (tg < n_tgt)
+        ok = (tg >= 0) & (tg < n_tgt)
         tgt_rows = torch.where(ok, tg + o, 0)
         vals = torch.where(ok, w[safe], 0.0)
         slots = torch.remainder(t0 + s + d[safe].long(), r)

@@ -11,16 +11,19 @@ two-tier synchronisation (local steps every step, cross-pod averaging every
 D-th, optionally int8-compressed), the pods emulated by the leading replica
 axis.
 
-Checkpoints hold ``{"params", "opt"}`` in the JAX package's tree and format,
-so either CLI resumes the other's. The initial weights are drawn from a
-``torch.Generator`` seeded 0 (the JAX CLI draws from ``PRNGKey(0)``, so the
-two start from different weights unless one resumes the other's
-checkpoint). The slow tier's sync state is not checkpointed by either CLI:
-as in the JAX CLI, its anchor is the fresh init's weights, taken before any
-restore, and its error residuals start at zero. A resume before the first
-sync therefore repeats the uninterrupted run; with ``--compression int8``
-a resumed run's syncs read the resuming CLI's own init, so a crossed int8
-resume repeats the other CLI's run only where both drew the same weights.
+Checkpoints hold ``{"params", "opt"}`` in the JAX package's tree and format
+(each model's own stacks), so either CLI resumes the other's, for every
+architecture. The stub frontends' inputs (whisper's ``frames``, internvl's
+``patch_embeds``) are zeros of their specs, as in the JAX CLI. The initial
+weights are drawn from a ``torch.Generator`` seeded 0 (the JAX CLI draws
+from ``PRNGKey(0)``, so the two start from different weights unless one
+resumes the other's checkpoint). The slow tier's sync state is not
+checkpointed by either CLI: as in the JAX CLI, its anchor is the fresh
+init's weights, taken before any restore, and its error residuals start at
+zero. A resume before the first sync therefore repeats the uninterrupted
+run; with ``--compression int8`` a resumed run's syncs read the resuming
+CLI's own init, so a crossed int8 resume repeats the other CLI's run only
+where both drew the same weights.
 
 The step runs under ``torch.use_deterministic_algorithms`` (with cuBLAS's
 fixed workspace), so a resumed run repeats the uninterrupted run bitwise.
@@ -39,7 +42,6 @@ from repro_torch.checkpoint import manager as ckpt
 from repro_torch.configs.registry import get_arch
 from repro_torch.data.pipeline import SyntheticLM, host_batch
 from repro_torch.device import resolve_device
-from repro_torch.models.transformer import from_jax_layout, to_jax_layout
 from repro_torch.optim.adamw import AdamWConfig, adamw_init
 from repro_torch.optim.hierarchical import HierarchicalConfig
 from repro_torch.optim.tree import named_leaves
@@ -48,30 +50,34 @@ from repro_torch.train.steps import make_train_artifacts
 __all__ = ["main", "train_state_tree", "load_train_state"]
 
 
-def train_state_tree(params, opt_state, lead: int = 0, device=None) -> dict:
-    """``{"params", "opt": {"count", "m", "v"}}`` in the JAX layout (``lead``
-    leading pod axes before the layer axis), each tensor moved to
-    ``device`` (None: where it is)."""
+def train_state_tree(model, params, opt_state, lead: int = 0, device=None) -> dict:
+    """``{"params", "opt": {"count", "m", "v"}}`` in ``model``'s JAX layout
+    (``lead`` leading pod axes before the layer axis), each tensor copied to
+    ``device`` (None: the live tensors, where they are). The step updates the
+    live ones in place, so the checkpoint writer gets copies even on the
+    CPU."""
+    def copy(x):
+        return x.detach() if device is None else x.detach().to(device, copy=True)
+
     def move(named):
-        return to_jax_layout({n: x.detach().to(device) if device is not None else x.detach()
-                              for n, x in named.items()}, lead)
+        return model.to_jax_layout({n: copy(x) for n, x in named.items()}, lead)
 
     return {"params": move(named_leaves(params)),
-            "opt": {"count": opt_state["count"].detach().to(device),
+            "opt": {"count": copy(opt_state["count"]),
                     "m": move(opt_state["m"]), "v": move(opt_state["v"])}}
 
 
 @torch.no_grad()
-def load_train_state(directory: str, params, opt_state, lead: int = 0) -> int:
+def load_train_state(directory: str, model, params, opt_state, lead: int = 0) -> int:
     """Restore the latest checkpoint of :func:`train_state_tree`'s layout
     into the live ``params`` and ``opt_state`` (in place, through the
     host). Returns its step."""
-    like = train_state_tree(params, opt_state, lead, device="meta")
+    like = train_state_tree(model, params, opt_state, lead, device="meta")
     restored, step = ckpt.restore(directory, like, device="cpu")
     live = {"params": named_leaves(params), "m": opt_state["m"], "v": opt_state["v"]}
     for part, tree in (("params", restored["params"]), ("m", restored["opt"]["m"]),
                        ("v", restored["opt"]["v"])):
-        for name, x in from_jax_layout(tree, lead).items():
+        for name, x in model.from_jax_layout(tree, lead).items():
             live[part][name].copy_(x)
     opt_state["count"].copy_(restored["opt"]["count"])
     return step
@@ -144,17 +150,25 @@ def _train(args, device: torch.device) -> None:
     if args.ckpt_dir:
         writer = ckpt.AsyncWriter(args.ckpt_dir, keep=3)
         if args.resume and ckpt.latest_step(args.ckpt_dir) is not None:
-            start_step = load_train_state(args.ckpt_dir, params, opt_state, lead)
+            start_step = load_train_state(args.ckpt_dir, bundle.model, params, opt_state, lead)
             print(f"resumed from step {start_step}")
 
     ds = SyntheticLM(vocab=vocab, seq_len=args.seq_len, global_batch=args.global_batch)
 
+    n_pods = args.pods if hier_cfg is not None else None
+
     def make_batch(step):
-        return host_batch(ds.batch(step), device,
-                          n_pods=args.pods if hier_cfg is not None else None)
+        batch = host_batch(ds.batch(step), device, n_pods=n_pods)
+        # The stub frontends' inputs (whisper's frames, internvl's patches)
+        # as zeros of their specs, as the JAX CLI feeds them.
+        for name, make in bundle.extra_inputs.items():
+            spec = make(args.global_batch, args.seq_len)
+            x = torch.zeros(spec.shape, dtype=spec.dtype, device=device)
+            batch[name] = x if n_pods is None else x.reshape((n_pods, -1) + x.shape[1:])
+        return batch
 
     def host_state():
-        return train_state_tree(params, opt_state, lead, device="cpu")
+        return train_state_tree(bundle.model, params, opt_state, lead, device="cpu")
 
     t0 = time.time()
     losses = []

@@ -14,7 +14,6 @@ paths.
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping
 
 import torch
 import torch.nn.functional as F
@@ -71,12 +70,18 @@ class InternVLParams(nn.Module):
         self.connector = connector
 
 
-class InternVL:
+class InternVL(jax_layout.Stacked):
     """Functional model: all methods are static given a config."""
 
     def __init__(self, cfg: InternVLConfig):
         self.cfg = cfg
         self.lm = Transformer(cfg.backbone)
+
+    @property
+    def stacks(self) -> dict:
+        """The JAX tree: ``lm`` (the backbone's, stacked as the backbone's)
+        and ``connector``."""
+        return {"lm." + k: g for k, g in self.lm.stacks.items()}
 
     def init_params(self, generator: torch.Generator | None, *, device=None) -> InternVLParams:
         dev = generator.device if generator is not None else device
@@ -122,14 +127,3 @@ class InternVL:
         h0 = None if patch_embeds is None else self._splice(params, tokens, patch_embeds)
         return self.lm.forward_with_cache(params.lm, tokens, cache, cache_index,
                                           last_only=last_only, embeds_override=h0)
-
-    # ------------------------------------------------- weights across packages
-
-    def params_from_numpy(self, tree: Mapping, device=None) -> InternVLParams:
-        """The JAX parameter tree (numpy arrays: ``lm``, the backbone's tree,
-        and ``connector``) as the port's parameters."""
-        return jax_layout.from_numpy(self.init_params(None, device="meta"), tree,
-                                     {"lm.layers": self.cfg.backbone.group_size}, device)
-
-    def params_to_numpy(self, params: InternVLParams) -> dict:
-        return jax_layout.to_numpy(params, {"lm.layers": self.cfg.backbone.group_size})

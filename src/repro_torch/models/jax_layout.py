@@ -16,6 +16,12 @@ the prefix of its layer list (``"layers"``, ``"lm.layers"``,
 parameters, or anything keyed by their names, such as optimizer moments) to
 the tree and back; :func:`from_numpy` / :func:`to_numpy` carry a tree of
 numpy arrays into a model's parameter module and out.
+
+Each model names its stacks in one place, its ``stacks`` attribute, and
+takes :class:`Stacked`'s methods, which read it: ``params_from_numpy`` /
+``params_to_numpy`` (weights across packages) and ``to_jax_layout`` /
+``from_jax_layout`` (anything keyed by parameter name, such as gradients,
+optimizer moments and the training CLI's checkpoints).
 """
 
 from __future__ import annotations
@@ -26,7 +32,7 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["stack", "unstack", "from_numpy", "to_numpy"]
+__all__ = ["stack", "unstack", "from_numpy", "to_numpy", "Stacked"]
 
 Stacks = Mapping[str, "int | None"]
 
@@ -126,3 +132,32 @@ def to_numpy(params: nn.Module, stacks: Stacks) -> dict:
         return {k: to_np(v) for k, v in node.items()} if isinstance(node, dict) else node.numpy()
 
     return to_np(stack({n: host(p) for n, p in params.named_parameters()}, stacks))
+
+
+class Stacked:
+    """The JAX layout of a model's parameters, read from its ``stacks``
+    (the prefix of each layer list and its group size, as above) and
+    ``init_params(None, device="meta")`` (the skeleton)."""
+
+    stacks: Stacks
+
+    def to_jax_layout(self, named: Mapping[str, Any], lead: int = 0) -> dict:
+        """Tensors keyed by parameter name as the JAX tree, the layer leaves
+        stacked at axis ``lead`` (0, or 1 after the hierarchical trainer's
+        pod axis)."""
+        return stack(named, self.stacks, lead)
+
+    def from_jax_layout(self, tree: Mapping, lead: int = 0) -> dict[str, Any]:
+        """The inverse of :meth:`to_jax_layout` (the layer leaves unstacked
+        as views)."""
+        return unstack(tree, self.stacks, lead)
+
+    def params_from_numpy(self, tree: Mapping, device=None) -> nn.Module:
+        """The JAX parameter tree (numpy arrays) as the port's parameters,
+        frozen as made."""
+        return from_numpy(self.init_params(None, device="meta"), tree, self.stacks, device)
+
+    def params_to_numpy(self, params: nn.Module) -> dict:
+        """The inverse of :meth:`params_from_numpy`; a bf16 leaf comes back
+        as its exact float32 widening."""
+        return to_numpy(params, self.stacks)

@@ -45,6 +45,7 @@ __all__ = [
     "swiglu",
     "cross_entropy",
     "chunked_cross_entropy",
+    "checkpointed",
 ]
 
 
@@ -440,3 +441,13 @@ def chunked_cross_entropy(
             nll = _chunk_nll(unembed_fn, h_i, y_i)
         total = total + nll
     return total / (b * s)
+
+
+def checkpointed(fn, h: torch.Tensor, remat: str) -> torch.Tensor:
+    """``fn(h)`` for one layer body; a checkpoint of it (its inside freed
+    after the forward and recomputed in the backward) when ``remat`` is
+    ``"full"`` or ``"dots"`` and autograd records. The JAX SSM, hybrid and
+    audio bodies take a plain ``jax.checkpoint`` for both modes."""
+    if remat in ("full", "dots") and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, h, use_reentrant=False)
+    return fn(h)

@@ -9,6 +9,7 @@ B/C groups; the per-head B/C tensors are never materialised.
 
 Parameters live in :class:`Mamba2Params`, one :class:`Mamba2Layer` a layer
 under ``layers``, named as the JAX dict (whose layer leaves stack ``[n_layers]``).
+Under autograd ``hidden`` checkpoints each layer body as ``cfg.remat`` asks.
 The sharded specs (``param_pspecs`` / ``cache_pspecs``) wait for the port's
 sharded LM paths.
 """
@@ -17,7 +18,6 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Mapping
 
 import torch
 import torch.nn.functional as F
@@ -144,8 +144,11 @@ def layer_init(cfg: Mamba2Config, *, generator, device) -> Mamba2Layer:
                                    dtype=pd, device=device))
 
 
-class Mamba2:
-    """Functional model: all methods are static given a config."""
+class Mamba2(jax_layout.Stacked):
+    """Functional model: all methods are static given a config. The JAX
+    tree stacks the layer leaves ``[n_layers, ...]``."""
+
+    stacks = {"layers": None}
 
     def __init__(self, cfg: Mamba2Config):
         self.cfg = cfg
@@ -279,7 +282,7 @@ class Mamba2:
         if embeds_override is not None:
             h = embeds_override.to(self.cfg.cdtype)
         for p in params.layers:
-            h, _ = self.layer(p, h)
+            h = layers.checkpointed(lambda x, p=p: self.layer(p, x)[0], h, self.cfg.remat)
         return layers.rms_norm(params.final_norm, h), torch.zeros((), device=h.device)
 
     def unembed(self, params: Mamba2Params, h: torch.Tensor) -> torch.Tensor:
@@ -319,14 +322,3 @@ class Mamba2:
         if last_only:
             h = h[:, -1:]
         return self.unembed(params, h), cache
-
-    # ------------------------------------------------- weights across packages
-
-    def params_from_numpy(self, tree: Mapping, device=None) -> Mamba2Params:
-        """The JAX parameter tree (numpy arrays; layer leaves stacked
-        ``[n_layers, ...]``) as the port's parameters."""
-        return jax_layout.from_numpy(self.init_params(None, device="meta"), tree,
-                                     {"layers": None}, device)
-
-    def params_to_numpy(self, params: Mamba2Params) -> dict:
-        return jax_layout.to_numpy(params, {"layers": None})

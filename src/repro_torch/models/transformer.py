@@ -15,10 +15,11 @@ device synchronisation).
 Training: the weights are frozen as drawn; ``params.requires_grad_()``
 (``nn.Module``'s own switch) makes them trainable, and ``hidden`` then
 honours ``cfg.remat`` around each layer as the JAX group body does
-(:func:`_dots_policy` says what ``"dots"`` keeps). :func:`to_jax_layout` /
-:func:`from_jax_layout` map the parameters (or anything keyed by their
-names, such as optimizer moments) to the JAX tree and back, so checkpoints
-of training state cross between the packages.
+(:func:`_dots_policy` says what ``"dots"`` keeps). ``to_jax_layout`` /
+``from_jax_layout`` (:class:`~repro_torch.models.jax_layout.Stacked`) map
+the parameters (or anything keyed by their names, such as optimizer
+moments) to the JAX tree and back, so checkpoints of training state cross
+between the packages.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Any, Mapping
+from typing import Mapping
 
 import torch
 import torch.utils.checkpoint
@@ -35,8 +36,7 @@ from torch import nn
 from repro_torch.models import jax_layout, layers
 from repro_torch.models.moe import MoEConfig, moe_apply, moe_init
 
-__all__ = ["TransformerConfig", "Transformer", "TransformerParams", "params_from_numpy",
-           "params_to_numpy", "to_jax_layout", "from_jax_layout"]
+__all__ = ["TransformerConfig", "Transformer", "TransformerParams", "params_from_numpy"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -182,11 +182,17 @@ class TransformerParams(nn.Module):
         self.lm_head = None if lm_head is None else nn.Parameter(lm_head, requires_grad=False)
 
 
-class Transformer:
+class Transformer(jax_layout.Stacked):
     """Functional model: all methods are static given a config."""
 
     def __init__(self, cfg: TransformerConfig):
         self.cfg = cfg
+
+    @property
+    def stacks(self) -> dict:
+        """The JAX tree stacks layer ``i`` as sub-layer ``i % group_size`` of
+        group ``i // group_size`` (``layers.sub_j``)."""
+        return {"layers": self.cfg.group_size}
 
     # ------------------------------------------------------------------ init
 
@@ -375,48 +381,10 @@ class Transformer:
             h = h[:, -1:]
         return self.unembed(params, h), cache
 
-    # ------------------------------------------------- weights across packages
-
-    def params_from_numpy(self, tree: Mapping, device=None) -> TransformerParams:
-        return params_from_numpy(self.cfg, tree, device)
-
-    def params_to_numpy(self, params: TransformerParams) -> dict:
-        return params_to_numpy(params)
-
-
-def _stacks(named) -> dict:
-    """The layer stack of a parameter tree keyed by name: groups of one,
-    or up to the first MoE sub-layer (the last of each group)."""
-    moe = [int(n.split(".")[1]) for n in named if n.startswith("layers.") and ".moe." in n]
-    return {"layers": min(moe) + 1 if moe else 1}
 
 
 def params_from_numpy(cfg: TransformerConfig, tree: Mapping, device=None) -> TransformerParams:
     """The JAX parameter tree (numpy arrays; per-layer leaves with a leading
-    ``[n_groups]`` axis under ``layers.sub_i``) as the port's parameters:
-    the meta-device skeleton of ``cfg`` filled through
-    :func:`jax_layout.from_numpy` (shapes and names checked, frozen as
-    made)."""
-    return jax_layout.from_numpy(Transformer(cfg).init_params(None, device="meta"), tree,
-                                 {"layers": cfg.group_size}, device)
-
-
-def to_jax_layout(named: Mapping[str, Any], lead: int = 0) -> dict:
-    """Tensors keyed by parameter name (``dict(params.named_parameters())``,
-    or optimizer moments keyed the same) as the JAX parameter tree: nested
-    dicts, each layer leaf stacked over the groups at axis ``lead`` (0, or 1
-    after the hierarchical trainer's pod axis) under ``layers.sub_i``."""
-    return jax_layout.stack(named, _stacks(named), lead)
-
-
-def from_jax_layout(tree: Mapping, lead: int = 0) -> dict[str, Any]:
-    """The inverse of :func:`to_jax_layout`: tensors keyed by parameter name,
-    the layer leaves unstacked (views) along axis ``lead``."""
-    return jax_layout.unstack(tree, {"layers": len(tree["layers"])}, lead)
-
-
-def params_to_numpy(params: TransformerParams) -> dict:
-    """The inverse of :func:`params_from_numpy`: the port's parameters as the
-    JAX parameter tree of numpy arrays. numpy has no bfloat16, so a bf16 leaf
-    comes back as its exact float32 widening."""
-    return jax_layout.to_numpy(params, _stacks(dict(params.named_parameters())))
+    ``[n_groups]`` axis under ``layers.sub_i``) as the port's parameters of
+    ``cfg`` (:meth:`Transformer.params_from_numpy`)."""
+    return Transformer(cfg).params_from_numpy(tree, device)

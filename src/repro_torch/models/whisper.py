@@ -7,13 +7,14 @@ and a decoder with causal self-attention (no rope, a KV cache) and
 cross-attention to the encoder output; GELU (tanh) MLPs, LayerNorm with bias,
 sinusoidal positions in both stacks, the unembedding tied to the embedding.
 Its attention passes no ``use_pallas``, so this model launches no kernel, as
-in the reference. The sharded specs wait for the port's sharded LM paths.
+in the reference. Under autograd the encoder's layer bodies, and the
+decoder's without a cache, are checkpoints as ``cfg.remat`` asks, as the JAX
+bodies are. The sharded specs wait for the port's sharded LM paths.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping
 
 import torch
 from torch import nn
@@ -80,11 +81,11 @@ class WhisperParams(nn.Module):
         self.dec_final_ln = dec_final_ln
 
 
-STACKS = {"enc_layers": None, "dec_layers": None}
+class Whisper(jax_layout.Stacked):
+    """Functional model: all methods are static given a config. The JAX
+    tree stacks the layer leaves ``[n_layers, ...]``."""
 
-
-class Whisper:
-    """Functional model: all methods are static given a config."""
+    stacks = {"enc_layers": None, "dec_layers": None}
 
     def __init__(self, cfg: WhisperConfig):
         self.cfg = cfg
@@ -138,10 +139,14 @@ class Whisper:
         pos = torch.arange(t, dtype=torch.int32, device=frames.device).expand(b, t)
         h = frames.to(cfg.cdtype) + layers.sinusoidal_positions(pos, cfg.d_model, cfg.cdtype)
         full = torch.ones(b, 1, t, t, dtype=torch.bool, device=frames.device)
-        for p in params.enc_layers:
+
+        def body(p, h):
             x = layers.layer_norm(p["ln1"], h)
             h = h + self._mha(p["attn"], x, x, full)
-            h = h + layers.gelu_mlp(p["mlp"], layers.layer_norm(p["ln2"], h))
+            return h + layers.gelu_mlp(p["mlp"], layers.layer_norm(p["ln2"], h))
+
+        for p in params.enc_layers:
+            h = layers.checkpointed(lambda x, p=p: body(p, x), h, cfg.remat)
         return layers.layer_norm(params.enc_final_ln, h)
 
     # --------------------------------------------------------------- decoder
@@ -158,16 +163,21 @@ class Whisper:
         h = params.embed[tokens].to(cfg.cdtype)
         h = h + layers.sinusoidal_positions(pos, cfg.d_model, cfg.cdtype)
         cross = torch.ones(b, 1, s, enc_out.shape[1], dtype=torch.bool, device=h.device)
-        for i, p in enumerate(params.dec_layers):
-            kv = None if cache is None else (cache["k"][i], cache["v"][i])
+
+        def body(p, h, kv=None):
             attn_out, new_kv = layers.gqa_attention(
                 p["self_attn"], layers.layer_norm(p["ln1"], h), pos,
                 n_heads=cfg.n_heads, n_kv=cfg.n_heads, d_head=cfg.d_head,
                 use_rope=False, kv_cache=kv, cache_index=cache_index)
             h = h + attn_out
             h = h + self._mha(p["cross_attn"], layers.layer_norm(p["ln_x"], h), enc_out, cross)
-            h = h + layers.gelu_mlp(p["mlp"], layers.layer_norm(p["ln2"], h))
-            if cache is not None:
+            return h + layers.gelu_mlp(p["mlp"], layers.layer_norm(p["ln2"], h)), new_kv
+
+        for i, p in enumerate(params.dec_layers):
+            if cache is None:
+                h = layers.checkpointed(lambda x, p=p: body(p, x)[0], h, cfg.remat)
+            else:
+                h, new_kv = body(p, h, (cache["k"][i], cache["v"][i]))
                 cache["k"][i], cache["v"][i] = new_kv
         h = layers.layer_norm(params.dec_final_ln, h)
         return h[:, -1:] if last_only else h
@@ -205,14 +215,3 @@ class Whisper:
         h = self._decoder(params, tokens, enc_out, cache=cache, cache_index=cache_index,
                           last_only=last_only)
         return self.unembed(params, h), cache
-
-    # ------------------------------------------------- weights across packages
-
-    def params_from_numpy(self, tree: Mapping, device=None) -> WhisperParams:
-        """The JAX parameter tree (numpy arrays; layer leaves stacked
-        ``[n_layers, ...]``) as the port's parameters."""
-        return jax_layout.from_numpy(self.init_params(None, device="meta"), tree, STACKS,
-                                     device)
-
-    def params_to_numpy(self, params: WhisperParams) -> dict:
-        return jax_layout.to_numpy(params, STACKS)

@@ -6,13 +6,14 @@ layers, on ``concat(hidden, original embedding)`` projected back to
 ``d_model``. Layout: ``n_apps`` groups of (shared block, then ``period``
 mamba layers), then ``n_tail`` trailing mamba layers. The shared block's
 attention passes no ``use_pallas``, so this model launches no kernel, as in
-the reference. The sharded specs wait for the port's sharded LM paths.
+the reference. Under autograd ``hidden`` checkpoints each mamba layer body
+(not the shared block) as ``cfg.remat`` asks, as the JAX body does. The
+sharded specs wait for the port's sharded LM paths.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping
 
 import torch
 from torch import nn
@@ -96,11 +97,12 @@ class Zamba2Params(nn.Module):
         self.lm_head = layers._param(lm_head)
 
 
-STACKS = {"groups": None, "tail": None}
+class Zamba2(jax_layout.Stacked):
+    """Functional model: all methods are static given a config. The JAX
+    tree stacks ``groups`` leaves ``[n_apps * period, ...]`` and ``tail``
+    leaves ``[n_tail, ...]``."""
 
-
-class Zamba2:
-    """Functional model: all methods are static given a config."""
+    stacks = {"groups": None, "tail": None}
 
     def __init__(self, cfg: Zamba2Config):
         self.cfg = cfg
@@ -155,7 +157,7 @@ class Zamba2:
         for i, p in enumerate(self._mamba_layers(params)):
             if i < cfg.n_apps * cfg.period and i % cfg.period == 0:
                 h, _ = self._shared_block(params.shared, h, x0, positions)
-            h, _ = self.mamba.layer(p, h)
+            h = layers.checkpointed(lambda x, p=p: self.mamba.layer(p, x)[0], h, cfg.remat)
         return layers.rms_norm(params.final_norm, h), torch.zeros((), device=h.device)
 
     def unembed(self, params: Zamba2Params, h: torch.Tensor) -> torch.Tensor:
@@ -206,15 +208,3 @@ class Zamba2:
         if last_only:
             h = h[:, -1:]
         return self.unembed(params, h), cache
-
-    # ------------------------------------------------- weights across packages
-
-    def params_from_numpy(self, tree: Mapping, device=None) -> Zamba2Params:
-        """The JAX parameter tree (numpy arrays; ``groups`` leaves stacked
-        ``[n_apps * period, ...]``, ``tail`` ``[n_tail, ...]``) as the
-        port's parameters."""
-        return jax_layout.from_numpy(self.init_params(None, device="meta"), tree, STACKS,
-                                     device)
-
-    def params_to_numpy(self, params: Zamba2Params) -> dict:
-        return jax_layout.to_numpy(params, STACKS)

@@ -6,7 +6,9 @@ f32, f32 moments stored in ``moment_dtype``, decoupled weight decay on the
 f32 parameter, the result cast back to the parameter's dtype. ``count``,
 ``lr`` and the bias corrections stay device tensors, so a step needs no host
 synchronisation. The elementwise update runs as ``torch._foreach_*`` ops
-over all leaves at once.
+over pieces of the leaves of about 2^26 elements (``_pieces``), so its f32
+temporaries stay near 1 GiB for any model: every element's ops are the same
+whatever the piece it falls in.
 
 Where the JAX update returns new trees, this one updates the parameters and
 the state in place (the JAX step donates its inputs) and returns them.
@@ -78,10 +80,46 @@ def adamw_update(grads: Any, state: dict, params: Any,
     else:
         scale = torch.ones((), dtype=torch.float32, device=gnorm.device)
     lr = cfg.schedule(count)
-    b1, b2 = cfg.b1, cfg.b2
-    bc1 = 1.0 - torch.pow(b1, count.float())
-    bc2 = 1.0 - torch.pow(b2, count.float())
+    bc1 = 1.0 - torch.pow(cfg.b1, count.float())
+    bc2 = 1.0 - torch.pow(cfg.b2, count.float())
 
+    for piece in _pieces([x.numel() for x in p], UPDATE_PIECE):
+        _update([p[i].view(-1)[a:b] for i, a, b in piece],
+                [g[i].reshape(-1)[a:b] for i, a, b in piece],
+                [m[i].view(-1)[a:b] for i, a, b in piece],
+                [v[i].view(-1)[a:b] for i, a, b in piece],
+                scale, lr, bc1, bc2, cfg)
+    return params, state, {"grad_norm": gnorm, "lr": lr}
+
+
+# Elements a piece of the elementwise update holds: its f32 temporaries
+# (a few copies of the piece) stay near 1 GiB whatever the model's size.
+UPDATE_PIECE = 1 << 26
+
+
+def _pieces(sizes: list[int], piece: int):
+    """The leaves' elements as pieces of at most ``piece`` elements:
+    lists of ``(leaf, start, stop)``, small leaves gathered into one piece,
+    a large one cut into several."""
+    out, cur, n = [], [], 0
+    for i, size in enumerate(sizes):
+        for a in range(0, size, piece):
+            b = min(size, a + piece)
+            if cur and n + b - a > piece:
+                out.append(cur)
+                cur, n = [], 0
+            cur.append((i, a, b))
+            n += b - a
+    if cur:
+        out.append(cur)
+    return out
+
+
+def _update(p, g, m, v, scale, lr, bc1, bc2, cfg: AdamWConfig) -> None:
+    """The elementwise AdamW update of one piece (flat slices of the
+    leaves), in place: every element's ops are those of the whole-tree
+    update, so the pieces give it bitwise."""
+    b1, b2 = cfg.b1, cfg.b2
     g32 = torch._foreach_mul([x.float() for x in g], scale)
     m32 = torch._foreach_mul([x.float() for x in m], b1)
     torch._foreach_add_(m32, torch._foreach_mul(g32, 1 - b1))
@@ -99,4 +137,3 @@ def adamw_update(grads: Any, state: dict, params: Any,
     torch._foreach_copy_(p, new_p)
     torch._foreach_copy_(m, m32)
     torch._foreach_copy_(v, v32)
-    return params, state, {"grad_norm": gnorm, "lr": lr}

@@ -3,9 +3,8 @@
 ``connectivity.network_sds`` (meta tensors) against the JAX stand-ins
 (``ShapeDtypeStruct`` leaves) over the flag grid: the same fields, dtypes,
 static fields and shapes but the bound widths, which are the draw rule's
-(``_drawn_k_bound``). Those equal the reference's where every source's
-synapses spread evenly and exceed them elsewhere; both are held against
-instantiated tables, where the reference's fall short. Then
+(``_drawn_k_bound``; held against the reference's and against instantiated
+tables in ``test_torch_dryrun_bounds.py``). Then
 ``construction_cost_model``, the dry run's verify and construction rows,
 and each priced ``dryrun_snn_cell`` row's wire bytes (against the JAX
 accounting on the JAX stand-in of the same cell) and receive-table report
@@ -13,6 +12,7 @@ accounting on the JAX stand-in of the same cell) and receive-table report
 at the production scale (1.0). The JAX dry-run module forces 512 host
 devices when it is imported, so its rows are taken in a subprocess.
 Tolerance: equal shapes, dtypes, dicts and floats (the same arithmetic).
+The CLI and the measured build peaks: ``test_torch_dryrun_cli.py``.
 """
 
 import dataclasses
@@ -101,76 +101,6 @@ def test_network_sds_matches_the_jax_stand_ins_over_the_flag_grid(spec_name):
         assert tnet.k_intra == jnet.k_intra and tnet.k_inter == jnet.k_inter
         assert tnet.live_window == jnet.live_window
         assert tnet.bytes_per_synapse() == jnet.bytes_per_synapse()
-
-
-def test_width_bounds_equal_the_references_where_synapses_spread_evenly():
-    """Equal areas without ghost rows: a source's outgoing tables and its
-    window-cut and lane-cut slices expect K, K / S and K / lanes synapses,
-    the reference's rule, so the widths are the reference's; under the
-    group cut a source's inter synapses land only in the other areas, so a
-    group of them holds more than 1 / S and the port's width is wider."""
-    jspec = jax_bench_spec(n_areas=4, n_per_area=48, k_intra=8, k_inter=8)
-    tspec = mam_benchmark_spec(n_areas=4, n_per_area=48, k_intra=8, k_inter=8)
-    for kw in (dict(), dict(inter_shards=4, inter_shard_mode="window"),
-               dict(inter_shards=8, inter_shard_mode="window"), dict(subgroup=4)):
-        kw = dict(size_multiple=8, outgoing=True, **kw)
-        assert _same_stand_ins(jconn.network_sds(jspec, **kw), tconn.network_sds(tspec, **kw))
-    kw = dict(size_multiple=8, outgoing=True, inter_shards=2, subgroup=2)
-    jnet, tnet = jconn.network_sds(jspec, **kw), tconn.network_sds(tspec, **kw)
-    assert tnet.tgt_inter_in.shape[-1] > jnet.tgt_inter_in.shape[-1]
-
-
-# (spec, inbound cut: shards, mode, lanes, whether the reference's bounds
-# fall short). The first is the card's [dryrun] (b) cut (4 x 130,000, K
-# 3000) at a size a CPU builds in a second.
-BRACKET_CASES = {
-    "bench 4 x 2048, K 1024, 2 groups x 2 lanes": (
-        lambda m: m(n_areas=4, n_per_area=2048, k_intra=1024, k_inter=1024), 2, "group", 2,
-        True),
-    "bench 4 x 64, the verify row's cut": (
-        lambda m: m(n_areas=4, n_per_area=64, k_intra=8, k_inter=12), 2, "group", 2, False),
-    "mam x0.01, 16 groups x 2 lanes": (lambda m: m(scale=0.01), 16, "group", 2, True),
-    "mam x0.01, window cut over 8": (lambda m: m(scale=0.01), 8, "window", 1, True),
-}
-
-
-@pytest.mark.parametrize("case", list(BRACKET_CASES))
-def test_width_bounds_bracket_instantiated_tables(case):
-    """Every bound width of the port's stand-in is at least the width the
-    build gives, for the outgoing tables, the inbound slices and the lane
-    intra cut. The reference's fall short where a source's synapses do not
-    spread evenly once K outgrows their slack: the MAM's unequal areas
-    (ghost rows draw too) and a few areas a group."""
-    make, shards, mode, sub, ref_short = BRACKET_CASES[case]
-    tspec = make(mam_spec if "mam" in case else mam_benchmark_spec)
-    jspec = make(jax_mam_spec if "mam" in case else jax_bench_spec)
-    net = tconn.build_network(tspec, seed=12, size_multiple=8, outgoing=True, device="cpu")
-    cut = tconn.shard_inter_tables(net, shards, mode=mode, subgroup=sub)
-    got = {"tgt_intra": net.tgt_intra.shape[-1], "tgt_inter": net.tgt_inter.shape[-1],
-           "tgt_inter_in": cut.tgt_inter_in.shape[-1]}
-    if sub > 1:
-        got["lane tgt_intra"] = tconn.slice_intra_tables(net, sub).tgt_intra.shape[-1]
-    short = []
-    for kw in (dict(), dict(inter_shards=shards, inter_shard_mode=mode, subgroup=sub)):
-        kw = dict(size_multiple=8, outgoing=True, **kw)
-        t, j = tconn.network_sds(tspec, **kw), jconn.network_sds(jspec, **kw)
-        for name in ("tgt_intra", "tgt_inter", "tgt_inter_in"):
-            if getattr(t, name) is None:
-                continue
-            key = "lane tgt_intra" if name == "tgt_intra" and kw.get("subgroup", 1) > 1 else name
-            assert getattr(t, name).shape[-1] >= got[key], (key, got)
-            if getattr(j, name).shape[-1] < got[key]:
-                short.append(key)
-    assert bool(short) == ref_short, (short, got)
-
-
-def test_network_sds_refuses_a_window_cut_with_lanes():
-    with pytest.raises(ValueError, match="subgroup slicing applies to the 'group' mode"):
-        tconn.network_sds(mam_spec(scale=1.0), outgoing=True, inter_shards=2,
-                          inter_shard_mode="window", subgroup=2)
-    with pytest.raises(ValueError, match="subgroup slicing applies to the 'group' mode"):
-        jconn.network_sds(jax_mam_spec(scale=1.0), outgoing=True, inter_shards=2,
-                          inter_shard_mode="window", subgroup=2)
 
 
 @pytest.mark.parametrize("scale", [0.002, 1.0])
@@ -359,37 +289,3 @@ def test_verify_inter_table_bounds_fails_on_a_bound_too_narrow(monkeypatch):
     monkeypatch.setattr(tconn, "_drawn_k_bound", lambda *args: 1)
     with pytest.raises(AssertionError, match="under-price the tables"):
         dryrun.verify_inter_table_bounds(device="cpu")
-
-
-def test_measure_build_rss_on_the_cpu():
-    row = dryrun.measure_build_rss(device="cpu")  # 8 x 4096, K 256: tables dominate
-    assert row["measured"] == "VmHWM"
-    assert row["status"] == "OK", row
-    assert 0 < row["sharded_peak_mib"] < row["host_peak_mib"]
-
-
-def test_cli_exits_nonzero_on_a_failing_hbm_gate(tmp_path):
-    out = tmp_path / "rows.json"
-    run = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--device", "cpu",
-         "--hbm-gib", "0.5", "--mesh", "single", "--snn-schedule",
-         "structure_aware", "--out", str(out)],
-        capture_output=True, text=True, timeout=300,
-        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
-    assert run.returncode == 1, run.stdout + run.stderr
-    rows = json.loads(out.read_text())
-    assert [r["status"] for r in rows[:2]] == ["OK", "OK"]
-    assert rows[2]["status"].startswith("FAIL(HBM: modelled 1.26 GiB/rank exceeds")
-    assert "1 FAIL" in run.stdout
-    # The same cells within budget pass.
-    assert dryrun.main(["--device", "cpu", "--hbm-gib", "2", "--mesh", "single"]) == 0
-
-
-def test_cli_refusals(capsys):
-    with pytest.raises(SystemExit) as e:
-        dryrun.main(["--arch", "qwen2-0.5b", "--device", "cpu", "--hbm-gib", "16"])
-    assert e.value.code == 2 and "LM training slice" in capsys.readouterr().err
-    with pytest.raises(SystemExit) as e:
-        dryrun.main(["--device", "cpu"])
-    assert e.value.code == 2 and "--hbm-gib must be given" in capsys.readouterr().err
-    assert "XLA_FLAGS" not in Path(dryrun.__file__).read_text()

@@ -3,19 +3,13 @@ package's (``examples/mam_simulation.py``).
 
 The driver function against the JAX driver's own steps (the same spec,
 build and config through ``repro.core``) at ``--scale 0.002``, 100 ms, both
-schedules; both CLIs as subprocesses, line for line; the scatter backend's
-row chunks (which let the driver run at scale 0.2 on one card) against one
-whole-table pass. Tolerance: bitwise spike counts, ``t``, rings, ``v`` and
-``refrac``; ``i_syn`` bitwise once its subnormals are flushed to zero, as
-the jitted reference flushes them on the CPU; equal printed lines apart
-from the wall time and the RTF.
+schedules; the scatter backend's row chunks (which let the driver run at
+scale 0.2 on one card) against one whole-table pass. Tolerance: bitwise
+spike counts, ``t``, rings, ``v`` and ``refrac``; ``i_syn`` bitwise once
+its subnormals are flushed to zero, as the jitted reference flushes them
+on the CPU. The CLIs: ``test_torch_mam_cli.py``.
 """
 
-import os
-import re
-import subprocess
-import sys
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -29,7 +23,6 @@ from repro.core import mam_spec as jax_mam_spec  # noqa: E402
 from repro_torch import mam_simulation  # noqa: E402
 from repro_torch.core import EngineConfig, delivery, mam_spec  # noqa: E402
 
-ROOT = Path(__file__).resolve().parents[1]
 SCALE, T_MS = 0.002, 100.0
 
 
@@ -88,33 +81,3 @@ def test_scatter_row_chunks_equal_one_pass(monkeypatch):
     assert whole.counts.sum() > 0 and bool(whole.state.ring.any())
     np.testing.assert_array_equal(chunked.counts, whole.counts)
     assert torch.equal(chunked.state.ring, whole.state.ring)
-
-
-WALL = re.compile(r"in [0-9.]+ s wall \(RTF [0-9.]+\)")
-
-
-def _lines(cmd) -> list[str]:
-    run = subprocess.run(cmd, capture_output=True, text=True, timeout=300, cwd=ROOT,
-                         env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
-    assert run.returncode == 0, run.stderr[-3000:]
-    return [WALL.sub("in <wall>", ln) for ln in run.stdout.splitlines()]
-
-
-def test_cli_prints_the_jax_cli_lines():
-    args = ["--scale", str(SCALE), "--t-ms", str(T_MS), "--schedule", "structure_aware"]
-    port = _lines([sys.executable, "-m", "repro_torch.mam_simulation", "--device", "cpu",
-                   *args])
-    ref = _lines([sys.executable, "examples/mam_simulation.py", *args])
-    assert port == ref
-    assert sum("<wall>" in ln for ln in port) == 1
-    assert any(ln.startswith("hottest area: ") for ln in port)
-
-
-def test_cli_runs_on_the_card_unless_asked(monkeypatch):
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="pass device='cpu'"):
-        mam_simulation.main(["--device", "cuda"])
-    with pytest.raises(RuntimeError, match="pass device='cpu'"):
-        mam_simulation.main([])
-    with pytest.raises(RuntimeError, match="pass device='cpu'"):
-        mam_simulation.simulate(mam_spec(scale=SCALE), _config("structure_aware"))

@@ -30,8 +30,7 @@ from repro_torch.configs.common import ShapeSpec
 from repro_torch.configs.registry import get_arch
 from repro_torch.models import layers as tl
 from repro_torch.models import moe as tmoe
-from repro_torch.models.transformer import (
-    from_jax_layout, params_from_numpy, params_to_numpy, to_jax_layout)
+from repro_torch.models.transformer import params_from_numpy
 from repro_torch.train.steps import make_serve_artifacts
 from test_torch_moe_routing import agreeing_rows, routing_tap
 
@@ -251,10 +250,10 @@ def test_moe_weight_tree_round_trips(arch):
     jb, pb = jget_arch(arch, reduced=True), get_arch(arch, reduced=True)
     jp = jax_tree(jb, 5)
     params = params_from_numpy(pb.cfg, jp)
-    assert jax.tree.all(jax.tree.map(np.array_equal, params_to_numpy(params), jp))
-    assert jax.tree.structure(params_to_numpy(params)) == jax.tree.structure(jp)
+    assert jax.tree.all(jax.tree.map(np.array_equal, pb.model.params_to_numpy(params), jp))
+    assert jax.tree.structure(pb.model.params_to_numpy(params)) == jax.tree.structure(jp)
     named = dict(params.named_parameters())
-    back = from_jax_layout(to_jax_layout(named))
+    back = pb.model.from_jax_layout(pb.model.to_jax_layout(named))
     assert back.keys() == named.keys()
     assert all(torch.equal(back[n], x) for n, x in named.items())
     g = pb.cfg.group_size

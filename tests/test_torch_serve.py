@@ -6,17 +6,16 @@ sentinels included); the port's ``SimServer(device="cpu")`` serving the
 same mixed-duration requests as the JAX ``SimServer``, every trial's spikes
 and overflow bitwise equal, on the ``event`` route and on the port's
 ``pallas`` route; the port's mirrors of ``tests/test_serve.py``; journals
-crossing between the packages; the refusals; the CLI and
-``repro_torch.serve_snn``. Sizes are those of ``tests/test_serve.py``: 4
-areas x 48 neurons, K 8/8, ``v_th`` 2.0 mV so trials spike within a window
-or two. Tolerance: bitwise everywhere.
+crossing between the packages; the refusals. Sizes are those of
+``tests/test_serve.py``: 4 areas x 48 neurons, K 8/8, ``v_th`` 2.0 mV so
+trials spike within a window or two. Tolerance: bitwise everywhere. The
+entry points, the CLI and ``repro_torch.serve_snn``:
+``test_torch_serve_cli.py``.
 """
 
 import dataclasses
 import os
 import signal
-import subprocess
-import sys
 import threading
 import time
 
@@ -30,12 +29,10 @@ from repro.core import connectivity as jconn  # noqa: E402
 from repro.core.engine import EngineConfig as JaxConfig  # noqa: E402
 from repro.core.neuron import LIFParams as JaxLIF  # noqa: E402
 from repro.launch import serve as jserve  # noqa: E402
-from repro_torch import serve_snn  # noqa: E402
 from repro_torch.core import EngineConfig, make_simulation  # noqa: E402
 from repro_torch.core import areas as tareas  # noqa: E402
 from repro_torch.core import connectivity as tconn  # noqa: E402
 from repro_torch.core.neuron import LIFParams  # noqa: E402
-from repro_torch.launch import serve as tserve  # noqa: E402
 from repro_torch.launch.serve import (  # noqa: E402
     ServerClosed,
     SimServer,
@@ -347,47 +344,3 @@ def test_refusals_match_jax(case):
         REFUSALS[case](port)
     assert type(got.value) is type(want.value) is ValueError
     assert str(got.value) == str(want.value)
-
-
-ENTRY_POINTS = {
-    "SimServer": lambda: SimServer(_spec(), _cfg(), max_batch=1, max_windows=2),
-    "serve_simulation": lambda: serve_simulation(_spec(), _cfg(), max_batch=1,
-                                                 max_windows=2),
-    "cli": lambda: tserve.main(["--selftest", "--scale", "0.002"]),
-    "serve_snn": lambda: serve_snn.main(["--trials", "1"]),
-}
-
-
-@pytest.mark.parametrize("entry", sorted(ENTRY_POINTS))
-def test_entry_points_default_to_cuda(entry, monkeypatch):
-    """Without a device argument every entry point asks for the GPU, and
-    raises where there is none."""
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="CUDA device"):
-        ENTRY_POINTS[entry]()
-
-
-def test_cli_selftest_on_cpu():
-    """``python -m repro_torch.launch.serve --selftest --device cpu``: 16
-    mixed trials folded 8 at a time, each bitwise its sequential reference."""
-    run = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.serve", "--selftest",
-         "--device", "cpu", "--scale", "0.002"],
-        capture_output=True, text=True, timeout=600,
-        env=dict(os.environ, PYTHONPATH=os.path.join(REPO, "src")))
-    assert run.returncode == 0, run.stderr[-3000:]
-    assert "selftest OK: 16 trials bitwise-identical" in run.stdout
-
-
-def test_serve_snn_on_cpu(capsys):
-    """The serving example: submitter threads, streaming, stats and the
-    spot check of one trial against its solo rerun."""
-    try:
-        serve_snn.main(["--device", "cpu", "--trials", "3", "--batch", "2",
-                        "--windows", "2"])
-    finally:
-        signal.signal(signal.SIGTERM, signal.SIG_DFL)
-    out = capsys.readouterr().out
-    assert "served 3 trials" in out
-    assert "spot check: served spike train == solo rerun, bitwise" in out
-    assert out.count("tenant ") == 3

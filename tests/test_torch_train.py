@@ -37,7 +37,7 @@ from repro_torch.data.pipeline import SyntheticLM, host_batch
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.models import layers as tl
-from repro_torch.models.transformer import params_from_numpy, params_to_numpy, to_jax_layout
+from repro_torch.models.transformer import params_from_numpy
 from repro_torch.optim import compress
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update, global_norm
 from repro_torch.optim.hierarchical import Hierarchical, HierarchicalConfig
@@ -64,8 +64,10 @@ def flat(tree) -> dict[str, np.ndarray]:
             for path, x in leaves}
 
 
-def port_grads_as_jax(named_grads) -> dict[str, np.ndarray]:
-    return flat(jax.tree.map(lambda x: x.detach().numpy(), to_jax_layout(named_grads),
+def port_tree_as_jax(model, named, lead=0) -> dict[str, np.ndarray]:
+    """Tensors keyed by the port's parameter names (gradients, parameters)
+    as :func:`flat` of ``model``'s JAX tree."""
+    return flat(jax.tree.map(lambda x: x.detach().numpy(), model.to_jax_layout(named, lead),
                              is_leaf=lambda x: isinstance(x, torch.Tensor)))
 
 
@@ -140,13 +142,13 @@ def test_loss_and_gradients_match_jax_value_and_grad(arch, path, monkeypatch):
     loss_j, grads_j = jax.jit(jax.value_and_grad(jb.loss))(
         jax.tree.map(jnp.asarray, jp), jax.tree.map(jnp.asarray, batch))
     params = params_from_numpy(pb.cfg, jp)
-    assert jax.tree.all(jax.tree.map(np.array_equal, params_to_numpy(params), jp))
+    assert jax.tree.all(jax.tree.map(np.array_equal, pb.model.params_to_numpy(params), jp))
     params.requires_grad_()
     named = dict(params.named_parameters())
     loss = pb.loss(params, {k: T(v) for k, v in batch.items()})
     grads = torch.autograd.grad(loss, list(named.values()))
     assert rel(loss.detach(), loss_j) < 1e-5
-    got, want = port_grads_as_jax(dict(zip(named, grads))), flat(grads_j)
+    got, want = port_tree_as_jax(pb.model, dict(zip(named, grads))), flat(grads_j)
     assert got.keys() == want.keys()
     for key, g in want.items():
         assert got[key].shape == g.shape, key
@@ -476,9 +478,7 @@ def test_train_steps_match_jax(mode, lowered_threshold):
         for x in params.parameters():
             assert torch.equal(x[0], x[1])
     lead = 0 if hier_cfg is None else 1
-    got = flat(jax.tree.map(lambda x: x.detach().numpy(),
-                            to_jax_layout(named_leaves(params), lead),
-                            is_leaf=lambda x: isinstance(x, torch.Tensor)))
+    got = port_tree_as_jax(pb.model, named_leaves(params), lead)
     want = flat(jparams)
     top = max(np.abs(w).max() for w in want.values())
     bar = 1e-5 * top + (2 * lr * steps / 127 if mode == "hier_int8" else 0.0)
@@ -508,7 +508,7 @@ def test_train_artifacts_shapes_match_jax():
         want = flat(jax.tree.map(lambda s: np.empty(s.shape, s.dtype), jart.params_sds))
         got = flat(jax.tree.map(
             lambda x: np.empty(x.shape, str(x.dtype).removeprefix("torch.")),
-            to_jax_layout(named_leaves(art.params_sds), lead),
+            pb.model.to_jax_layout(named_leaves(art.params_sds), lead),
             is_leaf=lambda x: isinstance(x, torch.Tensor)))
         assert {k: (x.shape, x.dtype) for k, x in got.items()} == \
             {k: (x.shape, x.dtype) for k, x in want.items()}
