@@ -148,7 +148,7 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
 8b. ``[serve]`` the folded trial server (``repro_torch.launch.serve``) at
    the 32-area MAM (``mam_spec(scale=0.1)``: 418,340 neurons, ``n_pad``
    19,890, K 420/180) in the serve CLI's ``--selftest`` regime (``v_th`` 2.0
-   mV, packet floor ``n_pad``), 16 trials of 1-8 windows drawn from
+   mV, packet floor ``n_pad``), 8 trials of 1-8 windows drawn from
    ``default_rng(0)``: (a) the event fold's B, the largest of 8, 6, 4 whose
    reckoned peak (B + 1 copies of one copy's tables, two folded rings) is
    at most 70 GB, beside ``max_memory_allocated``; (b) the event server,
@@ -166,14 +166,15 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    (f) ``python -m repro_torch.launch.serve --selftest --scale 0.1 --batch
    B`` as a subprocess, exit 0 and its ``selftest OK`` line;
 8c. ``[mam]`` the paper's workload driver (``repro_torch.mam_simulation``):
-   (a) ``python -m repro_torch.mam_simulation --scale 0.002 --t-ms 1000``
+   (a) ``python -m repro_torch.mam_simulation --scale 0.002 --t-ms 300``
    as a subprocess on the card, exit 0, its report lines echoed and its
    per-area spike counts bitwise those of the same function run on the CPU
    here meanwhile; (b) the 32-area MAM at ``mam_spec(scale=0.2)`` (836,680
    neurons, K 840/360, 1.53 G incoming synapse slots), built once on the
    card with its outgoing tables (build seconds, incoming and outgoing GB,
-   peak), then 100 ms of model time (the driver's 1 untimed + 99 timed
-   windows), LIF structure-aware, on five routes: ``scatter`` (the
+   peak), then 50 ms of model time (1 untimed + 49 timed
+   windows; 10 ms on ``scatter``, held bitwise against ``pallas`` run as
+   far), LIF structure-aware, on five routes: ``scatter`` (the
    driver's own), ``pallas`` unfused with ``fused_update`` (kernels
    ``lif_update`` and ``spike_deliver``), ``pallas`` with
    ``superstep_kernel=True`` (``superstep_lif``, ``spike_deliver``),
@@ -239,13 +240,13 @@ card from seed 0, f32 products in f32):
     attention under autograd; ``flash_attention`` refuses grad): (a) the
     sync trainer (``make_train_artifacts``) on qwen2-0.5b as published
     (bf16 parameters, f32 moments, remat "dots"), B 8 x S 4096 in 4
-    microbatches, the same batch: 1 warm-up + 3 timed steps, finite losses
+    microbatches, the same batch: 1 warm-up + 2 timed steps, finite losses
     and grad norms, the loss falling, ms/step, tokens/s, the peak memory and
     the profile of a one-microbatch step; (b) the hierarchical trainer, 2 pods, int8
-    every 2 steps, 2 x 4096 a pod, 4 steps: replicas differ before each
+    every 2 steps, 2 x 4096 a pod, 2 steps: replicas differ before the
     sync and are equal after it, residuals nonzero; ms per local step and
     sync, the int8 payload's bytes; (c) ``python -m
-    repro_torch.launch.train`` at that config (B 2 x S 4096, 3 steps,
+    repro_torch.launch.train`` at that config but S 2048 (B 2, 3 steps,
     checkpoints at 2 and 3), then its step-2 checkpoint ``--resume``d to 3
     by a second run: the resumed loss prints as the uninterrupted run's and
     its step-3 checkpoint is bitwise the uninterrupted one (the CLI runs
@@ -262,7 +263,7 @@ card from seed 0, f32 products in f32):
     frames) as published, internvl2-76b at 4 of its 80 backbone layers and
     grok-1 at 1 of its 64 (the card's memory: 8 B a parameter with bf16
     moments), bf16, remat and moment dtype as published, B 1 x S 4096: 1 +
-    3 AdamW steps on one repeated batch, the second loss below the first,
+    2 AdamW steps on one repeated batch, the second loss below the first,
     finite losses and grad norms, no kernel launch, ms/step, tokens/s and
     peak GB; a line on why llama4-maverick's full-width step does not fit
     the card; (g) the six reduced configs in f32, card == CPU (the loss
@@ -275,7 +276,17 @@ card from seed 0, f32 products in f32):
     ``train.pipeline.pipeline_apply`` on four gloo ranks sharing the card
     (``--pipe-rank``): qwen2-0.5b as published, 4 stages of 6 layers, each
     rank holding its stage alone, 4 microbatches of B 1 x S 4096, every
-    rank's outputs bitwise the 24 layers run in sequence here;
+    rank's outputs bitwise the 24 layers run in sequence here; (j) the
+    trainers on a process mesh, four gloo ranks of this script sharing the
+    card (``--mesh-rank``): qwen2-0.5b at its published width cut to 4 of
+    24 layers, B 1 x S 2048 a rank, the state held as each rank's shards;
+    the hierarchical int8 trainer on (pod, data, model) = (2, 2, 1) (2
+    local steps, a sync, 1 more) and the sync trainer on (data, model) =
+    (2, 2) (2 steps): every rank's losses and gathered parameters, moments,
+    counts, anchor and residuals bitwise the one-device trainers' at
+    ``n_micro`` 2, run here first, the int8 bytes over ``pod`` equal to
+    the accounting, no kernel launch; per rank the state bytes against one
+    replica's, peak GB, ms per step and sync, bytes in per collective;
 17. ``[families]`` the six other LM families at their published widths and
    dtypes (bf16), weights drawn on the card from seed 0, each freed before
    the next: llama4-maverick at 2 of its 48 layers (a dense and a
@@ -384,12 +395,13 @@ def _enqueue_windows(fn, reps: int, flush) -> list:
     return pairs
 
 
-def time_ms_host_paced(fn, *, reps: int = 20, flush=None) -> float:
+def time_ms_host_paced(fn, *, reps: int = 20, flush=None, warm: int = 3) -> float:
     """The earlier timer of this script: each window enqueued and
     synchronized in turn, so the device waits inside a window for whatever
     host work ``fn`` does before its launch. Kept to show that effect, and
-    for functions :func:`time_ms` cannot hold behind a spin."""
-    for _ in range(3):
+    for functions :func:`time_ms` cannot hold behind a spin (which has
+    warmed ``fn`` up already: ``warm`` 0)."""
+    for _ in range(warm):
         fn()
     times = []
     for _ in range(reps):
@@ -458,7 +470,7 @@ def time_ms(fn, *, reps: int = 20, flush=None, host_paced_ok: bool = False) -> f
             if not host_paced_ok:
                 raise RuntimeError(f"time_ms: {what}; host time would land in the windows")
             log(f"[timer] {what}: host-paced timer for this function")
-            return time_ms_host_paced(fn, reps=reps, flush=flush)
+            return time_ms_host_paced(fn, reps=reps, flush=flush, warm=0)
         times += got
     return statistics.median(times)
 
@@ -1164,7 +1176,7 @@ def _cli_group(tmp: str, env: dict) -> None:
 SERVE_BATCHES = (8, 6, 4)   # the event fold: the largest whose reckoned peak fits
 SERVE_PEAK_GB = 70.0
 SERVE_PALLAS_BATCH = 8      # incoming tables only
-SERVE_TRIALS, SERVE_WINDOWS = 16, 8
+SERVE_TRIALS, SERVE_WINDOWS = 8, 8  # 8 trials: the time limit's share
 # [cli]'s wrapper around ``python -m repro_torch.launch.serve``.
 SERVE_CLI_WRAPPER = CLI_WRAPPER.replace("repro_torch.launch.simulate",
                                         "repro_torch.launch.serve")
@@ -1224,7 +1236,7 @@ def _stats_line(name, stats, card) -> str:
 def phase_serve() -> None:
     """``[serve]``: the folded trial server at ``mam_spec(scale=0.1)``, the
     serve CLI's ``--selftest`` regime (``v_th`` 2.0 mV, packet floor at the
-    area's padded size), 16 trials of 1-8 windows: (a) the event fold's B
+    area's padded size), 8 trials of 1-8 windows: (a) the event fold's B
     from a reckoning of its peak; (b) the event server, every trial bitwise
     its sequential reference on the card, overflow 0, spikes in every trial;
     (c) the pallas server at B = 8, bitwise the event trials, and one
@@ -1435,14 +1447,19 @@ def phase_serve() -> None:
     if not any(ln.startswith("selftest OK") for ln in lines) or launches["event_deliver"] <= 0:
         raise AssertionError(f"serve cli: no selftest OK line or no launches: {launches}")
     log(f"[serve] (f) the serve CLI's selftest exit 0 in {time.perf_counter() - t0:.1f} s "
-        f"(process start, build, serving, 16 references) ({card})")
+        f"(process start, build, serving, {SERVE_TRIALS} references) ({card})")
 
 
 # [mam]: the paper's MAM driver (repro_torch.mam_simulation).
 MAM_SCALE = 0.2      # 1.53 G incoming synapse slots: the main path's 1.56 G
-# 1 untimed + 99 timed windows (100 ms): the driver's own 1 s is 1,000
+# 1 untimed + 49 timed windows (50 ms): mam_simulation's own 1 s is 1,000
 # windows, and on scatter (plain PyTorch over every slot) they take ~12 min.
-MAM_T_MS = 100.0
+# scatter runs 1 + 9 windows (~0.72 s each), held bitwise against pallas run
+# as far; the CLI leg (a) runs 300 ms of the small model. (Cut from 100, 100
+# and 1000 ms to keep the script within 70% of its time limit.)
+MAM_T_MS = 50.0
+MAM_SCATTER_T_MS = 10.0
+MAM_CLI_T_MS = 300.0
 # The driver's CLI, run as ``-m`` runs it (its main on the command line's
 # flags); after it returns, the run's per-area spike counts and the
 # process's kernel launch counts.
@@ -1457,11 +1474,12 @@ MAM_CLI_WRAPPER = (
 
 def phase_mam() -> dict:
     """``[mam]``: the paper's driver on the card. (a) ``python -m
-    repro_torch.mam_simulation --scale 0.002 --t-ms 1000`` as a subprocess,
+    repro_torch.mam_simulation --scale 0.002 --t-ms 300`` as a subprocess,
     its per-area spike counts bitwise those of the same function run on the
     CPU here meanwhile; (b) ``mam_spec(scale=0.2)`` built once with its
-    outgoing tables, 100 ms of model time on five routes, bitwise equal, with
-    ``overflow == 0``; one window of ``pallas`` and of ``event`` profiled.
+    outgoing tables, 50 ms of model time on four routes, bitwise equal, with
+    ``overflow == 0``, and 10 ms on ``scatter``, bitwise ``pallas`` run as
+    far; one window of ``pallas`` and of ``event`` profiled.
     Returns each route's kernel launches (counts reset just before each
     run, read just after)."""
     import os
@@ -1480,14 +1498,15 @@ def phase_mam() -> dict:
     env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
     t0 = time.perf_counter()
     proc = subprocess.Popen(
-        [sys.executable, "-c", MAM_CLI_WRAPPER, "--scale", "0.002", "--t-ms", "1000"],
+        [sys.executable, "-c", MAM_CLI_WRAPPER, "--scale", "0.002", "--t-ms",
+         str(MAM_CLI_T_MS)],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
     threads = torch.get_num_threads()
     torch.set_num_threads(max(1, threads // 2))  # the rest for the CLI's process
     try:
         host = mam_simulation.simulate(
             mam_spec(scale=0.002), EngineConfig(delivery_backend="scatter", **lif),
-            device="cpu", t_ms=1000.0)
+            device="cpu", t_ms=MAM_CLI_T_MS)
         out, err = proc.communicate(timeout=600)
     finally:
         torch.set_num_threads(threads)
@@ -1539,11 +1558,19 @@ def phase_mam() -> dict:
                                              schedule="conventional", **lif),
                                 ("lif_update", "spike_deliver")),
     }
-    n_windows = spec.steps_for(MAM_T_MS) // spec.delay_ratio
+    def same(res, ref) -> bool:
+        st, st0 = res.state, ref.state
+        return (np.array_equal(res.counts, ref.counts) and st.t == st0.t
+                and bitwise_equal(st.ring, st0.ring) and all(
+                    bitwise_equal(getattr(st.neuron, f), getattr(st0.neuron, f))
+                    for f in ("v", "i_syn", "refrac")))
+
     launches, first = {}, None
     for name, (cfg, kernels) in routes.items():
+        t_ms = MAM_SCATTER_T_MS if name == "scatter" else MAM_T_MS
+        n_windows = spec.steps_for(t_ms) // spec.delay_ratio
         cuda.reset_launches()
-        res = mam_simulation.simulate(spec, cfg, device="cuda", net=net, t_ms=MAM_T_MS)
+        res = mam_simulation.simulate(spec, cfg, device="cuda", net=net, t_ms=t_ms)
         launches[name] = dict(cuda.launches)
         ran = {k: v for k, v in launches[name].items() if v}
         if res.overflow != 0:
@@ -1553,27 +1580,30 @@ def phase_mam() -> dict:
         log(f"[mam] (b) {name}: {1e3 * res.wall_s / (n_windows - 1):.2f} ms/window, RTF "
             f"{res.wall_s / res.t_s:.2f} ({n_windows - 1} timed windows), "
             f"{int(res.counts.sum())} spikes, overflow 0, launches {ran}")
-        if first is None:
-            first = res
+        if name == "scatter":
+            as_far = mam_simulation.simulate(spec, routes["pallas"][0], device="cuda", net=net,
+                                             t_ms=t_ms)
+            if not same(res, as_far):
+                raise AssertionError("[mam] scatter differs from pallas at its last window")
+            log(f"[mam] (b) scatter == pallas run as far, bitwise: per-area spike counts, t "
+                f"{res.state.t}, the ring and v / i_syn / refrac")
             continue
-        st, st0 = res.state, first.state
-        same = (np.array_equal(res.counts, first.counts) and st.t == st0.t
-                and bitwise_equal(st.ring, st0.ring) and all(
-                    bitwise_equal(getattr(st.neuron, f), getattr(st0.neuron, f))
-                    for f in ("v", "i_syn", "refrac")))
-        if not same:
-            raise AssertionError(f"[mam] {name} differs from scatter (counts, ring or state)")
-    log(f"[mam] (b) all {len(routes)} routes bitwise equal: per-area spike counts, t "
-        f"{first.state.t}, the final ring and v / i_syn / refrac, overflow 0")
+        if first is None:
+            first, first_name = res, name
+            continue
+        if not same(res, first):
+            raise AssertionError(f"[mam] {name} differs from {first_name} (counts, ring or state)")
+    log(f"[mam] (b) the {len(routes) - 1} routes of {MAM_T_MS:g} ms bitwise equal: per-area "
+        f"spike counts, t {first.state.t}, the final ring and v / i_syn / refrac, overflow 0")
     for ln in mam_simulation.report(spec, first):
         if ln.strip():
-            log(f"[mam] (b) scatter | {ln.strip()}")
+            log(f"[mam] (b) {first_name} | {ln.strip()}")
     for name in ("pallas", "event adaptive"):
         eng = make_simulation(spec, routes[name][0], net=net, device="cuda")
         eng.window(first.state)  # warm
         profile_window(f"mam x{MAM_SCALE} {name}", lambda: eng.window(first.state),
                        what=f"window {first.state.t // spec.delay_ratio}")
-    del net, first, res, eng
+    del net, first, res, eng, as_far
     gc.collect()
     torch.cuda.empty_cache()
     return launches
@@ -2135,8 +2165,10 @@ def _superstep_rows(net, launches: dict, rng, flush) -> list[dict]:
                 f"{'agrees' if all(map(bitwise_equal, got, again)) else 'differs'}")
         err = max(max_abs_err(g.float(), w.float()) for g, w in zip(got, want))
         ms = time_ms(lambda: kernel(*args(scratch), **kw), reps=10, flush=flush)
-        plain_ms = time_ms(lambda: plain(*args(scratch), **kw), reps=10, flush=flush,
-                           host_paced_ok=True)
+        # ~0.85 s a call whose enqueue blocks on the launch queue: host-paced
+        # (time_ms fell back to it in every earlier call), 1 + 3 calls
+        plain_ms = time_ms_host_paced(lambda: plain(*args(scratch), **kw), reps=3,
+                                      flush=flush, warm=1)
         return want, err, ms, plain_ms
 
     # LIF: membrane potentials spread below threshold and strong synaptic
@@ -2168,7 +2200,7 @@ def _superstep_rows(net, launches: dict, rng, flush) -> list[dict]:
     log(f"[kernel] superstep_lif [{a}, {n}, {k}] D {d_win} W {net.live_window}: bitwise == "
         f"plain; spikes per cycle {per_cycle}, {active} active synapse-cycles; {ms:.3f} ms "
         f"(bound {bound_ms:.3f} ms by bytes, {nbytes / ms / 1e6:.0f} GB/s of needed bytes), "
-        f"plain {plain_ms:.3f} ms")
+        f"plain {plain_ms:.3f} ms (host-paced, median of 3)")
     rows.append(dict(
         name="superstep_lif", route="cuda", source="src/repro_torch/kernels/csrc/superstep_lif.cu",
         replaces="src/repro/kernels/cycle.py:131", launches=launches["superstep_lif"],
@@ -2204,7 +2236,7 @@ def _superstep_rows(net, launches: dict, rng, flush) -> list[dict]:
             f"{100 * float(fired.mean()):.2f}% of sources fire, spikes per cycle {per_cycle}, "
             f"{active} active synapses; {ms:.3f} ms (bound {bound_ms:.3f} ms by bytes, "
             f"{100 * bound_ms / ms:.1f}% of it, {nbytes / ms / 1e6:.0f} GB/s of needed "
-            f"bytes), plain {plain_ms:.3f} ms")
+            f"bytes), plain {plain_ms:.3f} ms (host-paced, median of 3)")
         timed[regime] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, err=err)
     # A yardstick for the stream: one library reduction that reads all of
     # src once, in its own int32 (a widening sum is much slower).
@@ -2746,6 +2778,12 @@ def phase_lm_device_vs_cpu() -> None:
 # forwards at full width.
 
 TRAIN_SEQ = 4096  # SHAPES["train_4k"]'s length
+# Depth cut to keep the script within 70% of its time limit: (a) 1 + 2
+# steps, (b) 2 local steps and one sync, (c)'s CLI runs at S 2048 (the
+# checkpoint's size is the model's, whatever the sequence).
+TRAIN_SYNC_STEPS = 3
+TRAIN_HIER_STEPS = 2
+TRAIN_CLI_SEQ = 2048
 
 
 def _trainer(bundle, opt_cfg, **kw):
@@ -2771,7 +2809,7 @@ def _no_flash(before, what):
 def phase_train_sync() -> None:
     """(a) The sync trainer on qwen2-0.5b as published (bf16 parameters, f32
     moments, remat "dots"), S 4096, global batch 8 in 4 microbatches, the
-    same batch every step: 1 warm-up + 3 timed steps, finite losses and
+    same batch every step: 1 warm-up + 2 timed steps, finite losses and
     grad norms, the loss falling (and under the reference test's bar, loss
     + 0.5), no kernel launch; then the profile of a one-microbatch step."""
     import torch
@@ -2792,7 +2830,7 @@ def phase_train_sync() -> None:
     batch = host_batch(SyntheticLM(cfg.vocab, TRAIN_SEQ, b, seed=0).batch(0), "cuda")
     before = dict(cuda.launches)
     losses, gnorms, times = [], [], []
-    for i in range(4):
+    for i in range(TRAIN_SYNC_STEPS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         params, opt, m = art.step_fn(params, opt, batch)
@@ -2806,8 +2844,9 @@ def phase_train_sync() -> None:
     log(f"[train] (a) qwen2-0.5b sync trainer, {cfg.param_dtype} params, "
         f"{opt_cfg.moment_dtype} moments, remat {cfg.remat!r}, B {b} x S {TRAIN_SEQ} in 4 "
         f"microbatches, the same batch: losses {[round(x, 4) for x in losses]}, grad norms "
-        f"{[round(x, 3) for x in gnorms]}; {ms:.1f} ms/step (mean of 3 after 1; "
-        f"{[round(1e3 * t, 1) for t in times]}), {b * TRAIN_SEQ / ms * 1e3:,.0f} tokens/s, "
+        f"{[round(x, 3) for x in gnorms]}; {ms:.1f} ms/step (mean of "
+        f"{TRAIN_SYNC_STEPS - 1} after 1; {[round(1e3 * t, 1) for t in times]}), "
+        f"{b * TRAIN_SEQ / ms * 1e3:,.0f} tokens/s, "
         f"{6 * cfg.param_count() * b * TRAIN_SEQ / ms / 1e9:.1f} TFLOP/s of 6ND, peak "
         f"{peak:.2f} GB (max_memory_allocated), flash_attention launches 0; {card_name_power()}")
     if not all(map(math.isfinite, losses + gnorms)):
@@ -2831,9 +2870,9 @@ def phase_train_sync() -> None:
 
 def phase_train_hier() -> None:
     """(b) The hierarchical trainer on qwen2-0.5b as published: 2 pods,
-    int8 slow tier every 2 steps, global batch 4 (2 a pod), S 4096, 4
-    steps. Before each sync the replicas differ; after it they are equal,
-    with a nonzero error residual (the reference's invariants,
+    int8 slow tier every 2 steps, global batch 4 (2 a pod), S 4096, 2
+    steps (``TRAIN_HIER_STEPS``). Before the sync the replicas differ;
+    after it they are equal, with a nonzero error residual (the reference's invariants,
     tests/test_distributed.py:132-171, on one device)."""
     import torch
 
@@ -2856,7 +2895,7 @@ def phase_train_hier() -> None:
     ds = SyntheticLM(bundle.cfg.vocab, TRAIN_SEQ, 4, seed=1)
     before = dict(cuda.launches)
     local_ms, sync_ms, losses = [], [], []
-    for step in range(4):
+    for step in range(TRAIN_HIER_STEPS):
         batch = host_batch(ds.batch(step), "cuda", n_pods=2)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2916,14 +2955,14 @@ def _npz_equal(a: str, b: str) -> bool:
 
 def phase_train_cli() -> None:
     """(c) ``python -m repro_torch.launch.train`` at qwen2-0.5b's published
-    config: 3 steps of B 2 x S 4096 checkpointed every 2 (and at the end);
+    config but S 2048: 3 steps of B 2 checkpointed every 2 (and at the end);
     that run's step-2 checkpoint, alone in a directory, resumed to step 3
     by a second run. The step is deterministic (the CLI sets
     torch.use_deterministic_algorithms), so the resumed run's step-3 loss
     prints as the uninterrupted run's and its step-3 checkpoint is bitwise
     the uninterrupted one; the restored state is bitwise the saved one
-    (restored on the card and saved again), with the checkpoint's bytes and
-    the save and restore seconds."""
+    (restored on the card and saved again while the resumed run runs), with
+    the checkpoint's bytes and the save and restore seconds."""
     import os
     import shutil
     import tempfile
@@ -2939,7 +2978,7 @@ def phase_train_cli() -> None:
     tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
     log(f"[train] (c) checkpoints under {tmp}: {shutil.disk_usage(tmp).free / 1e9:.1f} GB free")
     argv = ["--arch", "qwen2-0.5b", "--steps", "3", "--global-batch", "2", "--seq-len",
-            str(TRAIN_SEQ), "--ckpt-every", "2", "--log-every", "1"]
+            str(TRAIN_CLI_SEQ), "--ckpt-every", "2", "--log-every", "1"]
 
     def npz(d, step):
         return os.path.join(d, f"step_{step:08d}", "arrays.npz")
@@ -2949,33 +2988,40 @@ def phase_train_cli() -> None:
         full = _train_cli("(c)", "uninterrupted", [*argv, "--ckpt-dir", full_dir], env)
         if sorted(full) != ["1", "2", "3"]:
             raise AssertionError(f"(c) the uninterrupted run's steps: {full}")
-        os.makedirs(cut_dir)
-        # hard links: the resumed run reads the step-2 files and writes new ones
-        shutil.copytree(os.path.join(full_dir, f"step_{2:08d}"),
-                        os.path.join(cut_dir, f"step_{2:08d}"), copy_function=os.link)
-        # The restore on the card, timed, held to the saved arrays; then the
-        # restored state saved again, timed.
-        bundle = get_arch("qwen2-0.5b")
-        meta = bundle.model.init_params(None, device="meta")
-        like = train_state_tree(bundle.model, meta, adamw_init(meta, AdamWConfig(
-            moment_dtype=bundle.moment_dtype)))
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        restored, step = ckpt.restore(cut_dir, like, device="cuda")
-        torch.cuda.synchronize()
-        restore_s = time.perf_counter() - t0
-        nbytes = os.path.getsize(npz(cut_dir, 2))
-        if not _same_as_saved(restored, npz(cut_dir, 2)):
-            raise AssertionError("(c) the state restored on the card differs from the saved one")
-        t0 = time.perf_counter()
-        ckpt.save(os.path.join(tmp, "again"), step, restored)
-        save_s = time.perf_counter() - t0
-        del restored
-        shutil.rmtree(os.path.join(tmp, "again"))
+        # hard links: the resumed run reads the step-2 files and writes new
+        # ones; the restore here reads its own links, so it cannot take the
+        # resumed run's step 3 for the latest
+        for d in (cut_dir, os.path.join(tmp, "restore")):
+            os.makedirs(d)
+            shutil.copytree(os.path.join(full_dir, f"step_{2:08d}"),
+                            os.path.join(d, f"step_{2:08d}"), copy_function=os.link)
+        resumed_run = _train_cli_start([*argv, "--ckpt-dir", cut_dir, "--resume"], env)
+        try:
+            # Meanwhile, the restore on the card, timed, held to the saved
+            # arrays; then the restored state saved again, timed.
+            bundle = get_arch("qwen2-0.5b")
+            meta = bundle.model.init_params(None, device="meta")
+            like = train_state_tree(bundle.model, meta, adamw_init(meta, AdamWConfig(
+                moment_dtype=bundle.moment_dtype)))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            restored, step = ckpt.restore(os.path.join(tmp, "restore"), like, device="cuda")
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            nbytes = os.path.getsize(npz(cut_dir, 2))
+            if step != 2 or not _same_as_saved(restored, npz(cut_dir, 2)):
+                raise AssertionError("(c) the state restored on the card differs from the saved "
+                                     "one")
+            t0 = time.perf_counter()
+            ckpt.save(os.path.join(tmp, "again"), step, restored)
+            save_s = time.perf_counter() - t0
+            del restored
+            shutil.rmtree(os.path.join(tmp, "again"))
+        finally:
+            resumed = _train_cli_finish("(c)", "resumed", resumed_run)
         log(f"[train] (c) checkpoint of step 2: {nbytes:,} B; restored onto the card in "
             f"{restore_s:.2f} s, saved again (device to host + write) in {save_s:.2f} s, "
-            f"bitwise the saved state; {card_name_power()}")
-        resumed = _train_cli("(c)", "resumed", [*argv, "--ckpt-dir", cut_dir, "--resume"], env)
+            f"bitwise the saved state (while the resumed run ran); {card_name_power()}")
         want = {k: v for k, v in full.items() if int(k) > 2}
         if resumed != want:
             raise AssertionError(f"(c) resumed losses {resumed} against {want}")
@@ -3118,7 +3164,7 @@ TRAIN_FAMILIES = {
     "internvl2-76b": {"n_layers": 4},
     "grok-1-314b": {"n_layers": 1},
 }
-TRAIN_FAMILY_STEPS = 4    # 1 + 3 on one repeated batch
+TRAIN_FAMILY_STEPS = 3    # 1 + 2 on one repeated batch
 WHISPER_DECODER_SEQ = 448  # whisper-medium's decoder length
 PIPE_STAGES = 4           # (i): qwen2-0.5b's 24 layers in 4 stages of 6
 PIPE_MICRO = 4            # microbatches of B 1 x S 4096
@@ -3135,7 +3181,7 @@ def _published_remat(arch) -> str:
 def _family_train(arch) -> None:
     """(f) ``arch`` at its published width and dtypes (depth as
     ``TRAIN_FAMILIES`` cuts it), remat and moment dtype as published, B 1
-    x S 4096 (whisper: decoder 448 tokens on 1500 frames): 1 + 3 AdamW
+    x S 4096 (whisper: decoder 448 tokens on 1500 frames): 1 + 2 AdamW
     steps on one repeated batch, no kernel launch; ms/step, tokens/s, peak
     GB; the second loss below the first, finite losses and grad norms."""
     import torch
@@ -3181,8 +3227,9 @@ def _family_train(arch) -> None:
         f"{opt_cfg.moment_dtype} moments, remat {_published_remat(arch)!r}, B 1 x S {s}"
         f"{frames}, the same batch: losses "
         f"{[round(x, 4) for x in losses]}, grad norms {[round(x, 3) for x in gnorms]}; "
-        f"{ms:.1f} ms/step (mean of 3 after 1; {[round(1e3 * t, 1) for t in times]}), "
-        f"{s / ms * 1e3:,.0f} tokens/s, peak {peak:.2f} GB (max_memory_allocated), "
+        f"{ms:.1f} ms/step (mean of {TRAIN_FAMILY_STEPS - 1} after 1; "
+        f"{[round(1e3 * t, 1) for t in times]}), {s / ms * 1e3:,.0f} tokens/s, "
+        f"peak {peak:.2f} GB (max_memory_allocated), "
         f"flash_attention launches 0; {card_name_power()}")
     if not all(map(math.isfinite, losses + gnorms)):
         raise AssertionError(f"(f) {arch}: non-finite losses {losses} or grad norms {gnorms}")
@@ -3284,16 +3331,32 @@ def _train_cli(tag: str, what: str, argv: list, env: dict) -> dict:
     """``python -m repro_torch.launch.train`` with ``argv`` on the card, its
     lines echoed; fails unless it exits 0. Returns its printed losses by
     step."""
-    t0 = time.perf_counter()
-    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", *argv],
-                         capture_output=True, text=True, env=env, timeout=600)
-    for line in out.stdout.splitlines():
+    return _train_cli_finish(tag, what, _train_cli_start(argv, env))
+
+
+def _train_cli_start(argv: list, env: dict):
+    """:func:`_train_cli`'s process, started."""
+    return time.perf_counter(), subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", *argv],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+
+
+def _train_cli_finish(tag: str, what: str, started) -> dict:
+    """:func:`_train_cli`'s checks on a process of :func:`_train_cli_start`."""
+    t0, proc = started
+    try:
+        stdout, stderr = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    for line in stdout.splitlines():
         if line.strip():
             log(f"[train] {tag} {what}: {line}")
-    if out.returncode != 0:
-        raise AssertionError(f"{tag} {what}: exit {out.returncode}\n{out.stderr[-3000:]}")
+    if proc.returncode != 0:
+        raise AssertionError(f"{tag} {what}: exit {proc.returncode}\n{stderr[-3000:]}")
     log(f"[train] {tag} {what}: exit 0 in {time.perf_counter() - t0:.1f} s")
-    return dict(re.findall(r"^step\s+(\d+) loss\s+(\S+)", out.stdout, re.M))
+    return dict(re.findall(r"^step\s+(\d+) loss\s+(\S+)", stdout, re.M))
 
 
 def phase_train_cli_family() -> None:
@@ -3462,6 +3525,340 @@ def pipe_rank_main(rank: int, tmp: str, port: int) -> int:
     return 0
 
 
+# [train] (j): the trainers on a process mesh, four gloo ranks of this script
+# sharing the card (``--mesh-rank``), against the one-device trainers run
+# here. qwen2-0.5b at its published width, cut to 4 of its 24 layers.
+MESH_RANKS = 4
+MESH_LAYERS = 4
+MESH_SEQ = 2048                                      # B 1 x S 2048 a rank
+MESH_HIER = ((2, 2, 1), ("pod", "data", "model"))    # int8, sync_every 2
+MESH_SYNC = ((2, 2), ("data", "model"))              # FSDP over data, TP storage over model
+MESH_HIER_STEPS = 3                                  # 2 local steps, a sync, 1 more
+MESH_SYNC_EVERY = 2
+MESH_SYNC_STEPS = 2
+MESH_TIMEOUT_S = 300
+
+
+def _mesh_setup(mesh, mode: str):
+    """(j)'s bundle, optimizer and training artifacts for ``mode``
+    (``"hier"`` or ``"sync"``) on ``mesh`` (None: one device)."""
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.optim.hierarchical import HierarchicalConfig
+    from repro_torch.train.steps import make_train_artifacts
+
+    bundle = _bundle("qwen2-0.5b", n_layers=MESH_LAYERS)
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=1, moment_dtype=bundle.moment_dtype)
+    if mode == "hier":
+        hier_cfg = HierarchicalConfig(sync_every=MESH_SYNC_EVERY, compression="int8")
+        kw = dict(hier_cfg=hier_cfg, n_micro=1 if mesh else 2, n_pods=2)
+    else:
+        kw = dict(n_micro=1 if mesh else 2)
+    return bundle, opt_cfg, make_train_artifacts(bundle, opt_cfg, mesh, batch_axes=("data",),
+                                                 **kw)
+
+
+def _mesh_train(mode: str, mesh=None) -> dict:
+    """(j)'s run of ``mode`` on ``mesh`` (this rank's shards) or on one
+    device (the reference): weights drawn on the card from seed 0, batches
+    from ``SyntheticLM`` (seed 1); returns the state, losses and timings."""
+    import torch
+
+    from repro_torch.data.pipeline import SyntheticLM, host_batch
+    from repro_torch.optim.adamw import adamw_init
+
+    t_setup = time.perf_counter()
+    bundle, opt_cfg, art = _mesh_setup(mesh, mode)
+    device = mesh.device if mesh else torch.device("cuda")
+    params = bundle.model.init_params(
+        torch.Generator(device=device).manual_seed(0)).requires_grad_()
+    opt = adamw_init(params, opt_cfg)
+    sync = None
+    if mode == "hier":
+        sync = art.hier.init_sync_state(params)
+        params, opt = art.hier.replicate(params), art.hier.replicate(opt)
+        sync = art.shard(sync, "sync")
+    params, opt = art.shard(params, "params"), art.shard(opt, "opt")
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t_setup
+    n_batch = 4 if mode == "hier" else 2
+    ds = SyntheticLM(bundle.cfg.vocab, MESH_SEQ, n_batch, seed=1)
+
+    def batch(step):
+        if mesh is None:
+            return host_batch(ds.batch(step), device, n_pods=2 if mode == "hier" else None)
+        return host_batch(ds.batch(step), mesh, ("data",), "pod" if mode == "hier" else None)
+
+    losses, step_ms, sync_ms, tiers, comm_ms = [], [], [], [], []
+    from repro_torch.core import comm
+    for step in range(MESH_HIER_STEPS if mode == "hier" else MESH_SYNC_STEPS):
+        if mode == "hier" and step == MESH_SYNC_EVERY:
+            before = dict(comm.received)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, sync = art.sync_fn(params, sync)
+            torch.cuda.synchronize()
+            sync_ms.append(1e3 * (time.perf_counter() - t0))
+            tiers.append(("sync", {k: v - before.get(k, 0) for k, v in comm.received.items()
+                                   if v - before.get(k, 0)}))
+        b = batch(step)
+        before = dict(comm.received)
+        n_timed = len(comm.times or ())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = art.step_fn(params, opt, b)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        comm_ms.append(1e3 * sum(t for *_, t in (comm.times or ())[n_timed:]))
+        tiers.append(("step", {k: v - before.get(k, 0) for k, v in comm.received.items()
+                               if v - before.get(k, 0)}))
+        losses.append(m["loss"].detach().cpu())
+    return dict(art=art, params=params, opt=opt, sync=sync, losses=losses, step_ms=step_ms,
+                sync_ms=sync_ms, tiers=tiers, comm_ms=comm_ms, setup_s=setup_s)
+
+
+def _named(tree) -> dict:
+    from repro_torch.optim.tree import named_leaves
+
+    return {n: x.detach() for n, x in named_leaves(tree).items()}
+
+
+def _as_bytes(x):
+    """``x``'s bytes, flat (-0.0 is not +0.0)."""
+    import torch
+
+    return x.detach().contiguous().reshape(-1).view(torch.uint8)
+
+
+def _save_raw(refs: dict, path: str) -> None:
+    """``refs`` (``{key: CPU tensor}``) as one flat file of their bytes
+    and, last, ``path + ".json"``, the index the ranks wait for."""
+    index, off = {}, 0
+    with open(path, "wb") as f:
+        for key, x in refs.items():
+            raw = _as_bytes(x).numpy()
+            f.write(raw)
+            index[key] = [off, raw.size, str(x.dtype).removeprefix("torch."), list(x.shape)]
+            off += raw.size
+    Path(path + ".tmp").write_text(json.dumps(index))
+    Path(path + ".tmp").rename(path + ".json")
+
+
+def phase_train_mesh() -> None:
+    """(j) the sharded trainers on four gloo ranks of this script sharing
+    the card (``--mesh-rank``): qwen2-0.5b at its published width (bf16,
+    f32 moments, remat "dots") cut to 4 of 24 layers, B 1 x S 2048 a rank.
+    The hierarchical int8 trainer on (pod, data, model) = (2, 2, 1), sync
+    every 2 steps: 2 local steps, a sync, 1 more; the sync trainer on (data,
+    model) = (2, 2): 2 steps. Here, first, the one-device trainers at
+    ``n_micro`` 2 (each rank's slice a microbatch) on the same weights and
+    batches, written for the ranks while they train: every rank's gathered
+    parameters, moments, counts, anchor and residuals (its pod's replica in
+    hierarchical mode), and its losses, must be bitwise theirs, and the
+    int8 bytes over ``pod`` must equal the accounting. No kernel launches.
+    A correctness leg of gloo ranks on one card, not a scaling result."""
+    import socket
+    import tempfile
+
+    import torch
+
+    from repro_torch.kernels import cuda
+
+    t_leg = time.perf_counter()
+    before = dict(cuda.launches)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        procs = []
+        Path(f"{tmp}/spawned").write_text(repr(time.time()))
+        for rank in range(MESH_RANKS):
+            with open(f"{tmp}/rank{rank}.log", "w") as out:
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(Path(__file__).resolve()), "--mesh-rank", str(rank),
+                     tmp, str(port)], stdout=out, stderr=subprocess.STDOUT))
+        try:
+            # The references while the ranks start; the ranks train once
+            # they are computed (the card to themselves), and compare once
+            # they are written.
+            t0 = time.perf_counter()
+            torch.cuda.reset_peak_memory_stats()
+            refs, ref_ms = {}, {}
+            for mode in ("hier", "sync"):
+                run = _mesh_train(mode)
+                for part in ("params", "opt", "sync"):
+                    if run[part] is not None:
+                        refs.update({f"{mode}/{part}/{n}": x.cpu()
+                                     for n, x in _named(run[part]).items()})
+                refs.update({f"{mode}/loss/{i}": x for i, x in enumerate(run["losses"])})
+                ref_ms[mode] = (run["step_ms"], run["sync_ms"])
+                del run
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            torch.cuda.empty_cache()
+            compute_s = time.perf_counter() - t0
+            Path(f"{tmp}/go").touch()
+            _save_raw(refs, f"{tmp}/refs.bin")
+            log(f"[train] (j) one-device references here in {compute_s:.1f} s, written for "
+                f"the ranks ({sum(x.numel() * x.element_size() for x in refs.values()):,} B) "
+                f"in {time.perf_counter() - t0 - compute_s:.1f} s more while they trained: "
+                f"hierarchical at n_micro 2, ms/step {[round(x, 1) for x in ref_ms['hier'][0]]}, "
+                f"sync {[round(x, 1) for x in ref_ms['hier'][1]]} ms; sync trainer at n_micro "
+                f"2, ms/step {[round(x, 1) for x in ref_ms['sync'][0]]}; peak {peak:.2f} GB")
+            del refs
+            for p in procs:
+                p.wait(timeout=max(1.0, MESH_TIMEOUT_S - (time.perf_counter() - t_leg)))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for rank in range(MESH_RANKS):
+            for line in Path(f"{tmp}/rank{rank}.log").read_text().splitlines():
+                log(line if line.startswith("[train]") else f"[train] (j) rank {rank}| {line}")
+        rcs = [p.returncode for p in procs]
+        if any(rcs):
+            raise AssertionError(f"(j) a mesh rank failed: exit codes {rcs}")
+        res = [json.loads(Path(f"{tmp}/rank{r}.json").read_text()) for r in range(MESH_RANKS)]
+    _no_flash(before, "(j)'s references")
+    slow = sum(r["slow_bytes"] for r in res)
+    want = sum(r["slow_accounting"] for r in res)
+    log(f"[train] (j) the two tiers, summed over the 4 ranks, bytes in as comm counts them: "
+        f"hierarchical fast tier (each local step: bf16 gradients summed over data, "
+        f"parameters gathered over data) {sum(r['hier_fast_per_step'] for r in res):,} B a "
+        f"step, slow tier (int8 shards + f32 scales over pod, once per {MESH_SYNC_EVERY} "
+        f"steps) {slow:,} B a sync == the accounting {want:,} B "
+        f"(sum over ranks of (pods - 1) x (int8 shard elements + 4 B x leaves)); the sync "
+        f"trainer's fast tier {sum(r['sync_fast_per_step'] for r in res):,} B a step; "
+        f"every rank bitwise the one-device references; ranks ran "
+        f"{max(r['wall_s'] for r in res):.1f} s; a correctness leg on gloo, four ranks on "
+        f"one card, not a scaling result; {card_name_power()}")
+    if slow != want:
+        raise AssertionError(f"(j) slow-tier bytes {slow} != the accounting {want}")
+    log(f"[time] (j) took {time.perf_counter() - t_leg:.1f} s")
+
+
+def _wait_for(path: Path, what: str) -> None:
+    deadline = time.perf_counter() + MESH_TIMEOUT_S
+    while not path.exists():
+        if time.perf_counter() > deadline:
+            raise TimeoutError(f"(j) {what} never came")
+        time.sleep(0.05)
+
+
+def mesh_rank_main(rank: int, tmp: str, port: int) -> int:
+    """One rank of (j) (run as ``chip_smoke.py --mesh-rank R DIR PORT``)."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    t_start = time.perf_counter()
+    since_spawn = time.time() - float(Path(f"{tmp}/spawned").read_text())
+    torch.set_num_threads(2)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=MESH_RANKS, rank=rank,
+                            timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    try:
+        from repro_torch.core import ProcessMesh, comm
+        from repro_torch.kernels import cuda
+
+        card = card_name_power()
+        before = dict(cuda.launches)
+        _wait_for(Path(f"{tmp}/go"), "the references")  # they hold the card until then
+        dist.barrier()
+        t_go = time.perf_counter()
+        runs, out = {}, {}
+        for mode, shape in (("hier", MESH_HIER), ("sync", MESH_SYNC)):
+            mesh = ProcessMesh(*shape)
+            comm.reset_stats(timed=True)
+            torch.cuda.reset_peak_memory_stats()
+            runs[mode] = (mesh, _mesh_train(mode, mesh), torch.cuda.max_memory_allocated() / 1e9)
+        if dict(cuda.launches) != before:
+            raise AssertionError(f"(j) rank {rank} launched a kernel: {dict(cuda.launches)}")
+        t_trained = time.perf_counter()
+        _wait_for(Path(f"{tmp}/refs.bin.json"), "the references' file")
+        index = json.loads(Path(f"{tmp}/refs.bin.json").read_text())
+        raw = np.memmap(f"{tmp}/refs.bin", dtype=np.uint8, mode="r+")  # frombuffer: writable
+
+        def ref(key, pod=None):
+            """The reference's bytes of ``key`` on the card (pod ``pod``'s
+            block of a leaf with the pod axis in front)."""
+            off, n, dtype, shape = index[key]
+            if pod is not None:
+                n //= shape[0]
+                off += pod * n
+            return torch.frombuffer(raw, dtype=torch.uint8, count=n, offset=off).to(mesh.device)
+
+        for mode, (mesh, run, peak) in runs.items():
+            t_check = time.perf_counter()
+            art = run["art"]
+            pod = mesh.axis_index("pod") if mode == "hier" else None
+            held = {part: _named(run[part]) for part in ("params", "opt", "sync")
+                    if run[part] is not None}
+            held_b = sum(x.numel() * x.element_size() for t in held.values() for x in t.values())
+            # one replica unsharded: a pod's, with the anchor and its
+            # residuals, in hierarchical mode
+            replica_b = sum(index[f"{mode}/{part}/{n}"][1] // (
+                1 if pod is None or n.startswith("anchor.") else mesh.shape["pod"])
+                for part, t in held.items() for n in t)
+            # bitwise: the losses, then every leaf gathered (over the pod's
+            # own axes in hierarchical mode: its replica)
+            diff = [f"loss {i}" for i, x in enumerate(run["losses"])
+                    if not torch.equal(_as_bytes(x.to(mesh.device)), ref(f"{mode}/loss/{i}", pod))]
+            inner = tuple(a for a in mesh.axis_names if a != "pod")
+            for part, tree in held.items():
+                whole = _named(art.gather(run[part], part, inner))
+                for n, x in whole.items():
+                    has_pod = art.named_specs[part][n][:1] == ("pod",)
+                    if not torch.equal(_as_bytes(x), ref(f"{mode}/{part}/{n}",
+                                                         pod if has_pod else None)):
+                        diff.append(f"{part} {n}")
+                del whole
+            if diff:
+                raise AssertionError(f"(j) rank {rank} {mode}: not bitwise the one-device "
+                                     f"run: {diff[:8]} ({len(diff)} in all)")
+            check_s = time.perf_counter() - t_check
+            fast = [t for kind, t in run["tiers"] if kind == "step"]
+            fast_per_step = sum(sum(t.values()) for t in fast) // len(fast)
+            line = (f"[train] (j) rank {rank} {mode} on {mesh.shape} at {mesh.coords}: losses "
+                    f"{[x.tolist() for x in run['losses']]} bitwise the one-device run's, and so "
+                    f"are the gathered parameters, moments, counts"
+                    f"{', anchor and residuals' if mode == 'hier' else ''}; state held "
+                    f"{held_b:,} B against one replica's {replica_b:,} B; peak {peak:.2f} GB; "
+                    f"set up in {run['setup_s']:.1f} s, gathered and held to the references in "
+                    f"{check_s:.1f} s; ms/step {[round(x, 1) for x in run['step_ms']]} (in "
+                    f"collectives {[round(x, 1) for x in run['comm_ms']]})")
+            if mode == "hier":
+                syncs = [t for kind, t in run["tiers"] if kind == "sync"]
+                slow = sum(t.get(("all_gather", ("pod",)), 0) for t in syncs)
+                shard_elems = sum(x.numel() for x in held["params"].values())
+                accounting = (mesh.shape["pod"] - 1) * (shard_elems + 4 * len(held["params"]))
+                pod_in_step = [k for t in fast for k in t if "pod" in k[1]]
+                if pod_in_step:
+                    raise AssertionError(f"(j) a local step sent over pod: {pod_in_step}")
+                line += (f", sync {[round(x, 1) for x in run['sync_ms']]} ms; bytes in: a "
+                         f"local step {fast[0]}, the sync {syncs[0]} (slow tier "
+                         f"{slow:,} B, the accounting (2 - 1) x ({shard_elems:,} int8 + 4 x "
+                         f"{len(held['params'])} scales) = {accounting:,} B)")
+                out.update(slow_bytes=slow, slow_accounting=accounting,
+                           hier_fast_per_step=fast_per_step)
+            else:
+                line += f"; bytes in a step {fast[0]}"
+                out.update(sync_fast_per_step=fast_per_step)
+            log(f"{line}; {card}")
+        out["wall_s"] = time.perf_counter() - t_start
+        checked_s = out["wall_s"] - (t_trained - t_start)
+        log(f"[train] (j) rank {rank}: started {since_spawn:.1f} s after its spawn (imports), "
+            f"{t_go - t_start:.1f} s from its start to the references, "
+            f"{t_trained - t_go:.1f} s training both meshes, {checked_s:.1f} s gathering and "
+            f"holding them to the references")
+        Path(f"{tmp}/rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
 def phase_train() -> dict:
     """(a)-(i); returns each kernel's launches in this process over the
     training legs (a), (b), (d), (f), (g) (none: they launch no kernel) and
@@ -3474,7 +3871,7 @@ def phase_train() -> dict:
     for leg in (phase_train_sync, phase_train_hier, phase_train_cli,
                 phase_train_device_vs_cpu, phase_train_families,
                 phase_train_families_device_vs_cpu, phase_train_cli_family,
-                phase_train_pipeline):
+                phase_train_pipeline, phase_train_mesh):
         leg()
         log(f"[time] [train] {leg.__name__} done at {time.perf_counter() - t0:.1f} s")
     mid = dict(cuda.launches)
@@ -4510,9 +4907,35 @@ def main() -> int:
         return dist_rank_main(int(sys.argv[2]), sys.argv[3], int(sys.argv[4]))
     if len(sys.argv) == 5 and sys.argv[1] == "--pipe-rank":
         return pipe_rank_main(int(sys.argv[2]), sys.argv[3], int(sys.argv[4]))
+    if len(sys.argv) == 5 and sys.argv[1] == "--mesh-rank":
+        return mesh_rank_main(int(sys.argv[2]), sys.argv[3], int(sys.argv[4]))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    # Every Python subprocess of this script (the CLIs, the ranks) would
+    # compile torch's modules from source again where the environment sets
+    # PYTHONDONTWRITEBYTECODE and site-packages holds no bytecode (the card's
+    # machine: ~10 s an import of torch, ~10 s more for torch._dynamo, which
+    # the first meta-device op imports). The first subprocess writes the
+    # bytecode into a directory of the script's own, the rest read it;
+    # nothing is written beside the sources.
+    import os
+    import shutil
+    import tempfile
+
+    pyc = tempfile.mkdtemp(prefix="chip_smoke_pyc_")
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    os.environ["PYTHONPYCACHEPREFIX"] = pyc
+    try:
+        return run_phases()
+    finally:
+        shutil.rmtree(pyc, ignore_errors=True)
+
+
+def run_phases() -> int:
+    """The phases in order; the kernels line and the last line."""
+    import torch
+
     from repro_torch.core import mam_benchmark_spec
 
     device = phase_device()
@@ -4592,6 +5015,7 @@ def main() -> int:
         row["train_launches"] = train_launches[row["name"]]
         row["families_launches"] = {arch: n[row["name"]]
                                     for arch, n in families_launches.items()}
+    log(f"[time] total {time.perf_counter() - _T0:.1f} s (the limit 1200 s; the aim 840 s)")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0

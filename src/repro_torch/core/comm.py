@@ -62,6 +62,7 @@ __all__ = [
     "unpack_bits",
     "all_gather",
     "all_reduce",
+    "sum_in_order",
     "broadcast",
     "gather_area",
     "gather_global",
@@ -194,6 +195,21 @@ def all_reduce(x: torch.Tensor, mesh, axes, *, op: str = "sum") -> torch.Tensor:
     _timed(f"all_reduce_{op}", axes, nbytes,
            lambda: dist.all_reduce(buf, op=rop, group=group))
     return buf.to(x.device, non_blocking=True) if staged else buf
+
+
+def sum_in_order(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """The f32 sum of the ranks' ``x`` over the group of ``axes``, added in
+    row-major group order onto an f32 zero: bitwise a sequential f32
+    accumulation of the same values, as the one-device trainer sums its
+    microbatches' gradients, for any group size (a ring all-reduce adds in
+    another order). It crosses as a gather of ``x`` in its own dtype (a
+    bf16 gradient in 2 bytes an element), counted under ``("sum_in_order",
+    axes)``: ``n - 1`` payloads."""
+    parts = _gather(x, mesh, axes, "sum_in_order")
+    acc = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for part in parts.unbind(0):
+        acc.add_(part.float())
+    return acc
 
 
 def broadcast(x: torch.Tensor, mesh, axes, *, src: int) -> torch.Tensor:

@@ -7,10 +7,12 @@ the row-major coordinates of the mesh shape, the order ``jax.make_mesh``
 gives, so the last axis (the intra-area subgroup) varies fastest.
 
 :class:`ProcessMesh` wraps an initialised default process group. It makes
-one process group per mesh axis (the ranks that differ only along that
-axis) and uses the default group for collectives over all axes. Every rank
-creates every group, in one fixed order, once, at construction:
-``dist.new_group`` is collective over the whole world.
+one process group per subset of the mesh's axes (the ranks that differ
+only along those axes: the spike exchange takes single axes, the trainer
+``("pod", "data")`` or every axis but ``pod``) and uses the default group
+for collectives over all axes. Every rank creates every group, in one
+fixed order, once, at construction: ``dist.new_group`` is collective over
+the whole world.
 
 The port never starts processes itself: the caller (a launcher, a test, the
 smoke script) spawns the ranks and calls ``init_process_group`` with the
@@ -19,6 +21,7 @@ address, world size and rank.
 
 from __future__ import annotations
 
+import itertools
 import math
 import os
 
@@ -37,8 +40,9 @@ class ProcessMesh:
     ``mesh.shape`` maps each axis name to its extent (as a JAX mesh does),
     ``mesh.size`` is the number of ranks, ``mesh.axis_index(ax)`` this rank's
     coordinate along ``ax``. ``mesh.group(axes)`` is the process group of the
-    ranks that share this rank's coordinates off ``axes``; its ranks are in
-    row-major order over ``axes``, the order of a tiled ``all_gather``.
+    ranks that share this rank's coordinates off ``axes`` (one axis name, or
+    a tuple of them in the mesh's order); its ranks are in row-major order
+    over ``axes``, the order of a tiled ``all_gather``.
 
     ``device`` is where this rank's tensors live: ``cuda:(local rank %
     device count)`` by default (the local rank is ``$LOCAL_RANK``, else the
@@ -75,15 +79,18 @@ class ProcessMesh:
         self.device = resolve_device(device)
         grid = np.arange(size).reshape(shape)
         self._groups = {}
-        for i, ax in enumerate(axis_names):
-            # One group per line of the grid along `ax`; every rank makes
-            # them all, in this order, and keeps its own.
-            lines = np.moveaxis(grid, i, -1).reshape(-1, shape[i])
-            for line in lines:
-                ranks = [int(r) for r in line]
-                group = dist.new_group(ranks)
-                if self.rank in ranks:
-                    self._groups[(ax,)] = group
+        n = len(axis_names)
+        for k in range(1, n):
+            for dims in itertools.combinations(range(n), k):
+                # One group per block of the grid along `dims`; every rank
+                # makes them all, in this order, and keeps its own.
+                extent = math.prod(shape[d] for d in dims)
+                blocks = np.moveaxis(grid, dims, range(n - k, n)).reshape(-1, extent)
+                for block in blocks:
+                    ranks = [int(r) for r in block]
+                    group = dist.new_group(ranks)
+                    if self.rank in ranks:
+                        self._groups[tuple(axis_names[d] for d in dims)] = group
         self._groups[axis_names] = dist.group.WORLD
 
     def axis_index(self, ax: str) -> int:
@@ -91,18 +98,49 @@ class ProcessMesh:
         return self.coords[ax]
 
     def group(self, axes):
-        """The process group over ``axes`` (one axis name, or a tuple: a
-        single axis or all of them) that holds this rank."""
+        """The process group over ``axes`` (one axis name, or a tuple of
+        them in the mesh's order) that holds this rank."""
         key = (axes,) if isinstance(axes, str) else tuple(axes)
         if key not in self._groups:
-            raise ValueError(f"no process group over {key}: the mesh keeps one per axis "
-                             f"and one over all axes {self.axis_names}")
+            raise ValueError(f"no process group over {key}: the mesh keeps one over each "
+                             f"subset of its axes {self.axis_names}, in that order")
         return self._groups[key]
 
     def extent(self, axes) -> int:
         """Ranks in :meth:`group` over ``axes``."""
         key = (axes,) if isinstance(axes, str) else tuple(axes)
         return math.prod(self.shape[a] for a in key)
+
+    def block(self, axes) -> tuple[int, int]:
+        """``(index, extent)`` of this rank's block along a dimension split
+        over ``axes`` (a spec entry: None, one axis name or a tuple): the
+        index row-major over ``axes``, as ``NamedSharding`` places blocks."""
+        if axes is None:
+            return 0, 1
+        key = (axes,) if isinstance(axes, str) else tuple(axes)
+        index = 0
+        for ax in key:
+            index = index * self.shape[ax] + self.coords[ax]
+        return index, self.extent(key)
+
+    def shard(self, x, spec: tuple, name: str = "leaf"):
+        """This rank's block of ``x`` (a tensor or an array) under ``spec``
+        (one entry per leading dimension: None, an axis name or a tuple of
+        names), as a view. A dimension that the extent of its axes does not
+        divide raises ``ValueError`` naming ``name``, the dimension and the
+        extent."""
+        if len(spec) > x.ndim:
+            raise ValueError(f"{name}: spec {spec} has more entries than its "
+                             f"{x.ndim} dimensions {tuple(x.shape)}")
+        index = []
+        for d, axes in enumerate(spec):
+            i, n = self.block(axes)
+            if x.shape[d] % n:
+                raise ValueError(f"{name}: dimension {d} of shape {tuple(x.shape)} does not "
+                                 f"divide over {axes} (extent {n})")
+            size = x.shape[d] // n
+            index.append(slice(i * size, (i + 1) * size))
+        return x[tuple(index)]
 
     def __repr__(self) -> str:
         return f"ProcessMesh({self.shape}, rank {self.rank} at {self.coords}, {self.device})"

@@ -16,6 +16,7 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from repro_torch.core.mesh import ProcessMesh
 from repro_torch.device import resolve_device
 
 __all__ = ["SyntheticLM", "host_batch"]
@@ -62,17 +63,29 @@ class SyntheticLM:
             step += 1
 
 
-def host_batch(batch: dict[str, np.ndarray], device=None, *,
+def host_batch(batch: dict[str, np.ndarray], device=None,
+               batch_axes: tuple[str, ...] = ("data",), pod_axis: str | None = None, *,
                n_pods: int | None = None) -> dict[str, torch.Tensor]:
     """A host batch on ``device`` (default ``cuda``; raises without a GPU),
     with a leading ``[n_pods]`` axis for the hierarchical trainer when
-    ``n_pods`` is given. The JAX function's mesh sharding waits for the
-    port's sharded paths."""
-    dev = resolve_device(device)
+    ``n_pods`` is given. Given a :class:`~repro_torch.core.mesh.ProcessMesh`
+    instead of a device, this rank's slice of the global batch on the
+    mesh's device: the batch split over ``batch_axes`` (row-major, as the
+    JAX ``NamedSharding`` places it), after a leading pod axis of the mesh's
+    extent when ``pod_axis`` is given (this rank's pod: extent 1)."""
+    mesh = device if isinstance(device, ProcessMesh) else None
+    dev = mesh.device if mesh is not None else resolve_device(device)
     out = {}
     for k, v in batch.items():
         x = torch.from_numpy(np.ascontiguousarray(v))
-        if n_pods is not None:
+        if mesh is not None:
+            rest = (None,) * (x.dim() - 1)
+            if pod_axis is not None:
+                x = x.reshape((mesh.shape[pod_axis], -1) + tuple(x.shape[1:]))
+                x = mesh.shard(x, (pod_axis, batch_axes, *rest), k)
+            else:
+                x = mesh.shard(x, (batch_axes, *rest), k)
+        elif n_pods is not None:
             x = x.reshape((n_pods, -1) + tuple(x.shape[1:]))
         out[k] = x.to(dev)
     return out

@@ -7,8 +7,8 @@ give). The MLP connector (fc1, tanh-GELU, fc2) projects them, and they
 overwrite the first ``n_patches`` token positions of the backbone's input.
 The backbone is the port's :class:`Transformer`, so with
 ``use_pallas_attention`` its full-sequence forward runs the
-``flash_attention`` kernel. The sharded specs wait for the port's sharded LM
-paths.
+``flash_attention`` kernel. ``param_pspecs`` / ``cache_pspecs`` are the
+JAX spec trees as tuples (the backbone's under ``lm``).
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models import jax_layout, layers
+from repro_torch.models.jax_layout import P
 from repro_torch.models.transformer import Transformer, TransformerConfig, TransformerParams
 
 __all__ = ["InternVLConfig", "InternVL", "InternVLParams"]
@@ -127,3 +128,18 @@ class InternVL(jax_layout.Stacked):
         h0 = None if patch_embeds is None else self._splice(params, tokens, patch_embeds)
         return self.lm.forward_with_cache(params.lm, tokens, cache, cache_index,
                                           last_only=last_only, embeds_override=h0)
+
+    # ---------------------------------------------------------------- specs
+
+    def param_pspecs(self, *, fsdp: str | None = "data", tp: str = "model") -> dict:
+        return {
+            "lm": self.lm.param_pspecs(fsdp=fsdp, tp=tp),
+            "connector": {
+                "fc1": {"w": P(None, fsdp), "b": P(None)},
+                "fc2": {"w": P(fsdp, tp), "b": P(tp)},
+            },
+        }
+
+    def cache_pspecs(self, *, batch_axes, seq_axis=None, head_axis=None) -> dict:
+        return self.lm.cache_pspecs(batch_axes=batch_axes, seq_axis=seq_axis,
+                                    head_axis=head_axis)

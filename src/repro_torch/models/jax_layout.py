@@ -22,6 +22,12 @@ takes :class:`Stacked`'s methods, which read it: ``params_from_numpy`` /
 ``params_to_numpy`` (weights across packages) and ``to_jax_layout`` /
 ``from_jax_layout`` (anything keyed by parameter name, such as gradients,
 optimizer moments and the training CLI's checkpoints).
+
+Sharding specs keep the JAX layout too. A ``PartitionSpec`` is written as
+the tuple of its entries (:func:`P`; ``tuple(P(...))`` in JAX gives the same
+value), a model's ``param_pspecs`` is a tree of them keyed like its JAX
+parameters, and :meth:`Stacked.named_pspecs` gives each of the port's
+per-layer leaves its stacked spec without the stack's axis.
 """
 
 from __future__ import annotations
@@ -32,9 +38,28 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["stack", "unstack", "from_numpy", "to_numpy", "Stacked"]
+__all__ = ["P", "stacked", "stack", "unstack", "from_numpy", "to_numpy", "Stacked"]
 
 Stacks = Mapping[str, "int | None"]
+
+
+def P(*entries) -> tuple:
+    """A JAX ``PartitionSpec`` as the tuple of its entries: ``None``, an
+    axis name, or a tuple of names, one entry a leading dimension. A tuple
+    of one name becomes the name, as JAX normalises it."""
+    def entry(e):
+        if isinstance(e, (tuple, list)):
+            return e[0] if len(e) == 1 else tuple(e)
+        return e
+    return tuple(entry(e) for e in entries)
+
+
+def stacked(specs):
+    """Every spec of a tree (nested dicts of :func:`P` tuples) with a
+    leading ``None``: the specs of leaves stacked over the layers."""
+    if isinstance(specs, Mapping):
+        return {k: stacked(v) for k, v in specs.items()}
+    return (None, *specs)
 
 
 def _split(name: str, stacks: Stacks):
@@ -151,6 +176,31 @@ class Stacked:
         """The inverse of :meth:`to_jax_layout` (the layer leaves unstacked
         as views)."""
         return unstack(tree, self.stacks, lead)
+
+    def named_pspecs(self, specs: Mapping, lead: int = 0) -> dict[str, tuple]:
+        """A spec tree in the JAX layout (``param_pspecs``, or one with the
+        hierarchical trainer's pod axis in front, ``lead`` 1) as each of the
+        port's parameter names' spec: a layer leaf's spec without the entry
+        at ``lead``, its stack's axis."""
+        out = {}
+        for name, _ in self.init_params(None, device="meta").named_parameters():
+            hit = _split(name, self.stacks)
+            if hit is None:
+                path = name.split(".")
+            else:
+                prefix, i, rest = hit
+                g = self.stacks[prefix]
+                path = prefix.split(".") + ([] if g is None else [f"sub_{i % g}"]) + rest.split(".")
+            spec = specs
+            for part in path:
+                spec = spec[part]
+            if hit is not None:
+                if len(spec) <= lead or spec[lead] is not None:
+                    raise ValueError(f"{name}: the stacked spec {spec} has no free stack axis "
+                                     f"at {lead}")
+                spec = spec[:lead] + spec[lead + 1:]
+            out[name] = spec
+        return out
 
     def params_from_numpy(self, tree: Mapping, device=None) -> nn.Module:
         """The JAX parameter tree (numpy arrays) as the port's parameters,

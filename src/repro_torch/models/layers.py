@@ -6,8 +6,10 @@ is a ``ModuleDict`` of ``q``, ``k``, ``v``, ``o``; the SwiGLU MLP one of
 ``gate``, ``up``, ``down``), and the layers are plain functions of those
 containers and tensors, as in JAX. Layouts are JAX's: activations
 ``[B, S, D]``, heads ``[B, S, H, Dh]``. Reductions (softmax, norms) run in
-f32 inside a bf16 compute stream. The port has no mesh yet, so the JAX
-``with_sharding_constraint`` pins (``attn_pspecs``) are left out.
+f32 inside a bf16 compute stream. The trainer on a mesh gathers whole
+weights before it computes, so no activation is split across ranks and the
+JAX ``with_sharding_constraint`` pins (``attn_pspecs``) have nothing to pin:
+``Transformer._attn_pspecs`` returns them for parity only.
 """
 
 from __future__ import annotations

@@ -10,8 +10,7 @@ B/C groups; the per-head B/C tensors are never materialised.
 Parameters live in :class:`Mamba2Params`, one :class:`Mamba2Layer` a layer
 under ``layers``, named as the JAX dict (whose layer leaves stack ``[n_layers]``).
 Under autograd ``hidden`` checkpoints each layer body as ``cfg.remat`` asks.
-The sharded specs (``param_pspecs`` / ``cache_pspecs``) wait for the port's
-sharded LM paths.
+``param_pspecs`` / ``cache_pspecs`` are the JAX spec trees as tuples.
 """
 
 from __future__ import annotations
@@ -24,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models import jax_layout, layers
+from repro_torch.models.jax_layout import P
 
 __all__ = ["Mamba2Config", "Mamba2", "Mamba2Params", "segsum"]
 
@@ -322,3 +322,34 @@ class Mamba2(jax_layout.Stacked):
         if last_only:
             h = h[:, -1:]
         return self.unembed(params, h), cache
+
+    # ---------------------------------------------------------------- specs
+
+    def param_pspecs(self, *, fsdp: str | None = "data", tp: str = "model") -> dict:
+        """The JAX spec tree (layer leaves stacked), each spec a tuple."""
+        layer = {
+            "norm": {"scale": P(None)},
+            "in_proj": {"w": P(fsdp, tp)},
+            "conv_w": P(None, tp),
+            "conv_b": P(tp),
+            "A_log": P(None),
+            "D": P(None),
+            "dt_bias": P(None),
+            "gated_norm": {"scale": P(tp)},
+            "out_proj": {"w": P(tp, fsdp)},
+        }
+        return {
+            "embed": P(tp, fsdp),
+            "layers": jax_layout.stacked(layer),
+            "final_norm": {"scale": P(None)},
+            "lm_head": P(fsdp, tp),
+        }
+
+    def cache_pspecs(self, *, batch_axes, seq_axis=None, head_axis=None) -> dict:
+        """The SSM state's heads over the model axis, the batch over
+        ``batch_axes`` (an SSM cache has no sequence axis)."""
+        del seq_axis, head_axis
+        return {
+            "conv": P(None, batch_axes, None, None),
+            "ssm": P(None, batch_axes, "model", None, None),
+        }

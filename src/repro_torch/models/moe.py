@@ -7,8 +7,10 @@ entries, token-major then choice-minor; the rest are dropped (their residual
 passes through). Tokens are gathered into per-expert buffers
 ``[B, E, cap, D]``, so the expert products cost the active FLOPs only; they
 are batched products over the experts (``torch.einsum``), as the reference
-computes them outside any Pallas kernel. The sharded specs (``moe_pspecs``)
-wait for the port's sharded LM paths.
+computes them outside any Pallas kernel. ``moe_pspecs`` is the JAX spec
+tree as tuples: ``"ep"`` shards the experts' storage over the model axis,
+``"tp"`` their hidden width; on a mesh the trainer gathers the experts
+before it computes (no all-to-all dispatch).
 """
 
 from __future__ import annotations
@@ -21,9 +23,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models import layers
+from repro_torch.models.jax_layout import P
 
 __all__ = ["MoEConfig", "MoEParams", "moe_init", "route", "dispatch_slots", "dispatch",
-           "expert_ffn", "combine", "moe_apply"]
+           "expert_ffn", "combine", "moe_apply", "moe_pspecs"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -161,3 +164,27 @@ def moe_apply(p: MoEParams, x: torch.Tensor, cfg: MoEConfig):
     if cfg.shared_expert:
         combined = combined + layers.swiglu(p.shared, x)
     return combined, aux.float()
+
+
+def moe_pspecs(cfg: MoEConfig, fsdp: str | None, tp: str) -> dict:
+    """The JAX spec tree of :func:`moe_init`'s parameters (no stack axis),
+    each spec a tuple."""
+    if cfg.expert_sharding == "ep":
+        expert_in = P(tp, fsdp, None)     # [E, D, ff]: experts over the model axis
+        expert_out = P(tp, None, fsdp)    # [E, ff, D]
+    else:  # 'tp': d_ff inside every expert
+        expert_in = P(None, fsdp, tp)
+        expert_out = P(None, tp, fsdp)
+    p = {
+        "router": {"w": P(fsdp, None)},
+        "gate_w": expert_in,
+        "up_w": expert_in,
+        "down_w": expert_out,
+    }
+    if cfg.shared_expert:
+        p["shared"] = {
+            "gate": {"w": P(fsdp, tp)},
+            "up": {"w": P(fsdp, tp)},
+            "down": {"w": P(tp, fsdp)},
+        }
+    return p

@@ -19,7 +19,8 @@ honours ``cfg.remat`` around each layer as the JAX group body does
 ``from_jax_layout`` (:class:`~repro_torch.models.jax_layout.Stacked`) map
 the parameters (or anything keyed by their names, such as optimizer
 moments) to the JAX tree and back, so checkpoints of training state cross
-between the packages.
+between the packages. ``param_pspecs`` / ``cache_pspecs`` are the JAX spec
+trees as tuples; the trainer on a mesh shards its state by them.
 """
 
 from __future__ import annotations
@@ -34,7 +35,8 @@ import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.models import jax_layout, layers
-from repro_torch.models.moe import MoEConfig, moe_apply, moe_init
+from repro_torch.models.jax_layout import P
+from repro_torch.models.moe import MoEConfig, moe_apply, moe_init, moe_pspecs
 
 __all__ = ["TransformerConfig", "Transformer", "TransformerParams", "params_from_numpy"]
 
@@ -380,6 +382,67 @@ class Transformer(jax_layout.Stacked):
         if last_only:
             h = h[:, -1:]
         return self.unembed(params, h), cache
+
+    # -------------------------------------------------------------- specs
+
+    def param_pspecs(self, *, fsdp: str | None = "data", tp: str = "model") -> dict:
+        """The JAX package's spec tree, keyed like its parameters (layer
+        leaves stacked: a leading ``None``), each spec a tuple
+        (:func:`~repro_torch.models.jax_layout.P`)."""
+        cfg = self.cfg
+        attn = {
+            "q": {"w": P(fsdp, tp)},
+            "k": {"w": P(fsdp, tp)},
+            "v": {"w": P(fsdp, tp)},
+            "o": {"w": P(tp, fsdp)},
+        }
+        if cfg.qkv_bias:
+            for name in ("q", "k", "v"):
+                attn[name]["b"] = P(tp)
+        sub_dense = {
+            "attn": attn,
+            "ffn": {
+                "gate": {"w": P(fsdp, tp)},
+                "up": {"w": P(fsdp, tp)},
+                "down": {"w": P(tp, fsdp)},
+            },
+        }
+        sub_moe = {
+            "attn": attn,
+            "moe": moe_pspecs(cfg.moe, fsdp, tp) if cfg.moe else {},
+        }
+        if cfg.norm == "rms":
+            for t in (sub_dense, sub_moe):
+                t["ln1"] = {"scale": P(None)}
+                t["ln2"] = {"scale": P(None)}
+        group = {
+            f"sub_{i}": (sub_moe if cfg.sub_is_moe(i) else sub_dense)
+            for i in range(cfg.group_size)
+        }
+        specs = {"embed": P(tp, fsdp), "layers": jax_layout.stacked(group)}
+        if cfg.norm == "rms":
+            specs["final_norm"] = {"scale": P(None)}
+        if not cfg.tie_embeddings:
+            specs["lm_head"] = P(fsdp, tp)
+        return specs
+
+    def cache_pspecs(self, *, batch_axes, seq_axis: str | None = None,
+                     head_axis: str | None = None) -> dict:
+        """Cache specs, ``[G, B, S, Hkv, Dh]`` a sub-layer's ``k`` / ``v``."""
+        spec = P(None, batch_axes, seq_axis, head_axis, None)
+        return {f"sub_{i}": {"k": spec, "v": spec} for i in range(self.cfg.group_size)}
+
+    def _attn_pspecs(self):
+        """The JAX attention-activation pins ``(q_spec, kv_spec)``, or None.
+        Returned for parity: the port splits no attention over a mesh."""
+        cfg = self.cfg
+        if cfg.act_batch_axes is None or cfg.attn_sharding is None:
+            return None
+        b = cfg.act_batch_axes
+        if cfg.attn_sharding == "heads":
+            spec = P(b, None, "model", None)
+            return (spec, spec)
+        return (P(b, "model", None, None), P(b, None, None, None))
 
 
 

@@ -9,7 +9,8 @@ sinusoidal positions in both stacks, the unembedding tied to the embedding.
 Its attention passes no ``use_pallas``, so this model launches no kernel, as
 in the reference. Under autograd the encoder's layer bodies, and the
 decoder's without a cache, are checkpoints as ``cfg.remat`` asks, as the JAX
-bodies are. The sharded specs wait for the port's sharded LM paths.
+bodies are. ``param_pspecs`` / ``cache_pspecs`` are the JAX spec trees as
+tuples.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch
 from torch import nn
 
 from repro_torch.models import jax_layout, layers
+from repro_torch.models.jax_layout import P
 
 __all__ = ["WhisperConfig", "Whisper", "WhisperParams"]
 
@@ -215,3 +217,33 @@ class Whisper(jax_layout.Stacked):
         h = self._decoder(params, tokens, enc_out, cache=cache, cache_index=cache_index,
                           last_only=last_only)
         return self.unembed(params, h), cache
+
+    # ---------------------------------------------------------------- specs
+
+    def param_pspecs(self, *, fsdp: str | None = "data", tp: str = "model") -> dict:
+        """The JAX spec tree (layer leaves stacked), each spec a tuple."""
+        ln = {"scale": P(None), "bias": P(None)}
+        attn = {
+            "q": {"w": P(fsdp, tp), "b": P(tp)},
+            "k": {"w": P(fsdp, tp), "b": P(tp)},
+            "v": {"w": P(fsdp, tp), "b": P(tp)},
+            "o": {"w": P(tp, fsdp)},
+        }
+        mlp = {
+            "up": {"w": P(fsdp, tp), "b": P(tp)},
+            "down": {"w": P(tp, fsdp), "b": P(None)},
+        }
+        enc = {"ln1": ln, "attn": attn, "ln2": ln, "mlp": mlp}
+        dec = {"ln1": ln, "self_attn": attn, "ln_x": ln,
+               "cross_attn": attn, "ln2": ln, "mlp": mlp}
+        return {
+            "embed": P(tp, fsdp),
+            "enc_layers": jax_layout.stacked(enc),
+            "enc_final_ln": ln,
+            "dec_layers": jax_layout.stacked(dec),
+            "dec_final_ln": ln,
+        }
+
+    def cache_pspecs(self, *, batch_axes, seq_axis=None, head_axis=None) -> dict:
+        spec = P(None, batch_axes, seq_axis, head_axis, None)
+        return {"k": spec, "v": spec}

@@ -7,8 +7,8 @@ layers, on ``concat(hidden, original embedding)`` projected back to
 mamba layers), then ``n_tail`` trailing mamba layers. The shared block's
 attention passes no ``use_pallas``, so this model launches no kernel, as in
 the reference. Under autograd ``hidden`` checkpoints each mamba layer body
-(not the shared block) as ``cfg.remat`` asks, as the JAX body does. The
-sharded specs wait for the port's sharded LM paths.
+(not the shared block) as ``cfg.remat`` asks, as the JAX body does.
+``param_pspecs`` / ``cache_pspecs`` are the JAX spec trees as tuples.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ import torch
 from torch import nn
 
 from repro_torch.models import jax_layout, layers
+from repro_torch.models.jax_layout import P
 from repro_torch.models.mamba2 import Mamba2, Mamba2Config
 
 __all__ = ["Zamba2Config", "Zamba2", "Zamba2Params"]
@@ -208,3 +209,43 @@ class Zamba2(jax_layout.Stacked):
         if last_only:
             h = h[:, -1:]
         return self.unembed(params, h), cache
+
+    # ---------------------------------------------------------------- specs
+
+    def param_pspecs(self, *, fsdp: str | None = "data", tp: str = "model") -> dict:
+        """The JAX spec tree (mamba layer leaves stacked), each spec a tuple."""
+        mspecs = self.mamba.param_pspecs(fsdp=fsdp, tp=tp)
+        layer = mspecs["layers"]
+        shared = {
+            "in_proj": {"w": P(fsdp, tp)},
+            "ln1": {"scale": P(None)},
+            "attn": {
+                "q": {"w": P(fsdp, tp)},
+                "k": {"w": P(fsdp, tp)},
+                "v": {"w": P(fsdp, tp)},
+                "o": {"w": P(tp, fsdp)},
+            },
+            "ln2": {"scale": P(None)},
+            "ffn": {
+                "gate": {"w": P(fsdp, tp)},
+                "up": {"w": P(fsdp, tp)},
+                "down": {"w": P(tp, fsdp)},
+            },
+        }
+        return {
+            "embed": mspecs["embed"],
+            "shared": shared,
+            "groups": layer,
+            "tail": layer,
+            "final_norm": {"scale": P(None)},
+            "lm_head": mspecs["lm_head"],
+        }
+
+    def cache_pspecs(self, *, batch_axes, seq_axis=None, head_axis=None) -> dict:
+        return {
+            "x0": P(batch_axes, None, None),
+            "attn_k": P(None, batch_axes, seq_axis, head_axis, None),
+            "attn_v": P(None, batch_axes, seq_axis, head_axis, None),
+            "conv": P(None, batch_axes, None, None),
+            "ssm": P(None, batch_axes, "model", None, None),
+        }

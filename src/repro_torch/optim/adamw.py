@@ -61,10 +61,13 @@ def global_norm(tree: Any) -> torch.Tensor:
 
 
 @torch.no_grad()
-def adamw_update(grads: Any, state: dict, params: Any,
-                 cfg: AdamWConfig) -> tuple[Any, dict, dict[str, torch.Tensor]]:
+def adamw_update(grads: Any, state: dict, params: Any, cfg: AdamWConfig, *,
+                 grad_norm: torch.Tensor | None = None
+                 ) -> tuple[Any, dict, dict[str, torch.Tensor]]:
     """One AdamW step, in place. ``grads`` is keyed (or shaped) like the
-    parameters. Returns (params, state, metrics ``grad_norm``, ``lr``)."""
+    parameters. ``grad_norm`` is the norm that clips them, by default
+    theirs; the trainer on a mesh passes the whole tree's and its shards.
+    Returns (params, state, metrics ``grad_norm``, ``lr``)."""
     named = named_leaves(params)
     names = list(named)
     g_by_name = named_leaves(grads)
@@ -74,7 +77,7 @@ def adamw_update(grads: Any, state: dict, params: Any,
     v = [state["v"][n] for n in names]
 
     count = state["count"].add_(1)
-    gnorm = global_norm(g_by_name)
+    gnorm = global_norm(g_by_name) if grad_norm is None else grad_norm
     if cfg.grad_clip > 0:
         scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
     else:

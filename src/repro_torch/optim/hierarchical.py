@@ -1,10 +1,11 @@
 """Hierarchical (two-tier) synchronization: the paper's technique applied to
-training. The port of ``repro.optim.hierarchical`` on one device.
+training. The port of ``repro.optim.hierarchical``.
 
 The paper synchronises its slow tier D times less often than its fast tier.
-For training:
+For training on a ``(pod, data, model)`` mesh:
 
-* fast tier = intra-pod data parallelism: exact gradients every step;
+* fast tier = intra-pod data parallelism: exact gradients every step,
+  summed over the pod's batch axes;
 * slow tier = cross-pod synchronisation every D-th step: each pod runs local
   optimizer steps on its own parameter replica, and every D-th step the
   replicas are averaged across pods, optionally int8-compressed with error
@@ -12,21 +13,27 @@ For training:
   exact).
 
 State keeps the JAX layout: every leaf gains a leading ``[n_pods]`` axis
-(:meth:`Hierarchical.replicate`), so checkpoints cross between the packages.
-The local step walks the pods in a Python loop over views of the stacked
-leaves (each pod's step updates its slice in place). ``torch.func.vmap``
-would hold every pod's activations at once, and it does not compose with
-the ``torch.utils.checkpoint`` rematerialisation the configs ask for; the
-pods share nothing within a local step, so the loop computes the same.
+(:meth:`Hierarchical.replicate`), whose spec is the pod axis
+(:meth:`Hierarchical.pspecs`), so checkpoints cross between the packages.
+On one device the local step walks the pods in a Python loop over views of
+the stacked leaves (each pod's step updates its slice in place).
+``torch.func.vmap`` would hold every pod's activations at once, and it does
+not compose with the ``torch.utils.checkpoint`` rematerialisation the
+configs ask for; the pods share nothing within a local step, so the loop
+computes the same. On a mesh (a :class:`~repro_torch.core.mesh.ProcessMesh`
+with the pod axis) a rank holds only its pod's block (a leading extent of
+1) and steps that pod: no local step sends anything over the pod axis.
 
 Compressed sync (anchor-based, int8 on the wire): every pod keeps the last
 synced parameters (``anchor``, identical across pods). At a sync each pod
-int8-encodes (delta + error residual) from the anchor; the receivers decode,
-average and advance the anchor. On one device the pods' int8 payloads need
-no transfer; :attr:`Hierarchical.wire_bytes` counts what a cross-pod sync
-would move. The mesh specs (``pspecs``, the wire's sharding constraint) and
-the reference's ``pod_axis``, the mesh axis they name, wait for the port's
-sharded paths; on one device they are identities in the JAX package too.
+int8-encodes (delta + error residual) from the anchor, with one scale for
+each whole leaf; the receivers decode, average and advance the anchor. On
+one device the pods' payloads need no transfer and
+:attr:`Hierarchical.wire_bytes` counts what a cross-pod sync would move. On
+a mesh each rank encodes its shard: a max all-reduce over the pod's other
+axes first makes its scale the whole leaf's, as the one-device encode
+computes it; then the int8 shards and the scales cross the pod axis in one
+all-gather, and ``wire_bytes`` is what this rank took in.
 """
 
 from __future__ import annotations
@@ -36,6 +43,8 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch.core import comm
+from repro_torch.models.jax_layout import P
 from repro_torch.optim import compress
 from repro_torch.optim.tree import map_tree, named_leaves
 
@@ -45,6 +54,7 @@ __all__ = ["HierarchicalConfig", "Hierarchical"]
 @dataclasses.dataclass(frozen=True)
 class HierarchicalConfig:
     sync_every: int = 10        # D: slow-tier period (paper eq. (1))
+    pod_axis: str = "pod"
     compression: str = "none"   # 'none' | 'int8' (slow tier only)
 
     def __post_init__(self) -> None:
@@ -53,12 +63,22 @@ class HierarchicalConfig:
 
 
 class Hierarchical:
-    """Per-pod replica management + the two sync tiers."""
+    """Per-pod replica management + the two sync tiers. ``param_specs``
+    (the spec tree without the pod axis) is kept for parity with the
+    reference; each rank's shards carry their layout in their shapes."""
 
-    def __init__(self, cfg: HierarchicalConfig, n_pods: int):
+    def __init__(self, cfg: HierarchicalConfig, n_pods: int, mesh=None,
+                 param_specs: Any = None):
+        if mesh is not None and mesh.shape.get(cfg.pod_axis) != n_pods:
+            raise ValueError(f"{n_pods} pods on a mesh of {mesh.shape}: the pod axis "
+                             f"{cfg.pod_axis!r} must have that extent")
         self.cfg = cfg
         self.n_pods = n_pods
-        self.wire_bytes = 0  # int8 payload + scales of the last compressed sync, all pods
+        self.mesh = mesh
+        self.param_specs = param_specs
+        # The last compressed sync's int8 payload and scales: all pods' on
+        # one device, what this rank took in over the pod axis on a mesh.
+        self.wire_bytes = 0
 
     # -- state ----------------------------------------------------------------
 
@@ -67,6 +87,12 @@ class Hierarchical:
         as new tensors."""
         return map_tree(
             lambda x: x[None].expand((self.n_pods,) + tuple(x.shape)).clone(), tree)
+
+    def pspecs(self, tree_specs: Any) -> Any:
+        """Every leaf spec of ``tree_specs`` with the pod axis in front."""
+        if isinstance(tree_specs, dict):
+            return {k: self.pspecs(v) for k, v in tree_specs.items()}
+        return P(self.cfg.pod_axis, *tree_specs)
 
     def init_sync_state(self, params: Any) -> dict:
         """``anchor``: the last synced params (no pod axis, a copy);
@@ -90,11 +116,14 @@ class Hierarchical:
     def local_step(self, step_fn: Callable) -> Callable:
         """``step_fn(params, opt_state, batch) -> (params', opt_state',
         metrics)`` over one pod becomes the same over ``[n_pods, ...]``
-        trees and batches, pod by pod; the metrics gain the pod axis. No
-        pod reads another's state: the slow tier stays silent."""
+        trees and batches, pod by pod (on a mesh: this rank's pod, a
+        leading extent of 1); the metrics gain the pod axis. No pod reads
+        another's state: the slow tier stays silent."""
+        local_pods = 1 if self.mesh is not None else self.n_pods
+
         def run(params_pods, opt_pods, batch_pods):
             metrics = []
-            for p in range(self.n_pods):
+            for p in range(local_pods):
                 _, _, m = step_fn(self.pod(params_pods, p), self.pod(opt_pods, p),
                                   {k: v[p] for k, v in batch_pods.items()})
                 metrics.append(m)
@@ -115,27 +144,66 @@ class Hierarchical:
         wts = live.float()
         wts = wts / torch.clamp(wts.sum(), min=1.0)
         anchor = sync_state["anchor"]
+        pod = self.cfg.pod_axis
 
         if self.cfg.compression == "none":
             for name, x in named.items():
                 shape = (self.n_pods,) + (1,) * (x.dim() - 1)
-                m = (x.float() * wts.reshape(shape)).sum(dim=0)
+                pods = x if self.mesh is None else comm.all_gather(x, self.mesh, pod, dim=0)
+                m = (pods.float() * wts.reshape(shape)).sum(dim=0)
                 x.copy_(m[None].expand(x.shape))
                 anchor[name].copy_(m)
             return params_pods, {"anchor": anchor}
 
         ef, wire = sync_state["ef"], 0
+        if self.mesh is not None:
+            ys, coded = self._exchange(named, anchor, ef)
         for name, x in named.items():
-            delta = x.float() - anchor[name].float()[None]
-            y = delta + ef[name]
-            q, scale = zip(*(compress.int8_encode(y[p]) for p in range(self.n_pods)))
-            q, scale = torch.stack(q), torch.stack(scale)       # [P, ...] int8, [P]
-            wire += q.numel() + 4 * scale.numel()
+            if self.mesh is None:
+                y = x.float() - anchor[name].float()[None] + ef[name]
+                q, scale = zip(*(compress.int8_encode(y[p]) for p in range(self.n_pods)))
+                q, scale = torch.stack(q), torch.stack(scale)       # [P, ...] int8, [P]
+                wire += q.numel() + 4 * scale.numel()
+                own_q, own_scale = q, scale
+            else:
+                y, (q, scale) = ys.pop(name), coded.pop(name)
+                p = self.mesh.axis_index(pod)
+                own_q, own_scale = q[p:p + 1], scale[p:p + 1]
             shape = (self.n_pods,) + (1,) * (q.dim() - 1)
             dec = q.float() * scale.reshape(shape)
             new_anchor = anchor[name].float() + (dec * wts.reshape(shape)).sum(dim=0)
-            ef[name].copy_(compress.int8_residual(y, q, scale.reshape(shape)))
+            ef[name].copy_(compress.int8_residual(y, own_q, own_scale.reshape(
+                (-1,) + shape[1:])))
             x.copy_(new_anchor[None].expand(x.shape))
             anchor[name].copy_(new_anchor)
-        self.wire_bytes = wire
+        if self.mesh is None:
+            self.wire_bytes = wire
         return params_pods, {"anchor": anchor, "ef": ef}
+
+    def _exchange(self, named: dict, anchor: dict, ef: dict) -> tuple[dict, dict]:
+        """This rank's ``y = delta + ef`` for each leaf (its pod's block, a
+        leading extent of 1), int8-encoded with the whole leaf's scale and
+        sent over the pod axis: ``(ys, coded)``, ``coded`` every pod's
+        ``(q [P, ...], scale [P])`` for each leaf."""
+        mesh, pod = self.mesh, self.cfg.pod_axis
+        names = list(named)
+        ys = {n: named[n].float() - anchor[n].float()[None] + ef[n] for n in names}
+        amax = torch.stack([torch.max(torch.abs(ys[n])) for n in names])
+        inner = tuple(a for a in mesh.axis_names if a != pod)
+        if inner and mesh.extent(inner) > 1:
+            amax = comm.all_reduce(amax, mesh, inner, op="max")
+        scales = torch.clamp(amax * (1.0 / 127.0), min=1e-12)  # int8_encode's scale
+        qs = [torch.clamp(torch.round(ys[n] / scales[i]), -127, 127).to(torch.int8)
+              for i, n in enumerate(names)]
+        payload = torch.cat([q.reshape(-1) for q in qs] + [scales.view(torch.int8)])
+        before = comm.received[("all_gather", (pod,))]
+        got = comm.all_gather(payload, mesh, pod, dim=0).reshape(self.n_pods, -1)
+        self.wire_bytes = comm.received[("all_gather", (pod,))] - before
+        all_scales = got[:, payload.numel() - 4 * len(names):].contiguous().view(torch.float32)
+        coded, off = {}, 0
+        for i, (n, q) in enumerate(zip(names, qs)):
+            k = q.numel()
+            coded[n] = (got[:, off:off + k].reshape((self.n_pods,) + tuple(q.shape[1:])),
+                        all_scales[:, i])
+            off += k
+        return ys, coded

@@ -1,20 +1,35 @@
 """Train and serve step builders: the glue between bundles, optimizer and
-device. The port of ``repro.train.steps`` for one device.
+mesh. The port of ``repro.train.steps``.
 
-``make_train_artifacts`` gives the step callable(s) and the shapes of the
-parameters, optimizer and sync state as meta tensors (the JAX package's
-``ShapeDtypeStruct`` trees). Two training modes:
+``make_train_artifacts`` gives the step callable(s), the spec trees of the
+parameters, optimizer, batch and sync state (the JAX artifacts' specs, each
+``PartitionSpec`` a tuple, keyed in the JAX layout), and their shapes as
+meta tensors (the JAX package's ``ShapeDtypeStruct`` trees). Two training
+modes:
 
 * ``sync`` (baseline): one parameter replica, one AdamW step on the batch's
-  gradients;
+  gradients, summed over every batch axis (the pods' too);
 * ``hierarchical`` (the paper's technique): per-pod replicas, local steps
-  pod by pod and a separate every-D-steps ``sync_fn``.
+  and a separate every-D-steps ``sync_fn``.
 
 Gradients come from ``torch.autograd`` on parameters that require grad
 (``params.requires_grad_()``); with ``n_micro`` > 1 they accumulate in f32
 over microbatches. A step updates its parameters and optimizer state in
-place (the JAX step donates them) and returns them. The sharding specs of
-the JAX artifacts wait for the port's sharded paths.
+place (the JAX step donates them) and returns them.
+
+**On a mesh** (a :class:`~repro_torch.core.mesh.ProcessMesh`) every leaf of
+the training state is held as this rank's shard, cut by its spec
+(:meth:`TrainArtifacts.shard`; :func:`shard_state` / :func:`gather_state`
+carry whole JAX-layout trees). A step all-gathers the whole parameters,
+runs the one-device forward and backward on this rank's slice of the batch
+(:func:`~repro_torch.data.pipeline.host_batch`), sums the gradients over the
+batch axes and cuts them back to the shard, and AdamW runs on the shards.
+The sum adds the ranks' gradients in f32 in row-major order
+(:func:`~repro_torch.core.comm.sum_in_order`) and the clip takes the whole
+tree's norm, so with one microbatch a rank the step is bitwise the
+one-device step with ``n_micro`` = the batch axes' extent. The compute is
+not split: the model axis shards storage only (no Megatron products), and
+the JAX activation pins (``attn_pspecs``) have nothing to pin.
 """
 
 from __future__ import annotations
@@ -22,42 +37,154 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable
 
+import numpy as np
 import torch
 
 from repro_torch.configs.common import Bundle, ShapeSpec
-from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
+from repro_torch.core import comm
+from repro_torch.models.jax_layout import P
+from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update, global_norm
 from repro_torch.optim.hierarchical import Hierarchical, HierarchicalConfig
-from repro_torch.optim.tree import named_leaves
+from repro_torch.optim.tree import map_named, named_leaves
 
-__all__ = ["TrainArtifacts", "make_train_artifacts", "ServeArtifacts",
-           "make_serve_artifacts"]
+__all__ = ["TrainArtifacts", "make_train_artifacts", "shard_state", "gather_state",
+           "ServeArtifacts", "make_serve_artifacts"]
+
+
+def _gather_leaf(x, spec: tuple, mesh):
+    """The whole leaf from this rank's shard ``x`` under ``spec``: an
+    all-gather along each split dimension (counted as ``all_gather``)."""
+    for d, axes in enumerate(spec):
+        if axes is not None and mesh.extent(axes) > 1:
+            x = comm.all_gather(x, mesh, axes, dim=d)
+    return x
+
+
+def _tree_map(fn, tree, specs):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v, specs[k]) for k, v in tree.items()}
+    return fn(tree, specs)
+
+
+def shard_state(tree: Any, specs: Any, mesh) -> Any:
+    """A whole JAX-layout tree (nested dicts of numpy arrays or tensors)
+    cut to this rank's shards by ``specs`` (the same tree of spec tuples):
+    contiguous copies, numpy or torch as given. The identity without a
+    mesh. A dimension its axes' extent does not divide raises
+    ``ValueError``."""
+    if mesh is None:
+        return tree
+    paths = iter(_paths(tree))
+
+    def cut(x, spec):
+        x = mesh.shard(x, spec, next(paths))
+        return np.ascontiguousarray(x) if isinstance(x, np.ndarray) else x.contiguous()
+    return _tree_map(cut, tree, specs)
+
+
+def gather_state(shards: Any, specs: Any, mesh) -> Any:
+    """The inverse of :func:`shard_state`, collective over the mesh: every
+    rank gets the whole tree (numpy leaves come back as numpy)."""
+    if mesh is None:
+        return shards
+
+    def whole(x, spec):
+        if isinstance(x, np.ndarray):
+            return _gather_leaf(torch.from_numpy(x), spec, mesh).numpy()
+        return _gather_leaf(x, spec, mesh)
+    return _tree_map(whole, shards, specs)
+
+
+def _paths(tree, prefix="") -> list[str]:
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items() for p in _paths(v, f"{prefix}{k}/")]
+    return [prefix[:-1]]
 
 
 @dataclasses.dataclass
 class TrainArtifacts:
     step_fn: Callable           # (params, opt_state, batch) -> (p', s', metrics)
     sync_fn: Callable | None    # hierarchical only: (params, sync_state) -> ...
-    params_sds: Any             # meta tensors: TransformerParams (pod axis if hierarchical)
+    params_sds: Any             # meta tensors: the whole params (pod axis if hierarchical)
     opt_sds: Any
+    batch_specs: Any            # spec trees in the JAX layout
+    params_specs: Any
+    opt_specs: Any
     sync_sds: Any = None
+    sync_specs: Any = None
     hier: Hierarchical | None = None
+    mesh: Any = None
+    named_specs: dict = dataclasses.field(default_factory=dict)  # part -> {leaf name: spec}
+
+    def batch_sds(self, bundle: Bundle, shape: ShapeSpec, mesh=None) -> dict:
+        """Meta tensors of a global batch of ``shape``, with the pod axis
+        in hierarchical mode (``mesh`` for the JAX signature: the specs
+        are :attr:`batch_specs`)."""
+        del mesh
+        specs = bundle.input_specs(shape)
+        if self.hier is not None:
+            n = self.hier.n_pods
+            specs = {k: v.reshape((n, v.shape[0] // n) + tuple(v.shape[1:]))
+                     for k, v in specs.items()}
+        return specs
+
+    def shard(self, tree: Any, part: str) -> Any:
+        """This rank's shards of a whole training-state tree in the port's
+        layout: ``part`` ``"params"`` (a parameter module, trainable
+        shards), ``"opt"`` (AdamW's state) or ``"sync"`` (the sync
+        state). The identity without a mesh."""
+        if self.mesh is None:
+            return tree
+        specs = self.named_specs[part]
+        return map_named(lambda n, x: self.mesh.shard(x.detach(), specs[n], n).clone(), tree)
+
+    def gather(self, shards: Any, part: str, axes: tuple[str, ...] | None = None) -> Any:
+        """The inverse of :meth:`shard`, collective over the mesh: over
+        ``axes`` only when given (every axis but the pod's gives a
+        hierarchical rank its own pod's replica, a leading extent of 1)."""
+        if self.mesh is None:
+            return shards
+        specs = self.named_specs[part]
+        if axes is not None:
+            specs = {n: _over(spec, axes) for n, spec in specs.items()}
+        return map_named(lambda n, x: _gather_leaf(x.detach(), specs[n], self.mesh), shards)
+
+
+def _over(spec: tuple, axes) -> tuple:
+    """``spec`` with the entries outside ``axes`` left unsplit (None)."""
+    out = []
+    for e in spec:
+        names = () if e is None else (e,) if isinstance(e, str) else tuple(e)
+        inside = {a in axes for a in names}
+        if len(inside) > 1:
+            raise ValueError(f"spec entry {e} lies partly outside the axes {axes}")
+        out.append(e if inside == {True} else None)
+    return tuple(out)
 
 
 def make_train_artifacts(
     bundle: Bundle,
     opt_cfg: AdamWConfig | None = None,
+    mesh=None,
     *,
+    batch_axes: tuple[str, ...] = ("data",),
+    fsdp_axis: str | None = "data",
+    tp_axis: str = "model",
     hier_cfg: HierarchicalConfig | None = None,
     n_pods: int = 2,
     n_micro: int = 1,
 ) -> TrainArtifacts:
     """``n_micro`` > 1 enables gradient accumulation over microbatches: the
-    step splits the (per-pod) batch into ``n_micro`` equal parts along the
-    batch axis, one backward each, accumulating f32 gradients (the loss is
-    their mean). ``n_pods`` replicas for ``hier_cfg`` (the JAX package takes
-    the mesh's pod extent, 2 without a mesh)."""
+    step splits the (per-pod, per-rank) batch into ``n_micro`` equal parts
+    along the batch axis, one backward each, accumulating f32 gradients
+    (the loss is their mean). ``n_pods`` replicas for ``hier_cfg`` without
+    a mesh; on one the pod axis's extent. On a mesh ``batch_axes`` are the
+    axes a batch is split over (the pod's own in hierarchical mode, which
+    must not name the pod axis)."""
     opt_cfg = opt_cfg or AdamWConfig(moment_dtype=bundle.moment_dtype)
     model = bundle.model
+    p_specs = model.param_pspecs(fsdp=fsdp_axis, tp=tp_axis)
+    probe = bundle.input_specs(ShapeSpec("probe", "train", 8, 8))
 
     def grads_of(params, batch):
         named = named_leaves(params)
@@ -89,17 +216,73 @@ def make_train_artifacts(
         params, opt_state, metrics = adamw_update(grads, opt_state, params, opt_cfg)
         return params, opt_state, {"loss": loss, **metrics}
 
+    named_p = model.named_pspecs(p_specs) if mesh is not None else {}
+
+    def mesh_step(params, opt_state, batch):
+        """``base_step`` on this rank's shards and batch slice."""
+        with torch.no_grad():
+            full = map_named(lambda n, x: _gather_leaf(x.detach(), named_p[n], mesh), params,
+                             requires_grad=True)
+        loss, grads = grads_of(full, batch)
+        del full
+        d = mesh.extent(batch_axes)
+        if d > 1:
+            # the batch's other slices, added in the one-device trainer's order
+            grads = {n: comm.sum_in_order(g, mesh, batch_axes) for n, g in grads.items()}
+            torch._foreach_mul_(list(grads.values()), 1.0 / d)
+            loss = comm.sum_in_order(loss, mesh, batch_axes) * (1.0 / d)
+        gnorm = global_norm(grads)
+        grads = {n: mesh.shard(g, named_p[n], n) for n, g in grads.items()}
+        params, opt_state, metrics = adamw_update(grads, opt_state, params, opt_cfg,
+                                                  grad_norm=gnorm)
+        return params, opt_state, {"loss": loss, **metrics}
+
+    step = base_step if mesh is None else mesh_step
     params_sds = model.init_params(None, device="meta")
     opt_sds = adamw_init(params_sds, opt_cfg)
+    o_specs = {"m": p_specs, "v": p_specs, "count": P()}
     if hier_cfg is None:
-        return TrainArtifacts(step_fn=base_step, sync_fn=None, params_sds=params_sds,
-                              opt_sds=opt_sds)
+        b_specs = {k: P(batch_axes, *([None] * (v.dim() - 1))) for k, v in probe.items()}
+        return TrainArtifacts(
+            step_fn=step, sync_fn=None, params_sds=params_sds, opt_sds=opt_sds,
+            batch_specs=b_specs, params_specs=p_specs, opt_specs=o_specs, mesh=mesh,
+            named_specs=_named_specs(named_p, P()))
 
-    hier = Hierarchical(hier_cfg, n_pods)
+    pod = hier_cfg.pod_axis
+    if mesh is not None:
+        n_pods = mesh.shape[pod]
+        if pod in batch_axes:
+            raise ValueError(f"hierarchical batch axes {batch_axes} name the pod axis {pod!r}: "
+                             f"a local step sums gradients within its pod")
+    hier = Hierarchical(hier_cfg, n_pods, mesh, param_specs=p_specs)
+    pp_specs = hier.pspecs(p_specs)
+    sync_specs = {"anchor": p_specs}
+    if hier_cfg.compression != "none":
+        sync_specs["ef"] = pp_specs
+    named = {}
+    if mesh is not None:
+        named_pp = model.named_pspecs(pp_specs, lead=1)
+        named = _named_specs(named_pp, P(pod))
+        named["sync"] = {f"anchor.{n}": s for n, s in named_p.items()}
+        if hier_cfg.compression != "none":
+            named["sync"].update({f"ef.{n}": s for n, s in named_pp.items()})
     return TrainArtifacts(
-        step_fn=hier.local_step(base_step), sync_fn=hier.sync_step,
+        step_fn=hier.local_step(step), sync_fn=hier.sync_step,
         params_sds=hier.replicate(params_sds), opt_sds=hier.replicate(opt_sds),
-        sync_sds=hier.init_sync_state(params_sds), hier=hier)
+        batch_specs={k: P(pod, batch_axes, *([None] * (v.dim() - 1)))
+                     for k, v in probe.items()},
+        params_specs=pp_specs, opt_specs={"m": pp_specs, "v": pp_specs, "count": P(pod)},
+        sync_sds=hier.init_sync_state(params_sds), sync_specs=sync_specs, hier=hier,
+        mesh=mesh, named_specs=named)
+
+
+def _named_specs(params: dict, count: tuple) -> dict:
+    """The port-layout specs of the parameters and AdamW's state, by leaf
+    name (:func:`~repro_torch.optim.tree.named_leaves`)."""
+    if not params:
+        return {}
+    opt = {f"{part}.{n}": s for part in ("m", "v") for n, s in params.items()}
+    return {"params": dict(params), "opt": {**opt, "count": count}}
 
 
 # ---------------------------------------------------------------------------

@@ -830,6 +830,71 @@ def test_train_steps_on_the_card_match_the_cpu(dev, arch, mode):
     _params_close(p_card, p_host, steps=3, int8=mode == "hier")
 
 
+def _mesh_hier_run(mesh, device):
+    """Reduced qwen2-0.5b in f32, the hierarchical int8 trainer (2 pods,
+    sync every 2): 2 local steps, a sync, 1 more, from weights drawn on
+    ``device`` (seed 0). On ``mesh`` (pod, data, model) = (2, 2, 1) this
+    rank's shards and batch slice; without one the one-device trainer at
+    ``n_micro`` 2. Returns the losses and the whole state, on the host."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.pipeline import SyntheticLM, host_batch
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.optim.hierarchical import HierarchicalConfig
+    from repro_torch.optim.tree import named_leaves
+    from repro_torch.train.steps import make_train_artifacts
+
+    bundle = get_arch("qwen2-0.5b", reduced=True)
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=2)
+    art = make_train_artifacts(bundle, opt_cfg, mesh, batch_axes=("data",), n_pods=2,
+                               n_micro=1 if mesh else 2,
+                               hier_cfg=HierarchicalConfig(sync_every=2, compression="int8"))
+    params = bundle.model.init_params(
+        torch.Generator(device=device).manual_seed(0)).requires_grad_()
+    opt = adamw_init(params, opt_cfg)
+    sync = art.hier.init_sync_state(params)
+    params, opt = art.hier.replicate(params), art.hier.replicate(opt)
+    params, opt, sync = art.shard(params, "params"), art.shard(opt, "opt"), art.shard(sync, "sync")
+    ds = SyntheticLM(bundle.cfg.vocab, 32, 4, seed=2)
+    losses = []
+    for step in range(3):
+        if step == 2:
+            params, sync = art.sync_fn(params, sync)
+        b = ds.batch(step)
+        b = host_batch(b, mesh, ("data",), "pod") if mesh else host_batch(b, device, n_pods=2)
+        params, opt, m = art.step_fn(params, opt, b)
+        losses.append(m["loss"].cpu())
+    state = {part: {n: x.detach().cpu() for n, x in named_leaves(art.gather(tree, part)).items()}
+             for part, tree in (("params", params), ("opt", opt), ("sync", sync))}
+    return losses, state
+
+
+def train_mesh_rank(mesh, payload):
+    """One rank of the card test's world, on the GPU."""
+    return _mesh_hier_run(mesh, mesh.device)
+
+
+def test_hierarchical_int8_on_four_gloo_ranks_on_the_card_is_bitwise_one_device(dev, tmp_path):
+    """Four gloo ranks sharing the card run the hierarchical int8 trainer
+    on (pod, data, model) = (2, 2, 1); every rank's losses and gathered
+    parameters, moments, counts, anchor and residuals are bitwise the
+    one-device trainer's on the card at ``n_micro`` 2."""
+    from test_torch_comm import run_world
+
+    losses, state = _mesh_hier_run(None, dev)
+    ranks = run_world(tmp_path, (2, 2, 1), ("pod", "data", "model"),
+                      "test_torch_cuda:train_mesh_rank", device=None)
+    as_bytes = lambda x: x.contiguous().reshape(-1).view(torch.uint8)  # noqa: E731
+    for r, (got_losses, got_state) in enumerate(ranks):
+        pod = r // 2
+        for got, want in zip(got_losses, losses):
+            assert torch.equal(as_bytes(got), as_bytes(want[pod:pod + 1])), r
+        for part, tree in state.items():
+            assert got_state[part].keys() == tree.keys()
+            for n, x in tree.items():
+                assert x.dtype == got_state[part][n].dtype, (r, n)
+                assert torch.equal(as_bytes(got_state[part][n]), as_bytes(x)), (r, part, n)
+
+
 def test_flash_attention_refuses_grad_on_the_card(dev):
     """The kernel has no backward: with an input that requires grad its
     entry point raises before any launch; under ``no_grad`` it launches."""

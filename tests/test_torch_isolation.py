@@ -53,6 +53,14 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
             "repro_torch.configs.grok_1_314b", "repro_torch.configs.mamba2_2_7b",
             "repro_torch.configs.zamba2_1_2b", "repro_torch.configs.whisper_medium",
             "repro_torch.configs.internvl2_76b"} <= set(mods)
+    # The trainer on a mesh: the spec trees (each model's, ``moe_pspecs``,
+    # ``jax_layout.P``), the sharded state and steps, the slow tier's int8
+    # wire, the mesh's groups over axis subsets, the in-order sum and the
+    # batch's slices, each the port's own.
+    assert {"repro_torch.train.steps", "repro_torch.optim.hierarchical",
+            "repro_torch.optim.adamw", "repro_torch.core.mesh", "repro_torch.core.comm",
+            "repro_torch.data.pipeline", "repro_torch.models.transformer",
+            "repro_torch.models.layers"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

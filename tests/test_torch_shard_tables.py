@@ -216,15 +216,17 @@ def one_rank_world(tmp_path):
 def test_process_mesh_rules(one_rank_world, monkeypatch):
     """A mesh needs an initialised world of its size and distinct axis
     names; its default device is the GPU, which it refuses to fall back
-    from; a one-rank mesh sits at the origin with every group of size 1."""
+    from; a one-rank mesh sits at the origin with every group of size 1,
+    one over each subset of its axes in the mesh's order."""
     from repro_torch.core import ProcessMesh
 
     mesh = ProcessMesh((1, 1, 1), ("pod", "data", "model"), device="cpu")
     assert mesh.shape == {"pod": 1, "data": 1, "model": 1} and mesh.size == 1
     assert [mesh.axis_index(a) for a in mesh.axis_names] == [0, 0, 0]
     assert mesh.extent(("pod", "data")) == 1 and mesh.group("model") is not None
+    assert mesh.group(("pod", "data")) is not None and mesh.group(("pod", "model")) is not None
     with pytest.raises(ValueError, match="no process group"):
-        mesh.group(("pod", "data"))
+        mesh.group(("data", "pod"))  # a subset out of the mesh's order
     with pytest.raises(ValueError, match="positions"):
         ProcessMesh((2, 1), ("data", "model"), device="cpu")
     with pytest.raises(ValueError, match="repeated"):
