@@ -197,7 +197,13 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    ``slice_intra_tables``): equal lead axes and delay dtypes, bound widths
    at least the instantiated ones, and the slack; (c)
    ``construction_cost_model``'s bytes for that cut beside the peak of one
-   rank's sharded build on the card (a reading, not a gate);
+   rank's sharded build on the card (a reading, not a gate); (d) ``python
+   -m repro_torch.launch.dryrun --arch qwen2-0.5b,grok-1-314b --shape all
+   --mesh both --hierarchical`` (the LM cells, meta tensors on the host's
+   CPU), started here in the background and read at the end of the run:
+   exit 0, every row OK or SKIP, per row the bytes a rank holds and
+   gathers, the roofline terms and, hierarchical, the sync step's bytes
+   against the sync trainer's per step; a ``[time]`` line of the wait;
 9. the port on the card against the port on the CPU at the quickstart size
    (4 x 256 neurons, K 32/32), bitwise over 10 windows (40 for LIF, which
    first spikes in window 18 at this size), ``overflow`` included:
@@ -287,6 +293,18 @@ card from seed 0, f32 products in f32):
     ``n_micro`` 2, run here first, the int8 bytes over ``pod`` equal to
     the accounting, no kernel launch; per rank the state bytes against one
     replica's, peak GB, ms per step and sync, bytes in per collective;
+    then ``[lm-mesh]``: the same ranks serve (``make_serve_artifacts`` on
+    a mesh) qwen2-0.5b at 4 of 24 layers in f32 over its bf16 weights, a
+    bf16 cache of 32768, on (data, model) = (2, 2) (B 4, a 4096-token
+    prompt, the KV heads over ``model``) and (1, 4) (B 1, a 12288-token
+    prompt across the 8192-position shards, the sequence over ``model``),
+    8 decode steps each, against the one-device serving of each rank's
+    batch slice run here first: the prefill bitwise, every decode step
+    within 5e-4 of the largest logit; per rank the bytes held against one
+    replica's, peak GB, ms a prefill and a decode step, and the bytes in
+    per collective and call, each equal to the dry run's price
+    (``price_lm`` on a ``MeshLayout``, run here while the ranks serve); no
+    kernel launch;
 17. ``[families]`` the six other LM families at their published widths and
    dtypes (bf16), weights drawn on the card from seed 0, each freed before
    the next: llama4-maverick at 2 of its 48 layers (a dense and a
@@ -1609,13 +1627,99 @@ def phase_mam() -> dict:
     return launches
 
 
+# [dryrun] (d): the LM cells, priced on the host's CPU in a process of their
+# own while the LM phases use the card; read at the end of the run.
+DRYRUN_LM_ARGS = ["--arch", "qwen2-0.5b,grok-1-314b", "--shape", "all", "--mesh", "both",
+                  "--hierarchical"]
+DRYRUN_LM_TIMEOUT_S = 600
+_dryrun_lm: dict = {}
+
+
+def start_dryrun_lm() -> None:
+    """Start (d), ``python -m repro_torch.launch.dryrun`` on qwen2-0.5b and
+    grok-1 (every shape, both meshes, ``--hierarchical``), in the
+    background; :func:`phase_dryrun_lm` reads it. The process is killed at
+    exit if it still runs."""
+    import atexit
+    import os
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dryrun_lm_")
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent / "src"),
+               OMP_NUM_THREADS="1")
+    out = open(f"{tmp}/out.log", "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *DRYRUN_LM_ARGS, "--out",
+         f"{tmp}/rows.json"], stdout=out, stderr=subprocess.STDOUT, env=env)
+    out.close()
+    atexit.register(lambda: proc.poll() is None and (proc.kill(), proc.wait()))
+    _dryrun_lm.update(proc=proc, tmp=tmp, t0=time.perf_counter() - _T0)
+
+
+def phase_dryrun_lm() -> None:
+    """``[dryrun]`` (d), started by :func:`start_dryrun_lm`: every row OK or
+    SKIP, exit 0; per row the bytes a rank holds and gathers, the roofline
+    terms and, hierarchical, the sync step's bytes against the sync
+    trainer's per-step bytes."""
+    import shutil
+
+    proc, tmp = _dryrun_lm["proc"], _dryrun_lm["tmp"]
+    t_wait = time.perf_counter()
+    try:
+        proc.wait(timeout=max(1.0, DRYRUN_LM_TIMEOUT_S - (time.perf_counter() - _T0
+                                                          - _dryrun_lm["t0"])))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise AssertionError(f"[dryrun] (d) did not end in {DRYRUN_LM_TIMEOUT_S} s")
+    waited = time.perf_counter() - t_wait
+    try:
+        text = Path(f"{tmp}/out.log").read_text()
+        for ln in text.splitlines():
+            if ln.strip() and not ln.startswith("wrote"):
+                log(f"[dryrun] (d) {ln.strip()}")
+        if proc.returncode != 0:
+            raise AssertionError(f"[dryrun] (d) exited {proc.returncode}")
+        rows = json.loads(Path(f"{tmp}/rows.json").read_text())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    bad = [r["status"] for r in rows if r["status"] != "OK" and not r["status"].startswith("SKIP")]
+    if bad or len(rows) != 16:
+        raise AssertionError(f"[dryrun] (d) {len(rows)} rows, not all OK or SKIP: {bad}")
+    card = card_name_power()
+    for r in rows:
+        if r["status"] != "OK":
+            continue
+        rb, terms = r["rank_bytes"], r["roofline"]
+        parts = ", ".join(f"{k} {v:,}" for k, v in rb.items() if k not in ("held", "gathered"))
+        line = (f"[dryrun] (d) [{r['mesh']}] {r['arch']} {r['shape']} {r['mode']}: a rank holds "
+                f"{rb['held']:,} B ({parts}) and gathers {rb['gathered']:,} B a call; wire "
+                f"{sum(e['bytes'] for e in r['collectives'].values()):,} B a call into a rank; "
+                f"roofline on the H100 (989 TFLOP/s, 3.35 TB/s, NVLink 450 / network 50 GB/s): "
+                f"compute {terms['compute_s']:.4g} s, memory {terms['memory_s']:.4g} s, "
+                f"collective {terms['collective_s']:.4g} s, {r['dominant']}; useful FLOPs "
+                f"{r['useful_flops_ratio']:.4f}")
+        if "sync_step" in r:
+            line += (f"; the sync step {r['sync_step']['bytes']:,} B every {r['sync_every']} "
+                     f"steps ({r['sync_step']['bytes'] / r['sync_every']:,.0f} B a step) "
+                     f"against the sync trainer's {r['sync_trainer_step']['bytes']:,} B "
+                     f"every step")
+        log(line)
+    ok = sum(r["status"] == "OK" for r in rows)
+    log(f"[dryrun] (d) exit 0: {ok} OK, {len(rows) - ok} SKIP (priced on the host's CPU, meta "
+        f"tensors; the budget recorded, not gated: {rows[0].get('hbm_gib_budget')} GiB; {card})")
+    log(f"[time] [dryrun] (d) ran in the background from {_dryrun_lm['t0']:.1f} s; the run "
+        f"waited {waited:.1f} s for it here")
+
+
 def phase_dryrun() -> None:
     """``[dryrun]``: (a) ``python -m repro_torch.launch.dryrun`` on both
     schedules and meshes with ``--build-rss`` on the card, every row OK; (b)
     the width bounds held against tables instantiated at [dist] (a)'s spec
     and cut (4 x 130,000, K 3000/3000, 2 groups x 2 lanes); (c)
     ``construction_cost_model``'s bytes for that cut beside the peak of one
-    rank's sharded build on the card."""
+    rank's sharded build on the card. (d), the LM cells, starts here in the
+    background (:func:`start_dryrun_lm`)."""
     import os
     import shutil
     import tempfile
@@ -1626,6 +1730,7 @@ def phase_dryrun() -> None:
     from repro_torch.core import mam_benchmark_spec
     from repro_torch.launch import dryrun
 
+    start_dryrun_lm()
     card = card_name_power()
     env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
     tmp = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
@@ -3539,6 +3644,182 @@ MESH_SYNC_STEPS = 2
 MESH_TIMEOUT_S = 300
 
 
+# [lm-mesh]: the (j) ranks serve after they train: make_serve_artifacts on a
+# process mesh, each rank holding its parameter shards, its batch slice and
+# its cache shards, against the one-device serving of its batch slice run
+# here first. qwen2-0.5b at its published width cut to 4 of 24 layers,
+# computing in f32 over its bf16 weights (bf16 rounding of the logits alone
+# is above the 5e-4 bar), a bf16 cache of 32768 positions, FSDP off as the
+# dry run's policy has it below 1e9 parameters. mode: (mesh, names, B,
+# prompt); qwen2's 2 KV heads split over 2 ("heads") but not over 4
+# ("seq": shards of 8192 positions, the prompt crossing one).
+SERVE_MESHES = {
+    "heads": ((2, 2), ("data", "model"), 4, 4096),
+    "seq": ((1, 4), ("data", "model"), 1, 12288),
+}
+SERVE_CACHE = 32768
+SERVE_STEPS = 8
+SERVE_BAR = 5e-4
+
+
+def _serve_bundle():
+    return _bundle("qwen2-0.5b", n_layers=MESH_LAYERS, compute_dtype="float32")
+
+
+def _serve_shapes(mode: str):
+    """``mode``'s decode shape (the whole batch) and its prefill shape."""
+    from repro_torch.configs.common import ShapeSpec
+
+    _, _, b, _ = SERVE_MESHES[mode]
+    return (ShapeSpec("serve", "decode", SERVE_CACHE, b),
+            ShapeSpec("serve", "prefill", SERVE_CACHE, b))
+
+
+def _serve_run(mode: str, mesh=None, rows=None) -> dict:
+    """[lm-mesh]'s prefill and ``SERVE_STEPS`` decode steps of ``mode`` on
+    ``mesh`` (this rank's shards and batch slice) or on one device over the
+    batch ``rows`` (the reference). Weights drawn on the card from seed 0,
+    tokens from seed 2 (``heads``) or 3 (``seq``). Returns the logits
+    (CPU), ms and comm's table of each call, and the bytes held."""
+    import torch
+
+    from repro_torch.core import comm
+    from repro_torch.launch import dryrun
+    from repro_torch.optim.tree import named_leaves
+    from repro_torch.train.steps import make_serve_artifacts
+
+    bundle = _serve_bundle()
+    shape, _ = _serve_shapes(mode)
+    _, _, b, prompt = SERVE_MESHES[mode]
+    toks = _tokens(bundle.cfg.vocab, b, prompt + SERVE_STEPS, seed=2 if mode == "heads" else 3)
+    if mesh is None:
+        toks = toks[rows]
+        shape = dataclasses.replace(shape, global_batch=toks.shape[0])
+    art = make_serve_artifacts(bundle, shape, mesh, fsdp_axis=None)
+    if mesh is not None:
+        toks = mesh.shard(toks, art.token_spec, "tokens").contiguous()
+    device = toks.device
+    params = art.shard(bundle.model.init_params(torch.Generator(device=device).manual_seed(0)))
+    torch.cuda.synchronize()
+    logits, ms, tables = [], [], []
+    state = None
+    for call in range(1 + SERVE_STEPS):
+        comm.reset_stats()
+        t0 = time.perf_counter()
+        if call == 0:
+            out, state = art.prefill_fn(params, {"tokens": toks[:, :prompt]})
+        else:
+            i = prompt + call - 1
+            out, state = art.decode_fn(params, state, toks[:, i:i + 1], i)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        tables.append(dryrun._table())
+        logits.append(out.float().cpu())
+
+    def nbytes(tree):
+        return sum(x.numel() * x.element_size() for x in named_leaves(tree).values())
+
+    held = nbytes(params) + nbytes(state) + toks.numel() * toks.element_size()
+    whole_toks = b * (prompt + SERVE_STEPS) * toks.element_size()
+    replica = nbytes(art.params_sds) + nbytes(art.state_sds) + whole_toks
+    return dict(logits=logits, ms=ms, tables=tables, held=held, replica=replica,
+                kv=None if art.split is None else art.split.kv)
+
+
+def _serve_priced(mode: str) -> dict:
+    """The dry run's price of [lm-mesh]'s prefill and decode calls of
+    ``mode`` on each rank of its mesh (``price_lm`` on a ``MeshLayout``,
+    meta tensors, no FLOP count)."""
+    from repro_torch.core.mesh import MeshLayout
+    from repro_torch.launch import dryrun
+
+    bundle = _serve_bundle()
+    decode, prefill = _serve_shapes(mode)
+    extents, names, _, prompt = SERVE_MESHES[mode]
+    out = {}
+    for r in range(MESH_RANKS):
+        layout = MeshLayout(extents, names, r)
+        kw = dict(fsdp_axis=None, count_flops=False)
+        out[r] = (dryrun.price_lm(bundle, prefill, layout, prompt_len=prompt, **kw),
+                  dryrun.price_lm(bundle, decode, layout, cache_index=prompt, **kw))
+    return out
+
+
+def _serve_rank(rank: int, meshes: dict, ref) -> dict:
+    """[lm-mesh] on this rank: each mode served on its mesh, held to the
+    references (``ref(key)``: a reference's bytes on the card, its dtype
+    and shape). No kernel launch."""
+    import torch
+
+    from repro_torch.kernels import cuda
+
+    before = dict(cuda.launches)
+    out = {}
+    for mode, mesh in meshes.items():
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run = _serve_run(mode, mesh)
+        wall = time.perf_counter() - t0
+        d = mesh.axis_index("data")
+        errs, bitwise = [], []
+        for call, got in enumerate(run["logits"]):
+            raw, dtype, shape = ref(f"serve/{mode}/{d}/{call}")
+            want = raw.view(dtype).reshape(shape).cpu()
+            bitwise.append(torch.equal(got, want))
+            errs.append(float((got - want).abs().max() / want.abs().max()))
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"[lm-mesh] rank {rank} {mode}: non-finite logits")
+        # the prompt is computed whole on every rank (the cache is empty):
+        # bitwise; a decode step reads the cache where its shard lies
+        if not bitwise[0]:
+            raise AssertionError(f"[lm-mesh] rank {rank} {mode}: the prefill logits are not "
+                                 f"bitwise the one-device serving's (max rel err {errs[0]:.3g})")
+        if max(errs) > SERVE_BAR:
+            raise AssertionError(f"[lm-mesh] rank {rank} {mode}: logits {errs} above the "
+                                 f"serving bar {SERVE_BAR} of the largest logit")
+        out[mode] = dict(errs=errs, bitwise=bitwise, ms=run["ms"], tables=run["tables"],
+                         held=run["held"], replica=run["replica"], kv=run["kv"], wall_s=wall,
+                         peak=torch.cuda.max_memory_allocated() / 1e9, coords=mesh.coords)
+    if dict(cuda.launches) != before:
+        raise AssertionError(f"[lm-mesh] rank {rank} launched a kernel: {dict(cuda.launches)}")
+    return out
+
+
+def _serve_report(res: list, priced: dict, ref_s: float) -> None:
+    """[lm-mesh]'s lines: per mesh and rank, the bytes held against one
+    replica's, peak GB, ms, the logits against the bars, and the bytes in
+    per collective as comm counts them, each call held equal to the dry
+    run's price."""
+    card = card_name_power()
+    for mode, (extents, names, b, prompt) in SERVE_MESHES.items():
+        for rank, r in enumerate(res):
+            got = r["serve"][mode]
+            pre, dec = priced[mode][rank]
+            bad = [c for c, t in enumerate(got["tables"])
+                   if t != (pre if c == 0 else dec)["collectives"]]
+            if bad:
+                raise AssertionError(f"[lm-mesh] {mode} rank {rank}: counted bytes of calls "
+                                     f"{bad} differ from the dry run's price: "
+                                     f"{got['tables'][bad[0]]} != "
+                                     f"{(pre if bad[0] == 0 else dec)['collectives']}")
+            decode_ms = statistics.median(got["ms"][1:])
+            log(f"[lm-mesh] {mode} {dict(zip(names, extents))} rank {rank} at {got['coords']}: "
+                f"qwen2-0.5b 4 of 24 layers, f32 compute, B {b}, cache {SERVE_CACHE}, prompt "
+                f"{prompt}, {SERVE_STEPS} decode steps, KV cache split {got['kv']!r}; held "
+                f"{got['held']:,} B against one replica's {got['replica']:,} B; peak "
+                f"{got['peak']:.2f} GB; prefill {got['ms'][0]:.1f} ms, decode median "
+                f"{decode_ms:.1f} ms a step; logits against the one-device serving of its "
+                f"batch slice: prefill bitwise, decode max rel err "
+                f"{max(got['errs'][1:]):.3g} (bar {SERVE_BAR}; bitwise "
+                f"{sum(got['bitwise'][1:])}/{SERVE_STEPS}); bytes in as comm counts them, "
+                f"prefill {got['tables'][0]}, a decode step {got['tables'][1]}: each call == "
+                f"the [dryrun] price (price_lm on a MeshLayout); {card}")
+    wall = max(r["serve"][m]["wall_s"] for r in res for m in SERVE_MESHES)
+    log(f"[time] [lm-mesh] references here {ref_s:.1f} s; the ranks served both meshes in "
+        f"{sum(max(r['serve'][m]['wall_s'] for r in res) for m in SERVE_MESHES):.1f} s "
+        f"(the longest mesh {wall:.1f} s)")
+
+
 def _mesh_setup(mesh, mode: str):
     """(j)'s bundle, optimizer and training artifacts for ``mode``
     (``"hier"`` or ``"sync"``) on ``mesh`` (None: one device)."""
@@ -3693,6 +3974,16 @@ def phase_train_mesh() -> None:
                 refs.update({f"{mode}/loss/{i}": x for i, x in enumerate(run["losses"])})
                 ref_ms[mode] = (run["step_ms"], run["sync_ms"])
                 del run
+            # [lm-mesh]'s references: the one-device serving of each data
+            # slice of the batch
+            t_serve = time.perf_counter()
+            for mode, (extents, _, b, _) in SERVE_MESHES.items():
+                d = extents[0]
+                for i in range(d):
+                    run = _serve_run(mode, rows=slice(i * b // d, (i + 1) * b // d))
+                    refs.update({f"serve/{mode}/{i}/{c}": x for c, x in enumerate(run["logits"])})
+                    del run
+            serve_ref_s = time.perf_counter() - t_serve
             peak = torch.cuda.max_memory_allocated() / 1e9
             torch.cuda.empty_cache()
             compute_s = time.perf_counter() - t0
@@ -3705,6 +3996,11 @@ def phase_train_mesh() -> None:
                 f"sync {[round(x, 1) for x in ref_ms['hier'][1]]} ms; sync trainer at n_micro "
                 f"2, ms/step {[round(x, 1) for x in ref_ms['sync'][0]]}; peak {peak:.2f} GB")
             del refs
+            # the dry run's price of [lm-mesh]'s calls, while the ranks run
+            t0 = time.perf_counter()
+            priced = {mode: _serve_priced(mode) for mode in SERVE_MESHES}
+            log(f"[lm-mesh] the dry run priced both meshes' calls for the 4 ranks here in "
+                f"{time.perf_counter() - t0:.1f} s while the ranks ran")
             for p in procs:
                 p.wait(timeout=max(1.0, MESH_TIMEOUT_S - (time.perf_counter() - t_leg)))
         finally:
@@ -3734,7 +4030,8 @@ def phase_train_mesh() -> None:
         f"one card, not a scaling result; {card_name_power()}")
     if slow != want:
         raise AssertionError(f"(j) slow-tier bytes {slow} != the accounting {want}")
-    log(f"[time] (j) took {time.perf_counter() - t_leg:.1f} s")
+    _serve_report(res, priced, serve_ref_s)
+    log(f"[time] (j) with [lm-mesh] took {time.perf_counter() - t_leg:.1f} s")
 
 
 def _wait_for(path: Path, what: str) -> None:
@@ -3847,12 +4144,23 @@ def mesh_rank_main(rank: int, tmp: str, port: int) -> int:
                 line += f"; bytes in a step {fast[0]}"
                 out.update(sync_fast_per_step=fast_per_step)
             log(f"{line}; {card}")
+
+        def serve_ref(key):
+            """A [lm-mesh] reference: its bytes on the card, dtype and shape."""
+            _, _, dtype, shape = index[key]
+            return ref(key), getattr(torch, dtype), shape
+
+        t_serve = time.perf_counter()
+        meshes = {"heads": runs["sync"][0], "seq": ProcessMesh(*SERVE_MESHES["seq"][:2])}
+        out["serve"] = _serve_rank(rank, meshes, serve_ref)
+        serve_s = time.perf_counter() - t_serve
         out["wall_s"] = time.perf_counter() - t_start
         checked_s = out["wall_s"] - (t_trained - t_start)
         log(f"[train] (j) rank {rank}: started {since_spawn:.1f} s after its spawn (imports), "
             f"{t_go - t_start:.1f} s from its start to the references, "
-            f"{t_trained - t_go:.1f} s training both meshes, {checked_s:.1f} s gathering and "
-            f"holding them to the references")
+            f"{t_trained - t_go:.1f} s training both meshes, {checked_s - serve_s:.1f} s "
+            f"gathering and holding them to the references, {serve_s:.1f} s serving "
+            f"([lm-mesh])")
         Path(f"{tmp}/rank{rank}.json").write_text(json.dumps(out))
     finally:
         dist.destroy_process_group()
@@ -5009,6 +5317,8 @@ def run_phases() -> int:
     lap('phase_train')
     families_launches = phase_families()
     lap('phase_families')
+    phase_dryrun_lm()
+    lap('phase_dryrun_lm')
     # Each kernel's launches on the MAM driver's routes ([mam] (b)).
     for row in rows:
         row["mam_launches"] = {route: n[row["name"]] for route, n in mam_launches.items()}

@@ -41,6 +41,14 @@ what the exchange's wire accounting (``exchange.dense_wire_bytes``,
 (counted as ``"gather_grid"``, the engine's ``gather_state`` / ``gather_block``)
 are kept apart from the exchange's own gathers.
 
+**Priced, not run.** Over a :class:`~repro_torch.core.mesh.MeshLayout`
+(the dry run's rank-free mesh) the tensors are on the ``meta`` device:
+:func:`all_gather`, :func:`all_reduce`, :func:`sum_in_order` and
+:func:`broadcast` then call no process group, count ``calls`` and
+``received`` by the same rules as on a world, and return meta tensors of
+the shapes a world would give. So a dry run of one rank's step or serving
+call on meta tensors counts what that rank would take in.
+
 Under ``nccl`` every rank of the world must take part in the first
 point-to-point call, which sets up the communicator, while a ``ppermute``
 round leaves out the ranks with no partner at its offset: call
@@ -152,10 +160,12 @@ def _gather(x: torch.Tensor, mesh, axes, count_as: str = "all_gather") -> torch.
     """``[n, *x.shape]``: every rank's ``x`` over the group of ``axes``, in
     row-major order over ``axes``; counted under ``count_as``."""
     axes = _key(axes)
-    group = mesh.group(axes)
     n = mesh.extent(axes)
     x = x.contiguous()
     nbytes = (n - 1) * x.numel() * x.element_size()
+    if x.is_meta:  # priced: no group
+        return _timed(count_as, axes, nbytes, lambda: x.new_empty((n, *x.shape)))
+    group = mesh.group(axes)
     if _staged(group, x):
         src = _buffer("in", x.shape, x.dtype)
         src.copy_(x)  # waits for the device
@@ -187,8 +197,11 @@ def all_reduce(x: torch.Tensor, mesh, axes, *, op: str = "sum") -> torch.Tensor:
     """``x`` reduced over the group of ``axes`` (``'sum'`` or ``'max'``); a
     new tensor on ``x``'s device (``jax.lax.psum`` / ``pmax``)."""
     axes = _key(axes)
-    group = mesh.group(axes)
     rop = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+    if x.is_meta:  # priced: no group
+        nbytes = (mesh.extent(axes) - 1) * x.numel() * x.element_size()
+        return _timed(f"all_reduce_{op}", axes, nbytes, lambda: x.detach().clone())
+    group = mesh.group(axes)
     staged = _staged(group, x)
     buf = x.detach().to("cpu", copy=True) if staged else x.detach().clone()
     nbytes = (mesh.extent(axes) - 1) * buf.numel() * buf.element_size()
@@ -218,6 +231,9 @@ def broadcast(x: torch.Tensor, mesh, axes, *, src: int) -> torch.Tensor:
     source's (where the reference takes a ``psum`` of the source's value
     and zeros elsewhere)."""
     axes = _key(axes)
+    if x.is_meta:  # priced: no group
+        nbytes = 0 if _group_index(mesh, axes) == src else x.numel() * x.element_size()
+        return _timed("broadcast", axes, nbytes, lambda: x.detach().clone())
     group = mesh.group(axes)
     staged = _staged(group, x)
     buf = x.detach().to("cpu", copy=True) if staged else x.detach().clone()

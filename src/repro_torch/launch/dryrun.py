@@ -1,6 +1,26 @@
-"""Dry run of the paper's workload at production scale: priced, not run.
+"""Dry run at production scale: priced, not run. The port of
+``repro.launch.dryrun``.
 
-The port of the ``mam-snn`` half of ``repro.launch.dryrun``. The production
+**The LM cells** (every registered architecture x ``train_4k`` /
+``prefill_32k`` / ``decode_32k`` / ``long_500k`` x the 16 x 16 and 2 x 16
+x 16 meshes; :func:`dryrun_lm_cell`) take the reference's choices per cell
+(the batch axes, the attention layout by ``n_kv % 16``, FSDP over ``data``
+from 1e9 parameters, ``n_micro`` the per-replica batch, the hierarchical
+int8 trainer with ``--hierarchical`` on two pods) and run one rank's call
+on ``meta`` tensors over a :class:`~repro_torch.core.mesh.MeshLayout`:
+the training step (one microbatch; its FLOPs times ``n_micro``) and, in
+hierarchical mode, the sync step, or one prefill or decode call of
+``make_serve_artifacts``. Nothing is allocated and no process group is
+made. The row holds ``rank_bytes`` (the shards a rank holds, and the
+replica a call gathers), ``collectives`` (what :mod:`~repro_torch.core.comm`
+counts into the rank, by the same rules a world counts them),
+``flops_per_device`` (``torch.utils.flop_counter.FlopCounterMode``),
+``model_flops_total`` and ``useful_flops_ratio`` as the reference defines
+them, and the H100 roofline (:data:`H100`). XLA's ``memory_analysis``
+temp bytes and its HLO statistics have no counterpart: activations are not
+priced, and the HBM figure is recorded, not gated.
+
+**The paper's workload** (``--arch mam-snn``, the default): the production
 MAM (4.2 M neurons, ~25 G synapses) on 16 x 16 or 2 x 16 x 16 ranks does not
 fit one card, so each cell is priced from a shape-only network
 (:func:`~repro_torch.core.connectivity.network_sds`, tensors on the ``meta``
@@ -22,14 +42,16 @@ small size (:func:`verify_inter_table_bounds`), the construction model
 (:func:`construction_cost_row`) and, with ``--build-rss``, the measured
 peaks of the host and the sharded build (:func:`measure_build_rss`).
 
-The reference's XLA readings (``memory_analysis`` temp bytes,
-``cost_analysis`` FLOPs, the compiled HLO's collectives) and its TPU
-roofline have no counterpart here, and its LM cells wait for the LM
-training slice.
+The reference's XLA readings of these cells (``memory_analysis`` temp
+bytes, ``cost_analysis`` FLOPs, the compiled HLO's collectives) and its TPU
+roofline have no counterpart here.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch mam-snn \\
         --snn-schedule conventional,structure_aware --mesh both --out rows.json
-    PYTHONPATH=src python -m repro_torch.launch.dryrun --device cpu --hbm-gib 16
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch mam-snn --device cpu --hbm-gib 16
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch all --shape all --mesh both
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2-0.5b,grok-1-314b \\
+        --shape all --mesh both --hierarchical
 """
 
 from __future__ import annotations
@@ -53,13 +75,28 @@ from repro_torch.core import delivery as delivery_lib
 from repro_torch.core import dist_engine as dist_engine_lib
 from repro_torch.core import exchange as exchange_lib
 from repro_torch.core.areas import mam_benchmark_spec, mam_spec
+from repro_torch.core import comm
 from repro_torch.core.engine import EngineConfig
+from repro_torch.core.mesh import MeshLayout
+from repro_torch.configs.common import SHAPES, ShapeSpec
+from repro_torch.configs.registry import arch_skips, get_arch, list_archs
 from repro_torch.device import resolve_device
+from repro_torch.optim.hierarchical import HierarchicalConfig
+from repro_torch.optim.tree import named_leaves
+from repro_torch.train.steps import (kv_heads, make_serve_artifacts, make_train_artifacts,
+                                    shard_state)
 
 __all__ = [
     "SNN_ARCH",
+    "H100",
     "MeshLayout",
     "production_layout",
+    "model_flops",
+    "lm_cell_choices",
+    "price_lm",
+    "roofline_terms",
+    "dryrun_lm_cell",
+    "record_hbm",
     "enforce_hbm_budget",
     "verify_inter_table_bounds",
     "construction_cost_row",
@@ -71,27 +108,20 @@ __all__ = [
 SNN_ARCH = "mam-snn"
 
 
-@dataclasses.dataclass(frozen=True)
-class MeshLayout:
-    """A mesh's counts with no ranks behind it: the extents, axis names and
-    rank 0's coordinates, which is what ``dist_engine``'s cut reads of a
-    :class:`~repro_torch.core.mesh.ProcessMesh`."""
-
-    extents: tuple[int, ...]
-    axis_names: tuple[str, ...]
-    rank: int = 0
-
-    @property
-    def shape(self) -> dict:
-        return dict(zip(self.axis_names, self.extents))
-
-    @property
-    def size(self) -> int:
-        return math.prod(self.extents)
-
-    def axis_index(self, ax: str) -> int:
-        coords = np.unravel_index(self.rank, self.extents)
-        return int(coords[self.axis_names.index(ax)])
+# The card's constants, each with its source. Compute and HBM: the H100 SXM
+# (80 GB HBM3) data sheet, dense bf16 989 TFLOP/s and 3.35 TB/s, the
+# figures PERF.md's kernel bounds use. The wire: a node of 8 cards joined by
+# NVLink 4 (900 GB/s a card, both directions: 450 GB/s into a card) and
+# across nodes one 400 Gb/s NDR InfiniBand port a card (50 GB/s into it),
+# as in NVIDIA's DGX H100 (its data sheet). A collective whose group lies
+# within a node is priced at NVLink's rate, any other at the network's.
+H100 = {
+    "peak_flops_bf16": 989e12,
+    "hbm_bytes_s": 3.35e12,
+    "nvlink_bytes_s": 450e9,
+    "network_bytes_s": 50e9,
+    "cards_per_node": 8,
+}
 
 
 def production_layout(multi_pod: bool) -> MeshLayout:
@@ -434,6 +464,226 @@ def dryrun_snn_cell(
     return row
 
 
+# ---------------------------------------------------------------------------
+# the LM cells
+
+
+def model_flops(bundle, shape: ShapeSpec) -> float:
+    """6 * N_active * tokens (train) / 2 * N_active * tokens (inference):
+    the reference's ``model_flops``."""
+    n_active = bundle.cfg.active_param_count()
+    tokens = shape.global_batch * (shape.seq_len if shape.kind != "decode" else 1)
+    factor = 6.0 if shape.kind == "train" else 2.0
+    return factor * n_active * tokens
+
+
+def lm_cell_choices(arch_id: str, shape_name: str, multi_pod: bool,
+                    hierarchical: bool) -> dict:
+    """The reference's choices for a cell: ``dp_axes`` (every DP axis, the
+    pod's too, except for the hierarchical trainer), ``act_batch_axes``
+    (none for ``long_500k``), ``attn_sharding`` (``"heads"`` where the KV
+    heads divide the 16-way model axis, else ``"seq"``), ``fsdp_axis``
+    (``"data"`` from 1e9 parameters), ``hierarchical`` (two pods, training,
+    ``--hierarchical``) and ``n_micro`` (the per-replica batch: one sample
+    a microbatch)."""
+    shape = SHAPES[shape_name]
+    layout = production_layout(multi_pod)
+    hier = hierarchical and multi_pod and shape.kind == "train"
+    dp_axes = (("pod", "data") if multi_pod and not (hierarchical and shape.kind == "train")
+               else ("data",))
+    n_kv = kv_heads(get_arch(arch_id))
+    choices = {
+        "dp_axes": dp_axes,
+        "act_batch_axes": None if shape.name == "long_500k" else dp_axes,
+        "attn_sharding": None if n_kv is None else "heads" if n_kv % 16 == 0 else "seq",
+        "hierarchical": hier,
+    }
+    bundle = get_arch(arch_id, act_batch_axes=choices["act_batch_axes"],
+                      attn_sharding=choices["attn_sharding"])
+    choices["fsdp_axis"] = "data" if bundle.cfg.param_count() >= 1e9 else None
+    n_dp = math.prod(layout.shape[a] for a in dp_axes)
+    per_replica = shape.global_batch // (n_dp * (layout.shape["pod"] if hier else 1))
+    choices["n_micro"] = max(1, per_replica)
+    return choices
+
+
+def _bytes(tree) -> int:
+    return sum(_nbytes(x) for x in named_leaves(tree).values())
+
+
+def _table() -> dict:
+    """What :mod:`comm` counted, ``"op axes,..."`` -> calls and bytes into
+    this rank."""
+    return {f"{op} {','.join(axes)}": {"calls": comm.calls[(op, axes)], "bytes": n}
+            for (op, axes), n in sorted(comm.received.items())}
+
+
+def _wire_s(table: dict, layout: MeshLayout) -> float:
+    """Seconds on the wire of ``table``'s bytes, each collective at the
+    rate of its group: NVLink within a node, the network across nodes."""
+    node = H100["cards_per_node"]
+    total = 0.0
+    for key, entry in table.items():
+        axes = key.split(" ", 1)[1].split(",")
+        rest = {a: c for a, c in layout.coords.items() if a not in axes}
+        members = [r for r in range(layout.size)
+                   if all(MeshLayout(layout.extents, layout.axis_names, r).coords[a] == c
+                          for a, c in rest.items())]
+        within = len({r // node for r in members}) == 1
+        total += entry["bytes"] / H100["nvlink_bytes_s" if within else "network_bytes_s"]
+    return total
+
+
+def roofline_terms(flops: float, hbm_bytes: float, table: dict, layout: MeshLayout) -> dict:
+    """The three terms in seconds for one rank (:data:`H100`): FLOPs over
+    the bf16 peak, bytes over HBM's rate, the collectives' bytes over their
+    wire's rate."""
+    return {"compute_s": flops / H100["peak_flops_bf16"],
+            "memory_s": hbm_bytes / H100["hbm_bytes_s"],
+            "collective_s": _wire_s(table, layout)}
+
+
+def _dominant(terms: dict) -> str:
+    return max(("compute_s", "memory_s", "collective_s"), key=lambda k: terms[k])
+
+
+def _measured(fn, count_flops: bool):
+    """``fn()`` with comm's counters zeroed first, under a FLOP counter:
+    ``(its result, the counted table, the FLOPs)``."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    comm.reset_stats()
+    if not count_flops:
+        return fn(), _table(), 0
+    with FlopCounterMode(display=False) as counter:
+        out = fn()
+    return out, _table(), counter.get_total_flops()
+
+
+def price_lm(bundle, shape: ShapeSpec, layout: MeshLayout, *, fsdp_axis: str | None = "data",
+             dp_axes: tuple[str, ...] = ("data",), hier_cfg: HierarchicalConfig | None = None,
+             n_micro: int = 1, cache_index: int | None = None, prompt_len: int | None = None,
+             count_flops: bool = True) -> dict:
+    """One rank's call of ``shape`` priced on ``layout``'s rank: the
+    training step of ``make_train_artifacts`` (one microbatch of one
+    sequence a rank; ``flops_per_device`` is its FLOPs times ``n_micro``,
+    the collectives are the step's), with the sync step priced apart in
+    hierarchical mode, or a prefill or decode call of
+    ``make_serve_artifacts`` (a prompt of ``prompt_len`` tokens, by default
+    the cache's length; decode at ``cache_index``, by default the cache's
+    last position). Returns ``rank_bytes``, ``collectives``,
+    ``flops_per_device`` and, hierarchical, ``sync_step``."""
+    out: dict[str, Any] = {}
+    if shape.kind == "train":
+        art = make_train_artifacts(bundle, mesh=layout, batch_axes=dp_axes, fsdp_axis=fsdp_axis,
+                                   hier_cfg=hier_cfg, n_micro=1)
+        params = art.shard(art.params_sds, "params")
+        for x in params.parameters():
+            x.requires_grad_()
+        opt = art.shard(art.opt_sds, "opt")
+        # one sequence a rank: the global batch of a microbatch, cut as host_batch cuts it
+        n_shards = layout.extent(dp_axes) * (layout.shape[hier_cfg.pod_axis] if hier_cfg else 1)
+        batch = art.batch_sds(bundle, dataclasses.replace(shape, global_batch=n_shards))
+        batch = shard_state(batch, art.batch_specs, layout)
+        sync = art.shard(art.sync_sds, "sync") if hier_cfg is not None else None
+        _, table, flops = _measured(lambda: art.step_fn(params, opt, batch), count_flops)
+        held = {"params": _bytes(params), "opt": _bytes(opt), "batch": n_micro * _bytes(batch)}
+        whole = art.params_sds if hier_cfg is None else art.hier.pod(art.params_sds, 0)
+        flops *= n_micro
+        if sync is not None:
+            held["sync"] = _bytes(sync)
+            _, sync_table, _ = _measured(lambda: art.sync_fn(params, sync), False)
+            out["sync_step"] = {"collectives": sync_table,
+                                "bytes": sum(e["bytes"] for e in sync_table.values())}
+    else:
+        art = make_serve_artifacts(bundle, shape, layout, fsdp_axis=fsdp_axis)
+        params = art.shard(art.params_sds)
+        whole = art.params_sds
+        if shape.kind == "prefill":
+            specs = bundle.input_specs(dataclasses.replace(
+                shape, seq_len=prompt_len or shape.seq_len))
+            del specs["labels"]
+            batch = {k: layout.shard(v, (art.batch_axes,) + (None,) * (v.dim() - 1), k).clone()
+                     for k, v in specs.items()}
+            (_, state), table, flops = _measured(lambda: art.prefill_fn(params, batch),
+                                                 count_flops)
+        else:
+            state = shard_state(art.state_sds, art.state_specs, layout)
+            batch = {"tokens": layout.shard(
+                torch.empty((shape.global_batch, 1), dtype=torch.long, device="meta"),
+                art.token_spec, "tokens")}
+            index = shape.seq_len - 1 if cache_index is None else cache_index
+            _, table, flops = _measured(
+                lambda: art.decode_fn(params, state, batch["tokens"], index), count_flops)
+        held = {"params": _bytes(params), "cache": _bytes(state["cache"]),
+                "batch": _bytes(batch)}
+        if "enc_out" in state:
+            held["enc_out"] = _nbytes(state["enc_out"])
+    held["held"] = sum(held.values())
+    held["gathered"] = _bytes(whole)
+    out.update(rank_bytes=held, collectives=table, flops_per_device=flops)
+    return out
+
+
+def dryrun_lm_cell(arch_id: str, shape_name: str, multi_pod: bool, hierarchical: bool) -> dict:
+    """The reference's cell for ``arch_id`` x ``shape_name`` on a production
+    mesh, priced by :func:`price_lm` on rank 0 of the layout: a ``SKIP``
+    row where the architecture skips the shape."""
+    shape = SHAPES[shape_name]
+    layout = production_layout(multi_pod)
+    row: dict[str, Any] = {
+        "arch": arch_id, "shape": shape_name, "mesh": "x".join(map(str, layout.extents)),
+        "mode": "hierarchical" if hierarchical else "sync",
+    }
+    skip = arch_skips(arch_id).get(shape_name)
+    if skip:
+        row["status"] = f"SKIP({skip})"
+        return row
+    t0 = time.time()
+    choices = lm_cell_choices(arch_id, shape_name, multi_pod, hierarchical)
+    bundle = get_arch(arch_id, act_batch_axes=choices["act_batch_axes"],
+                      attn_sharding=choices["attn_sharding"])
+    hier_cfg = (HierarchicalConfig(sync_every=10, compression="int8")
+                if choices["hierarchical"] else None)
+    priced = price_lm(bundle, shape, layout, fsdp_axis=choices["fsdp_axis"],
+                      dp_axes=choices["dp_axes"], hier_cfg=hier_cfg, n_micro=choices["n_micro"])
+    row["choices"] = choices
+    row.update(priced)
+    rb = priced["rank_bytes"]
+    row["roofline"] = roofline_terms(priced["flops_per_device"], rb["held"] + rb["gathered"],
+                                     priced["collectives"], layout)
+    row["dominant"] = _dominant(row["roofline"])
+    if hier_cfg is not None:
+        row["sync_every"] = hier_cfg.sync_every
+        sync = row["sync_step"]
+        sync["roofline"] = roofline_terms(0.0, 0.0, sync["collectives"], layout)
+        # the sync trainer's step on the same mesh: what the slow tier replaces
+        base = price_lm(bundle, shape, layout, fsdp_axis=choices["fsdp_axis"],
+                        dp_axes=("pod", "data"), n_micro=choices["n_micro"], count_flops=False)
+        row["sync_trainer_step"] = {
+            "collectives": base["collectives"],
+            "bytes": sum(e["bytes"] for e in base["collectives"].values())}
+    row["status"] = "OK"
+    row["price_s"] = round(time.time() - t0, 1)
+    row["model_flops_total"] = mf = model_flops(bundle, shape)
+    total = row["flops_per_device"] * layout.size
+    row["useful_flops_ratio"] = mf / total if total else 0.0
+    row["not_priced"] = ("activations (the reference's XLA memory_analysis temp bytes and "
+                         "its HLO statistics have no counterpart)")
+    return row
+
+
+def record_hbm(row: dict, budget_gib: float | None) -> dict:
+    """An LM row's modelled bytes a rank (held and gathered, activations
+    not priced) beside ``budget_gib``: recorded, not gated (the reference
+    gates its SNN rows only)."""
+    if row.get("status") == "OK":
+        rb = row["rank_bytes"]
+        row["hbm_gib_modelled"] = round((rb["held"] + rb["gathered"]) / 2**30, 3)
+        row["hbm_gib_budget"] = budget_gib
+    return row
+
+
 def _failed(arch: str, shape: str, mesh: str, exc: Exception) -> dict:
     traceback.print_exc()
     return {"arch": arch, "shape": shape, "mesh": mesh,
@@ -443,8 +693,12 @@ def _failed(arch: str, shape: str, mesh: str, exc: Exception) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default=SNN_ARCH,
-                    help="'mam-snn' (the LM cells wait for the LM training slice)")
+                    help="'mam-snn' (the default), 'all' (every registered LM "
+                         "architecture) or arch ids, comma separated")
+    ap.add_argument("--shape", default="all", help="'all' or shape names, comma separated")
     ap.add_argument("--mesh", default="both", choices=["single", "multi", "both"])
+    ap.add_argument("--hierarchical", action="store_true",
+                    help="train with the paper's hierarchical trainer (multi-pod only)")
     ap.add_argument("--snn-schedule", default="structure_aware",
                     help="comma-separated schedules ('' prices no cell: only the "
                          "verify and construction rows)")
@@ -464,67 +718,89 @@ def main(argv=None) -> int:
                     help="the adaptive two-phase exchange (the row prices both sizings "
                          "either way)")
     ap.add_argument("--hbm-gib", type=float, default=None,
-                    help="per-rank memory budget (GiB) on the priced rows; 0 disables "
-                         "the gate. Default: the card's memory (on the CPU it must "
-                         "be given)")
+                    help="per-rank memory budget (GiB): gates the SNN rows, recorded on "
+                         "the LM rows; 0 disables the gate. Default: the card's memory "
+                         "(off the card the SNN rows need it given)")
     ap.add_argument("--build-rss", action="store_true",
                     help="also measure the host and the sharded build's peaks in two "
                          "fresh processes on --device")
     ap.add_argument("--device", default=None,
-                    help="where the measured builds run (default: cuda)")
+                    help="where the SNN rows' instantiated checks run (default: cuda)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
 
-    if args.arch != SNN_ARCH:
-        ap.error(f"--arch {args.arch!r}: only {SNN_ARCH!r} is priced; the LM cells need "
-                 f"the training artifacts, which wait for the LM training slice")
-    dev = resolve_device(args.device)
-    budget = args.hbm_gib
-    if budget is None:
-        if dev.type != "cuda":
-            ap.error("--hbm-gib must be given off the card (its default is the card's "
-                     "memory)")
-        budget = torch.cuda.mem_get_info(dev)[1] / 2**30
+    archs = list_archs() if args.arch == "all" else args.arch.split(",")
+    unknown = [a for a in archs if a != SNN_ARCH and a not in list_archs()]
+    if unknown:
+        ap.error(f"--arch: unknown {unknown}; available: {SNN_ARCH}, all, "
+                 f"{', '.join(list_archs())}")
+    shapes = list(SHAPES) if args.shape == "all" else args.shape.split(",")
+    if any(sh not in SHAPES for sh in shapes):
+        ap.error(f"--shape: {args.shape!r}; available: all, {', '.join(SHAPES)}")
     meshes = {"single": [False], "multi": [True], "both": [False, True]}[args.mesh]
+    budget = args.hbm_gib
+    dev = None
+    if SNN_ARCH in archs:
+        dev = resolve_device(args.device)
+        if budget is None:
+            if dev.type != "cuda":
+                ap.error("--hbm-gib must be given off the card for the SNN rows (its "
+                         "default is the card's memory)")
+            budget = torch.cuda.mem_get_info(dev)[1] / 2**30
+    elif budget is None and torch.cuda.is_available():
+        budget = torch.cuda.mem_get_info()[1] / 2**30
 
     rows = []
-    try:
-        rows.append(verify_inter_table_bounds(device=dev))
-    except Exception as e:  # a failed check is a FAIL row, and the run goes on
-        rows.append(_failed(SNN_ARCH, "table_bounds", "2x2", e))
-    _print_row(rows[-1])
-    try:
-        rows.append(construction_cost_row(args.snn_scale))
-    except Exception as e:
-        rows.append(_failed(SNN_ARCH, "build", "16x16", e))
-    _print_row(rows[-1])
-    if args.build_rss:
+    if SNN_ARCH in archs:
         try:
-            rows.append(measure_build_rss(device=dev))
-        except Exception as e:
-            rows.append(_failed(SNN_ARCH, "build_rss", "4x2", e))
+            rows.append(verify_inter_table_bounds(device=dev))
+        except Exception as e:  # a failed check is a FAIL row, and the run goes on
+            rows.append(_failed(SNN_ARCH, "table_bounds", "2x2", e))
         _print_row(rows[-1])
-    for multi_pod in meshes:
-        for sched in filter(None, args.snn_schedule.split(",")):
+        try:
+            rows.append(construction_cost_row(args.snn_scale))
+        except Exception as e:
+            rows.append(_failed(SNN_ARCH, "build", "16x16", e))
+        _print_row(rows[-1])
+        if args.build_rss:
             try:
-                rows.append(enforce_hbm_budget(dryrun_snn_cell(
-                    sched, multi_pod, args.snn_scale, backend=args.snn_backend,
-                    # routed applies to the structure-aware lumped pathway only
-                    exchange=args.snn_exchange if sched == "structure_aware" else "",
-                    shard_tables=not args.snn_replicated_tables,
-                    subgroup_tables=not args.snn_no_subgroup_tables,
-                    adaptive=args.snn_adaptive), budget))
+                rows.append(measure_build_rss(device=dev))
             except Exception as e:
-                rows.append(_failed(SNN_ARCH, sched, "2x16x16" if multi_pod else "16x16", e))
+                rows.append(_failed(SNN_ARCH, "build_rss", "4x2", e))
             _print_row(rows[-1])
+    for multi_pod in meshes:
+        mesh_name = "2x16x16" if multi_pod else "16x16"
+        for arch in archs:
+            if arch == SNN_ARCH:
+                for sched in filter(None, args.snn_schedule.split(",")):
+                    try:
+                        rows.append(enforce_hbm_budget(dryrun_snn_cell(
+                            sched, multi_pod, args.snn_scale, backend=args.snn_backend,
+                            # routed applies to the structure-aware lumped pathway only
+                            exchange=args.snn_exchange if sched == "structure_aware" else "",
+                            shard_tables=not args.snn_replicated_tables,
+                            subgroup_tables=not args.snn_no_subgroup_tables,
+                            adaptive=args.snn_adaptive), budget))
+                    except Exception as e:
+                        rows.append(_failed(SNN_ARCH, sched, mesh_name, e))
+                    _print_row(rows[-1])
+                continue
+            for shape in shapes:
+                try:
+                    rows.append(record_hbm(dryrun_lm_cell(arch, shape, multi_pod,
+                                                          args.hierarchical), budget))
+                except Exception as e:
+                    rows.append(_failed(arch, shape, mesh_name, e))
+                _print_row(rows[-1])
 
     if args.out:
         with open(args.out, "w") as f:
             json.dump(rows, f, indent=1)
         print(f"\nwrote {len(rows)} rows to {args.out}")
     n_ok = sum(r["status"] == "OK" for r in rows)
-    n_fail = len(rows) - n_ok
-    print(f"\n=== dry-run summary: {n_ok} OK, 0 SKIP, {n_fail} FAIL ===")
+    n_skip = sum(r["status"].startswith("SKIP") for r in rows)
+    n_fail = len(rows) - n_ok - n_skip
+    print(f"\n=== dry-run summary: {n_ok} OK, {n_skip} SKIP, {n_fail} FAIL ===")
     return 1 if n_fail else 0
 
 
@@ -540,6 +816,19 @@ def _print_row(row: dict) -> None:
         print(base + f"OK build-peak ({row['measured']}) host={row['host_peak_mib']}MiB/"
               f"{row['host_build_s']}s sharded={row['sharded_peak_mib']}MiB/"
               f"{row['sharded_build_s']}s ({row['peak_reduction']}x)")
+    elif "flops_per_device" in row:  # LM cell
+        rb, terms = row["rank_bytes"], row["roofline"]
+        wire = sum(e["bytes"] for e in row["collectives"].values())
+        line = (f"OK held={rb['held'] / 2**30:.2f}GiB gathered={rb['gathered'] / 2**30:.2f}GiB "
+                f"wire={wire:,}B flops/dev={row['flops_per_device']:.3e} "
+                f"useful={row['useful_flops_ratio']:.3f} roofline compute="
+                f"{terms['compute_s']:.3e}s memory={terms['memory_s']:.3e}s collective="
+                f"{terms['collective_s']:.3e}s ({row['dominant']}) {row['price_s']}s")
+        if "sync_step" in row:
+            line += (f" | sync step {row['sync_step']['bytes']:,}B every {row['sync_every']} "
+                     f"steps vs the sync trainer's {row['sync_trainer_step']['bytes']:,}B "
+                     f"a step")
+        print(base + line)
     elif "rank_bytes" not in row:  # bounds-verify row
         print(base + f"OK modelled={row['bytes_per_device_modelled']}B "
               f"instantiated={row['bytes_per_device_instantiated']}B "

@@ -122,12 +122,12 @@ class InternVL(jax_layout.Stacked):
 
     def forward_with_cache(self, params: InternVLParams, tokens: torch.Tensor, cache: dict,
                            cache_index: int, *, patch_embeds: torch.Tensor | None = None,
-                           last_only: bool = False):
+                           last_only: bool = False, split=None):
         """Prefill may carry image tokens (``patch_embeds``); decode steps
-        never do."""
+        never do. ``split``: the backbone's cache shard on a mesh."""
         h0 = None if patch_embeds is None else self._splice(params, tokens, patch_embeds)
         return self.lm.forward_with_cache(params.lm, tokens, cache, cache_index,
-                                          last_only=last_only, embeds_override=h0)
+                                          last_only=last_only, embeds_override=h0, split=split)
 
     # ---------------------------------------------------------------- specs
 

@@ -10,20 +10,32 @@ f32 inside a bf16 compute stream. The trainer on a mesh gathers whole
 weights before it computes, so no activation is split across ranks and the
 JAX ``with_sharding_constraint`` pins (``attn_pspecs``) have nothing to pin:
 ``Transformer._attn_pspecs`` returns them for parity only.
+
+Serving on a mesh is the exception: the KV cache stays where its shard lies
+(:class:`ServeSplit`). With the KV heads split, a rank attends with its own
+heads over its own cache shard and the head outputs are gathered before the
+output product; with the sequence split, a rank attends over the positions
+it holds and the partial softmax sums are merged by log-sum-exp
+(:func:`gqa_attention` with ``split``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
+from typing import Any
 
 import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
+from repro_torch.core import comm
 from repro_torch.kernels import ops
 
 __all__ = [
+    "ServeSplit",
+    "write_positions",
     "Dense",
     "RMSNorm",
     "dense_init",
@@ -57,6 +69,41 @@ def _param(x: torch.Tensor) -> nn.Parameter:
     # backward (nor has the JAX one), so ``ops.flash_attention`` refuses
     # inputs that require grad.
     return nn.Parameter(x, requires_grad=False)
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeSplit:
+    """How a serving rank's share of the cache lies on ``mesh``.
+
+    ``kv`` is ``"heads"`` (the KV cache's heads split over ``axis``),
+    ``"seq"`` (its sequence split over ``axis``: rank ``i`` of the axis
+    holds positions ``[i L, (i + 1) L)``) or None (the batch split only).
+    An SSM state's heads lie over ``"model"`` (every model's
+    ``cache_pspecs`` names it), split when its extent is above 1.
+    Collectives of a split are counted as ``"gather_heads"`` (head outputs)
+    and ``"merge_partials"`` (softmax partials), apart from the parameters'
+    ``"all_gather"``."""
+
+    mesh: Any
+    axis: str = "model"
+    kv: str | None = None
+
+    def ssm_block(self) -> tuple[int, int]:
+        """``(index, extent)`` of this rank along the SSM heads' axis."""
+        return self.mesh.block("model")
+
+
+def write_positions(buf: torch.Tensor, fresh: torch.Tensor, cache_index: int, dim: int,
+                    split: ServeSplit) -> None:
+    """Write ``fresh`` (positions ``cache_index ...`` along ``dim``) into
+    ``buf``, this rank's sequence shard under ``split``: only the positions
+    the shard holds, none if it holds none."""
+    length = buf.shape[dim]
+    off = split.mesh.block(split.axis)[0] * length
+    lo = max(cache_index, off)
+    hi = min(cache_index + fresh.shape[dim], off + length)
+    if lo < hi:
+        buf.narrow(dim, lo - off, hi - lo).copy_(fresh.narrow(dim, lo - cache_index, hi - lo))
 
 
 class Dense(nn.Module):
@@ -230,7 +277,7 @@ FLASH_THRESHOLD = 2048
 _K_CHUNK = 1024
 
 
-def _streaming_attention(
+def _streaming_partial(
     q: torch.Tensor,       # [B, S_q, H, Dh]
     k: torch.Tensor,       # [B, S_k, Hkv, Dh]
     v: torch.Tensor,       # [B, S_k, Hkv, Dh]
@@ -238,15 +285,15 @@ def _streaming_attention(
     k_pos: torch.Tensor,   # [B, S_k]
     k_len: int,            # number of valid keys
     window: int,
-) -> torch.Tensor:
-    """Online-softmax attention: one loop over key blocks of 1024 with all
-    query rows resident, the plain equivalent of flash attention."""
+    kc: int,               # key block
+):
+    """The online-softmax loop of :func:`_streaming_attention` over key
+    blocks of ``kc``, unnormalised: ``(m, denom, acc)``, f32, ``m`` and
+    ``denom`` ``[B, Hkv, G, S_q]`` and ``acc`` ``[B, Hkv, G, S_q, Dh]``. A
+    query row with no valid key keeps ``m`` at ``-1e30``."""
     b, sq, h, dh = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     g = h // hkv
-    kc = min(_K_CHUNK, sk)
-    if sk % kc:
-        raise ValueError(f"streaming attention: S_k {sk} is not a multiple of {kc}")
     scale = 1.0 / math.sqrt(dh)
     w = int(window)
     qf = q.reshape(b, sq, hkv, g, dh).float()
@@ -267,8 +314,67 @@ def _streaming_attention(
         denom = denom * corr + p.sum(dim=-1)
         acc = acc * corr[..., None] + torch.einsum("bhgqk,bkhd->bhgqd", p, v_j)
         m = m_new
+    return m, denom, acc
+
+
+def _streaming_attention(
+    q: torch.Tensor,       # [B, S_q, H, Dh]
+    k: torch.Tensor,       # [B, S_k, Hkv, Dh]
+    v: torch.Tensor,       # [B, S_k, Hkv, Dh]
+    q_pos: torch.Tensor,   # [B, S_q]
+    k_pos: torch.Tensor,   # [B, S_k]
+    k_len: int,            # number of valid keys
+    window: int,
+) -> torch.Tensor:
+    """Online-softmax attention: one loop over key blocks of 1024 with all
+    query rows resident, the plain equivalent of flash attention."""
+    b, sq, h, dh = q.shape
+    sk = k.shape[1]
+    kc = min(_K_CHUNK, sk)
+    if sk % kc:
+        raise ValueError(f"streaming attention: S_k {sk} is not a multiple of {kc}")
+    _, denom, acc = _streaming_partial(q, k, v, q_pos, k_pos, k_len, window, kc)
     out = acc / torch.clamp(denom[..., None], min=1e-30)   # [B, Hkv, G, S_q, Dh]
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dh).to(q.dtype)
+
+
+def _dense_partial(q, k, v, q_pos, k_pos, k_len, window):
+    """:func:`attention_scores`' logits (in q's dtype, then f32) under the
+    mask :func:`gqa_attention`'s dense path builds, unnormalised:
+    ``(m, denom, acc)`` as :func:`_streaming_partial` gives them, the
+    products in f32. Masked logits are ``-1e30``, as there, so a row
+    with no valid key has a finite ``m`` of ``-1e30``."""
+    b, sq, h, dh = q.shape
+    hkv = k.shape[2]
+    qg = q.reshape(b, sq, hkv, h // hkv, dh)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k).float() / math.sqrt(dh)
+    k_valid = (k_pos[0] < k_len).expand(k_pos.shape)
+    mask = causal_window_mask(q_pos, k_pos, k_valid, window)
+    logits = torch.where(mask[:, :, None], logits, -1e30)
+    m = logits.amax(dim=-1)
+    p = torch.exp(logits - m[..., None])
+    return m, p.sum(dim=-1), torch.einsum("bhgqk,bkhd->bhgqd", p, v.float())
+
+
+def _merge_partials(m, denom, acc, split: ServeSplit, dtype) -> torch.Tensor:
+    """The ranks' partials over ``split.axis`` merged by log-sum-exp, added
+    in rank order: ``[B, S_q, H, Dh]`` in ``dtype``. One gather of the
+    packed partials (``acc``, ``m``, ``denom``; ``"merge_partials"``). A
+    rank whose row held no valid key (``m`` -1e30) weighs ``exp(-1e30 -
+    M)`` = 0."""
+    b, hkv, g, sq, dh = acc.shape
+    packed = torch.cat([acc, m[..., None], denom[..., None]], dim=-1)
+    parts = comm.all_gather(packed[None], split.mesh, split.axis, dim=0,
+                            count_as="merge_partials")
+    top = parts[..., dh].amax(dim=0)
+    num = torch.zeros_like(acc)
+    den = torch.zeros_like(m)
+    for part in parts.unbind(0):
+        wgt = torch.exp(part[..., dh] - top)
+        num = num + wgt[..., None] * part[..., :dh]
+        den = den + wgt * part[..., dh + 1]
+    out = num / torch.clamp(den[..., None], min=1e-30)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hkv * g, dh).to(dtype)
 
 
 def gqa_attention(
@@ -286,6 +392,7 @@ def gqa_attention(
     use_rope: bool = True,
     cache_mode: str = "inplace",      # 'inplace' | 'append_slice' | 'fresh_only'
     use_pallas: bool = False,         # the flash kernel (full-sequence path only)
+    split: ServeSplit | None = None,  # serving on a mesh: where the cache shard lies
 ):
     """GQA attention with optional sliding window and KV cache.
 
@@ -297,7 +404,15 @@ def gqa_attention(
     and returns the fresh slices. Query blocks of ``FLASH_THRESHOLD`` or more
     take the flash kernel (``use_pallas`` and no cache) or the streaming
     path. Returns (output [B, S, D], updated cache or fresh slices or None).
+
+    With a ``split`` whose ``kv`` is set, ``kv_cache`` is this rank's shard
+    and never leaves it (:func:`_split_attention`).
     """
+    if split is not None and split.kv is not None and kv_cache is not None:
+        return _split_attention(
+            p, x, positions, n_heads=n_heads, n_kv=n_kv, d_head=d_head,
+            rope_theta=rope_theta, window=window, kv_cache=kv_cache,
+            cache_index=cache_index, use_rope=use_rope, cache_mode=cache_mode, split=split)
     b, s, _ = x.shape
     q = dense(p["q"], x).reshape(b, s, n_heads, d_head)
     k = dense(p["k"], x).reshape(b, s, n_kv, d_head)
@@ -305,7 +420,16 @@ def gqa_attention(
     if use_rope:
         q = rope(q, positions, rope_theta)
         k = rope(k, positions, rope_theta)
+    out, new_cache = _attend(q, k, v, positions, window, kv_cache, cache_index, cache_mode,
+                             use_pallas)
+    out = out.reshape(b, s, n_heads * d_head)
+    return dense(p["o"], out), new_cache
 
+
+def _attend(q, k, v, positions, window, kv_cache, cache_index, cache_mode, use_pallas):
+    """The heads' attention of :func:`gqa_attention` after the projections:
+    ``(out [B, S, H, Dh], updated cache or fresh slices or None)``."""
+    b, s = q.shape[:2]
     if kv_cache is None or cache_mode == "fresh_only":
         new_cache = None if kv_cache is None else (k, v)
         k_full, v_full = k, v
@@ -316,11 +440,11 @@ def gqa_attention(
         s_max = ck.shape[1]
         k_full = torch.cat([ck.to(q.dtype), k], dim=1)
         v_full = torch.cat([cv.to(q.dtype), v], dim=1)
-        slots = torch.arange(s_max, dtype=torch.int32, device=x.device)
+        slots = torch.arange(s_max, dtype=torch.int32, device=q.device)
         k_pos = torch.cat([slots.expand(b, s_max), positions.to(torch.int32)], dim=1)
         # Valid: cache entries below cache_index and the fresh positions;
         # invalid cache slots are moved past every query.
-        in_cache = torch.arange(s_max + s, device=x.device) < s_max
+        in_cache = torch.arange(s_max + s, device=q.device) < s_max
         k_pos = torch.where(in_cache[None, :] & (k_pos >= cache_index), 2**30, k_pos)
         k_len = 2**30
         new_cache = (k, v)
@@ -332,7 +456,7 @@ def gqa_attention(
         cv[:, cache_index:cache_index + s] = v.to(cv.dtype)
         new_cache = (ck, cv)
         k_full, v_full = ck.to(q.dtype), cv.to(q.dtype)
-        k_pos = torch.arange(s_max, dtype=torch.int32, device=x.device).expand(b, s_max)
+        k_pos = torch.arange(s_max, dtype=torch.int32, device=q.device).expand(b, s_max)
         k_len = cache_index + s
     else:
         raise ValueError(f"unknown cache_mode {cache_mode!r}")
@@ -340,16 +464,123 @@ def gqa_attention(
     if use_pallas and kv_cache is None and s >= FLASH_THRESHOLD:
         # The kernel's positions are block indices: canonical in the
         # full-sequence forward.
-        out = ops.flash_attention(q, k_full, v_full, window, k_len)
-    elif s >= FLASH_THRESHOLD:
-        out = _streaming_attention(q, k_full, v_full, positions, k_pos, k_len, window)
-    else:
-        k_valid = (k_pos[0] < k_len).expand(k_pos.shape)
-        mask = causal_window_mask(positions, k_pos, k_valid, window)
-        out = attention_scores(q, k_full, v_full, mask)
+        return ops.flash_attention(q, k_full, v_full, window, k_len), new_cache
+    if s >= FLASH_THRESHOLD:
+        return _streaming_attention(q, k_full, v_full, positions, k_pos, k_len,
+                                    window), new_cache
+    k_valid = (k_pos[0] < k_len).expand(k_pos.shape)
+    mask = causal_window_mask(positions, k_pos, k_valid, window)
+    return attention_scores(q, k_full, v_full, mask), new_cache
 
-    out = out.reshape(b, s, n_heads * d_head)
-    return dense(p["o"], out), new_cache
+
+def _head_cols(p: Dense, x: torch.Tensor, c0: int, c1: int) -> torch.Tensor:
+    """``dense(p, x)``'s output columns ``[c0, c1)``, from those columns of
+    the weight (and bias) alone."""
+    y = x @ p.w[:, c0:c1].to(x.dtype)
+    if p.b is not None:
+        y = y + p.b[c0:c1].to(x.dtype)
+    return y
+
+
+def _split_attention(p, x, positions, *, n_heads, n_kv, d_head, rope_theta, window,
+                     kv_cache, cache_index, use_rope, cache_mode, split: ServeSplit):
+    """:func:`gqa_attention` on a mesh, ``kv_cache`` this rank's shard.
+
+    * ``fresh_only`` (a prompt from an empty cache): computed whole, as on
+      one device; the fresh K/V returned are this rank's heads (``heads``)
+      or every position (``seq``: the caller writes the ones it holds).
+    * ``heads``: the rank projects q, k and v for its own KV heads and their
+      query heads, attends over its own shard as one device would, and the
+      head outputs are gathered over ``split.axis`` in rank order before the
+      whole output product.
+    * ``seq``: the rank holds positions ``[i L, (i + 1) L)``. ``inplace``
+      writes the fresh K/V it holds into its shard and attends over the
+      shard; ``append_slice`` attends over the shard's valid keys and, on
+      the rank that holds ``cache_index`` alone, the fresh keys. The
+      partials are merged by log-sum-exp (:func:`_merge_partials`).
+      Streaming (``FLASH_THRESHOLD`` queries or more) needs the one-device
+      key blocks to tile every shard, and raises where they do not.
+    """
+    mesh, axis = split.mesh, split.axis
+    r, n = mesh.block(axis)
+    b, s, _ = x.shape
+    if cache_mode == "fresh_only":
+        out, (k, v) = gqa_attention(
+            p, x, positions, n_heads=n_heads, n_kv=n_kv, d_head=d_head,
+            rope_theta=rope_theta, window=window, kv_cache=kv_cache, cache_index=cache_index,
+            use_rope=use_rope, cache_mode=cache_mode)
+        if split.kv == "heads":
+            k, v = (t[:, :, r * n_kv // n:(r + 1) * n_kv // n] for t in (k, v))
+        return out, (k, v)
+    if split.kv == "heads":
+        if n_kv % n:
+            raise ValueError(f"{n_kv} KV heads do not divide over {axis} (extent {n})")
+        kv_loc, g = n_kv // n, n_heads // n_kv
+        qw, kw = kv_loc * g * d_head, kv_loc * d_head
+        q = _head_cols(p["q"], x, r * qw, (r + 1) * qw).reshape(b, s, kv_loc * g, d_head)
+        k = _head_cols(p["k"], x, r * kw, (r + 1) * kw).reshape(b, s, kv_loc, d_head)
+        v = _head_cols(p["v"], x, r * kw, (r + 1) * kw).reshape(b, s, kv_loc, d_head)
+        if use_rope:
+            q = rope(q, positions, rope_theta)
+            k = rope(k, positions, rope_theta)
+        out, new_cache = _attend(q, k, v, positions, window, kv_cache, cache_index,
+                                 cache_mode, False)
+        out = comm.all_gather(out, mesh, axis, dim=2, count_as="gather_heads")
+    elif split.kv == "seq":
+        q = dense(p["q"], x).reshape(b, s, n_heads, d_head)
+        k = dense(p["k"], x).reshape(b, s, n_kv, d_head)
+        v = dense(p["v"], x).reshape(b, s, n_kv, d_head)
+        if use_rope:
+            q = rope(q, positions, rope_theta)
+            k = rope(k, positions, rope_theta)
+        out, new_cache = _seq_attend(q, k, v, positions, window, kv_cache, cache_index,
+                                     cache_mode, split)
+    else:
+        raise ValueError(f"unknown cache split {split.kv!r}")
+    return dense(p["o"], out.reshape(b, s, n_heads * d_head)), new_cache
+
+
+def _seq_attend(q, k, v, positions, window, kv_cache, cache_index, cache_mode,
+                split: ServeSplit):
+    """:func:`_attend` over this rank's sequence shard, merged over the
+    ranks: ``(out [B, S, H, Dh], the updated shard or the fresh K/V)``."""
+    r, n = split.mesh.block(split.axis)
+    b, s = q.shape[:2]
+    ck, cv = kv_cache
+    length = ck.shape[1]
+    off = r * length
+    k_pos = off + torch.arange(length, dtype=torch.int32, device=q.device).expand(b, length)
+    if cache_mode == "inplace":
+        ck, cv = ck.clone(), cv.clone()
+        write_positions(ck, k, cache_index, 1, split)
+        write_positions(cv, v, cache_index, 1, split)
+        new_cache = (ck, cv)
+        k_full, v_full = ck.to(q.dtype), cv.to(q.dtype)
+        k_len = cache_index + s
+        s_max = n * length
+    elif cache_mode == "append_slice":
+        k_full, v_full = ck.to(q.dtype), cv.to(q.dtype)
+        k_pos = torch.where(k_pos >= cache_index, 2**30, k_pos)
+        if min(cache_index // length, n - 1) == r:  # the fresh keys enter here, once
+            k_full, v_full = torch.cat([k_full, k], dim=1), torch.cat([v_full, v], dim=1)
+            k_pos = torch.cat([k_pos, positions.to(torch.int32)], dim=1)
+        k_len = 2**30
+        new_cache = (k, v)
+        s_max = n * length + s
+    else:
+        raise ValueError(f"unknown cache_mode {cache_mode!r}")
+    if s >= FLASH_THRESHOLD:
+        kc = min(_K_CHUNK, s_max)
+        if k_full.shape[1] % kc:
+            raise ValueError(
+                f"streaming attention over a sequence split: the {kc}-key blocks of the "
+                f"{s_max}-position cache do not tile a rank's shard of {k_full.shape[1]} "
+                f"positions ({n} over {split.axis}); the shard is not gathered")
+        m, denom, acc = _streaming_partial(q, k_full, v_full, positions, k_pos, k_len,
+                                           window, kc)
+    else:
+        m, denom, acc = _dense_partial(q, k_full, v_full, positions, k_pos, k_len, window)
+    return _merge_partials(m, denom, acc, split, q.dtype), new_cache
 
 
 def attention_init(

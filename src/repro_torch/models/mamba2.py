@@ -17,11 +17,13 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import types
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.core import comm
 from repro_torch.models import jax_layout, layers
 from repro_torch.models.jax_layout import P
 
@@ -241,10 +243,17 @@ class Mamba2(jax_layout.Stacked):
         y = y + x.float() * p.D.float()[None, None, :, None]
         return y.to(x.dtype), h_prev.reshape(bsz, h, pdim, n)
 
-    def mixer(self, p, u: torch.Tensor, state: dict | None = None):
+    def mixer(self, p, u: torch.Tensor, state: dict | None = None,
+              split: layers.ServeSplit | None = None):
         """One mamba2 block (the caller adds the residual). ``state`` is
         None (full sequence) or ``{"conv", "ssm"}`` (serving). Returns
-        (out ``[B, S, D]``, the new state or None)."""
+        (out ``[B, S, D]``, the new state or None).
+
+        With a ``split`` whose SSM axis has an extent above 1 (serving on a
+        mesh), ``state["ssm"]`` holds this rank's heads only: ``in_proj``
+        and the conv run whole (the conv state is not split), the rank steps
+        its own heads' state (:meth:`_own_heads`), and the heads' ``y`` is
+        gathered over the axis in rank order before the gated norm."""
         cfg = self.cfg
         bsz, s, _ = u.shape
         zxbcdt = layers.dense(p.in_proj, u)
@@ -257,8 +266,11 @@ class Mamba2(jax_layout.Stacked):
         c_mat = c_mat.reshape(bsz, s, cfg.n_groups, cfg.d_state)
         dt = F.softplus(dt.float() + p.dt_bias.float())      # [B, S, H]
 
-        y, h_last = self.ssd_chunked(p, x, b_mat, c_mat, dt,
-                                     h0=None if state is None else state["ssm"])
+        if state is not None and split is not None and split.ssm_block()[1] > 1:
+            y, h_last = self._own_heads(p, x, b_mat, c_mat, dt, state["ssm"], split)
+        else:
+            y, h_last = self.ssd_chunked(p, x, b_mat, c_mat, dt,
+                                         h0=None if state is None else state["ssm"])
         y = layers.rms_norm(p.gated_norm, y.reshape(bsz, s, cfg.d_inner) * F.silu(z))
         out = layers.dense(p.out_proj, y)
         if state is None:
@@ -266,9 +278,32 @@ class Mamba2(jax_layout.Stacked):
         return out, {"conv": new_conv.to(state["conv"].dtype),
                      "ssm": h_last.to(state["ssm"].dtype)}
 
-    def layer(self, p, h: torch.Tensor, state: dict | None = None):
+    def _own_heads(self, p, x, b_mat, c_mat, dt, h0, split: layers.ServeSplit):
+        """:meth:`ssd_chunked` on this rank's heads (and the B/C groups they
+        read), from its state shard ``h0``: (y of every head, gathered over
+        the SSM axis as ``"gather_heads"``; this rank's last state)."""
+        r, n = split.ssm_block()
+        h, g = self.cfg.n_heads, self.cfg.n_groups
+        if h % n:
+            raise ValueError(f"{h} SSM heads do not divide over model (extent {n})")
+        h_loc, hg = h // n, h // g
+        heads = slice(r * h_loc, (r + 1) * h_loc)
+        if h_loc % hg == 0:      # whole groups
+            groups = slice(r * h_loc // hg, (r + 1) * h_loc // hg)
+        elif hg % h_loc == 0:    # within one group
+            groups = slice(r * h_loc // hg, r * h_loc // hg + 1)
+        else:
+            raise ValueError(f"{h_loc} heads a rank straddle the B/C groups of {hg} heads")
+        own = types.SimpleNamespace(A_log=p.A_log[heads], D=p.D[heads])
+        y, h_last = self.ssd_chunked(own, x[:, :, heads], b_mat[:, :, groups],
+                                     c_mat[:, :, groups], dt[:, :, heads], h0=h0)
+        y = comm.all_gather(y, split.mesh, "model", dim=2, count_as="gather_heads")
+        return y, h_last
+
+    def layer(self, p, h: torch.Tensor, state: dict | None = None,
+              split: layers.ServeSplit | None = None):
         """``h + mixer(rms_norm(h))``, and the layer's new state."""
-        out, new_state = self.mixer(p, layers.rms_norm(p.norm, h), state)
+        out, new_state = self.mixer(p, layers.rms_norm(p.norm, h), state, split)
         return h + out, new_state
 
     # --------------------------------------------------------------- forward
@@ -310,13 +345,14 @@ class Mamba2(jax_layout.Stacked):
         }
 
     def forward_with_cache(self, params: Mamba2Params, tokens: torch.Tensor, cache: dict,
-                           cache_index: int, *, last_only: bool = False):
+                           cache_index: int, *, last_only: bool = False, split=None):
         """Prefill or decode: the state carries all history, so
-        ``cache_index`` is unused. Returns (logits, cache updated in place)."""
+        ``cache_index`` is unused. Returns (logits, cache updated in place);
+        with a ``split`` the SSM state is this rank's heads."""
         del cache_index
         h = params.embed[tokens].to(self.cfg.cdtype)
         for i, p in enumerate(params.layers):
-            h, st = self.layer(p, h, {"conv": cache["conv"][i], "ssm": cache["ssm"][i]})
+            h, st = self.layer(p, h, {"conv": cache["conv"][i], "ssm": cache["ssm"][i]}, split)
             cache["conv"][i], cache["ssm"][i] = st["conv"], st["ssm"]
         h = layers.rms_norm(params.final_norm, h)
         if last_only:

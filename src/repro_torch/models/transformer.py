@@ -247,7 +247,7 @@ class Transformer(jax_layout.Stacked):
     # ------------------------------------------------------------- layers
 
     def _layer(self, sub, h, positions, theta, window, kv=None, cache_index=None,
-               cache_mode="inplace"):
+               cache_mode="inplace", split=None):
         """One sub-layer of the JAX group body: (h, its MoE aux loss or None
         for a dense sub-layer, its K/V)."""
         cfg = self.cfg
@@ -256,7 +256,7 @@ class Transformer(jax_layout.Stacked):
             n_heads=cfg.n_heads, n_kv=cfg.n_kv, d_head=cfg.d_head,
             rope_theta=theta, window=window,
             kv_cache=kv, cache_index=cache_index, cache_mode=cache_mode,
-            use_pallas=cfg.use_pallas_attention)
+            use_pallas=cfg.use_pallas_attention, split=split)
         h = h + attn_out
         hn = self._norm(sub, "ln2", h)
         if "moe" in sub:
@@ -266,7 +266,7 @@ class Transformer(jax_layout.Stacked):
         return h + y, aux, kv_i
 
     def _layers(self, params, h, positions, *, cache=None, cache_index=None,
-                cache_mode="inplace"):
+                cache_mode="inplace", split=None):
         """Every layer in order: (h, the summed MoE aux loss, and with a cache
         each layer's new K/V: fresh slices, or the whole updated cache in
         ``inplace`` mode). Without a cache and under autograd, each layer is
@@ -291,7 +291,7 @@ class Transformer(jax_layout.Stacked):
                 c = cache[f"sub_{i % g}"]
                 kv = (c["k"][i // g], c["v"][i // g])
             h, aux_i, kv_i = self._layer(sub, h, positions, theta, window, kv, cache_index,
-                                         cache_mode)
+                                         cache_mode, split)
             aux = aux if aux_i is None else aux + aux_i
             new_kv.append(kv_i)
         return h, aux, new_kv
@@ -346,14 +346,17 @@ class Transformer(jax_layout.Stacked):
 
     def forward_with_cache(self, params: TransformerParams, tokens: torch.Tensor,
                            cache: dict, cache_index: int, *, last_only: bool = False,
-                           embeds_override: torch.Tensor | None = None):
+                           embeds_override: torch.Tensor | None = None,
+                           split: layers.ServeSplit | None = None):
         """Prefill (``S`` > 1) or decode (``S`` = 1) against ``cache``.
 
         Returns (logits, cache). The cache is updated in place: the fresh
         K/V of every layer are merged into it at ``cache_index`` with one copy
         per sub-layer and call (JAX does the same with one dynamic update of
         a donated buffer). An MoE layer's capacity follows this call's
-        ``S``, as in the reference."""
+        ``S``, as in the reference. With a ``split`` (serving on a mesh) the
+        cache is this rank's shard: each layer attends where it lies and
+        only the positions or heads it holds are written."""
         cfg = self.cfg
         b, s = tokens.shape
         h = self._embed(params, tokens)
@@ -368,7 +371,7 @@ class Transformer(jax_layout.Stacked):
         else:
             cache_mode = "append_slice"
         h, _, new_kv = self._layers(params, h, positions, cache=cache,
-                                    cache_index=cache_index, cache_mode=cache_mode)
+                                    cache_index=cache_index, cache_mode=cache_mode, split=split)
         g = cfg.group_size
         for i in range(g):
             for j, name in enumerate(("k", "v")):
@@ -376,6 +379,8 @@ class Transformer(jax_layout.Stacked):
                 fresh = torch.stack([kv[j] for kv in new_kv[i::g]])
                 if cache_mode == "inplace":
                     buf.copy_(fresh)  # the layers returned whole updated caches
+                elif split is not None and split.kv == "seq":
+                    layers.write_positions(buf, fresh.to(buf.dtype), cache_index, 2, split)
                 else:
                     buf[:, :, cache_index:cache_index + s] = fresh.to(buf.dtype)
         h = self._final_norm(params, h)

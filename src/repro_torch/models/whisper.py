@@ -154,10 +154,11 @@ class Whisper(jax_layout.Stacked):
     # --------------------------------------------------------------- decoder
 
     def _decoder(self, params: WhisperParams, tokens, enc_out, *, cache=None,
-                 cache_index=None, last_only: bool = False):
+                 cache_index=None, last_only: bool = False, split=None):
         """The decoder up to the final LayerNorm; with a cache, each layer's
         self-attention K/V are written in place at ``cache_index`` (the
-        reference's ``inplace`` mode)."""
+        reference's ``inplace`` mode; into this rank's shard with a
+        ``split``). The cross-attention runs whole."""
         cfg = self.cfg
         b, s = tokens.shape
         base = cache_index if cache_index is not None else 0
@@ -170,7 +171,7 @@ class Whisper(jax_layout.Stacked):
             attn_out, new_kv = layers.gqa_attention(
                 p["self_attn"], layers.layer_norm(p["ln1"], h), pos,
                 n_heads=cfg.n_heads, n_kv=cfg.n_heads, d_head=cfg.d_head,
-                use_rope=False, kv_cache=kv, cache_index=cache_index)
+                use_rope=False, kv_cache=kv, cache_index=cache_index, split=split)
             h = h + attn_out
             h = h + self._mha(p["cross_attn"], layers.layer_norm(p["ln_x"], h), enc_out, cross)
             return h + layers.gelu_mlp(p["mlp"], layers.layer_norm(p["ln2"], h)), new_kv
@@ -211,11 +212,12 @@ class Whisper(jax_layout.Stacked):
 
     def forward_with_cache(self, params: WhisperParams, tokens: torch.Tensor, cache: dict,
                            cache_index: int, *, enc_out: torch.Tensor,
-                           last_only: bool = False):
+                           last_only: bool = False, split=None):
         """Prefill or decode against a precomputed encoder output. Returns
-        (logits, cache updated in place)."""
+        (logits, cache updated in place); ``split``: the cache shard on a
+        mesh."""
         h = self._decoder(params, tokens, enc_out, cache=cache, cache_index=cache_index,
-                          last_only=last_only)
+                          last_only=last_only, split=split)
         return self.unembed(params, h), cache
 
     # ---------------------------------------------------------------- specs

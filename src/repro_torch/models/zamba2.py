@@ -130,13 +130,13 @@ class Zamba2(jax_layout.Stacked):
     # --------------------------------------------------------------- forward
 
     def _shared_block(self, p: nn.ModuleDict, h, x0, positions, kv_cache=None,
-                      cache_index=None):
+                      cache_index=None, split=None):
         cfg = self.cfg
         z = layers.dense(p["in_proj"], torch.cat([h, x0], dim=-1))
         attn_out, new_kv = layers.gqa_attention(
             p["attn"], layers.rms_norm(p["ln1"], z), positions,
             n_heads=cfg.n_heads, n_kv=cfg.n_kv, d_head=cfg.d_head,
-            kv_cache=kv_cache, cache_index=cache_index)
+            kv_cache=kv_cache, cache_index=cache_index, split=split)
         z = z + attn_out
         z = z + layers.swiglu(p["ffn"], layers.rms_norm(p["ln2"], z))
         return h + z, new_kv
@@ -186,10 +186,12 @@ class Zamba2(jax_layout.Stacked):
         }
 
     def forward_with_cache(self, params: Zamba2Params, tokens: torch.Tensor, cache: dict,
-                           cache_index: int, *, last_only: bool = False):
+                           cache_index: int, *, last_only: bool = False, split=None):
         """Prefill or decode. The shared block writes its K/V in place at
         ``cache_index`` (the reference's ``inplace`` mode); the mamba states
-        are replaced. Returns (logits, cache updated in place)."""
+        are replaced. Returns (logits, cache updated in place). With a
+        ``split`` (a mesh) the caches are this rank's shards, read and
+        written where they lie."""
         cfg = self.cfg
         b, s = tokens.shape
         h = params.embed[tokens].to(cfg.cdtype)
@@ -201,9 +203,11 @@ class Zamba2(jax_layout.Stacked):
                 a = i // cfg.period
                 h, (ck, cv) = self._shared_block(
                     params.shared, h, x0, positions,
-                    kv_cache=(cache["attn_k"][a], cache["attn_v"][a]), cache_index=cache_index)
+                    kv_cache=(cache["attn_k"][a], cache["attn_v"][a]), cache_index=cache_index,
+                    split=split)
                 cache["attn_k"][a], cache["attn_v"][a] = ck, cv
-            h, st = self.mamba.layer(p, h, {"conv": cache["conv"][i], "ssm": cache["ssm"][i]})
+            h, st = self.mamba.layer(p, h, {"conv": cache["conv"][i], "ssm": cache["ssm"][i]},
+                                     split)
             cache["conv"][i], cache["ssm"][i] = st["conv"], st["ssm"]
         h = layers.rms_norm(params.final_norm, h)
         if last_only:

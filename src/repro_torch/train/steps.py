@@ -30,6 +30,27 @@ tree's norm, so with one microbatch a rank the step is bitwise the
 one-device step with ``n_micro`` = the batch axes' extent. The compute is
 not split: the model axis shards storage only (no Megatron products), and
 the JAX activation pins (``attn_pspecs``) have nothing to pin.
+
+``make_serve_artifacts`` gives the prefill and decode callables, with the
+reference's layout choices, spec trees and meta shapes. **Serving on a
+mesh** holds between calls each rank's shards alone: the parameters, its
+slice of the batch (the batch axes: ``("pod", "data")`` or ``("data",)``,
+none for ``long_500k``) and its shards of the serve state. A call gathers
+the parameters as the training step does; the cache is never gathered.
+Where the KV heads divide the model axis, each rank projects and attends
+with its own KV heads and their query heads over its own cache shard, and
+the head outputs are gathered before the output product; else (and for
+``long_500k``) the cache's sequence is split, each rank attends over the
+positions it holds, and the softmax partials are merged by log-sum-exp in
+rank order. An SSM state's heads are split over ``model``: ``in_proj`` and
+the conv run whole, each rank steps its own heads, and their outputs are
+gathered before the gated norm. A prompt from an empty cache attends over
+itself, computed whole on the rank's batch slice (``fresh_only``); only
+the rank's shard of its K/V is stored. The batch split, and the head
+splits where the per-head products are the one device's, are bitwise the
+one-device serving of the rank's batch slice; the log-sum-exp merge
+reorders the softmax sums. On a :class:`~repro_torch.core.mesh.MeshLayout`
+(meta tensors) the same calls are priced by the dry run.
 """
 
 from __future__ import annotations
@@ -42,6 +63,7 @@ import torch
 
 from repro_torch.configs.common import Bundle, ShapeSpec
 from repro_torch.core import comm
+from repro_torch.models import layers
 from repro_torch.models.jax_layout import P
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update, global_norm
 from repro_torch.optim.hierarchical import Hierarchical, HierarchicalConfig
@@ -58,6 +80,27 @@ def _gather_leaf(x, spec: tuple, mesh):
         if axes is not None and mesh.extent(axes) > 1:
             x = comm.all_gather(x, mesh, axes, dim=d)
     return x
+
+
+@torch.no_grad()
+def _gather_params(params, named: dict, mesh, requires_grad: bool):
+    """The whole parameter module from this rank's shards (``named``: the
+    port-layout specs by leaf name)."""
+    return map_named(lambda n, x: _gather_leaf(x.detach(), named[n], mesh), params,
+                     requires_grad=requires_grad)
+
+
+def kv_heads(bundle: Bundle) -> int | None:
+    """The KV heads of ``bundle``'s architecture as the reference's serving
+    and dry run find them: the backbone's for the VLM, ``n_heads`` for the
+    audio family, None without attention."""
+    cfg = bundle.cfg
+    n_kv = getattr(cfg, "n_kv", None)
+    if n_kv is None and hasattr(cfg, "backbone"):
+        n_kv = cfg.backbone.n_kv
+    if n_kv is None and bundle.family == "audio":
+        n_kv = cfg.n_heads
+    return n_kv
 
 
 def _tree_map(fn, tree, specs):
@@ -220,9 +263,7 @@ def make_train_artifacts(
 
     def mesh_step(params, opt_state, batch):
         """``base_step`` on this rank's shards and batch slice."""
-        with torch.no_grad():
-            full = map_named(lambda n, x: _gather_leaf(x.detach(), named_p[n], mesh), params,
-                             requires_grad=True)
+        full = _gather_params(params, named_p, mesh, True)
         loss, grads = grads_of(full, batch)
         del full
         d = mesh.extent(batch_axes)
@@ -293,9 +334,36 @@ def _named_specs(params: dict, count: tuple) -> dict:
 class ServeArtifacts:
     prefill_fn: Callable   # (params, batch) -> (logits [B, 1, V], serve_state)
     decode_fn: Callable    # (params, serve_state, tokens [B, 1], idx) -> (logits, state)
+    params_sds: Any = None        # meta tensors: the whole parameters
+    params_specs: Any = None      # spec trees in the JAX layout
+    state_sds: Any = None         # meta tensors: the whole serve state
+    state_specs: Any = None
+    batch_axes: tuple[str, ...] | None = None
+    token_spec: tuple = ()
+    mesh: Any = None
+    named_specs: dict = dataclasses.field(default_factory=dict)  # leaf name -> spec
+    split: Any = None             # layers.ServeSplit on a mesh
+
+    def shard(self, params: Any) -> Any:
+        """This rank's shards of a whole parameter module (frozen, as
+        served). The identity without a mesh."""
+        if self.mesh is None:
+            return params
+        return map_named(lambda n, x: self.mesh.shard(x.detach(), self.named_specs[n], n).clone(),
+                         params, requires_grad=False)
+
+    def gather_state(self, state: dict, axes: tuple[str, ...] | None = None) -> dict:
+        """The whole serve state from the ranks' shards (over ``axes`` only
+        when given), collective over the mesh; for checks, never within a
+        call."""
+        specs = self.state_specs
+        if axes is not None:
+            specs = _tree_map(lambda spec, _: _over(spec, axes), specs, specs)
+        return gather_state(state, specs, self.mesh)
 
 
-def make_serve_artifacts(bundle: Bundle, shape: ShapeSpec, *,
+def make_serve_artifacts(bundle: Bundle, shape: ShapeSpec, mesh=None, *,
+                         fsdp_axis: str | None = "data", tp_axis: str = "model",
                          cache_dtype=torch.bfloat16) -> ServeArtifacts:
     """Prefill / decode callables for ``shape`` (batch ``global_batch``, a
     cache of ``seq_len`` positions of ``cache_dtype``, on the parameters'
@@ -303,28 +371,95 @@ def make_serve_artifacts(bundle: Bundle, shape: ShapeSpec, *,
     position's logits; decode appends one token per call. Both update the
     serve state's cache in place. The audio family encodes ``frames`` once at
     prefill and keeps the encoder output in the serve state for every
-    decode; the VLM family takes ``patch_embeds`` at prefill only."""
+    decode; the VLM family takes ``patch_embeds`` at prefill only.
+
+    The layout is the reference's: the ``long_500k`` cell (batch 1) has no
+    batch axes and its caches' sequence over ``tp_axis``; every other cell
+    has the batch over ``("pod", "data")`` (``("data",)`` without a pod
+    axis), then the KV heads over ``tp_axis`` where they divide it, else the
+    sequence. ``state_specs`` holds the caches' ``cache_pspecs`` under that
+    choice (and whisper's ``enc_out``), ``params_specs`` ``param_pspecs``.
+
+    **On a mesh** (a :class:`~repro_torch.core.mesh.ProcessMesh`, or a
+    :class:`~repro_torch.core.mesh.MeshLayout` on meta tensors to price a
+    call) a rank holds between calls its shards alone: the parameters
+    (:meth:`ServeArtifacts.shard`), its batch and tokens
+    (``host_batch(batch, mesh, art.batch_axes)``), and the serve state
+    prefill makes, the caches and ``enc_out`` cut by ``state_specs``. A
+    call gathers the whole parameters; the caches are never gathered: each
+    attention layer and SSM layer works where its shard lies
+    (:class:`~repro_torch.models.layers.ServeSplit`)."""
     model = bundle.model
+    cfg = bundle.cfg
     b, s = shape.global_batch, shape.seq_len
     is_audio = bundle.family == "audio"
     is_vlm = bundle.family == "vlm"
 
+    n_kv = kv_heads(bundle)
+    tp_size = mesh.shape[tp_axis] if mesh is not None else 1
+    head_axis = seq_axis = None
+    if shape.name == "long_500k":
+        batch_axes, seq_axis = None, tp_axis
+    else:
+        batch_axes = None
+        if mesh is not None:
+            batch_axes = ("pod", "data") if "pod" in mesh.axis_names else ("data",)
+        if n_kv is not None and tp_size > 1:
+            if n_kv % tp_size == 0:
+                head_axis = tp_axis
+            else:
+                seq_axis = tp_axis
+    cache_specs = model.cache_pspecs(batch_axes=batch_axes, seq_axis=seq_axis,
+                                     head_axis=head_axis)
+    state_specs: dict = {"cache": cache_specs}
+    state_sds: dict = {"cache": model.init_cache(b, s, cache_dtype, device="meta")}
+    if is_audio:
+        state_specs["enc_out"] = P(batch_axes, None, None)
+        state_sds["enc_out"] = torch.empty((b, cfg.n_frames, cfg.d_model), dtype=cfg.cdtype,
+                                           device="meta")
+    p_specs = model.param_pspecs(fsdp=fsdp_axis, tp=tp_axis)
+
+    split = named = None
+    if mesh is not None:
+        named = model.named_pspecs(p_specs)
+        kv = None  # how the KV caches split over tp_axis (none without attention)
+        if tp_size > 1 and n_kv is not None:
+            kv = "heads" if head_axis is not None else "seq"
+        split = layers.ServeSplit(mesh, tp_axis, kv)
+        local_cache = shard_state(state_sds["cache"], cache_specs, mesh)  # meta: shapes only
+
+    def whole(params):
+        return params if mesh is None else _gather_params(params, named, mesh, False)
+
     def prefill(params, batch):
         device = next(params.parameters()).device
-        cache = model.init_cache(b, s, cache_dtype, device=device)
+        if mesh is None:
+            cache = model.init_cache(b, s, cache_dtype, device=device)
+        else:  # this rank's shards, made where they stay
+            cache = _tree_map(lambda x, _: torch.zeros(x.shape, dtype=x.dtype, device=device),
+                              local_cache, cache_specs)
+        params = whole(params)
         kwargs, state = {}, {}
         if is_audio:
             state["enc_out"] = kwargs["enc_out"] = model.encode(params, batch["frames"])
         if is_vlm:
             kwargs["patch_embeds"] = batch["patch_embeds"]
+        if split is not None:
+            kwargs["split"] = split
         logits, cache = model.forward_with_cache(params, batch["tokens"], cache, 0,
                                                  last_only=True, **kwargs)
         return logits, {"cache": cache, **state}
 
     def decode(params, serve_state, tokens, cache_index):
         kwargs = {"enc_out": serve_state["enc_out"]} if is_audio else {}
-        logits, cache = model.forward_with_cache(params, tokens, serve_state["cache"],
+        if split is not None:
+            kwargs["split"] = split
+        logits, cache = model.forward_with_cache(whole(params), tokens, serve_state["cache"],
                                                  cache_index, **kwargs)
         return logits, {**serve_state, "cache": cache}
 
-    return ServeArtifacts(prefill_fn=prefill, decode_fn=decode)
+    return ServeArtifacts(
+        prefill_fn=prefill, decode_fn=decode,
+        params_sds=model.init_params(None, device="meta"), params_specs=p_specs,
+        state_sds=state_sds, state_specs=state_specs, batch_axes=batch_axes,
+        token_spec=P(batch_axes, None), mesh=mesh, named_specs=named or {}, split=split)

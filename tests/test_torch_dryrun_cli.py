@@ -44,8 +44,8 @@ def test_cli_exits_nonzero_on_a_failing_hbm_gate(tmp_path):
 
 def test_cli_refusals(capsys):
     with pytest.raises(SystemExit) as e:
-        dryrun.main(["--arch", "qwen2-0.5b", "--device", "cpu", "--hbm-gib", "16"])
-    assert e.value.code == 2 and "LM training slice" in capsys.readouterr().err
+        dryrun.main(["--arch", "qwen2-1b", "--device", "cpu", "--hbm-gib", "16"])
+    assert e.value.code == 2 and "unknown ['qwen2-1b']" in capsys.readouterr().err
     with pytest.raises(SystemExit) as e:
         dryrun.main(["--device", "cpu"])
     assert e.value.code == 2 and "--hbm-gib must be given" in capsys.readouterr().err
