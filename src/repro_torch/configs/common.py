@@ -64,14 +64,18 @@ class Bundle:
     # Optimizer-moment dtype hint (bf16 for the giants of the JAX package).
     moment_dtype: str = "float32"
 
-    def loss(self, params, batch) -> torch.Tensor:
+    def loss(self, params, batch, split: layers.TPSplit | None = None) -> torch.Tensor:
         """Mean next-token CE (+ 0.01 x the aux loss) on a ``{'tokens',
         'labels', ...}`` batch, through the hidden-state API and the chunked
-        CE, so the full ``[B, S, V]`` logits never exist."""
+        CE, so the full ``[B, S, V]`` logits never exist. Under ``split``
+        (the transformer-backbone families on a mesh) ``params`` are this
+        rank's model shards, the CE is vocab-parallel, and every rank of
+        the axis gets the same loss."""
         extras = {k: batch[k] for k in self.extra_inputs}
-        h, aux = self.model.hidden(params, batch["tokens"], **extras)
+        kw = {} if split is None else {"split": split}
+        h, aux = self.model.hidden(params, batch["tokens"], **extras, **kw)
         ce = layers.chunked_cross_entropy(
-            lambda hc: self.model.unembed(params, hc), h, batch["labels"])
+            lambda hc: self.model.unembed(params, hc), h, batch["labels"], split=split)
         return ce + 0.01 * aux
 
     def input_specs(self, shape: ShapeSpec) -> dict[str, torch.Tensor]:

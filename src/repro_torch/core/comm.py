@@ -49,6 +49,31 @@ are kept apart from the exchange's own gathers.
 the shapes a world would give. So a dry run of one rank's step or serving
 call on meta tensors counts what that rank would take in.
 
+**Collectives that carry gradients** split a training step's compute
+over an axis (Megatron's operators; :class:`~repro_torch.models.layers.TPSplit`
+calls them). ``torch.distributed`` calls carry no autograd, so each is a
+``torch.autograd.Function`` whose backward runs the collective its
+forward's transpose needs, counted under its own name:
+
+* :func:`enter_split`: the identity; the backward sums the gradient over
+  the axis (``"split_grad_sum"``): a replicated input to rank-specific work;
+* :func:`sum_partials`: the sum of the ranks' partial results
+  (``"partial_sum"``); the backward is the identity;
+* :func:`gather_split`: a tiled gather along a dimension
+  (``"split_gather"``); the backward takes the rank's own slice;
+* :func:`own_slice`: the rank's own slice along a dimension; the backward
+  gathers (``"slice_grad_gather"``);
+* :func:`max_over`: a max over the axis that carries no gradient
+  (``"split_max"``).
+
+Every sum adds the ranks' values in f32 in rank order onto an f32 zero, as
+:func:`sum_in_order` does, and casts to the input's dtype: every rank of
+the axis gets bitwise the same value, so work done alike on every rank
+(norms, the router) stays bitwise alike. An extent of 1 is the identity
+with no collective. On meta tensors (a dry run over a
+:class:`~repro_torch.core.mesh.MeshLayout`) they are priced as the other
+collectives are, the backward's too.
+
 Under ``nccl`` every rank of the world must take part in the first
 point-to-point call, which sets up the communicator, while a ``ppermute``
 round leaves out the ranks with no partner at its offset: call
@@ -72,6 +97,11 @@ __all__ = [
     "all_reduce",
     "sum_in_order",
     "broadcast",
+    "enter_split",
+    "sum_partials",
+    "gather_split",
+    "own_slice",
+    "max_over",
     "gather_area",
     "gather_global",
     "gather_full",
@@ -210,15 +240,15 @@ def all_reduce(x: torch.Tensor, mesh, axes, *, op: str = "sum") -> torch.Tensor:
     return buf.to(x.device, non_blocking=True) if staged else buf
 
 
-def sum_in_order(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+def sum_in_order(x: torch.Tensor, mesh, axes, count_as: str = "sum_in_order") -> torch.Tensor:
     """The f32 sum of the ranks' ``x`` over the group of ``axes``, added in
     row-major group order onto an f32 zero: bitwise a sequential f32
     accumulation of the same values, as the one-device trainer sums its
     microbatches' gradients, for any group size (a ring all-reduce adds in
     another order). It crosses as a gather of ``x`` in its own dtype (a
     bf16 gradient in 2 bytes an element), counted under ``("sum_in_order",
-    axes)``: ``n - 1`` payloads."""
-    parts = _gather(x, mesh, axes, "sum_in_order")
+    axes)`` (or ``count_as``): ``n - 1`` payloads."""
+    parts = _gather(x, mesh, axes, count_as)
     acc = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
     for part in parts.unbind(0):
         acc.add_(part.float())
@@ -241,6 +271,105 @@ def broadcast(x: torch.Tensor, mesh, axes, *, src: int) -> torch.Tensor:
     _timed("broadcast", axes, nbytes,
            lambda: dist.broadcast(buf, src=_rank_at(mesh, axes, src), group=group))
     return buf.to(x.device, non_blocking=True) if staged else buf
+
+
+class _EnterSplit(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return sum_in_order(g, ctx.mesh, ctx.axes, "split_grad_sum").to(g.dtype), None, None
+
+
+class _SumPartials(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        return sum_in_order(x, mesh, axes, "partial_sum").to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _GatherSplit(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim, ctx.size = mesh, axes, dim, x.shape[dim]
+        return all_gather(x, mesh, axes, dim=dim, count_as="split_gather")
+
+    @staticmethod
+    def backward(ctx, g):
+        i = _group_index(ctx.mesh, ctx.axes)
+        return g.narrow(ctx.dim, i * ctx.size, ctx.size), None, None, None
+
+
+class _OwnSlice(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        n = mesh.extent(axes)
+        if x.shape[dim] % n:
+            raise ValueError(f"dimension {dim} of shape {tuple(x.shape)} does not divide over "
+                             f"{axes} (extent {n})")
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        size = x.shape[dim] // n
+        return x.narrow(dim, _group_index(mesh, axes) * size, size).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return (all_gather(g, ctx.mesh, ctx.axes, dim=ctx.dim, count_as="slice_grad_gather"),
+                None, None, None)
+
+
+def _split_axes(mesh, axes):
+    """``axes`` as a key, or None where their extent is 1 (no collective)."""
+    axes = _key(axes)
+    return axes if mesh.extent(axes) > 1 else None
+
+
+def enter_split(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """``x`` (the same on every rank of ``axes``) as the input of work that
+    differs by rank: the identity forward; the backward sums the ranks'
+    partial gradients in f32, in rank order (``"split_grad_sum"``)."""
+    axes = _split_axes(mesh, axes)
+    return x if axes is None else _EnterSplit.apply(x, mesh, axes)
+
+
+def sum_partials(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """The sum of the ranks' partial ``x`` over ``axes``, in f32 in rank
+    order, in ``x``'s dtype (``"partial_sum"``); the gradient passes
+    through unchanged."""
+    axes = _split_axes(mesh, axes)
+    return x if axes is None else _SumPartials.apply(x, mesh, axes)
+
+
+def gather_split(x: torch.Tensor, mesh, axes, *, dim: int) -> torch.Tensor:
+    """The ranks' ``x`` concatenated along ``dim`` (``"split_gather"``), for
+    work done alike on every rank; the backward takes this rank's slice
+    of the gradient."""
+    axes = _split_axes(mesh, axes)
+    return x if axes is None else _GatherSplit.apply(x, mesh, axes, dim % x.dim())
+
+
+def own_slice(x: torch.Tensor, mesh, axes, *, dim: int) -> torch.Tensor:
+    """This rank's block of ``x`` (the same on every rank) along ``dim``;
+    the backward gathers the ranks' gradients (``"slice_grad_gather"``).
+    A dimension the extent does not divide raises ``ValueError``."""
+    axes = _split_axes(mesh, axes)
+    return x if axes is None else _OwnSlice.apply(x, mesh, axes, dim % x.dim())
+
+
+@torch.no_grad()
+def max_over(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """The elementwise max of the ranks' ``x`` over ``axes``, with no
+    gradient (``"split_max"``)."""
+    axes = _split_axes(mesh, axes)
+    if axes is None:
+        return x.detach()
+    parts = _gather(x.detach(), mesh, axes, "split_max")
+    return parts.amax(dim=0)
 
 
 def gather_area(

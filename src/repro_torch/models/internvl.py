@@ -8,7 +8,10 @@ overwrite the first ``n_patches`` token positions of the backbone's input.
 The backbone is the port's :class:`Transformer`, so with
 ``use_pallas_attention`` its full-sequence forward runs the
 ``flash_attention`` kernel. ``param_pspecs`` / ``cache_pspecs`` are the
-JAX spec trees as tuples (the backbone's under ``lm``).
+JAX spec trees as tuples (the backbone's under ``lm``). Under a training
+split the backbone splits as the transformer does, and the connector's
+``fc2`` (``P(fsdp, tp)``) gives this rank's columns, gathered over the
+model axis before the splice.
 """
 
 from __future__ import annotations
@@ -94,20 +97,26 @@ class InternVL(jax_layout.Stacked):
                            "fc2": layers.dense_init(d, d, **kw)}))
 
     def _splice(self, params: InternVLParams, tokens: torch.Tensor,
-                patch_embeds: torch.Tensor) -> torch.Tensor:
+                patch_embeds: torch.Tensor, split: layers.TPSplit | None = None
+                ) -> torch.Tensor:
         """Project the patch embeddings and overwrite the first
         ``n_patches`` positions of the token embeddings."""
-        h = params.lm.embed[tokens].to(self.cfg.cdtype)
+        h = layers.embed_lookup(params.lm.embed, tokens, self.cfg.cdtype, split)
         c = params.connector
-        img = layers.dense(c["fc2"], F.gelu(
-            layers.dense(c["fc1"], patch_embeds.to(self.cfg.cdtype)), approximate="tanh"))
+        a = F.gelu(layers.dense(c["fc1"], patch_embeds.to(self.cfg.cdtype)), approximate="tanh")
+        if split is None:
+            img = layers.dense(c["fc2"], a)
+        else:  # this rank's columns of fc2, gathered
+            img = split.gather(layers.dense(c["fc2"], split.enter(a)), -1)
         n_p = self.cfg.n_patches
         return torch.cat([img[:, :n_p], h[:, n_p:]], dim=1)
 
     def hidden(self, params: InternVLParams, tokens: torch.Tensor, *,
-               patch_embeds: torch.Tensor, positions=None):
-        h0 = self._splice(params, tokens, patch_embeds)
-        return self.lm.hidden(params.lm, tokens, embeds_override=h0, positions=positions)
+               patch_embeds: torch.Tensor, positions=None,
+               split: layers.TPSplit | None = None):
+        h0 = self._splice(params, tokens, patch_embeds, split)
+        return self.lm.hidden(params.lm, tokens, embeds_override=h0, positions=positions,
+                              split=split)
 
     def unembed(self, params: InternVLParams, h: torch.Tensor) -> torch.Tensor:
         return self.lm.unembed(params.lm, h)

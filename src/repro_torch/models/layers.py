@@ -6,12 +6,23 @@ is a ``ModuleDict`` of ``q``, ``k``, ``v``, ``o``; the SwiGLU MLP one of
 ``gate``, ``up``, ``down``), and the layers are plain functions of those
 containers and tensors, as in JAX. Layouts are JAX's: activations
 ``[B, S, D]``, heads ``[B, S, H, Dh]``. Reductions (softmax, norms) run in
-f32 inside a bf16 compute stream. The trainer on a mesh gathers whole
-weights before it computes, so no activation is split across ranks and the
-JAX ``with_sharding_constraint`` pins (``attn_pspecs``) have nothing to pin:
-``Transformer._attn_pspecs`` returns them for parity only.
+f32 inside a bf16 compute stream.
 
-Serving on a mesh is the exception: the KV cache stays where its shard lies
+**Training on a mesh** splits the compute over the model axis as the JAX
+package's specs split it under GSPMD (:class:`TPSplit`, Megatron's
+layout): a rank holds its model shard of each weight and computes with it.
+q, k, v, gate and up are split by columns, o and down by rows and their
+partial products summed over the axis; the embedding looks up the rank's
+vocab rows and sums, the unembedding gives the rank's vocab columns, and
+the cross entropy reduces over the split vocab
+(:func:`chunked_cross_entropy` with ``split``). Attention is
+head-parallel (``"heads"``: a rank's own KV heads and their query heads)
+or context-parallel (``"seq"``: a rank's own query positions against the
+whole K and V, its output gathered along the sequence), the pins the JAX
+``attn_pspecs`` name. The collectives carry gradients
+(:func:`~repro_torch.core.comm.enter_split` and its kin).
+
+Serving on a mesh splits the cache: the KV cache stays where its shard lies
 (:class:`ServeSplit`). With the KV heads split, a rank attends with its own
 heads over its own cache shard and the head outputs are gathered before the
 output product; with the sequence split, a rank attends over the positions
@@ -22,6 +33,7 @@ it holds and the partial softmax sums are merged by log-sum-exp
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any
 
@@ -35,6 +47,8 @@ from repro_torch.kernels import ops
 
 __all__ = [
     "ServeSplit",
+    "TPSplit",
+    "embed_lookup",
     "write_positions",
     "Dense",
     "RMSNorm",
@@ -91,6 +105,69 @@ class ServeSplit:
     def ssm_block(self) -> tuple[int, int]:
         """``(index, extent)`` of this rank along the SSM heads' axis."""
         return self.mesh.block("model")
+
+
+@dataclasses.dataclass(frozen=True)
+class TPSplit:
+    """How a training step's compute splits over ``axis`` of ``mesh``: the
+    Megatron products, ``attn`` ``"heads"`` (head-parallel) or ``"seq"``
+    (context-parallel) attention, the vocab-parallel embedding, unembedding
+    and cross entropy, and MoE experts where they are stored. The layers
+    take a rank's model shards of the weights (the stored shard along every
+    dimension the specs split over ``axis``) and call the collectives of
+    :mod:`~repro_torch.core.comm` that carry gradients."""
+
+    mesh: Any
+    axis: str = "model"
+    attn: str = "heads"
+
+    def __post_init__(self) -> None:
+        if self.attn not in ("heads", "seq"):
+            raise ValueError(f"unknown attention split {self.attn!r} (heads or seq)")
+
+    @property
+    def index(self) -> tuple[int, int]:
+        """``(this rank's index, the extent)`` along ``axis``."""
+        return self.mesh.block(self.axis)
+
+    def local(self, total: int, what: str) -> int:
+        """``total`` over the extent; ``ValueError`` naming ``what`` where
+        the extent does not divide it."""
+        n = self.index[1]
+        if total % n:
+            raise ValueError(f"{what}: {total} do not divide over {self.axis} (extent {n})")
+        return total // n
+
+    def enter(self, x):
+        return comm.enter_split(x, self.mesh, self.axis)
+
+    def sum(self, x):
+        return comm.sum_partials(x, self.mesh, self.axis)
+
+    def gather(self, x, dim: int):
+        return comm.gather_split(x, self.mesh, self.axis, dim=dim)
+
+    def own(self, x, dim: int):
+        return comm.own_slice(x, self.mesh, self.axis, dim=dim)
+
+    def max(self, x):
+        return comm.max_over(x, self.mesh, self.axis)
+
+
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor, dtype,
+                 split: TPSplit | None = None) -> torch.Tensor:
+    """``table[tokens]`` in ``dtype``. Under ``split`` ``table`` is this
+    rank's block of vocab rows: each rank looks up the tokens it holds,
+    zeros elsewhere, and the ranks' rows are summed (exact: one rank holds
+    each token, the others add zeros)."""
+    if split is None:
+        return table[tokens].to(dtype)
+    rows = table.shape[0]
+    local = tokens.long() - split.index[0] * rows
+    own = (local >= 0) & (local < rows)
+    h = table[local.clamp(0, rows - 1)].to(dtype)
+    return split.sum(torch.where(own[..., None], h, torch.zeros((), dtype=dtype,
+                                                                 device=h.device)))
 
 
 def write_positions(buf: torch.Tensor, fresh: torch.Tensor, cache_index: int, dim: int,
@@ -392,7 +469,7 @@ def gqa_attention(
     use_rope: bool = True,
     cache_mode: str = "inplace",      # 'inplace' | 'append_slice' | 'fresh_only'
     use_pallas: bool = False,         # the flash kernel (full-sequence path only)
-    split: ServeSplit | None = None,  # serving on a mesh: where the cache shard lies
+    split: ServeSplit | TPSplit | None = None,  # on a mesh: the cache's or the step's split
 ):
     """GQA attention with optional sliding window and KV cache.
 
@@ -406,8 +483,16 @@ def gqa_attention(
     path. Returns (output [B, S, D], updated cache or fresh slices or None).
 
     With a ``split`` whose ``kv`` is set, ``kv_cache`` is this rank's shard
-    and never leaves it (:func:`_split_attention`).
+    and never leaves it (:func:`_split_attention`). With a :class:`TPSplit`
+    (training on a mesh, no cache) the weights are this rank's model shards
+    and the heads or the queries are split (:func:`_tp_attention`).
     """
+    if isinstance(split, TPSplit):
+        if kv_cache is not None:
+            raise ValueError("a training split attends without a cache")
+        return _tp_attention(p, x, positions, n_heads=n_heads, n_kv=n_kv, d_head=d_head,
+                             rope_theta=rope_theta, window=window, use_rope=use_rope,
+                             use_pallas=use_pallas, split=split), None
     if split is not None and split.kv is not None and kv_cache is not None:
         return _split_attention(
             p, x, positions, n_heads=n_heads, n_kv=n_kv, d_head=d_head,
@@ -583,6 +668,50 @@ def _seq_attend(q, k, v, positions, window, kv_cache, cache_index, cache_mode,
     return _merge_partials(m, denom, acc, split, q.dtype), new_cache
 
 
+def _tp_attention(p, x, positions, *, n_heads, n_kv, d_head, rope_theta, window, use_rope,
+                  use_pallas, split: TPSplit) -> torch.Tensor:
+    """:func:`gqa_attention` without a cache under a training split, ``p``
+    this rank's shards (q, k, v by columns, o by rows).
+
+    * ``heads``: the rank's columns are its own KV heads and their query
+      heads; it attends with them as one device would, and the output
+      product's partial sums are summed over the axis.
+    * ``seq``: q, k and v are gathered whole over the axis (the columns
+      may split a head); the rank keeps its own ``S / n`` query positions
+      and attends over every key; the output is gathered along the
+      sequence and multiplied by the rank's rows of o, then summed.
+    """
+    b, s, _ = x.shape
+    x = split.enter(x)
+    if split.attn == "heads":
+        h_loc = split.local(n_heads, "query heads")
+        kv_loc = split.local(n_kv, "KV heads")
+        q = dense(p["q"], x).reshape(b, s, h_loc, d_head)
+        k = dense(p["k"], x).reshape(b, s, kv_loc, d_head)
+        v = dense(p["v"], x).reshape(b, s, kv_loc, d_head)
+        if use_rope:
+            q = rope(q, positions, rope_theta)
+            k = rope(k, positions, rope_theta)
+        out, _ = _attend(q, k, v, positions, window, None, None, "inplace", use_pallas)
+        return split.sum(dense(p["o"], out.reshape(b, s, h_loc * d_head)))
+    r = split.index[0]
+    s_loc = split.local(s, "sequence positions")
+    q = split.gather(dense(p["q"], x), -1).reshape(b, s, n_heads, d_head)
+    k = split.enter(split.gather(dense(p["k"], x), -1)).reshape(b, s, n_kv, d_head)
+    v = split.enter(split.gather(dense(p["v"], x), -1)).reshape(b, s, n_kv, d_head)
+    q = split.own(q, 1)
+    q_pos = positions[:, r * s_loc:(r + 1) * s_loc]
+    if use_rope:
+        q = rope(q, q_pos, rope_theta)
+        k = rope(k, positions, rope_theta)
+    if s_loc >= FLASH_THRESHOLD:
+        out = _streaming_attention(q, k, v, q_pos, positions, s, window)
+    else:
+        out = attention_scores(q, k, v, causal_window_mask(q_pos, positions, None, window))
+    out = split.gather(out.reshape(b, s_loc, n_heads * d_head), 1)
+    return split.sum(dense(p["o"], split.own(out, -1)))
+
+
 def attention_init(
     d_model: int, n_heads: int, n_kv: int, d_head: int, *,
     generator: torch.Generator | None, bias: bool = False, dtype=torch.float32,
@@ -614,8 +743,13 @@ def swiglu_init(d_model: int, d_ff: int, *, generator: torch.Generator | None,
     })
 
 
-def swiglu(p: nn.ModuleDict, x: torch.Tensor) -> torch.Tensor:
-    return dense(p["down"], F.silu(dense(p["gate"], x)) * dense(p["up"], x))
+def swiglu(p: nn.ModuleDict, x: torch.Tensor, split: TPSplit | None = None) -> torch.Tensor:
+    """``down(silu(gate(x)) * up(x))``; under ``split`` gate and up are this
+    rank's columns and down its rows, the partial products summed."""
+    if split is not None:
+        x = split.enter(x)
+    y = dense(p["down"], F.silu(dense(p["gate"], x)) * dense(p["up"], x))
+    return y if split is None else split.sum(y)
 
 
 # ---------------------------------------------------------------------------
@@ -645,11 +779,28 @@ def _chunk_nll(unembed_fn, h_i: torch.Tensor, y_i: torch.Tensor) -> torch.Tensor
     return (logz - gold).sum()
 
 
+def _chunk_nll_split(unembed_fn, h_i: torch.Tensor, y_i: torch.Tensor, *,
+                     split: TPSplit) -> torch.Tensor:
+    """:func:`_chunk_nll` over the vocab split: ``unembed_fn`` gives this
+    rank's vocab columns. The max goes over the axis without a gradient;
+    the sum of exponentials and the gold logit are summed over it."""
+    logits = unembed_fn(split.enter(h_i)).float()      # [B, c, V / n]
+    cols = logits.shape[-1]
+    m = split.max(logits.amax(dim=-1))
+    sumexp = split.sum(torch.exp(logits - m[..., None]).sum(dim=-1))
+    local = y_i.long() - split.index[0] * cols
+    own = (local >= 0) & (local < cols)
+    gold = torch.gather(logits, -1, local.clamp(0, cols - 1)[..., None])[..., 0]
+    gold = split.sum(torch.where(own, gold, torch.zeros((), device=gold.device)))
+    return (m + torch.log(sumexp) - gold).sum()
+
+
 def chunked_cross_entropy(
     unembed_fn,
     h: torch.Tensor,        # [B, S, D] final hidden states
     labels: torch.Tensor,   # [B, S]
     chunk: int = 1024,
+    split: TPSplit | None = None,
 ) -> torch.Tensor:
     """CE without ever materialising the full ``[B, S, V]`` logits.
 
@@ -659,19 +810,23 @@ def chunked_cross_entropy(
     checkpoint: only its hidden states are kept, and the backward recomputes
     its ``[B, chunk, V]`` logits, so one chunk's logits exist at a time in
     the backward too (the unembedding weight's gradient accumulates over the
-    chunks)."""
+    chunks). Under ``split`` ``unembed_fn`` gives this rank's vocab
+    columns and the log-softmax reduces over the axis
+    (:func:`_chunk_nll_split`): the whole ``[B, S, V]`` logits exist on no
+    rank, and the backward recomputes a chunk's collectives with it."""
     b, s, _ = h.shape
     if s % chunk != 0:
         chunk = s
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     remat = torch.is_grad_enabled()
+    nll_fn = _chunk_nll if split is None else functools.partial(_chunk_nll_split, split=split)
     for c0 in range(0, s, chunk):
         h_i, y_i = h[:, c0:c0 + chunk], labels[:, c0:c0 + chunk]
         if remat:
-            nll = torch.utils.checkpoint.checkpoint(_chunk_nll, unembed_fn, h_i, y_i,
+            nll = torch.utils.checkpoint.checkpoint(nll_fn, unembed_fn, h_i, y_i,
                                                     use_reentrant=False)
         else:
-            nll = _chunk_nll(unembed_fn, h_i, y_i)
+            nll = nll_fn(unembed_fn, h_i, y_i)
         total = total + nll
     return total / (b * s)
 

@@ -8,9 +8,25 @@ passes through). Tokens are gathered into per-expert buffers
 ``[B, E, cap, D]``, so the expert products cost the active FLOPs only; they
 are batched products over the experts (``torch.einsum``), as the reference
 computes them outside any Pallas kernel. ``moe_pspecs`` is the JAX spec
-tree as tuples: ``"ep"`` shards the experts' storage over the model axis,
-``"tp"`` their hidden width; on a mesh the trainer gathers the experts
-before it computes (no all-to-all dispatch).
+tree as tuples: ``"ep"`` shards the experts over the model axis, ``"tp"``
+their hidden width.
+
+**Under a training split** (:class:`~repro_torch.models.layers.TPSplit`)
+the experts are computed where they are stored. The router is replicated,
+so routing, the capacity dispatch's slots and the aux loss run whole on
+every rank (the aux loss is not summed). With ``"ep"`` a rank fills, runs
+and combines the buffers of its own ``E / n`` experts alone; with ``"tp"``
+every expert runs on the rank's ``d_ff / n`` columns of ``gate_w`` /
+``up_w`` and rows of ``down_w``. Either way the combine is linear in the
+buffers, so the ranks' combined outputs are summed once over the axis
+(``"partial_sum"``). No token crosses the axis: there is no all-to-all.
+With ``"ep"`` and ``top_k`` <= 2 the routed output is bitwise the one-device
+layer's: a token's at most two terms lie on one rank or on two, the other
+ranks add exact zeros, and two terms added in f32 and rounded once give
+what the one-device sum over ``k`` gives (an f32 accumulation); the
+expert products themselves are the same per-expert products. A shared
+expert is split as :func:`~repro_torch.models.layers.swiglu` is (a
+row-split sum), which is not bitwise.
 """
 
 from __future__ import annotations
@@ -146,9 +162,11 @@ def combine(ye: torch.Tensor, flat_e: torch.Tensor, slot: torch.Tensor,
     return (gathered * weights[..., None]).reshape(bsz, s, k, d).sum(dim=2)
 
 
-def moe_apply(p: MoEParams, x: torch.Tensor, cfg: MoEConfig):
+def moe_apply(p: MoEParams, x: torch.Tensor, cfg: MoEConfig,
+              split: layers.TPSplit | None = None):
     """Returns (output ``[B, S, D]``, the load-balance aux loss
-    ``E * sum_e f_e P_e`` over all tokens, f32)."""
+    ``E * sum_e f_e P_e`` over all tokens, f32). Under ``split`` the
+    experts' weights are this rank's shards (the module's docstring)."""
     s = x.shape[1]
     e, k = cfg.n_experts, cfg.top_k
     cap = int(max(1, -(-s * k * cfg.capacity_factor // e)))   # ceil, per sequence
@@ -159,11 +177,34 @@ def moe_apply(p: MoEParams, x: torch.Tensor, cfg: MoEConfig):
     aux = e * torch.sum(me * ce)
 
     flat_e, slot, keep = dispatch_slots(expert_idx, cap, e)
-    ye = expert_ffn(p, dispatch(x, flat_e, slot, cap, e, k))
-    combined = combine(ye, flat_e, slot, gate_vals, keep)
+    if split is None:
+        ye = expert_ffn(p, dispatch(x, flat_e, slot, cap, e, k))
+        combined = combine(ye, flat_e, slot, gate_vals, keep)
+    else:
+        combined = _split_experts(p, x, gate_vals, flat_e, slot, keep, cap, cfg, split)
     if cfg.shared_expert:
-        combined = combined + layers.swiglu(p.shared, x)
+        combined = combined + layers.swiglu(p.shared, x, split)
     return combined, aux.float()
+
+
+def _split_experts(p: MoEParams, x, gate_vals, flat_e, slot, keep, cap: int, cfg: MoEConfig,
+                   split: layers.TPSplit) -> torch.Tensor:
+    """The routed experts' combined output under ``split``: this rank's
+    share (its experts, or every expert's slice of ``d_ff``), summed over
+    the axis."""
+    e, k = cfg.n_experts, cfg.top_k
+    xs, gv = split.enter(x), split.enter(gate_vals)
+    if cfg.expert_sharding == "ep":
+        e_loc = split.local(e, "experts")
+        e0 = split.index[0] * e_loc
+        own = (flat_e >= e0) & (flat_e < e0 + e_loc)
+        flat_e = torch.where(own, flat_e - e0, 0)
+        slot = torch.where(own, slot, cap)   # another rank's entry: the overflow slot
+        keep, e = keep & own, e_loc
+    else:
+        split.local(cfg.d_ff, "expert d_ff columns")
+    ye = expert_ffn(p, dispatch(xs, flat_e, slot, cap, e, k))
+    return split.sum(combine(ye, flat_e, slot, gv, keep))
 
 
 def moe_pspecs(cfg: MoEConfig, fsdp: str | None, tp: str) -> dict:

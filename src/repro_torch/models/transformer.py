@@ -21,6 +21,13 @@ the parameters (or anything keyed by their names, such as optimizer
 moments) to the JAX tree and back, so checkpoints of training state cross
 between the packages. ``param_pspecs`` / ``cache_pspecs`` are the JAX spec
 trees as tuples; the trainer on a mesh shards its state by them.
+
+Under a training split (``split``, a :class:`~repro_torch.models.layers.TPSplit`)
+``params`` holds this rank's model shards: ``hidden`` embeds by vocab rows,
+each sub-layer's attention, MLP or MoE splits its products over the model
+axis (each split sub-block enters the split region once), and ``unembed``
+gives this rank's vocab columns. Remat recomputes a layer's collectives
+in the backward, alike on every rank.
 """
 
 from __future__ import annotations
@@ -249,7 +256,8 @@ class Transformer(jax_layout.Stacked):
     def _layer(self, sub, h, positions, theta, window, kv=None, cache_index=None,
                cache_mode="inplace", split=None):
         """One sub-layer of the JAX group body: (h, its MoE aux loss or None
-        for a dense sub-layer, its K/V)."""
+        for a dense sub-layer, its K/V). ``split``: serving's cache split
+        or the training step's compute split."""
         cfg = self.cfg
         attn_out, kv_i = layers.gqa_attention(
             sub["attn"], self._norm(sub, "ln1", h), positions,
@@ -259,10 +267,11 @@ class Transformer(jax_layout.Stacked):
             use_pallas=cfg.use_pallas_attention, split=split)
         h = h + attn_out
         hn = self._norm(sub, "ln2", h)
+        tp = split if isinstance(split, layers.TPSplit) else None
         if "moe" in sub:
-            y, aux = moe_apply(sub["moe"], hn, cfg.moe)
+            y, aux = moe_apply(sub["moe"], hn, cfg.moe, tp)
         else:
-            y, aux = layers.swiglu(sub["ffn"], hn), None
+            y, aux = layers.swiglu(sub["ffn"], hn, tp), None
         return h + y, aux, kv_i
 
     def _layers(self, params, h, positions, *, cache=None, cache_index=None,
@@ -282,7 +291,7 @@ class Transformer(jax_layout.Stacked):
             if remat != "none":
                 h, aux_i = torch.utils.checkpoint.checkpoint(
                     lambda x, sub=sub, theta=theta, window=window:
-                        self._layer(sub, x, positions, theta, window)[:2],
+                        self._layer(sub, x, positions, theta, window, split=split)[:2],
                     h, use_reentrant=False, **_REMAT[remat])
                 aux = aux if aux_i is None else aux + aux_i
                 continue
@@ -298,30 +307,35 @@ class Transformer(jax_layout.Stacked):
 
     # --------------------------------------------------------------- forward
 
-    def _embed(self, params: TransformerParams, tokens: torch.Tensor) -> torch.Tensor:
-        h = params.embed[tokens].to(self.cfg.cdtype)
+    def _embed(self, params: TransformerParams, tokens: torch.Tensor,
+               split: layers.TPSplit | None = None) -> torch.Tensor:
+        h = layers.embed_lookup(params.embed, tokens, self.cfg.cdtype, split)
         if self.cfg.embed_scale:
             h = h * math.sqrt(self.cfg.d_model)
         return h
 
     def unembed(self, params: TransformerParams, h: torch.Tensor) -> torch.Tensor:
+        """The logits; this rank's vocab columns where ``params`` are its
+        model shards (the embedding's rows or the head's columns)."""
         if self.cfg.tie_embeddings:
             return h @ params.embed.T.to(h.dtype)
         return h @ params.lm_head.to(h.dtype)
 
     def hidden(self, params: TransformerParams, tokens: torch.Tensor, *,
                embeds_override: torch.Tensor | None = None,
-               positions: torch.Tensor | None = None):
+               positions: torch.Tensor | None = None,
+               split: layers.TPSplit | None = None):
         """Full-sequence forward up to the final norm. ``embeds_override``
         ``[B, S, D]`` replaces the token embeddings (the VLM's spliced
         input). Returns (h [B, S, D], MoE aux loss; 0 for dense layers)."""
         b, s = tokens.shape
-        h = self._embed(params, tokens)
         if embeds_override is not None:
             h = embeds_override.to(self.cfg.cdtype)
+        else:
+            h = self._embed(params, tokens, split)
         if positions is None:
             positions = torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
-        h, aux, _ = self._layers(params, h, positions)
+        h, aux, _ = self._layers(params, h, positions, split=split)
         return self._final_norm(params, h), aux
 
     def forward(self, params: TransformerParams, tokens: torch.Tensor, *,
@@ -438,8 +452,11 @@ class Transformer(jax_layout.Stacked):
         return {f"sub_{i}": {"k": spec, "v": spec} for i in range(self.cfg.group_size)}
 
     def _attn_pspecs(self):
-        """The JAX attention-activation pins ``(q_spec, kv_spec)``, or None.
-        Returned for parity: the port splits no attention over a mesh."""
+        """The JAX attention-activation pins ``(q_spec, kv_spec)``, or None:
+        head-parallel, or context-parallel (queries split by sequence, K
+        and V whole). The port's training split follows the same choice
+        (:class:`~repro_torch.models.layers.TPSplit`'s ``attn``); it takes
+        no pin, since a rank computes only its share."""
         cfg = self.cfg
         if cfg.act_batch_axes is None or cfg.attn_sharding is None:
             return None

@@ -20,16 +20,35 @@ place (the JAX step donates them) and returns them.
 **On a mesh** (a :class:`~repro_torch.core.mesh.ProcessMesh`) every leaf of
 the training state is held as this rank's shard, cut by its spec
 (:meth:`TrainArtifacts.shard`; :func:`shard_state` / :func:`gather_state`
-carry whole JAX-layout trees). A step all-gathers the whole parameters,
-runs the one-device forward and backward on this rank's slice of the batch
-(:func:`~repro_torch.data.pipeline.host_batch`), sums the gradients over the
-batch axes and cuts them back to the shard, and AdamW runs on the shards.
-The sum adds the ranks' gradients in f32 in row-major order
-(:func:`~repro_torch.core.comm.sum_in_order`) and the clip takes the whole
-tree's norm, so with one microbatch a rank the step is bitwise the
-one-device step with ``n_micro`` = the batch axes' extent. The compute is
-not split: the model axis shards storage only (no Megatron products), and
-the JAX activation pins (``attn_pspecs``) have nothing to pin.
+carry whole JAX-layout trees). A step runs the forward and backward on this
+rank's slice of the batch (:func:`~repro_torch.data.pipeline.host_batch`),
+sums the gradients over the batch axes, cuts them to the shard, and AdamW
+runs on the shards. The sum adds the ranks' gradients in f32 in row-major
+order (:func:`~repro_torch.core.comm.sum_in_order`) and the clip takes the
+whole tree's norm.
+
+What a rank gathers and computes depends on the family (:func:`tp_split`):
+
+* **the transformer-backbone families** (``dense``, ``moe`` and the
+  ``vlm``'s backbone and connector) split the compute over ``tp_axis`` as
+  the JAX package's specs split it under GSPMD
+  (:class:`~repro_torch.models.layers.TPSplit`): a leaf is gathered over
+  its spec's entries except ``tp_axis``, so a rank holds its model shard
+  whole and never a replica, and the loss runs under the split (Megatron
+  products, head- or context-parallel attention, the vocab-parallel
+  embedding and cross entropy, experts computed where they are stored).
+  The clip's norm sums the split leaves' squares over ``tp_axis`` and
+  counts each replicated leaf once. A row-split product sums partial
+  products, so the step is within the reference's tolerances of the
+  one-device step, not bitwise; the replicated leaves stay bitwise alike
+  across the model ranks;
+* **mamba2, zamba2 and whisper** (``ssm``, ``hybrid``, ``audio``) shard
+  storage only: their ``in_proj`` column split does not line up with
+  heads, so a step gathers the whole parameters and runs the one-device
+  forward and backward;
+* with a model extent of 1 either way is the same: with one microbatch a
+  rank the step is bitwise the one-device step with ``n_micro`` = the
+  batch axes' extent.
 
 ``make_serve_artifacts`` gives the prefill and decode callables, with the
 reference's layout choices, spec trees and meta shapes. **Serving on a
@@ -56,6 +75,7 @@ reorders the softmax sums. On a :class:`~repro_torch.core.mesh.MeshLayout`
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable
 
 import numpy as np
@@ -69,8 +89,12 @@ from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update, globa
 from repro_torch.optim.hierarchical import Hierarchical, HierarchicalConfig
 from repro_torch.optim.tree import map_named, named_leaves
 
-__all__ = ["TrainArtifacts", "make_train_artifacts", "shard_state", "gather_state",
-           "ServeArtifacts", "make_serve_artifacts"]
+__all__ = ["TrainArtifacts", "make_train_artifacts", "tp_split", "SPLIT_FAMILIES",
+           "shard_state", "gather_state", "ServeArtifacts", "make_serve_artifacts"]
+
+# The families whose training step splits its compute over the model axis
+# (the transformer backbones); the others shard storage only.
+SPLIT_FAMILIES = ("dense", "moe", "vlm")
 
 
 def _gather_leaf(x, spec: tuple, mesh):
@@ -101,6 +125,74 @@ def kv_heads(bundle: Bundle) -> int | None:
     if n_kv is None and bundle.family == "audio":
         n_kv = cfg.n_heads
     return n_kv
+
+
+def tp_split(bundle: Bundle, mesh, tp_axis: str = "model") -> layers.TPSplit | None:
+    """The compute split of ``bundle``'s training step over ``tp_axis`` of
+    ``mesh``: None without a mesh, with an extent of 1, or for a family
+    outside :data:`SPLIT_FAMILIES`. The attention split is
+    ``cfg.attn_sharding`` where set, else ``"heads"`` where the extent
+    divides the KV heads and ``"seq"`` where it does not (the JAX dry run's
+    rule, on the mesh's own extent). An extent that does not divide the
+    heads, a product's columns, ``d_ff``, the experts or the vocab raises
+    ``ValueError`` naming it (the sequence is checked at each call)."""
+    if mesh is None or bundle.family not in SPLIT_FAMILIES:
+        return None
+    if mesh.shape.get(tp_axis, 1) == 1:
+        return None
+    cfg = getattr(bundle.cfg, "backbone", bundle.cfg)
+    n = mesh.shape[tp_axis]
+    attn = cfg.attn_sharding or ("heads" if cfg.n_kv % n == 0 else "seq")
+    split = layers.TPSplit(mesh, tp_axis, attn)
+    if attn == "heads":
+        split.local(cfg.n_kv, "KV heads")
+    split.local(cfg.n_heads * cfg.d_head, "query columns")
+    split.local(cfg.n_kv * cfg.d_head, "KV columns")
+    split.local(cfg.vocab, "vocab rows")
+    if cfg.moe is None or cfg.group_size > 1:
+        split.local(cfg.d_ff, "d_ff columns")
+    if cfg.moe is not None:
+        if cfg.moe.expert_sharding == "ep":
+            split.local(cfg.moe.n_experts, "experts")
+        if cfg.moe.expert_sharding != "ep" or cfg.moe.shared_expert:
+            split.local(cfg.moe.d_ff, "expert d_ff columns")
+    if bundle.family == "vlm":
+        split.local(cfg.d_model, "connector fc2 columns")
+    return split
+
+
+def _entry_axes(e) -> tuple:
+    return () if e is None else (e,) if isinstance(e, str) else tuple(e)
+
+
+def _without(spec: tuple, axis: str) -> tuple:
+    """``spec`` with ``axis``'s entries unsplit: what a rank gathers over."""
+    out = []
+    for e in spec:
+        names = _entry_axes(e)
+        if axis in names and len(names) > 1:
+            raise ValueError(f"spec entry {e} splits one dimension over {axis} and other axes")
+        out.append(None if axis in names else e)
+    return tuple(out)
+
+
+def _only(spec: tuple, axis: str) -> tuple:
+    """``spec`` with its ``axis`` entries alone: what stays split while a
+    rank computes."""
+    return tuple(e if axis in _entry_axes(e) else None for e in spec)
+
+
+def _split_norm(grads: dict, model_only: dict, mesh, axis: str) -> torch.Tensor:
+    """The whole tree's gradient norm from this rank's model shards: the
+    split leaves' sums of squares summed over ``axis`` (in rank order,
+    one collective), each replicated leaf counted once."""
+    sq = [torch.sum(torch.square(g.float())) for g in grads.values()]
+    split_ix = [i for i, n in enumerate(grads) if any(e is not None for e in model_only[n])]
+    if split_ix:
+        summed = comm.sum_in_order(torch.stack([sq[i] for i in split_ix]), mesh, axis)
+        for j, i in enumerate(split_ix):
+            sq[i] = summed[j]
+    return torch.sqrt(torch.sum(torch.stack(sq)))
 
 
 def _tree_map(fn, tree, specs):
@@ -158,6 +250,21 @@ class TrainArtifacts:
     hier: Hierarchical | None = None
     mesh: Any = None
     named_specs: dict = dataclasses.field(default_factory=dict)  # part -> {leaf name: spec}
+    split: Any = None             # layers.TPSplit of the step, or None
+    model_specs: dict = dataclasses.field(default_factory=dict)  # leaf name -> tp entries
+
+    def computed_bytes(self, params: Any) -> int:
+        """Bytes of ``params`` (a whole parameter module, one pod's) as a
+        step gathers them on this rank: the model shards under a split,
+        else the whole."""
+        total = 0
+        for n, x in named_leaves(params).items():
+            numel = x.numel()
+            for e in self.model_specs.get(n, ()):
+                if e is not None:
+                    numel //= self.mesh.extent(e)
+            total += numel * x.element_size()
+        return total
 
     def batch_sds(self, bundle: Bundle, shape: ShapeSpec, mesh=None) -> dict:
         """Meta tensors of a global batch of ``shape``, with the pod axis
@@ -223,11 +330,21 @@ def make_train_artifacts(
     (the loss is their mean). ``n_pods`` replicas for ``hier_cfg`` without
     a mesh; on one the pod axis's extent. On a mesh ``batch_axes`` are the
     axes a batch is split over (the pod's own in hierarchical mode, which
-    must not name the pod axis)."""
+    must not name the pod axis).
+
+    On a mesh the families split differently (the module's docstring):
+    ``dense``, ``moe`` and ``vlm`` compute only this rank's share over
+    ``tp_axis`` (:func:`tp_split`, held in :attr:`TrainArtifacts.split`);
+    ``ssm``, ``hybrid`` and ``audio`` (mamba2, zamba2, whisper) gather
+    every leaf whole and compute the one-device step on the rank's batch
+    slice. That is a rule by family, not a fallback: a split family whose
+    extent does not divide its heads, columns, experts or vocab raises."""
     opt_cfg = opt_cfg or AdamWConfig(moment_dtype=bundle.moment_dtype)
     model = bundle.model
     p_specs = model.param_pspecs(fsdp=fsdp_axis, tp=tp_axis)
     probe = bundle.input_specs(ShapeSpec("probe", "train", 8, 8))
+    split = tp_split(bundle, mesh, tp_axis)
+    loss_fn = bundle.loss if split is None else functools.partial(bundle.loss, split=split)
 
     def grads_of(params, batch):
         named = named_leaves(params)
@@ -237,7 +354,7 @@ def make_train_artifacts(
             raise ValueError(f"training needs trainable parameters (params.requires_grad_()); "
                              f"{len(frozen)} are frozen, e.g. {frozen[0]}")
         if n_micro == 1:
-            loss = bundle.loss(params, batch)
+            loss = loss_fn(params, batch)
             grads = torch.autograd.grad(loss, leaves)
             return loss.detach(), dict(zip(named, grads))
         loss_sum = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
@@ -245,7 +362,7 @@ def make_train_artifacts(
         for i in range(n_micro):
             mb = {k: v.reshape((n_micro, v.shape[0] // n_micro) + tuple(v.shape[1:]))[i]
                   for k, v in batch.items()}
-            loss = bundle.loss(params, mb)
+            loss = loss_fn(params, mb)
             g = torch.autograd.grad(loss, leaves)
             torch._foreach_add_(g_sum, [x.float() for x in g])
             del g
@@ -260,10 +377,14 @@ def make_train_artifacts(
         return params, opt_state, {"loss": loss, **metrics}
 
     named_p = model.named_pspecs(p_specs) if mesh is not None else {}
+    # what a rank gathers each leaf over, and what stays split as it computes
+    gather_p = {n: _without(s, tp_axis) for n, s in named_p.items()} if split else named_p
+    model_only = {n: _only(s, tp_axis) for n, s in named_p.items()} if split else {}
 
     def mesh_step(params, opt_state, batch):
-        """``base_step`` on this rank's shards and batch slice."""
-        full = _gather_params(params, named_p, mesh, True)
+        """``base_step`` on this rank's shards and batch slice: its model
+        shards under a split, else the whole parameters."""
+        full = _gather_params(params, gather_p, mesh, True)
         loss, grads = grads_of(full, batch)
         del full
         d = mesh.extent(batch_axes)
@@ -272,8 +393,9 @@ def make_train_artifacts(
             grads = {n: comm.sum_in_order(g, mesh, batch_axes) for n, g in grads.items()}
             torch._foreach_mul_(list(grads.values()), 1.0 / d)
             loss = comm.sum_in_order(loss, mesh, batch_axes) * (1.0 / d)
-        gnorm = global_norm(grads)
-        grads = {n: mesh.shard(g, named_p[n], n) for n, g in grads.items()}
+        gnorm = (global_norm(grads) if split is None
+                 else _split_norm(grads, model_only, mesh, tp_axis))
+        grads = {n: mesh.shard(g, gather_p[n], n) for n, g in grads.items()}
         params, opt_state, metrics = adamw_update(grads, opt_state, params, opt_cfg,
                                                   grad_norm=gnorm)
         return params, opt_state, {"loss": loss, **metrics}
@@ -287,7 +409,7 @@ def make_train_artifacts(
         return TrainArtifacts(
             step_fn=step, sync_fn=None, params_sds=params_sds, opt_sds=opt_sds,
             batch_specs=b_specs, params_specs=p_specs, opt_specs=o_specs, mesh=mesh,
-            named_specs=_named_specs(named_p, P()))
+            named_specs=_named_specs(named_p, P()), split=split, model_specs=model_only)
 
     pod = hier_cfg.pod_axis
     if mesh is not None:
@@ -314,7 +436,7 @@ def make_train_artifacts(
                      for k, v in probe.items()},
         params_specs=pp_specs, opt_specs={"m": pp_specs, "v": pp_specs, "count": P(pod)},
         sync_sds=hier.init_sync_state(params_sds), sync_specs=sync_specs, hier=hier,
-        mesh=mesh, named_specs=named)
+        mesh=mesh, named_specs=named, split=split, model_specs=model_only)
 
 
 def _named_specs(params: dict, count: tuple) -> dict:

@@ -11,11 +11,15 @@ what comm counts in gloo CPU worlds.
   subprocess, with its artifact functions replaced by recorders.
 * ``price_lm`` on a ``MeshLayout`` (meta tensors, no process group) prices
   what a rank of a gloo world of the same shape counts in ``comm``, call
-  by call, exactly: a sync training step on (data, model) = (2, 2), a
-  hierarchical int8 step and its sync step on (pod, data, model) =
-  (2, 1, 2), and a prefill and a decode call on the two serving meshes,
-  (2, 2) (KV heads over ``model``) and (1, 4) (the sequence over
-  ``model``), reduced qwen2, and reduced grok-1 (MoE) on (2, 2).
+  by call, exactly: a sync training step on (data, model) = (2, 2)
+  (head-parallel attention; reduced qwen2 and grok-1, its experts split
+  over ``model``) and on (1, 4) (qwen2's 2 KV heads do not divide 4:
+  context-parallel), a hierarchical int8 step and its sync step on (pod,
+  data, model) = (2, 1, 2), each step's split collectives forward and
+  backward, remat's recomputed ones included, and a prefill and a decode
+  call on the two serving meshes, (2, 2) (KV heads over ``model``) and
+  (1, 4) (the sequence over ``model``), reduced qwen2, and reduced grok-1
+  (MoE) on (2, 2).
 * The CLI prices ``--arch qwen2-0.5b --shape all --mesh both`` on the CPU
   and exits 0: every row OK or SKIP, with the reference's FLOPs.
 """
@@ -44,6 +48,8 @@ from test_torch_comm import ROOT, run_world
 
 ARCHS = list_archs()
 SEQ = 16
+# remat as the published configs take it, so the recomputed collectives count
+REMAT = {"qwen2-0.5b": {"remat": "dots"}, "grok-1-314b": {"remat": "full"}}
 SERVE = {"heads": ShapeSpec("serve", "decode", 32, 4), "seq": ShapeSpec("serve", "decode", 64, 1)}
 PROMPT = 20
 
@@ -170,7 +176,7 @@ def test_the_cli_refuses_an_unknown_shape(capsys):
 def _train_calls(mesh, arch, hier: bool):
     """A training step (and, hierarchical, its sync step) on this rank:
     what comm counted in each, as the dry run tabulates it."""
-    bundle = get_arch(arch, reduced=True)
+    bundle = get_arch(arch, reduced=True, **REMAT.get(arch, {}))
     pod = "pod" if hier else None
     art = make_train_artifacts(bundle, mesh=mesh, batch_axes=("data",),
                                hier_cfg=HierarchicalConfig(sync_every=2, compression="int8")
@@ -214,12 +220,14 @@ def _serve_calls(mesh, arch, shape):
 
 def data_model_rank(mesh, payload):
     return {"train": _train_calls(mesh, "qwen2-0.5b", False),
+            "train_moe": _train_calls(mesh, "grok-1-314b", False),
             "serve": _serve_calls(mesh, "qwen2-0.5b", SERVE["heads"]),
             "serve_moe": _serve_calls(mesh, "grok-1-314b", SERVE["heads"])}
 
 
 def seq_rank(mesh, payload):
-    return {"serve": _serve_calls(mesh, "qwen2-0.5b", SERVE["seq"])}
+    return {"train": _train_calls(mesh, "qwen2-0.5b", False),
+            "serve": _serve_calls(mesh, "qwen2-0.5b", SERVE["seq"])}
 
 
 def pod_rank(mesh, payload):
@@ -227,7 +235,8 @@ def pod_rank(mesh, payload):
 
 
 def _price_train(arch, layout, hier):
-    return dryrun.price_lm(get_arch(arch, reduced=True), ShapeSpec("t", "train", SEQ, 1),
+    return dryrun.price_lm(get_arch(arch, reduced=True, **REMAT.get(arch, {})),
+                           ShapeSpec("t", "train", SEQ, 1),
                            layout, hier_cfg=HierarchicalConfig(sync_every=2, compression="int8")
                            if hier else None, count_flops=False)
 
@@ -249,9 +258,18 @@ def test_priced_collectives_equal_the_counted_ones(tmp_path, world):
     ranks = run_world(tmp_path, shape, names, f"test_torch_dryrun_lm:{world}_rank")
     for r, got in enumerate(ranks):
         layout = MeshLayout(shape, names, r)
-        if "train" in got:
-            priced = _price_train("qwen2-0.5b", layout, world == "pod")
-            assert priced["collectives"] == got["train"]["step"], (world, r)
+        for key, arch in (("train", "qwen2-0.5b"), ("train_moe", "grok-1-314b")):
+            if key not in got:
+                continue
+            priced = _price_train(arch, layout, world == "pod")
+            assert priced["collectives"] == got[key]["step"], (world, r, key)
+            kinds = {k.split()[0] for k in got[key]["step"]}
+            split = {"split_grad_sum", "partial_sum", "split_max"}
+            if world == "seq":  # context-parallel attention
+                split |= {"split_gather", "slice_grad_gather"}
+            assert split <= kinds, (world, key, kinds)
+            assert not any("model" in k.split()[1] for k in got[key]["step"]
+                           if k.split()[0] == "all_gather"), (world, key)  # no model gather
             if world == "pod":
                 assert priced["sync_step"]["collectives"] == got["train"]["sync"], r
                 assert set(got["train"]["sync"]) == {"all_gather pod",

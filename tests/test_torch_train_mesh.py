@@ -1,25 +1,27 @@
 """The trainer on a mesh of gloo CPU processes against the port's one-device
 trainer, and the sync trainer against JAX on forced host devices.
 
-Reduced qwen2-0.5b and reduced grok-1 (MoE, experts stored ``"ep"``: split
-over ``model``), weights drawn by the port from seed 0, batches from
-``SyntheticLM`` (global batch 4, S 16), AdamW lr 1e-3:
+Reduced qwen2-0.5b and reduced grok-1 (MoE), weights drawn by the port
+from seed 0, batches from ``SyntheticLM`` (global batch 4, S 16), AdamW
+lr 1e-3. Both worlds have a model extent of 1, where the split of the
+compute over ``model`` is the identity, so the bar is bitwise; with a model
+extent above 1 a row-split product sums partial products over the ranks
+and the split trainers are held to ``tests/test_torch_train.py``'s bars
+instead (``tests/test_torch_tp.py``):
 
-* a ``(pod, data, model)`` = (2, 2, 2) world runs the hierarchical trainer
-  (FSDP over ``data``, TP storage over ``model``), int8 on both models and
-  uncompressed on qwen2: 4 local steps, a sync, 1 more step. Every rank's
-  gathered parameters, moments, counts, anchor and residuals, and its
-  losses, are bitwise the one-device trainer's
-  at ``n_micro`` 2 (one microbatch a rank, summed in the same order); the
-  bytes over ``pod`` equal the accounting;
-* a ``(data, model)`` = (2, 2) world runs the sync trainer for 2 steps,
+* a ``(pod, data, model)`` = (2, 2, 1) world runs the hierarchical trainer
+  (FSDP over ``data``), int8 on both models and uncompressed on qwen2: 4
+  local steps, a sync, 1 more step. Every rank's gathered parameters,
+  moments, counts, anchor and residuals, and its losses, are bitwise the
+  one-device trainer's at ``n_micro`` 2 (one microbatch a rank, summed in
+  the same order); the bytes over ``pod`` equal the accounting;
+* a ``(data, model)`` = (2, 1) world runs the sync trainer for 2 steps,
   bitwise the one-device trainer at ``n_micro`` 2; qwen2's parameters are
-  also held against JAX's ``make_train_artifacts(mesh=...)`` on 4 forced
-  host devices within ``tests/test_torch_train.py``'s bars (losses 1e-4
-  relative; per element ``2 * lr * steps``, 99% within 1e-5 of the largest
-  parameter). The JAX mesh is made with ``Auto`` axes, the default of the
-  JAX versions the package was written for. The hierarchical trainer and
-  MoE expert parallelism have no JAX mesh oracle: their JAX tests fail.
+  also held against JAX's ``make_train_artifacts(mesh=...)`` on a (2, 2)
+  mesh of 4 forced host devices within ``tests/test_torch_train.py``'s
+  bars (losses 1e-4 relative; per element ``2 * lr * steps``, 99% within
+  1e-5 of the largest parameter). The JAX mesh is made with ``Auto`` axes,
+  the default of the JAX versions the package was written for.
 
 Each world also checks ``host_batch`` (the ranks' slices, concatenated,
 are the global batch in order), ``shard_state`` -> ``gather_state``
@@ -101,7 +103,7 @@ def _data(bundle):
 
 
 def hier_rank(mesh, payload):
-    """One rank of the (2, 2, 2) world."""
+    """One rank of the (2, 2, 1) world."""
     out = {"coords": mesh.coords}
     for arch, compression in HIER_CASES:
         bundle = get_arch(arch, reduced=True)
@@ -136,7 +138,7 @@ def _trees(bundle):
 
 
 def sync_rank(mesh, payload):
-    """One rank of the (2, 2) world."""
+    """One rank of the (2, 1) world."""
     out = {"coords": mesh.coords}
     for arch in ARCHS:
         bundle = get_arch(arch, reduced=True)
@@ -189,7 +191,7 @@ def _ref_sync(arch):
 
 
 def test_hierarchical_trainer_on_a_pod_data_model_world_is_bitwise_one_device(tmp_path):
-    ranks = run_world(tmp_path, (2, 2, 2), ("pod", "data", "model"),
+    ranks = run_world(tmp_path, (2, 2, 1), ("pod", "data", "model"),
                       "test_torch_train_mesh:hier_rank")
     for arch, compression in HIER_CASES:
         params, opt, sync, losses = _ref_hier(arch, compression)
@@ -274,7 +276,7 @@ def test_sync_trainer_on_a_data_model_world_is_bitwise_one_device_and_near_jax(t
     init, _ = _init(bundle)
     jax_run = _jax_sync(tmp_path, bundle.model.params_to_numpy(init))
     try:
-        ranks = run_world(tmp_path / "world", (2, 2), ("data", "model"),
+        ranks = run_world(tmp_path / "world", (2, 1), ("data", "model"),
                           "test_torch_train_mesh:sync_rank")
         out, _ = jax_run.communicate(timeout=300)
     finally:
@@ -313,7 +315,7 @@ def test_sync_trainer_on_a_data_model_world_is_bitwise_one_device_and_near_jax(t
     assert np.array_equal(np.concatenate(parts), full)
     tree, _ = _trees(bundle)
     for g in ranks:
-        assert g["shard_shape"] == (3, 2, 3)
+        assert g["shard_shape"] == (3, 2, 6)
         for back in g["roundtrip"]:
             assert all(_same(back_leaf, want) for back_leaf, want in zip(
                 _flat(back).values(), _flat(tree).values()))
