@@ -310,17 +310,27 @@ card from seed 0, f32 products in f32):
     replica's, what a step computes on, peak GB, ms per step and sync,
     bytes in per collective;
     then ``[lm-mesh]``: the same ranks serve (``make_serve_artifacts`` on
-    a mesh) qwen2-0.5b at 4 of 24 layers in f32 over its bf16 weights, a
-    bf16 cache of 32768, on (data, model) = (2, 2) (B 4, a 4096-token
-    prompt, the KV heads over ``model``) and (1, 4) (B 1, a 12288-token
-    prompt across the 8192-position shards, the sequence over ``model``),
-    8 decode steps each, against the one-device serving of each rank's
-    batch slice run here first: the prefill bitwise, every decode step
-    within 5e-4 of the largest logit; per rank the bytes held against one
-    replica's, peak GB, ms a prefill and a decode step, and the bytes in
-    per collective and call, each equal to the dry run's price
-    (``price_lm`` on a ``MeshLayout``, run here while the ranks serve); no
-    kernel launch;
+    a mesh) in f32 over bf16 weights with a bf16 cache, the transformer
+    families each computing only its share over ``model`` (no parameter
+    gathered over it): qwen2-0.5b at 4 of 24 layers, a cache of 32768, on
+    (data, model) = (2, 2) (B 4, a 4096-token prompt, the KV heads over
+    ``model``) and (1, 4) (B 1, a 12288-token prompt across the
+    8192-position shards, the sequence over ``model``), and grok-1 at its
+    published widths, 1 of 64 layers, on (1, 4) (B 2, a 4096-token prompt,
+    a cache of 8192, its 8 KV heads and its experts' d_ff over ``model``);
+    and whisper-medium at 2 + 4 of 24 + 24 layers on (2, 2) (B 4, a
+    256-token prompt, a cache of 448), a family outside the compute split:
+    its whole weights gathered over ``model``, its 16 KV heads split, the
+    head outputs gathered in every call; 8 decode steps each, against the
+    one-device serving of each rank's batch slice run here first: the
+    prefill within 1e-4 and every decode step within 5e-4 of the largest
+    logit, on the rows whose expert choices agree (a routing flip printed,
+    failing above a 1e-5 gate margin, and a call with no row left
+    failing); per rank the bytes
+    held against one replica's, the parameter bytes a call computes on and
+    gathers, peak GB, ms a prefill and a decode step, and the bytes in per
+    collective and call, each equal to the dry run's price (``price_lm`` on
+    a ``MeshLayout``, run here while the ranks serve); no kernel launch;
 17. ``[families]`` the six other LM families at their published widths and
    dtypes (bf16), weights drawn on the card from seed 0, each freed before
    the next: llama4-maverick at 2 of its 48 layers (a dense and a
@@ -361,6 +371,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
@@ -3693,40 +3704,103 @@ MESH_BAR_BF16 = 2.0 ** -8  # the same in bf16 compute: one bf16 rounding
 # [lm-mesh]: the (j) ranks serve after they train: make_serve_artifacts on a
 # process mesh, each rank holding its parameter shards, its batch slice and
 # its cache shards, against the one-device serving of its batch slice run
-# here first. qwen2-0.5b at its published width cut to 4 of 24 layers,
-# computing in f32 over its bf16 weights (bf16 rounding of the logits alone
-# is above the 5e-4 bar), a bf16 cache of 32768 positions, FSDP off as the
-# dry run's policy has it below 1e9 parameters. mode: (mesh, names, B,
-# prompt); qwen2's 2 KV heads split over 2 ("heads") but not over 4
-# ("seq": shards of 8192 positions, the prompt crossing one).
+# here first. Compute in f32 over the bf16 weights (bf16 rounding of the
+# logits alone is above the 5e-4 bar), a bf16 cache, FSDP off (the dry
+# run's policy below 1e9 parameters; the data extent is 1 for grok).
+# Published widths, cut in depth only (ServeLeg.overrides).
+#
+# The transformer-backbone legs compute only their share over model (the
+# compute split: no parameter gathered over model). qwen2-0.5b, 4 of 24
+# layers: its 2 KV heads split over 2 ("heads") but not over 4 ("seq":
+# shards of 8192 positions, the prompt crossing one). grok-1, 1 of 64
+# layers: its 8 KV heads over 4 ("heads"), its experts' d_ff over 4 ("tp",
+# MESH_SPLIT["grok"]); a rank holds and computes on a quarter of its 6.5 G
+# parameters. Expert choices can flip under a reordered sum (PR 24's rule,
+# agreeing_rows): a call's logits are held on the rows whose choices agreed
+# at every call so far, a flip is printed and fails above a 1e-5 gate
+# margin, and a call with no row held fails; grok serves B 2, so that one
+# flipped row leaves a row to hold.
+#
+# whisper-medium, 2 of 24 encoder and 4 of 24 decoder layers, is a family
+# outside the compute split: a call gathers its whole weights over model
+# and only the cache splits (its 16 KV heads over 2), each rank attending
+# with its own heads (column slices of the whole weights) over its shard,
+# the head outputs gathered ("gather_heads") before the whole output
+# product. Its cache is the decoder's physical 448 positions.
+#
+# Every call is held to the reference's bars, prefill 1e-4 and decode 5e-4
+# of the largest logit: row-split products reorder sums, and column slices
+# of a whole weight may take another GEMM than the whole product does, so
+# neither is bitwise by design (the bitwise calls are printed).
+class ServeLeg(NamedTuple):
+    extents: tuple
+    names: tuple
+    arch: str
+    overrides: dict  # the config's depth, cut
+    b: int
+    prompt: int
+    cache: int
+    seed: int        # tokens and frontend inputs
+
+
 SERVE_MESHES = {
-    "heads": ((2, 2), ("data", "model"), 4, 4096),
-    "seq": ((1, 4), ("data", "model"), 1, 12288),
+    "heads": ServeLeg((2, 2), ("data", "model"), "qwen2-0.5b", {"n_layers": MESH_LAYERS},
+                      4, 4096, 32768, 2),
+    "seq": ServeLeg((1, 4), ("data", "model"), "qwen2-0.5b", {"n_layers": MESH_LAYERS},
+                    1, 12288, 32768, 3),
+    "grok": ServeLeg((1, 4), ("data", "model"), "grok-1-314b", {"n_layers": 1},
+                     2, 4096, 8192, 4),
+    "whisper": ServeLeg((2, 2), ("data", "model"), "whisper-medium",
+                        {"n_enc_layers": 2, "n_dec_layers": 4}, 4, 256, 448, 5),
 }
-SERVE_CACHE = 32768
 SERVE_STEPS = 8
-SERVE_BAR = 5e-4
+SERVE_BAR = 5e-4          # decode logits, of the largest (the reference's serving bar)
+SERVE_PREFILL_BAR = 1e-4  # prefill logits, of the largest (its forward bar)
 
 
-def _serve_bundle():
-    return _bundle("qwen2-0.5b", n_layers=MESH_LAYERS, compute_dtype="float32")
+def _serve_bundle(mode: str):
+    leg = SERVE_MESHES[mode]
+    return _family_bundle(leg.arch, **leg.overrides, compute_dtype="float32")
 
 
 def _serve_shapes(mode: str):
     """``mode``'s decode shape (the whole batch) and its prefill shape."""
     from repro_torch.configs.common import ShapeSpec
 
-    _, _, b, _ = SERVE_MESHES[mode]
-    return (ShapeSpec("serve", "decode", SERVE_CACHE, b),
-            ShapeSpec("serve", "prefill", SERVE_CACHE, b))
+    leg = SERVE_MESHES[mode]
+    return (ShapeSpec("serve", "decode", leg.cache, leg.b),
+            ShapeSpec("serve", "prefill", leg.cache, leg.b))
+
+
+def _serve_params(bundle, art, device, mesh):
+    """The weights from seed 0, drawn on the card, cut to this rank's
+    shards; a giant's ranks draw it whole in turn, so that one whole copy
+    is on the card at a time."""
+    import torch
+    import torch.distributed as dist
+
+    turns = MESH_RANKS if mesh is not None and bundle.arch_id == "grok-1-314b" else 1
+    params = None
+    for turn in range(turns):
+        if turns == 1 or turn == mesh.rank:
+            whole = bundle.model.init_params(torch.Generator(device=device).manual_seed(0))
+            params = art.shard(whole)
+            del whole
+            torch.cuda.empty_cache()
+        if turns > 1:
+            dist.barrier()
+    return params
 
 
 def _serve_run(mode: str, mesh=None, rows=None) -> dict:
     """[lm-mesh]'s prefill and ``SERVE_STEPS`` decode steps of ``mode`` on
     ``mesh`` (this rank's shards and batch slice) or on one device over the
     batch ``rows`` (the reference). Weights drawn on the card from seed 0,
-    tokens from seed 2 (``heads``) or 3 (``seq``). Returns the logits
-    (CPU), ms and comm's table of each call, and the bytes held."""
+    tokens and the stub frontends' inputs from ``mode``'s seed. Returns the
+    logits (CPU), ms and comm's table of each call, each call's MoE routing
+    (CPU), the bytes held and the parameter bytes a call computes on, the
+    split, and the peak GB while the weights were drawn and while the calls
+    ran."""
     import torch
 
     from repro_torch.core import comm
@@ -3734,42 +3808,57 @@ def _serve_run(mode: str, mesh=None, rows=None) -> dict:
     from repro_torch.optim.tree import named_leaves
     from repro_torch.train.steps import make_serve_artifacts
 
-    bundle = _serve_bundle()
+    leg = SERVE_MESHES[mode]
+    bundle = _serve_bundle(mode)
     shape, _ = _serve_shapes(mode)
-    _, _, b, prompt = SERVE_MESHES[mode]
-    toks = _tokens(bundle.cfg.vocab, b, prompt + SERVE_STEPS, seed=2 if mode == "heads" else 3)
+    toks = _tokens(bundle.cfg.vocab, leg.b, leg.prompt + SERVE_STEPS, seed=leg.seed)
+    gen = torch.Generator(device="cuda").manual_seed(leg.seed)
+    extra = {}
+    for name, make in bundle.extra_inputs.items():
+        spec = make(leg.b, leg.prompt)
+        extra[name] = torch.randn(spec.shape, generator=gen, device="cuda", dtype=spec.dtype)
     if mesh is None:
-        toks = toks[rows]
+        toks, extra = toks[rows], {k: v[rows] for k, v in extra.items()}
         shape = dataclasses.replace(shape, global_batch=toks.shape[0])
     art = make_serve_artifacts(bundle, shape, mesh, fsdp_axis=None)
     if mesh is not None:
         toks = mesh.shard(toks, art.token_spec, "tokens").contiguous()
-    device = toks.device
-    params = art.shard(bundle.model.init_params(torch.Generator(device=device).manual_seed(0)))
+        extra = {k: mesh.shard(v, (art.batch_axes,) + (None,) * (v.dim() - 1), k).contiguous()
+                 for k, v in extra.items()}
+    params = _serve_params(bundle, art, toks.device, mesh)
     torch.cuda.synchronize()
-    logits, ms, tables = [], [], []
+    draw_peak = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()  # from here: serving, the weights in place
+    logits, ms, tables, routes = [], [], [], []
     state = None
-    for call in range(1 + SERVE_STEPS):
-        comm.reset_stats()
-        t0 = time.perf_counter()
-        if call == 0:
-            out, state = art.prefill_fn(params, {"tokens": toks[:, :prompt]})
-        else:
-            i = prompt + call - 1
-            out, state = art.decode_fn(params, state, toks[:, i:i + 1], i)
-        torch.cuda.synchronize()
-        ms.append(1e3 * (time.perf_counter() - t0))
-        tables.append(dryrun._table())
-        logits.append(out.float().cpu())
+    with _RoutingTap() as tap:
+        for call in range(1 + SERVE_STEPS):
+            comm.reset_stats()
+            t0 = time.perf_counter()
+            if call == 0:
+                out, state = art.prefill_fn(params, {"tokens": toks[:, :leg.prompt], **extra})
+            else:
+                i = leg.prompt + call - 1
+                out, state = art.decode_fn(params, state, toks[:, i:i + 1], i)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            tables.append(dryrun._table())
+            logits.append(out.float().cpu())
+            routes.append(tap.take())
 
     def nbytes(tree):
         return sum(x.numel() * x.element_size() for x in named_leaves(tree).values())
 
-    held = nbytes(params) + nbytes(state) + toks.numel() * toks.element_size()
-    whole_toks = b * (prompt + SERVE_STEPS) * toks.element_size()
-    replica = nbytes(art.params_sds) + nbytes(art.state_sds) + whole_toks
-    return dict(logits=logits, ms=ms, tables=tables, held=held, replica=replica,
-                kv=None if art.split is None else art.split.kv)
+    held = nbytes(params) + nbytes(state) + nbytes(extra) + toks.numel() * toks.element_size()
+    whole_in = leg.b * (leg.prompt + SERVE_STEPS) * toks.element_size() + nbytes(
+        {k: make(leg.b, leg.prompt) for k, make in bundle.extra_inputs.items()})
+    replica = nbytes(art.params_sds) + nbytes(art.state_sds) + whole_in
+    split = art.split
+    return dict(logits=logits, ms=ms, tables=tables, routes=routes, held=held, replica=replica,
+                computed=art.computed_bytes(art.params_sds), draw_peak=draw_peak,
+                peak=torch.cuda.max_memory_allocated() / 1e9,
+                attn=None if split is None else split.attn,
+                kv=None if split is None else split.kv)
 
 
 def _serve_priced(mode: str) -> dict:
@@ -3779,65 +3868,106 @@ def _serve_priced(mode: str) -> dict:
     from repro_torch.core.mesh import MeshLayout
     from repro_torch.launch import dryrun
 
-    bundle = _serve_bundle()
+    leg = SERVE_MESHES[mode]
+    bundle = _serve_bundle(mode)
     decode, prefill = _serve_shapes(mode)
-    extents, names, _, prompt = SERVE_MESHES[mode]
     out = {}
     for r in range(MESH_RANKS):
-        layout = MeshLayout(extents, names, r)
+        layout = MeshLayout(leg.extents, leg.names, r)
         kw = dict(fsdp_axis=None, count_flops=False)
-        out[r] = (dryrun.price_lm(bundle, prefill, layout, prompt_len=prompt, **kw),
-                  dryrun.price_lm(bundle, decode, layout, cache_index=prompt, **kw))
+        out[r] = (dryrun.price_lm(bundle, prefill, layout, prompt_len=leg.prompt, **kw),
+                  dryrun.price_lm(bundle, decode, layout, cache_index=leg.prompt, **kw))
     return out
 
 
 def _serve_rank(rank: int, meshes: dict, ref) -> dict:
     """[lm-mesh] on this rank: each mode served on its mesh, held to the
     references (``ref(key)``: a reference's bytes on the card, its dtype
-    and shape). No kernel launch."""
+    and shape). No kernel launch; a compute split gathers no parameter
+    over model, a cache-only split gathers its head outputs
+    (``gather_heads``) in every call."""
     import torch
 
     from repro_torch.kernels import cuda
 
+    def ref_t(key):
+        raw, dtype, shape = ref(key)
+        return raw.view(dtype).reshape(shape).cpu()
+
     before = dict(cuda.launches)
     out = {}
     for mode, mesh in meshes.items():
+        torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         run = _serve_run(mode, mesh)
         wall = time.perf_counter() - t0
         d = mesh.axis_index("data")
-        errs, bitwise = [], []
+        agree, errs, bitwise, rows = None, [], [], []
         for call, got in enumerate(run["logits"]):
-            raw, dtype, shape = ref(f"serve/{mode}/{d}/{call}")
-            want = raw.view(dtype).reshape(shape).cpu()
-            bitwise.append(torch.equal(got, want))
-            errs.append(float((got - want).abs().max() / want.abs().max()))
+            key = f"serve/{mode}/{d}"
+            want_routes = [(ref_t(f"{key}/route/{call}/{layer}/idx"),
+                            ref_t(f"{key}/route/{call}/{layer}/gates"))
+                           for layer in range(len(run["routes"][call]))]
+            agree = agreeing_rows(run["routes"][call], want_routes,
+                                  f"rank {rank} {mode} call {call}", "[lm-mesh]", agree,
+                                  ("mesh", "one device"))
+            want = ref_t(f"{key}/{call}")
             if not torch.isfinite(got).all():
                 raise AssertionError(f"[lm-mesh] rank {rank} {mode}: non-finite logits")
-        # the prompt is computed whole on every rank (the cache is empty):
-        # bitwise; a decode step reads the cache where its shard lies
-        if not bitwise[0]:
-            raise AssertionError(f"[lm-mesh] rank {rank} {mode}: the prefill logits are not "
-                                 f"bitwise the one-device serving's (max rel err {errs[0]:.3g})")
-        if max(errs) > SERVE_BAR:
-            raise AssertionError(f"[lm-mesh] rank {rank} {mode}: logits {errs} above the "
-                                 f"serving bar {SERVE_BAR} of the largest logit")
-        out[mode] = dict(errs=errs, bitwise=bitwise, ms=run["ms"], tables=run["tables"],
-                         held=run["held"], replica=run["replica"], kv=run["kv"], wall_s=wall,
-                         peak=torch.cuda.max_memory_allocated() / 1e9, coords=mesh.coords)
+            keep = list(range(got.shape[0])) if agree is None else agree.nonzero().flatten().tolist()
+            errs.append(float((got[keep] - want[keep]).abs().max() / want[keep].abs().max()))
+            bitwise.append(torch.equal(got, want))
+            rows.append(len(keep))
+        bars = [SERVE_PREFILL_BAR] + [SERVE_BAR] * SERVE_STEPS
+        over = [(c, e) for c, (e, bar) in enumerate(zip(errs, bars)) if e > bar]
+        if over:
+            raise AssertionError(f"[lm-mesh] rank {rank} {mode}: logits of calls {over} above "
+                                 f"the bars {SERVE_PREFILL_BAR} (prefill) / {SERVE_BAR} (decode) "
+                                 f"of the largest logit")
+        over_model = [k for t in run["tables"] for k in t
+                      if k.split()[0] == "all_gather" and "model" in k.split()[1]]
+        if run["attn"] is not None and over_model:
+            raise AssertionError(f"[lm-mesh] rank {rank} {mode}: parameters gathered over "
+                                 f"model under the compute split: {over_model}")
+        if run["attn"] is None and not all("gather_heads model" in t for t in run["tables"]):
+            raise AssertionError(f"[lm-mesh] rank {rank} {mode}: a call of the cache-only "
+                                 f"split gathered no head outputs: {run['tables']}")
+        out[mode] = dict(errs=errs, bitwise=bitwise, rows=rows, n_rows=got.shape[0], ms=run["ms"],
+                         tables=run["tables"], held=run["held"], replica=run["replica"],
+                         computed=run["computed"], attn=run["attn"], kv=run["kv"], wall_s=wall,
+                         peak=run["peak"], draw_peak=run["draw_peak"], coords=mesh.coords)
+        del run
     if dict(cuda.launches) != before:
         raise AssertionError(f"[lm-mesh] rank {rank} launched a kernel: {dict(cuda.launches)}")
     return out
 
 
+def _serve_refs(mode: str) -> dict:
+    """[lm-mesh]'s one-device references of ``mode``, one for each data
+    slice of the batch: the logits and the MoE routing of every call."""
+    leg = SERVE_MESHES[mode]
+    refs = {}
+    d = leg.extents[0]
+    for i in range(d):
+        run = _serve_run(mode, rows=slice(i * leg.b // d, (i + 1) * leg.b // d))
+        for call, (x, layers_) in enumerate(zip(run["logits"], run["routes"])):
+            refs[f"serve/{mode}/{i}/{call}"] = x
+            for layer, (idx, gates) in enumerate(layers_):
+                refs[f"serve/{mode}/{i}/route/{call}/{layer}/idx"] = idx
+                refs[f"serve/{mode}/{i}/route/{call}/{layer}/gates"] = gates
+        del run
+    return refs
+
+
 def _serve_report(res: list, priced: dict, ref_s: float) -> None:
     """[lm-mesh]'s lines: per mesh and rank, the bytes held against one
-    replica's, peak GB, ms, the logits against the bars, and the bytes in
-    per collective as comm counts them, each call held equal to the dry
-    run's price."""
+    replica's, the parameter bytes a call computes on and gathers, peak GB,
+    ms, the logits against the bars, the rows held, and the bytes in per
+    collective as comm counts them, each call held equal to the dry run's
+    price."""
     card = card_name_power()
-    for mode, (extents, names, b, prompt) in SERVE_MESHES.items():
+    for mode, leg in SERVE_MESHES.items():
         for rank, r in enumerate(res):
             got = r["serve"][mode]
             pre, dec = priced[mode][rank]
@@ -3848,22 +3978,41 @@ def _serve_report(res: list, priced: dict, ref_s: float) -> None:
                                      f"{bad} differ from the dry run's price: "
                                      f"{got['tables'][bad[0]]} != "
                                      f"{(pre if bad[0] == 0 else dec)['collectives']}")
+            gathered = [sum(e["bytes"] for k, e in t.items() if k.split()[0] == "all_gather")
+                        for t in got["tables"]]
+            over_model = [sum(e["bytes"] for k, e in t.items()
+                              if k.split()[0] == "all_gather" and "model" in k.split()[1])
+                          for t in got["tables"]]
             decode_ms = statistics.median(got["ms"][1:])
-            log(f"[lm-mesh] {mode} {dict(zip(names, extents))} rank {rank} at {got['coords']}: "
-                f"qwen2-0.5b 4 of 24 layers, f32 compute, B {b}, cache {SERVE_CACHE}, prompt "
-                f"{prompt}, {SERVE_STEPS} decode steps, KV cache split {got['kv']!r}; held "
-                f"{got['held']:,} B against one replica's {got['replica']:,} B; peak "
-                f"{got['peak']:.2f} GB; prefill {got['ms'][0]:.1f} ms, decode median "
-                f"{decode_ms:.1f} ms a step; logits against the one-device serving of its "
-                f"batch slice: prefill bitwise, decode max rel err "
-                f"{max(got['errs'][1:]):.3g} (bar {SERVE_BAR}; bitwise "
-                f"{sum(got['bitwise'][1:])}/{SERVE_STEPS}); bytes in as comm counts them, "
-                f"prefill {got['tables'][0]}, a decode step {got['tables'][1]}: each call == "
-                f"the [dryrun] price (price_lm on a MeshLayout); {card}")
+            into = [sum(e["bytes"] for e in t.values()) for t in got["tables"]]
+            split = ("the compute split over model" if got["attn"] is not None else
+                     "whole weights gathered over model, the cache split alone")
+            log(f"[lm-mesh] {mode} {dict(zip(leg.names, leg.extents))} rank {rank} at "
+                f"{got['coords']}: {leg.arch} cut to {leg.overrides}, f32 compute over bf16 "
+                f"weights, B {leg.b}, cache {leg.cache}, prompt {leg.prompt}, {SERVE_STEPS} "
+                f"decode steps, KV cache split {got['kv']!r}, {split}; held "
+                f"{got['held']:,} B against one replica's {got['replica']:,} B; computes on "
+                f"{got['computed']:,} B of parameters, gathers {gathered[0]:,} B of them a "
+                f"prefill and {max(gathered[1:]):,} B a decode step ({over_model[0]:,} / "
+                f"{max(over_model[1:]):,} B over model); peak {got['peak']:.2f} GB serving "
+                f"({got['draw_peak']:.2f} GB drawing the weights"
+                f"{' whole, the ranks in turn' if leg.arch == 'grok-1-314b' else ''}); prefill "
+                f"{got['ms'][0]:.1f} ms, decode median "
+                f"{decode_ms:.1f} ms a step ({[round(x, 1) for x in got['ms'][1:]]}); logits "
+                f"against the one-device serving of its batch slice: prefill max rel err "
+                f"{got['errs'][0]:.3g} (bar {SERVE_PREFILL_BAR}), decode "
+                f"{max(got['errs'][1:]):.3g} (bar {SERVE_BAR}), bitwise "
+                f"{sum(got['bitwise'])}/{1 + SERVE_STEPS} calls, rows held (routing agreed) "
+                f"{got['rows']} of {got['n_rows']}; "
+                f"bytes into the rank a prefill {into[0]:,}, a decode step "
+                f"{into[1]:,}; per collective a prefill {got['tables'][0]}, a decode step "
+                f"{got['tables'][1]}: each call == the [dryrun] price (price_lm on a "
+                f"MeshLayout); {card}")
     wall = max(r["serve"][m]["wall_s"] for r in res for m in SERVE_MESHES)
-    log(f"[time] [lm-mesh] references here {ref_s:.1f} s; the ranks served both meshes in "
+    log(f"[time] [lm-mesh] references here {ref_s:.1f} s; the ranks served the "
+        f"{len(SERVE_MESHES)} legs in "
         f"{sum(max(r['serve'][m]['wall_s'] for r in res) for m in SERVE_MESHES):.1f} s "
-        f"(the longest mesh {wall:.1f} s)")
+        f"(the longest leg {wall:.1f} s)")
 
 
 def _split_bundle(mode: str):
@@ -4213,12 +4362,10 @@ def phase_train_mesh() -> None:
             # slice of the batch
             torch.cuda.reset_peak_memory_stats()
             t_serve = time.perf_counter()
-            for mode, (extents, _, b, _) in SERVE_MESHES.items():
-                d = extents[0]
-                for i in range(d):
-                    run = _serve_run(mode, rows=slice(i * b // d, (i + 1) * b // d))
-                    refs.update({f"serve/{mode}/{i}/{c}": x for c, x in enumerate(run["logits"])})
-                    del run
+            for mode in SERVE_MESHES:
+                refs.update(_serve_refs(mode))
+                gc.collect()
+                torch.cuda.empty_cache()
             serve_ref_s = time.perf_counter() - t_serve
             peak = torch.cuda.max_memory_allocated() / 1e9
             torch.cuda.empty_cache()
@@ -4242,7 +4389,7 @@ def phase_train_mesh() -> None:
             t0 = time.perf_counter()
             train_priced = {mode: _train_priced(mode) for mode in MESH_SPLIT}
             priced = {mode: _serve_priced(mode) for mode in SERVE_MESHES}
-            log(f"[lm-mesh] the dry run priced the split steps and both meshes' calls for the "
+            log(f"[lm-mesh] the dry run priced the split steps and the serving legs' calls for the "
                 f"4 ranks here in {time.perf_counter() - t0:.1f} s while the ranks ran")
             for p in procs:
                 p.wait(timeout=max(1.0, MESH_TIMEOUT_S - (time.perf_counter() - t_leg)))
@@ -4517,8 +4664,8 @@ def mesh_rank_main(rank: int, tmp: str, port: int) -> int:
             return ref(key), getattr(torch, dtype), shape
 
         t_serve = time.perf_counter()
-        serve_meshes = {"heads": mesh_of(SERVE_MESHES["heads"][:2]),
-                        "seq": mesh_of(SERVE_MESHES["seq"][:2])}
+        serve_meshes = {mode: mesh_of((leg.extents, leg.names))
+                        for mode, leg in SERVE_MESHES.items()}
         out["serve"] = _serve_rank(rank, serve_meshes, serve_ref)
         serve_s = time.perf_counter() - t_serve
         out["wall_s"] = time.perf_counter() - t_start
@@ -4676,18 +4823,23 @@ class _RoutingTap:
         return calls
 
 
-def agreeing_rows(card: list, host: list, what: str, tag: str = "[families] (d)"):
+def agreeing_rows(card: list, host: list, what: str, tag: str = "[families] (d)",
+                  agree=None, sides: tuple = ("card", "cpu")):
     """The rows (sequences) whose expert choices agree in every MoE layer,
-    card against CPU; each row's first flip is logged with its gate margin
-    and must be a rounding's (< 1e-5). None where there is no MoE layer."""
+    ``card`` against ``host`` (named ``sides`` in the log), among the rows
+    ``agree`` kept so far where it is given (a call after earlier calls);
+    each row's first flip is logged with its gate margin and must be a
+    rounding's (< 1e-5), and a row must remain. None where there is no MoE
+    layer."""
     import torch
 
     if len(card) != len(host):
-        raise AssertionError(f"{what}: {len(card)} MoE calls on the card, {len(host)} on the CPU")
+        raise AssertionError(f"{what}: {len(card)} MoE calls on the {sides[0]}, {len(host)} on "
+                             f"the {sides[1]}")
     if not host:
-        return None
-    agree = torch.ones(host[0][0].shape[0], dtype=torch.bool)
-    flips = 0
+        return agree
+    agree = (torch.ones(host[0][0].shape[0], dtype=torch.bool) if agree is None
+             else agree.clone())
     for layer, ((ci, _), (hi, hg)) in enumerate(zip(card, host)):
         for b, s in torch.nonzero((ci != hi).any(-1)).tolist():
             if not agree[b]:
@@ -4696,12 +4848,11 @@ def agreeing_rows(card: list, host: list, what: str, tag: str = "[families] (d)"
             top = torch.sort(hg[b, s], descending=True).values[:k + 1]
             margin = float((top[:-1] - top[1:]).min())
             log(f"{tag} {what}: routing flip in MoE layer {layer}, row {b}, token "
-                f"{s}: card {ci[b, s].tolist()}, cpu {hi[b, s].tolist()}, gate margin "
-                f"{margin:.3g}")
+                f"{s}: {sides[0]} {ci[b, s].tolist()}, {sides[1]} {hi[b, s].tolist()}, gate "
+                f"margin {margin:.3g}")
             if margin >= 1e-5:
                 raise AssertionError(f"{what}: a routing flip at gate margin {margin}")
             agree[b] = False
-            flips += 1
     if not bool(agree.any()):
         raise AssertionError(f"{what}: every row's routing flipped")
     return agree

@@ -12,9 +12,9 @@ the training step (one microbatch; its FLOPs times ``n_micro``) and, in
 hierarchical mode, the sync step, or one prefill or decode call of
 ``make_serve_artifacts``. Nothing is allocated and no process group is
 made. The row holds ``rank_bytes`` (the shards a rank holds, and what a
-call gathers: a training step of a transformer-backbone family its model
-shards, split over ``model`` as it computes, any other call a whole
-replica), ``collectives`` (what :mod:`~repro_torch.core.comm`
+call gathers: a training step or a serving call of a transformer-backbone
+family its model shards, split over ``model`` as it computes, any other
+call a whole replica), ``collectives`` (what :mod:`~repro_torch.core.comm`
 counts into the rank, by the same rules a world counts them),
 ``flops_per_device`` (``torch.utils.flop_counter.FlopCounterMode``),
 ``model_flops_total`` and ``useful_flops_ratio`` as the reference defines
@@ -622,9 +622,9 @@ def price_lm(bundle, shape: ShapeSpec, layout: MeshLayout, *, fsdp_axis: str | N
         if "enc_out" in state:
             held["enc_out"] = _nbytes(state["enc_out"])
     held["held"] = sum(held.values())
-    # a training step gathers a rank's model shards (the split families) or
-    # the whole; a serving call the whole
-    held["gathered"] = art.computed_bytes(whole) if shape.kind == "train" else _bytes(whole)
+    # a training step or a serving call gathers a rank's model shards (the
+    # split families) or the whole
+    held["gathered"] = art.computed_bytes(whole)
     out.update(rank_bytes=held, collectives=table, flops_per_device=flops)
     return out
 

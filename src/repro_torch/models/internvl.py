@@ -8,10 +8,10 @@ overwrite the first ``n_patches`` token positions of the backbone's input.
 The backbone is the port's :class:`Transformer`, so with
 ``use_pallas_attention`` its full-sequence forward runs the
 ``flash_attention`` kernel. ``param_pspecs`` / ``cache_pspecs`` are the
-JAX spec trees as tuples (the backbone's under ``lm``). Under a training
-split the backbone splits as the transformer does, and the connector's
-``fc2`` (``P(fsdp, tp)``) gives this rank's columns, gathered over the
-model axis before the splice.
+JAX spec trees as tuples (the backbone's under ``lm``). Under a compute
+split (training, and serving on a mesh) the backbone splits as the
+transformer does, and the connector's ``fc2`` (``P(fsdp, tp)``) gives this
+rank's columns, gathered over the model axis before the splice.
 """
 
 from __future__ import annotations
@@ -101,6 +101,7 @@ class InternVL(jax_layout.Stacked):
                 ) -> torch.Tensor:
         """Project the patch embeddings and overwrite the first
         ``n_patches`` positions of the token embeddings."""
+        split = layers.compute_split(split)
         h = layers.embed_lookup(params.lm.embed, tokens, self.cfg.cdtype, split)
         c = params.connector
         a = F.gelu(layers.dense(c["fc1"], patch_embeds.to(self.cfg.cdtype)), approximate="tanh")
@@ -133,8 +134,9 @@ class InternVL(jax_layout.Stacked):
                            cache_index: int, *, patch_embeds: torch.Tensor | None = None,
                            last_only: bool = False, split=None):
         """Prefill may carry image tokens (``patch_embeds``); decode steps
-        never do. ``split``: the backbone's cache shard on a mesh."""
-        h0 = None if patch_embeds is None else self._splice(params, tokens, patch_embeds)
+        never do. ``split``: the compute and cache split on a mesh (the
+        connector's included)."""
+        h0 = None if patch_embeds is None else self._splice(params, tokens, patch_embeds, split)
         return self.lm.forward_with_cache(params.lm, tokens, cache, cache_index,
                                           last_only=last_only, embeds_override=h0, split=split)
 

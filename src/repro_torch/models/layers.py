@@ -8,7 +8,7 @@ containers and tensors, as in JAX. Layouts are JAX's: activations
 ``[B, S, D]``, heads ``[B, S, H, Dh]``. Reductions (softmax, norms) run in
 f32 inside a bf16 compute stream.
 
-**Training on a mesh** splits the compute over the model axis as the JAX
+**On a mesh** the compute splits over the model axis as the JAX
 package's specs split it under GSPMD (:class:`TPSplit`, Megatron's
 layout): a rank holds its model shard of each weight and computes with it.
 q, k, v, gate and up are split by columns, o and down by rows and their
@@ -20,14 +20,18 @@ head-parallel (``"heads"``: a rank's own KV heads and their query heads)
 or context-parallel (``"seq"``: a rank's own query positions against the
 whole K and V, its output gathered along the sequence), the pins the JAX
 ``attn_pspecs`` name. The collectives carry gradients
-(:func:`~repro_torch.core.comm.enter_split` and its kin).
+(:func:`~repro_torch.core.comm.enter_split` and its kin); serving runs
+them under ``torch.no_grad()``, their forward alone.
 
-Serving on a mesh splits the cache: the KV cache stays where its shard lies
-(:class:`ServeSplit`). With the KV heads split, a rank attends with its own
-heads over its own cache shard and the head outputs are gathered before the
-output product; with the sequence split, a rank attends over the positions
-it holds and the partial softmax sums are merged by log-sum-exp
-(:func:`gqa_attention` with ``split``).
+Serving on a mesh also splits the cache, which stays where its shard lies
+(:class:`TPSplit`'s ``kv``): with the KV heads split, a rank attends with
+its own heads over its own cache shard; with the sequence split, a rank
+attends over the positions it holds and the partial softmax sums are
+merged by log-sum-exp (:func:`gqa_attention` with ``split``). The families
+that keep their weights whole on a mesh (whisper, zamba2's shared block)
+take the same cache split over whole weights: a rank projects its own
+heads from column slices of the weights and the head outputs are gathered
+before the whole output product.
 """
 
 from __future__ import annotations
@@ -46,7 +50,6 @@ from repro_torch.core import comm
 from repro_torch.kernels import ops
 
 __all__ = [
-    "ServeSplit",
     "TPSplit",
     "embed_lookup",
     "write_positions",
@@ -86,44 +89,48 @@ def _param(x: torch.Tensor) -> nn.Parameter:
 
 
 @dataclasses.dataclass(frozen=True)
-class ServeSplit:
-    """How a serving rank's share of the cache lies on ``mesh``.
+class TPSplit:
+    """How a rank's share of a model lies over ``axis`` of ``mesh``: the
+    compute half (``attn``) and, serving, the cache half (``kv``).
 
-    ``kv`` is ``"heads"`` (the KV cache's heads split over ``axis``),
-    ``"seq"`` (its sequence split over ``axis``: rank ``i`` of the axis
-    holds positions ``[i L, (i + 1) L)``) or None (the batch split only).
+    ``attn`` ``"heads"`` or ``"seq"``: the layers take this rank's model
+    shards of the weights (the stored shard along every dimension the
+    specs split over ``axis``) and split the compute as Megatron does:
+    the products, head-parallel (``"heads"``) or context-parallel
+    (``"seq"``) attention, the vocab-parallel embedding, unembedding and
+    cross entropy, and MoE experts where they are stored, through the
+    collectives of :mod:`~repro_torch.core.comm`. ``attn`` None: the
+    weights are whole on every rank (the families that shard storage
+    only), only the cache splits, and every layer computes whole
+    (:func:`compute_split`).
+
+    ``kv``: how a serving rank's KV cache lies over ``axis``: ``"heads"``
+    (the KV heads split), ``"seq"`` (the sequence split: rank ``i`` of the
+    axis holds positions ``[i L, (i + 1) L)``) or None (no cache split, as
+    in training). Under a compute split attention splits as the cache does.
     An SSM state's heads lie over ``"model"`` (every model's
-    ``cache_pspecs`` names it), split when its extent is above 1.
-    Collectives of a split are counted as ``"gather_heads"`` (head outputs)
-    and ``"merge_partials"`` (softmax partials), apart from the parameters'
-    ``"all_gather"``."""
+    ``cache_pspecs`` names it), split when its extent is above 1. The
+    cache split's own collectives are counted as ``"gather_heads"`` (head
+    outputs over whole weights) and ``"merge_partials"`` (softmax
+    partials), the compute split's under their ``comm`` names."""
 
     mesh: Any
     axis: str = "model"
+    attn: str | None = "heads"
     kv: str | None = None
+
+    def __post_init__(self) -> None:
+        if self.attn not in ("heads", "seq", None):
+            raise ValueError(f"unknown attention split {self.attn!r} (heads, seq or None)")
+        if self.kv not in ("heads", "seq", None):
+            raise ValueError(f"unknown cache split {self.kv!r} (heads, seq or None)")
+        if None not in (self.attn, self.kv) and self.kv != self.attn:
+            raise ValueError(f"attention split {self.attn!r} does not follow the cache's "
+                             f"{self.kv!r}")
 
     def ssm_block(self) -> tuple[int, int]:
         """``(index, extent)`` of this rank along the SSM heads' axis."""
         return self.mesh.block("model")
-
-
-@dataclasses.dataclass(frozen=True)
-class TPSplit:
-    """How a training step's compute splits over ``axis`` of ``mesh``: the
-    Megatron products, ``attn`` ``"heads"`` (head-parallel) or ``"seq"``
-    (context-parallel) attention, the vocab-parallel embedding, unembedding
-    and cross entropy, and MoE experts where they are stored. The layers
-    take a rank's model shards of the weights (the stored shard along every
-    dimension the specs split over ``axis``) and call the collectives of
-    :mod:`~repro_torch.core.comm` that carry gradients."""
-
-    mesh: Any
-    axis: str = "model"
-    attn: str = "heads"
-
-    def __post_init__(self) -> None:
-        if self.attn not in ("heads", "seq"):
-            raise ValueError(f"unknown attention split {self.attn!r} (heads or seq)")
 
     @property
     def index(self) -> tuple[int, int]:
@@ -154,12 +161,21 @@ class TPSplit:
         return comm.max_over(x, self.mesh, self.axis)
 
 
+def compute_split(split: TPSplit | None) -> TPSplit | None:
+    """``split`` where it splits the compute (``attn`` set: the weights are
+    this rank's model shards), else None. The one test of a compute split:
+    every layer that splits its products reads its split through this, so
+    under a cache-only split (whole weights) it computes whole."""
+    return split if split is not None and split.attn is not None else None
+
+
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor, dtype,
                  split: TPSplit | None = None) -> torch.Tensor:
     """``table[tokens]`` in ``dtype``. Under ``split`` ``table`` is this
     rank's block of vocab rows: each rank looks up the tokens it holds,
     zeros elsewhere, and the ranks' rows are summed (exact: one rank holds
     each token, the others add zeros)."""
+    split = compute_split(split)
     if split is None:
         return table[tokens].to(dtype)
     rows = table.shape[0]
@@ -171,7 +187,7 @@ def embed_lookup(table: torch.Tensor, tokens: torch.Tensor, dtype,
 
 
 def write_positions(buf: torch.Tensor, fresh: torch.Tensor, cache_index: int, dim: int,
-                    split: ServeSplit) -> None:
+                    split: TPSplit) -> None:
     """Write ``fresh`` (positions ``cache_index ...`` along ``dim``) into
     ``buf``, this rank's sequence shard under ``split``: only the positions
     the shard holds, none if it holds none."""
@@ -433,7 +449,7 @@ def _dense_partial(q, k, v, q_pos, k_pos, k_len, window):
     return m, p.sum(dim=-1), torch.einsum("bhgqk,bkhd->bhgqd", p, v.float())
 
 
-def _merge_partials(m, denom, acc, split: ServeSplit, dtype) -> torch.Tensor:
+def _merge_partials(m, denom, acc, split: TPSplit, dtype) -> torch.Tensor:
     """The ranks' partials over ``split.axis`` merged by log-sum-exp, added
     in rank order: ``[B, S_q, H, Dh]`` in ``dtype``. One gather of the
     packed partials (``acc``, ``m``, ``denom``; ``"merge_partials"``). A
@@ -469,7 +485,7 @@ def gqa_attention(
     use_rope: bool = True,
     cache_mode: str = "inplace",      # 'inplace' | 'append_slice' | 'fresh_only'
     use_pallas: bool = False,         # the flash kernel (full-sequence path only)
-    split: ServeSplit | TPSplit | None = None,  # on a mesh: the cache's or the step's split
+    split: TPSplit | None = None,     # on a mesh: the compute and cache split
 ):
     """GQA attention with optional sliding window and KV cache.
 
@@ -482,17 +498,17 @@ def gqa_attention(
     take the flash kernel (``use_pallas`` and no cache) or the streaming
     path. Returns (output [B, S, D], updated cache or fresh slices or None).
 
-    With a ``split`` whose ``kv`` is set, ``kv_cache`` is this rank's shard
-    and never leaves it (:func:`_split_attention`). With a :class:`TPSplit`
-    (training on a mesh, no cache) the weights are this rank's model shards
-    and the heads or the queries are split (:func:`_tp_attention`).
+    With a ``split`` whose ``attn`` is set the weights are this rank's
+    model shards and the heads or the queries are split
+    (:func:`_tp_attention`); ``kv_cache``, if any, is this rank's shard.
+    With whole weights and a cache split (``kv``), ``kv_cache`` is this
+    rank's shard and never leaves it (:func:`_split_attention`).
     """
-    if isinstance(split, TPSplit):
-        if kv_cache is not None:
-            raise ValueError("a training split attends without a cache")
+    if compute_split(split) is not None:
         return _tp_attention(p, x, positions, n_heads=n_heads, n_kv=n_kv, d_head=d_head,
                              rope_theta=rope_theta, window=window, use_rope=use_rope,
-                             use_pallas=use_pallas, split=split), None
+                             use_pallas=use_pallas, split=split, kv_cache=kv_cache,
+                             cache_index=cache_index, cache_mode=cache_mode)
     if split is not None and split.kv is not None and kv_cache is not None:
         return _split_attention(
             p, x, positions, n_heads=n_heads, n_kv=n_kv, d_head=d_head,
@@ -568,35 +584,20 @@ def _head_cols(p: Dense, x: torch.Tensor, c0: int, c1: int) -> torch.Tensor:
 
 
 def _split_attention(p, x, positions, *, n_heads, n_kv, d_head, rope_theta, window,
-                     kv_cache, cache_index, use_rope, cache_mode, split: ServeSplit):
-    """:func:`gqa_attention` on a mesh, ``kv_cache`` this rank's shard.
+                     kv_cache, cache_index, use_rope, cache_mode, split: TPSplit):
+    """:func:`gqa_attention` on a mesh with whole weights, ``kv_cache``
+    this rank's shard (the families outside the compute split, whose
+    caches are written in place).
 
-    * ``fresh_only`` (a prompt from an empty cache): computed whole, as on
-      one device; the fresh K/V returned are this rank's heads (``heads``)
-      or every position (``seq``: the caller writes the ones it holds).
     * ``heads``: the rank projects q, k and v for its own KV heads and their
-      query heads, attends over its own shard as one device would, and the
-      head outputs are gathered over ``split.axis`` in rank order before the
-      whole output product.
-    * ``seq``: the rank holds positions ``[i L, (i + 1) L)``. ``inplace``
-      writes the fresh K/V it holds into its shard and attends over the
-      shard; ``append_slice`` attends over the shard's valid keys and, on
-      the rank that holds ``cache_index`` alone, the fresh keys. The
-      partials are merged by log-sum-exp (:func:`_merge_partials`).
-      Streaming (``FLASH_THRESHOLD`` queries or more) needs the one-device
-      key blocks to tile every shard, and raises where they do not.
+      query heads from column slices of the weights, attends over its own
+      shard as one device would, and the head outputs are gathered over
+      ``split.axis`` in rank order before the whole output product.
+    * ``seq``: :func:`_seq_attend` over the positions the rank holds.
     """
     mesh, axis = split.mesh, split.axis
     r, n = mesh.block(axis)
     b, s, _ = x.shape
-    if cache_mode == "fresh_only":
-        out, (k, v) = gqa_attention(
-            p, x, positions, n_heads=n_heads, n_kv=n_kv, d_head=d_head,
-            rope_theta=rope_theta, window=window, kv_cache=kv_cache, cache_index=cache_index,
-            use_rope=use_rope, cache_mode=cache_mode)
-        if split.kv == "heads":
-            k, v = (t[:, :, r * n_kv // n:(r + 1) * n_kv // n] for t in (k, v))
-        return out, (k, v)
     if split.kv == "heads":
         if n_kv % n:
             raise ValueError(f"{n_kv} KV heads do not divide over {axis} (extent {n})")
@@ -611,7 +612,7 @@ def _split_attention(p, x, positions, *, n_heads, n_kv, d_head, rope_theta, wind
         out, new_cache = _attend(q, k, v, positions, window, kv_cache, cache_index,
                                  cache_mode, False)
         out = comm.all_gather(out, mesh, axis, dim=2, count_as="gather_heads")
-    elif split.kv == "seq":
+    else:
         q = dense(p["q"], x).reshape(b, s, n_heads, d_head)
         k = dense(p["k"], x).reshape(b, s, n_kv, d_head)
         v = dense(p["v"], x).reshape(b, s, n_kv, d_head)
@@ -620,13 +621,11 @@ def _split_attention(p, x, positions, *, n_heads, n_kv, d_head, rope_theta, wind
             k = rope(k, positions, rope_theta)
         out, new_cache = _seq_attend(q, k, v, positions, window, kv_cache, cache_index,
                                      cache_mode, split)
-    else:
-        raise ValueError(f"unknown cache split {split.kv!r}")
     return dense(p["o"], out.reshape(b, s, n_heads * d_head)), new_cache
 
 
 def _seq_attend(q, k, v, positions, window, kv_cache, cache_index, cache_mode,
-                split: ServeSplit):
+                split: TPSplit):
     """:func:`_attend` over this rank's sequence shard, merged over the
     ranks: ``(out [B, S, H, Dh], the updated shard or the fresh K/V)``."""
     r, n = split.mesh.block(split.axis)
@@ -669,17 +668,27 @@ def _seq_attend(q, k, v, positions, window, kv_cache, cache_index, cache_mode,
 
 
 def _tp_attention(p, x, positions, *, n_heads, n_kv, d_head, rope_theta, window, use_rope,
-                  use_pallas, split: TPSplit) -> torch.Tensor:
-    """:func:`gqa_attention` without a cache under a training split, ``p``
-    this rank's shards (q, k, v by columns, o by rows).
+                  use_pallas, split: TPSplit, kv_cache=None, cache_index=None,
+                  cache_mode="inplace"):
+    """:func:`gqa_attention` under a compute split, ``p`` this rank's
+    shards (q, k, v by columns, o by rows) and ``kv_cache``, serving, this
+    rank's cache shard. Returns (output [B, S, D], as :func:`_attend`'s
+    cache result).
 
     * ``heads``: the rank's columns are its own KV heads and their query
-      heads; it attends with them as one device would, and the output
-      product's partial sums are summed over the axis.
+      heads; it attends with them as one device would (over its own cache
+      shard, which holds its KV heads), and the output product's partial
+      sums are summed over the axis.
     * ``seq``: q, k and v are gathered whole over the axis (the columns
-      may split a head); the rank keeps its own ``S / n`` query positions
-      and attends over every key; the output is gathered along the
-      sequence and multiplied by the rank's rows of o, then summed.
+      may split a head). Without a cache or from an empty one
+      (``fresh_only``) the rank keeps its own ``S / n`` query positions and
+      attends over every key, and the output is gathered along the
+      sequence; a serving prompt whose length does not divide over the
+      axis attends whole on every rank (training refuses it). Against a
+      cache the rank attends over the positions its shard holds and the
+      partials are merged (:func:`_seq_attend`). Either way the rank's
+      columns of the output are multiplied by its rows of o, then summed.
+      The fresh K/V returned are every position's.
     """
     b, s, _ = x.shape
     x = split.enter(x)
@@ -692,24 +701,39 @@ def _tp_attention(p, x, positions, *, n_heads, n_kv, d_head, rope_theta, window,
         if use_rope:
             q = rope(q, positions, rope_theta)
             k = rope(k, positions, rope_theta)
-        out, _ = _attend(q, k, v, positions, window, None, None, "inplace", use_pallas)
-        return split.sum(dense(p["o"], out.reshape(b, s, h_loc * d_head)))
-    r = split.index[0]
-    s_loc = split.local(s, "sequence positions")
+        out, new_cache = _attend(q, k, v, positions, window, kv_cache, cache_index, cache_mode,
+                                 use_pallas)
+        return split.sum(dense(p["o"], out.reshape(b, s, h_loc * d_head))), new_cache
+    r, n = split.index
     q = split.gather(dense(p["q"], x), -1).reshape(b, s, n_heads, d_head)
     k = split.enter(split.gather(dense(p["k"], x), -1)).reshape(b, s, n_kv, d_head)
     v = split.enter(split.gather(dense(p["v"], x), -1)).reshape(b, s, n_kv, d_head)
-    q = split.own(q, 1)
-    q_pos = positions[:, r * s_loc:(r + 1) * s_loc]
-    if use_rope:
-        q = rope(q, q_pos, rope_theta)
-        k = rope(k, positions, rope_theta)
-    if s_loc >= FLASH_THRESHOLD:
-        out = _streaming_attention(q, k, v, q_pos, positions, s, window)
+    if kv_cache is not None and cache_mode != "fresh_only":
+        if use_rope:
+            q = rope(q, positions, rope_theta)
+            k = rope(k, positions, rope_theta)
+        out, new_cache = _seq_attend(q, k, v, positions, window, kv_cache, cache_index,
+                                     cache_mode, split)
+        out = out.reshape(b, s, n_heads * d_head)
     else:
-        out = attention_scores(q, k, v, causal_window_mask(q_pos, positions, None, window))
-    out = split.gather(out.reshape(b, s_loc, n_heads * d_head), 1)
-    return split.sum(dense(p["o"], split.own(out, -1)))
+        k_len = s if cache_index is None else cache_index + s
+        whole = kv_cache is not None and s % n != 0
+        s_loc = s if whole else split.local(s, "sequence positions")
+        q_pos = positions if whole else positions[:, r * s_loc:(r + 1) * s_loc]
+        if not whole:
+            q = split.own(q, 1)
+        if use_rope:
+            q = rope(q, q_pos, rope_theta)
+            k = rope(k, positions, rope_theta)
+        new_cache = None if kv_cache is None else (k, v)
+        if s_loc >= FLASH_THRESHOLD:
+            out = _streaming_attention(q, k, v, q_pos, positions, k_len, window)
+        else:
+            out = attention_scores(q, k, v, causal_window_mask(q_pos, positions, None, window))
+        out = out.reshape(b, s_loc, n_heads * d_head)
+        if not whole:
+            out = split.gather(out, 1)
+    return split.sum(dense(p["o"], split.own(out, -1))), new_cache
 
 
 def attention_init(
@@ -746,6 +770,7 @@ def swiglu_init(d_model: int, d_ff: int, *, generator: torch.Generator | None,
 def swiglu(p: nn.ModuleDict, x: torch.Tensor, split: TPSplit | None = None) -> torch.Tensor:
     """``down(silu(gate(x)) * up(x))``; under ``split`` gate and up are this
     rank's columns and down its rows, the partial products summed."""
+    split = compute_split(split)
     if split is not None:
         x = split.enter(x)
     y = dense(p["down"], F.silu(dense(p["gate"], x)) * dense(p["up"], x))
@@ -819,6 +844,7 @@ def chunked_cross_entropy(
         chunk = s
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     remat = torch.is_grad_enabled()
+    split = compute_split(split)
     nll_fn = _chunk_nll if split is None else functools.partial(_chunk_nll_split, split=split)
     for c0 in range(0, s, chunk):
         h_i, y_i = h[:, c0:c0 + chunk], labels[:, c0:c0 + chunk]

@@ -244,7 +244,7 @@ class Mamba2(jax_layout.Stacked):
         return y.to(x.dtype), h_prev.reshape(bsz, h, pdim, n)
 
     def mixer(self, p, u: torch.Tensor, state: dict | None = None,
-              split: layers.ServeSplit | None = None):
+              split: layers.TPSplit | None = None):
         """One mamba2 block (the caller adds the residual). ``state`` is
         None (full sequence) or ``{"conv", "ssm"}`` (serving). Returns
         (out ``[B, S, D]``, the new state or None).
@@ -278,7 +278,7 @@ class Mamba2(jax_layout.Stacked):
         return out, {"conv": new_conv.to(state["conv"].dtype),
                      "ssm": h_last.to(state["ssm"].dtype)}
 
-    def _own_heads(self, p, x, b_mat, c_mat, dt, h0, split: layers.ServeSplit):
+    def _own_heads(self, p, x, b_mat, c_mat, dt, h0, split: layers.TPSplit):
         """:meth:`ssd_chunked` on this rank's heads (and the B/C groups they
         read), from its state shard ``h0``: (y of every head, gathered over
         the SSM axis as ``"gather_heads"``; this rank's last state)."""
@@ -301,7 +301,7 @@ class Mamba2(jax_layout.Stacked):
         return y, h_last
 
     def layer(self, p, h: torch.Tensor, state: dict | None = None,
-              split: layers.ServeSplit | None = None):
+              split: layers.TPSplit | None = None):
         """``h + mixer(rms_norm(h))``, and the layer's new state."""
         out, new_state = self.mixer(p, layers.rms_norm(p.norm, h), state, split)
         return h + out, new_state

@@ -11,8 +11,9 @@ computes them outside any Pallas kernel. ``moe_pspecs`` is the JAX spec
 tree as tuples: ``"ep"`` shards the experts over the model axis, ``"tp"``
 their hidden width.
 
-**Under a training split** (:class:`~repro_torch.models.layers.TPSplit`)
-the experts are computed where they are stored. The router is replicated,
+**Under a compute split** (:class:`~repro_torch.models.layers.TPSplit`;
+training, and serving on a mesh) the experts are computed where they are
+stored. The router is replicated,
 so routing, the capacity dispatch's slots and the aux loss run whole on
 every rank (the aux loss is not summed). With ``"ep"`` a rank fills, runs
 and combines the buffers of its own ``E / n`` experts alone; with ``"tp"``
@@ -167,6 +168,7 @@ def moe_apply(p: MoEParams, x: torch.Tensor, cfg: MoEConfig,
     """Returns (output ``[B, S, D]``, the load-balance aux loss
     ``E * sum_e f_e P_e`` over all tokens, f32). Under ``split`` the
     experts' weights are this rank's shards (the module's docstring)."""
+    split = layers.compute_split(split)
     s = x.shape[1]
     e, k = cfg.n_experts, cfg.top_k
     cap = int(max(1, -(-s * k * cfg.capacity_factor // e)))   # ceil, per sequence

@@ -22,12 +22,15 @@ moments) to the JAX tree and back, so checkpoints of training state cross
 between the packages. ``param_pspecs`` / ``cache_pspecs`` are the JAX spec
 trees as tuples; the trainer on a mesh shards its state by them.
 
-Under a training split (``split``, a :class:`~repro_torch.models.layers.TPSplit`)
-``params`` holds this rank's model shards: ``hidden`` embeds by vocab rows,
-each sub-layer's attention, MLP or MoE splits its products over the model
-axis (each split sub-block enters the split region once), and ``unembed``
-gives this rank's vocab columns. Remat recomputes a layer's collectives
-in the backward, alike on every rank.
+Under a compute split (``split``, a :class:`~repro_torch.models.layers.TPSplit`
+whose ``attn`` is set: the only split this class takes) ``params`` holds
+this rank's model shards: ``hidden`` and ``forward_with_cache`` embed by
+vocab rows, each sub-layer's attention, MLP or MoE splits its products
+over the model axis (each split sub-block enters the split region once),
+and ``unembed`` gives this rank's vocab columns. Remat recomputes a
+layer's collectives in the backward, alike on every rank. Serving
+(``forward_with_cache``) runs the same layers with the cache split too
+and gathers the logits' vocab columns once a call.
 """
 
 from __future__ import annotations
@@ -256,8 +259,8 @@ class Transformer(jax_layout.Stacked):
     def _layer(self, sub, h, positions, theta, window, kv=None, cache_index=None,
                cache_mode="inplace", split=None):
         """One sub-layer of the JAX group body: (h, its MoE aux loss or None
-        for a dense sub-layer, its K/V). ``split``: serving's cache split
-        or the training step's compute split."""
+        for a dense sub-layer, its K/V). ``split``: the compute split (and,
+        serving, the cache split)."""
         cfg = self.cfg
         attn_out, kv_i = layers.gqa_attention(
             sub["attn"], self._norm(sub, "ln1", h), positions,
@@ -267,11 +270,10 @@ class Transformer(jax_layout.Stacked):
             use_pallas=cfg.use_pallas_attention, split=split)
         h = h + attn_out
         hn = self._norm(sub, "ln2", h)
-        tp = split if isinstance(split, layers.TPSplit) else None
         if "moe" in sub:
-            y, aux = moe_apply(sub["moe"], hn, cfg.moe, tp)
+            y, aux = moe_apply(sub["moe"], hn, cfg.moe, split)
         else:
-            y, aux = layers.swiglu(sub["ffn"], hn, tp), None
+            y, aux = layers.swiglu(sub["ffn"], hn, split), None
         return h + y, aux, kv_i
 
     def _layers(self, params, h, positions, *, cache=None, cache_index=None,
@@ -361,7 +363,7 @@ class Transformer(jax_layout.Stacked):
     def forward_with_cache(self, params: TransformerParams, tokens: torch.Tensor,
                            cache: dict, cache_index: int, *, last_only: bool = False,
                            embeds_override: torch.Tensor | None = None,
-                           split: layers.ServeSplit | None = None):
+                           split: layers.TPSplit | None = None):
         """Prefill (``S`` > 1) or decode (``S`` = 1) against ``cache``.
 
         Returns (logits, cache). The cache is updated in place: the fresh
@@ -369,13 +371,19 @@ class Transformer(jax_layout.Stacked):
         per sub-layer and call (JAX does the same with one dynamic update of
         a donated buffer). An MoE layer's capacity follows this call's
         ``S``, as in the reference. With a ``split`` (serving on a mesh) the
-        cache is this rank's shard: each layer attends where it lies and
-        only the positions or heads it holds are written."""
+        parameters are this rank's model shards and the cache its shard:
+        each layer computes its share and attends where the cache lies, only
+        the positions or heads it holds are written, and the last
+        positions' vocab columns are gathered into whole logits."""
         cfg = self.cfg
         b, s = tokens.shape
-        h = self._embed(params, tokens)
+        if split is not None and layers.compute_split(split) is None:
+            raise ValueError("the transformer serves on a mesh under a compute split (attn set); "
+                             "whole weights with a split cache are not its layout")
         if embeds_override is not None:
             h = embeds_override.to(cfg.cdtype)
+        else:
+            h = self._embed(params, tokens, split)
         positions = cache_index + torch.arange(
             s, dtype=torch.int32, device=tokens.device).expand(b, s)
         if s > 1:
@@ -400,7 +408,8 @@ class Transformer(jax_layout.Stacked):
         h = self._final_norm(params, h)
         if last_only:
             h = h[:, -1:]
-        return self.unembed(params, h), cache
+        logits = self.unembed(params, h)
+        return (logits if split is None else split.gather(logits, -1)), cache
 
     # -------------------------------------------------------------- specs
 

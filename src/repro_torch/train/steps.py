@@ -54,22 +54,42 @@ What a rank gathers and computes depends on the family (:func:`tp_split`):
 reference's layout choices, spec trees and meta shapes. **Serving on a
 mesh** holds between calls each rank's shards alone: the parameters, its
 slice of the batch (the batch axes: ``("pod", "data")`` or ``("data",)``,
-none for ``long_500k``) and its shards of the serve state. A call gathers
-the parameters as the training step does; the cache is never gathered.
-Where the KV heads divide the model axis, each rank projects and attends
-with its own KV heads and their query heads over its own cache shard, and
-the head outputs are gathered before the output product; else (and for
-``long_500k``) the cache's sequence is split, each rank attends over the
-positions it holds, and the softmax partials are merged by log-sum-exp in
-rank order. An SSM state's heads are split over ``model``: ``in_proj`` and
-the conv run whole, each rank steps its own heads, and their outputs are
-gathered before the gated norm. A prompt from an empty cache attends over
-itself, computed whole on the rank's batch slice (``fresh_only``); only
-the rank's shard of its K/V is stored. The batch split, and the head
-splits where the per-head products are the one device's, are bitwise the
-one-device serving of the rank's batch slice; the log-sum-exp merge
-reorders the softmax sums. On a :class:`~repro_torch.core.mesh.MeshLayout`
-(meta tensors) the same calls are priced by the dry run.
+none for ``long_500k``) and its shards of the serve state; the cache is
+never gathered. Where the KV heads divide the model axis the caches' heads
+split over it, else (and for ``long_500k``) their sequence. What a call
+gathers and computes depends on the family, as in training:
+
+* **the transformer-backbone families** gather each parameter leaf over
+  its spec's entries except ``tp_axis`` (nothing with FSDP off) and
+  compute only the rank's share (the training step's layers, under
+  ``torch.no_grad()``): the vocab-parallel embedding, the Megatron
+  products, the experts where they are stored, the rank's vocab columns of
+  the logits, gathered once a call. Attention splits as the cache does:
+  with the heads split a rank attends with its own heads over its own
+  shard and the output product's partials are summed; with the sequence
+  split q, k and v are gathered along their columns, a prompt's queries
+  are split by position (computed whole where the prompt does not divide
+  over the axis), a decode step attends over the positions each rank
+  holds and the softmax partials are merged by log-sum-exp in rank order.
+  Every sum adds in f32 in rank order, so what every model rank computes
+  alike (norms, routing, the merge) is bitwise alike across them; the
+  row-split products reorder sums, so a call is within the reference's
+  bars of the one-device serving of the rank's batch slice, not bitwise;
+* **mamba2, zamba2 and whisper** gather the whole parameters a call. An
+  SSM state's heads are split over ``model``: ``in_proj`` and the conv run
+  whole, each rank steps its own heads, and their outputs are gathered
+  before the gated norm. Attention projects the rank's own heads from
+  column slices of the whole weights and gathers the head outputs before
+  the whole output product (or merges the sequence split's partials). A
+  prompt from an empty cache attends over itself whole (``fresh_only``);
+  only the rank's shard of its K/V is stored. The batch split, and the
+  head splits where the per-head products are the one device's, are
+  bitwise the one-device serving of the rank's batch slice; the
+  log-sum-exp merge reorders the softmax sums.
+
+With a model extent of 1 either way is the batch split alone. On a
+:class:`~repro_torch.core.mesh.MeshLayout` (meta tensors) the same calls
+are priced by the dry run.
 """
 
 from __future__ import annotations
@@ -127,23 +147,25 @@ def kv_heads(bundle: Bundle) -> int | None:
     return n_kv
 
 
-def tp_split(bundle: Bundle, mesh, tp_axis: str = "model") -> layers.TPSplit | None:
-    """The compute split of ``bundle``'s training step over ``tp_axis`` of
-    ``mesh``: None without a mesh, with an extent of 1, or for a family
-    outside :data:`SPLIT_FAMILIES`. The attention split is
-    ``cfg.attn_sharding`` where set, else ``"heads"`` where the extent
-    divides the KV heads and ``"seq"`` where it does not (the JAX dry run's
-    rule, on the mesh's own extent). An extent that does not divide the
-    heads, a product's columns, ``d_ff``, the experts or the vocab raises
-    ``ValueError`` naming it (the sequence is checked at each call)."""
+def tp_split(bundle: Bundle, mesh, tp_axis: str = "model", *,
+             kv: str | None = None) -> layers.TPSplit | None:
+    """The compute split of ``bundle`` over ``tp_axis`` of ``mesh``: None
+    without a mesh, with an extent of 1, or for a family outside
+    :data:`SPLIT_FAMILIES`. The attention split is the cache's ``kv``
+    where given (serving), else ``cfg.attn_sharding`` where set, else
+    ``"heads"`` where the extent divides the KV heads and ``"seq"`` where
+    it does not (the JAX dry run's rule, on the mesh's own extent). An
+    extent that does not divide the heads, a product's columns, ``d_ff``,
+    the experts or the vocab raises ``ValueError`` naming it (the sequence
+    is checked at each call)."""
     if mesh is None or bundle.family not in SPLIT_FAMILIES:
         return None
     if mesh.shape.get(tp_axis, 1) == 1:
         return None
     cfg = getattr(bundle.cfg, "backbone", bundle.cfg)
     n = mesh.shape[tp_axis]
-    attn = cfg.attn_sharding or ("heads" if cfg.n_kv % n == 0 else "seq")
-    split = layers.TPSplit(mesh, tp_axis, attn)
+    attn = kv or cfg.attn_sharding or ("heads" if cfg.n_kv % n == 0 else "seq")
+    split = layers.TPSplit(mesh, tp_axis, attn, kv)
     if attn == "heads":
         split.local(cfg.n_kv, "KV heads")
     split.local(cfg.n_heads * cfg.d_head, "query columns")
@@ -180,6 +202,17 @@ def _only(spec: tuple, axis: str) -> tuple:
     """``spec`` with its ``axis`` entries alone: what stays split while a
     rank computes."""
     return tuple(e if axis in _entry_axes(e) else None for e in spec)
+
+
+def _split_specs(named: dict, axis: str, split) -> tuple[dict, dict]:
+    """``(what a rank gathers each leaf over, what stays split over
+    ``axis`` as it computes)`` from the specs by leaf name: every entry
+    but ``axis``'s and ``axis``'s alone under a compute split, else every
+    entry and nothing."""
+    if split is None:
+        return named, {}
+    return ({n: _without(s, axis) for n, s in named.items()},
+            {n: _only(s, axis) for n, s in named.items()})
 
 
 def _split_norm(grads: dict, model_only: dict, mesh, axis: str) -> torch.Tensor:
@@ -257,14 +290,7 @@ class TrainArtifacts:
         """Bytes of ``params`` (a whole parameter module, one pod's) as a
         step gathers them on this rank: the model shards under a split,
         else the whole."""
-        total = 0
-        for n, x in named_leaves(params).items():
-            numel = x.numel()
-            for e in self.model_specs.get(n, ()):
-                if e is not None:
-                    numel //= self.mesh.extent(e)
-            total += numel * x.element_size()
-        return total
+        return _computed_bytes(params, self.model_specs, self.mesh)
 
     def batch_sds(self, bundle: Bundle, shape: ShapeSpec, mesh=None) -> dict:
         """Meta tensors of a global batch of ``shape``, with the pod axis
@@ -298,6 +324,20 @@ class TrainArtifacts:
         if axes is not None:
             specs = {n: _over(spec, axes) for n, spec in specs.items()}
         return map_named(lambda n, x: _gather_leaf(x.detach(), specs[n], self.mesh), shards)
+
+
+def _computed_bytes(params: Any, model_specs: dict, mesh) -> int:
+    """Bytes of the whole parameter module ``params`` as a rank computes
+    on them: each leaf cut by its entries over the model axis
+    (``model_specs``; the whole leaf without)."""
+    total = 0
+    for n, x in named_leaves(params).items():
+        numel = x.numel()
+        for e in model_specs.get(n, ()):
+            if e is not None:
+                numel //= mesh.extent(e)
+        total += numel * x.element_size()
+    return total
 
 
 def _over(spec: tuple, axes) -> tuple:
@@ -377,9 +417,7 @@ def make_train_artifacts(
         return params, opt_state, {"loss": loss, **metrics}
 
     named_p = model.named_pspecs(p_specs) if mesh is not None else {}
-    # what a rank gathers each leaf over, and what stays split as it computes
-    gather_p = {n: _without(s, tp_axis) for n, s in named_p.items()} if split else named_p
-    model_only = {n: _only(s, tp_axis) for n, s in named_p.items()} if split else {}
+    gather_p, model_only = _split_specs(named_p, tp_axis, split)
 
     def mesh_step(params, opt_state, batch):
         """``base_step`` on this rank's shards and batch slice: its model
@@ -464,7 +502,14 @@ class ServeArtifacts:
     token_spec: tuple = ()
     mesh: Any = None
     named_specs: dict = dataclasses.field(default_factory=dict)  # leaf name -> spec
-    split: Any = None             # layers.ServeSplit on a mesh
+    split: Any = None             # layers.TPSplit on a mesh whose tp_axis extent is above 1
+    model_specs: dict = dataclasses.field(default_factory=dict)  # leaf name -> tp entries
+
+    def computed_bytes(self, params: Any) -> int:
+        """Bytes of ``params`` (a whole parameter module) as a call
+        gathers them on this rank: the model shards under a compute split,
+        else the whole."""
+        return _computed_bytes(params, self.model_specs, self.mesh)
 
     def shard(self, params: Any) -> Any:
         """This rank's shards of a whole parameter module (frozen, as
@@ -507,10 +552,15 @@ def make_serve_artifacts(bundle: Bundle, shape: ShapeSpec, mesh=None, *,
     call) a rank holds between calls its shards alone: the parameters
     (:meth:`ServeArtifacts.shard`), its batch and tokens
     (``host_batch(batch, mesh, art.batch_axes)``), and the serve state
-    prefill makes, the caches and ``enc_out`` cut by ``state_specs``. A
-    call gathers the whole parameters; the caches are never gathered: each
-    attention layer and SSM layer works where its shard lies
-    (:class:`~repro_torch.models.layers.ServeSplit`)."""
+    prefill makes, the caches and ``enc_out`` cut by ``state_specs``. The
+    caches are never gathered: each attention layer and SSM layer works
+    where its shard lies. The families of :data:`SPLIT_FAMILIES` gather
+    each parameter over every axis but ``tp_axis`` and compute only the
+    rank's share (:func:`tp_split` with the cache's split, held in
+    :attr:`ServeArtifacts.split`); the others gather the whole parameters
+    and split the cache alone (a :class:`~repro_torch.models.layers.TPSplit`
+    whose ``attn`` is None). The module's docstring says what each computes
+    and how close it comes to one device."""
     model = bundle.model
     cfg = bundle.cfg
     b, s = shape.global_batch, shape.seq_len
@@ -542,17 +592,22 @@ def make_serve_artifacts(bundle: Bundle, shape: ShapeSpec, mesh=None, *,
     p_specs = model.param_pspecs(fsdp=fsdp_axis, tp=tp_axis)
 
     split = named = None
+    gather_p, model_only = {}, {}
     if mesh is not None:
         named = model.named_pspecs(p_specs)
         kv = None  # how the KV caches split over tp_axis (none without attention)
         if tp_size > 1 and n_kv is not None:
             kv = "heads" if head_axis is not None else "seq"
-        split = layers.ServeSplit(mesh, tp_axis, kv)
+        split = tp_split(bundle, mesh, tp_axis, kv=kv)
+        gather_p, model_only = _split_specs(named, tp_axis, split)
+        if split is None and tp_size > 1:  # whole weights, the cache split alone
+            split = layers.TPSplit(mesh, tp_axis, None, kv)
         local_cache = shard_state(state_sds["cache"], cache_specs, mesh)  # meta: shapes only
 
     def whole(params):
-        return params if mesh is None else _gather_params(params, named, mesh, False)
+        return params if mesh is None else _gather_params(params, gather_p, mesh, False)
 
+    @torch.no_grad()
     def prefill(params, batch):
         device = next(params.parameters()).device
         if mesh is None:
@@ -572,6 +627,7 @@ def make_serve_artifacts(bundle: Bundle, shape: ShapeSpec, mesh=None, *,
                                                  last_only=True, **kwargs)
         return logits, {"cache": cache, **state}
 
+    @torch.no_grad()
     def decode(params, serve_state, tokens, cache_index):
         kwargs = {"enc_out": serve_state["enc_out"]} if is_audio else {}
         if split is not None:
@@ -584,4 +640,5 @@ def make_serve_artifacts(bundle: Bundle, shape: ShapeSpec, mesh=None, *,
         prefill_fn=prefill, decode_fn=decode,
         params_sds=model.init_params(None, device="meta"), params_specs=p_specs,
         state_sds=state_sds, state_specs=state_specs, batch_axes=batch_axes,
-        token_spec=P(batch_axes, None), mesh=mesh, named_specs=named or {}, split=split)
+        token_spec=P(batch_axes, None), mesh=mesh, named_specs=named or {}, split=split,
+        model_specs=model_only)

@@ -19,7 +19,8 @@ what comm counts in gloo CPU worlds.
   backward, remat's recomputed ones included, and a prefill and a decode
   call on the two serving meshes, (2, 2) (KV heads over ``model``) and
   (1, 4) (the sequence over ``model``), reduced qwen2, and reduced grok-1
-  (MoE) on (2, 2).
+  (MoE) on (2, 2): the compute split's collectives, and no parameter
+  gathered over ``model``.
 * The CLI prices ``--arch qwen2-0.5b --shape all --mesh both`` on the CPU
   and exits 0: every row OK or SKIP, with the reference's FLOPs.
 """
@@ -280,5 +281,11 @@ def test_priced_collectives_equal_the_counted_ones(tmp_path, world):
             priced = _price_serve(arch, layout, SERVE["seq" if world == "seq" else "heads"])
             for call in ("prefill", "decode"):
                 assert priced[call]["collectives"] == got[key][call], (world, r, key, call)
+            # the compute split: partial sums, the logits' (and with the
+            # sequence split q, k and v's) column gathers, the softmax
+            # partials; parameters gathered over data alone
             kinds = {k.split()[0] for k in got[key]["decode"]}
-            assert kinds == {"all_gather", "gather_heads" if world != "seq" else "merge_partials"}
+            assert kinds == ({"partial_sum", "split_gather", "merge_partials"} if world == "seq"
+                             else {"all_gather", "partial_sum", "split_gather"}), kinds
+            assert not any(k.split()[0] == "all_gather" and "model" in k.split()[1]
+                           for call in ("prefill", "decode") for k in got[key][call]), key
