@@ -296,7 +296,13 @@ card from seed 0, f32 products in f32):
     attention, the vocab-parallel cross entropy, experts where they are
     stored): the same qwen2-0.5b on (data, model) = (2, 2), head-parallel,
     and on (1, 4), context-parallel, in f32 over its bf16 weights, 2 steps;
-    reduced llama4-maverick in f32 on (2, 2), its experts over ``model``; grok-1 at its
+    reduced llama4-maverick in f32 on (2, 2), its experts over ``model``;
+    zamba2-1.2b at its published widths, 7 of 38 layers (one application of
+    the shared block over 6 mamba layers and a tail layer), in f32 over f32
+    weights on (2, 2), one step (its first-step gradients held too, each
+    leaf within 1e-4 of its largest), its mamba layers' in_proj and conv
+    computed on the stored column blocks and gathered, each rank stepping
+    its own SSM heads; grok-1 at its
     published widths (1 of 64 layers, bf16), B 1 x S 4096 on (1, 4), each
     expert's d_ff over ``model``, one step. Each against its one-device
     trainer run here first (llama4's on the host): losses and grad norms
@@ -310,18 +316,19 @@ card from seed 0, f32 products in f32):
     replica's, what a step computes on, peak GB, ms per step and sync,
     bytes in per collective;
     then ``[lm-mesh]``: the same ranks serve (``make_serve_artifacts`` on
-    a mesh) in f32 over bf16 weights with a bf16 cache, the transformer
-    families each computing only its share over ``model`` (no parameter
+    a mesh) in f32 over bf16 weights with a bf16 cache (mamba2's f32),
+    every family computing only its share over ``model`` (no parameter
     gathered over it): qwen2-0.5b at 4 of 24 layers, a cache of 32768, on
     (data, model) = (2, 2) (B 4, a 4096-token prompt, the KV heads over
     ``model``) and (1, 4) (B 1, a 12288-token prompt across the
     8192-position shards, the sequence over ``model``), and grok-1 at its
     published widths, 1 of 64 layers, on (1, 4) (B 2, a 4096-token prompt,
     a cache of 8192, its 8 KV heads and its experts' d_ff over ``model``);
-    and whisper-medium at 2 + 4 of 24 + 24 layers on (2, 2) (B 4, a
-    256-token prompt, a cache of 448), a family outside the compute split:
-    its whole weights gathered over ``model``, its 16 KV heads split, the
-    head outputs gathered in every call; 8 decode steps each, against the
+    whisper-medium at 2 + 4 of 24 + 24 layers on (2, 2) (B 4, a 256-token
+    prompt, a cache of 448, its 16 heads over ``model`` in every attention);
+    and mamba2-2.7b at 4 of 64 layers on (1, 4) (B 2, a 4096-token prompt,
+    its 80 SSM heads over ``model``, in_proj and the conv computed on each
+    rank's stored column block and gathered); 8 decode steps each, against the
     one-device serving of each rank's batch slice run here first: the
     prefill within 1e-4 and every decode step within 5e-4 of the largest
     logit, on the rows whose expert choices agree (a routing flip printed,
@@ -3687,7 +3694,23 @@ MESH_LR = 1e-3
 # MESH_BAR_BF16) and every parameter to 2 lr per step plus one bf16
 # rounding of its value (the flips' bar); the shares within 1e-5 of the
 # largest and the moments are read, not gated. Its 6.5 G parameters are
-# compared at MESH_SAMPLE elements a leaf, drawn from a seed.
+# compared at MESH_SAMPLE elements a leaf, drawn from a seed. zamba2-1.2b at
+# its published widths, 7 of 38 layers (one application of the shared block
+# over 6 mamba layers, then a tail layer), on (2, 2): its mamba layers'
+# in_proj and conv on the stored column blocks, gathered, each rank
+# stepping its own 32 of the 64 SSM heads; the shared block's attention by
+# heads, its MLP Megatron's. It takes one step in f32 over f32 weights, so
+# that its gradients are held too: the first step's m is (1 - b1) times
+# the clipped gradient, and each leaf's is held within 1e-4 of the leaf's
+# largest (1e-8 floor: tests/test_torch_train_families.py's gradient bar).
+# A second step is not held to the moments' bar: AdamW's first update moves
+# every element by about lr times the sign of its gradient, so an element
+# whose gradient lies within the reordered sums' noise of 0 moves 2 lr the
+# other way, and the second gradient is taken at another point. At S 2048
+# the SSM's gradients carry that noise in many elements: on the CPU, at a
+# reduced width (d_model 256, S 2048), 54% of the second step's m lay
+# within 1e-5 of the largest (93% in f32 weights), and the one-device f32
+# trainer's own second-step m against an f64 run's only 80%.
 MESH_SPLIT = {
     "sync": (MESH_SYNC, "qwen2-0.5b", {"n_layers": MESH_LAYERS, "compute_dtype": "float32"},
              MESH_SYNC_STEPS, MESH_SEQ, "cuda"),
@@ -3695,9 +3718,13 @@ MESH_SPLIT = {
             MESH_SYNC_STEPS, MESH_SEQ, "cuda"),
     "llama4": (MESH_SYNC, "llama4-maverick-400b-a17b", None, MESH_SYNC_STEPS, 64, "cpu"),
     "grok": (MESH_CP, "grok-1-314b", {"n_layers": 1}, 1, 4096, "cuda"),
+    "zamba2": (MESH_SYNC, "zamba2-1.2b",
+               {"n_layers": 7, "compute_dtype": "float32", "param_dtype": "float32"}, 1,
+               MESH_SEQ, "cuda"),
 }
+MESH_FIRST = ("sync", "seq", "llama4", "zamba2")  # trained before the checks; grok after
 MESH_SAMPLE = 4096
-MESH_BAR = 1e-4  # losses and grad norms, relative (tests/test_torch_train.py)
+MESH_BAR = 1e-4  # losses and grad norms, relative; a leaf's gradient, of its largest
 MESH_BAR_BF16 = 2.0 ** -8  # the same in bf16 compute: one bf16 rounding
 
 
@@ -3705,8 +3732,9 @@ MESH_BAR_BF16 = 2.0 ** -8  # the same in bf16 compute: one bf16 rounding
 # process mesh, each rank holding its parameter shards, its batch slice and
 # its cache shards, against the one-device serving of its batch slice run
 # here first. Compute in f32 over the bf16 weights (bf16 rounding of the
-# logits alone is above the 5e-4 bar), a bf16 cache, FSDP off (the dry
-# run's policy below 1e9 parameters; the data extent is 1 for grok).
+# logits alone is above the 5e-4 bar), a bf16 cache unless the leg says
+# otherwise (ServeLeg.cache_dtype), FSDP off (the dry run's policy below
+# 1e9 parameters; the data extent is 1 for grok).
 # Published widths, cut in depth only (ServeLeg.overrides).
 #
 # The transformer-backbone legs compute only their share over model (the
@@ -3721,17 +3749,24 @@ MESH_BAR_BF16 = 2.0 ** -8  # the same in bf16 compute: one bf16 rounding
 # margin, and a call with no row held fails; grok serves B 2, so that one
 # flipped row leaves a row to hold.
 #
-# whisper-medium, 2 of 24 encoder and 4 of 24 decoder layers, is a family
-# outside the compute split: a call gathers its whole weights over model
-# and only the cache splits (its 16 KV heads over 2), each rank attending
-# with its own heads (column slices of the whole weights) over its shard,
-# the head outputs gathered ("gather_heads") before the whole output
-# product. Its cache is the decoder's physical 448 positions.
+# whisper-medium, 2 of 24 encoder and 4 of 24 decoder layers, on (2, 2):
+# its 16 heads split over model in the encoder, the decoder's cached
+# self-attention (its 16 KV heads) and the cross-attention, its GELU MLPs
+# Megatron's, its tied embedding vocab-parallel both ways. Its cache is the
+# decoder's physical 448 positions. mamba2-2.7b, 4 of 64 layers, on (1, 4):
+# in_proj's 10,576 columns and the conv's 5,376 channels are computed on
+# each rank's stored block (2,644 and 1,344 a rank) and gathered, each rank
+# steps its own 20 of the 80 SSM heads, the gated norm sums its squares
+# over model and out_proj is row-parallel; its cache is O(1) in the
+# sequence (the conv state whole on every rank, the SSM state by heads). Its
+# cache is f32: the conv state is its only leaf in the cache's dtype, and
+# in bf16 the split's reordered sums flip roundings of it, which carry into
+# every decode step (4.56e-04 of the largest logit at step 8 against the
+# 5e-4 bar, PERF.md); f32 holds the split's own error.
 #
 # Every call is held to the reference's bars, prefill 1e-4 and decode 5e-4
-# of the largest logit: row-split products reorder sums, and column slices
-# of a whole weight may take another GEMM than the whole product does, so
-# neither is bitwise by design (the bitwise calls are printed).
+# of the largest logit: row-split products reorder sums, so no call is
+# bitwise by design (the bitwise calls are printed).
 class ServeLeg(NamedTuple):
     extents: tuple
     names: tuple
@@ -3741,6 +3776,7 @@ class ServeLeg(NamedTuple):
     prompt: int
     cache: int
     seed: int        # tokens and frontend inputs
+    cache_dtype: str = "bfloat16"
 
 
 SERVE_MESHES = {
@@ -3752,6 +3788,8 @@ SERVE_MESHES = {
                      2, 4096, 8192, 4),
     "whisper": ServeLeg((2, 2), ("data", "model"), "whisper-medium",
                         {"n_enc_layers": 2, "n_dec_layers": 4}, 4, 256, 448, 5),
+    "mamba2": ServeLeg((1, 4), ("data", "model"), "mamba2-2.7b", {"n_layers": 4},
+                       2, 4096, 4096, 6, "float32"),
 }
 SERVE_STEPS = 8
 SERVE_BAR = 5e-4          # decode logits, of the largest (the reference's serving bar)
@@ -3820,7 +3858,8 @@ def _serve_run(mode: str, mesh=None, rows=None) -> dict:
     if mesh is None:
         toks, extra = toks[rows], {k: v[rows] for k, v in extra.items()}
         shape = dataclasses.replace(shape, global_batch=toks.shape[0])
-    art = make_serve_artifacts(bundle, shape, mesh, fsdp_axis=None)
+    art = make_serve_artifacts(bundle, shape, mesh, fsdp_axis=None,
+                               cache_dtype=getattr(torch, leg.cache_dtype))
     if mesh is not None:
         toks = mesh.shard(toks, art.token_spec, "tokens").contiguous()
         extra = {k: mesh.shard(v, (art.batch_axes,) + (None,) * (v.dim() - 1), k).contiguous()
@@ -3857,7 +3896,6 @@ def _serve_run(mode: str, mesh=None, rows=None) -> dict:
     return dict(logits=logits, ms=ms, tables=tables, routes=routes, held=held, replica=replica,
                 computed=art.computed_bytes(art.params_sds), draw_peak=draw_peak,
                 peak=torch.cuda.max_memory_allocated() / 1e9,
-                attn=None if split is None else split.attn,
                 kv=None if split is None else split.kv)
 
 
@@ -3883,9 +3921,7 @@ def _serve_priced(mode: str) -> dict:
 def _serve_rank(rank: int, meshes: dict, ref) -> dict:
     """[lm-mesh] on this rank: each mode served on its mesh, held to the
     references (``ref(key)``: a reference's bytes on the card, its dtype
-    and shape). No kernel launch; a compute split gathers no parameter
-    over model, a cache-only split gathers its head outputs
-    (``gather_heads``) in every call."""
+    and shape). No kernel launch; no parameter gathered over model."""
     import torch
 
     from repro_torch.kernels import cuda
@@ -3927,15 +3963,12 @@ def _serve_rank(rank: int, meshes: dict, ref) -> dict:
                                  f"of the largest logit")
         over_model = [k for t in run["tables"] for k in t
                       if k.split()[0] == "all_gather" and "model" in k.split()[1]]
-        if run["attn"] is not None and over_model:
+        if over_model:
             raise AssertionError(f"[lm-mesh] rank {rank} {mode}: parameters gathered over "
                                  f"model under the compute split: {over_model}")
-        if run["attn"] is None and not all("gather_heads model" in t for t in run["tables"]):
-            raise AssertionError(f"[lm-mesh] rank {rank} {mode}: a call of the cache-only "
-                                 f"split gathered no head outputs: {run['tables']}")
         out[mode] = dict(errs=errs, bitwise=bitwise, rows=rows, n_rows=got.shape[0], ms=run["ms"],
                          tables=run["tables"], held=run["held"], replica=run["replica"],
-                         computed=run["computed"], attn=run["attn"], kv=run["kv"], wall_s=wall,
+                         computed=run["computed"], kv=run["kv"], wall_s=wall,
                          peak=run["peak"], draw_peak=run["draw_peak"], coords=mesh.coords)
         del run
     if dict(cuda.launches) != before:
@@ -3985,12 +4018,10 @@ def _serve_report(res: list, priced: dict, ref_s: float) -> None:
                           for t in got["tables"]]
             decode_ms = statistics.median(got["ms"][1:])
             into = [sum(e["bytes"] for e in t.values()) for t in got["tables"]]
-            split = ("the compute split over model" if got["attn"] is not None else
-                     "whole weights gathered over model, the cache split alone")
             log(f"[lm-mesh] {mode} {dict(zip(leg.names, leg.extents))} rank {rank} at "
                 f"{got['coords']}: {leg.arch} cut to {leg.overrides}, f32 compute over bf16 "
                 f"weights, B {leg.b}, cache {leg.cache}, prompt {leg.prompt}, {SERVE_STEPS} "
-                f"decode steps, KV cache split {got['kv']!r}, {split}; held "
+                f"decode steps, KV cache split {got['kv']!r}, the compute split over model; held "
                 f"{got['held']:,} B against one replica's {got['replica']:,} B; computes on "
                 f"{got['computed']:,} B of parameters, gathers {gathered[0]:,} B of them a "
                 f"prefill and {max(gathered[1:]):,} B a decode step ({over_model[0]:,} / "
@@ -4502,7 +4533,7 @@ def _check_split(rank, mode, mesh, run, peak, ref_t, index, card) -> dict:
     if max(rel) > bar:
         raise AssertionError(f"(j) rank {rank} {mode}: losses and grad norms {rel} above "
                              f"{bar} relative of the one-device run's")
-    shares = {}
+    shares, worst_g = {}, None
     for part in ("params", "opt"):
         if mode == "grok":  # its shard at the sampled coordinates it holds
             got, want = {}, {}
@@ -4536,6 +4567,17 @@ def _check_split(rank, mode, mesh, run, peak, ref_t, index, card) -> dict:
                                               {n: want[n] for n in keys}, steps, top, True)
         if part == "opt" and not torch.equal(got["count"].cpu(), want["count"].cpu()):
             raise AssertionError(f"(j) rank {rank} {mode}: AdamW counts differ")
+        if part == "opt" and mode == "zamba2":  # one step: m is (1 - b1) x the gradient
+            from repro_torch.optim.adamw import AdamWConfig
+
+            floor = (1 - AdamWConfig.b1) * 1e-8 / MESH_BAR
+            worst_g = max(float((got[n].double() - want[n].double()).abs().max())
+                          / max(float(ref_t(f"{mode}/opt/{n}").double().abs().max()), floor)
+                          for n in got if n.startswith("m."))
+            if worst_g > MESH_BAR:
+                raise AssertionError(f"(j) rank {rank} {mode}: a leaf's first-step gradient "
+                                     f"differs by {worst_g:.3g} of the leaf's largest (bar "
+                                     f"{MESH_BAR})")
         del got, want
     worst, share = shares["bf16" if mode == "grok" else "params"]
     gated = ("params", "m", "v") if mode != "grok" else ()
@@ -4558,6 +4600,9 @@ def _check_split(rank, mode, mesh, run, peak, ref_t, index, card) -> dict:
     if mode == "grok":
         kinds["params"] += (f"; less one bf16 rounding of each element {kinds['bf16']} (the "
                             f"largest gated, the shares read)")
+    if worst_g is not None:
+        kinds["m"] += (f"; each leaf's first-step gradient within {worst_g:.3g} of the leaf's "
+                       f"largest (bar {MESH_BAR})")
     log(f"[train] (j) rank {rank} {mode} {arch} on {mesh.shape} at {mesh.coords}: attention "
         f"{art.split.attn!r}, B 1 x S {seq}, {steps} step(s); losses "
         f"{[x.tolist() for x in run['losses']]}, losses and grad norms within "
@@ -4615,7 +4660,7 @@ def mesh_rank_main(rank: int, tmp: str, port: int) -> int:
             return run, torch.cuda.max_memory_allocated() / 1e9
 
         runs = {"hier": train("hier", MESH_HIER)}
-        for mode in ("sync", "seq", "llama4"):
+        for mode in MESH_FIRST:
             runs[mode] = train(mode, MESH_SPLIT[mode][0])
         t_trained = time.perf_counter()
         _wait_for(Path(f"{tmp}/refs.bin.json"), "the references' file")
@@ -4642,7 +4687,7 @@ def mesh_rank_main(rank: int, tmp: str, port: int) -> int:
         t_check = time.perf_counter()
         out = _check_hier(rank, mesh_of(MESH_HIER), *runs.pop("hier"), ref, card)
         out["split"] = {}
-        for mode in ("sync", "seq", "llama4"):
+        for mode in MESH_FIRST:
             run, peak = runs.pop(mode)
             out["split"][mode] = _check_split(rank, mode, mesh_of(MESH_SPLIT[mode][0]), run,
                                               peak, ref_t, index, card)
@@ -4671,7 +4716,7 @@ def mesh_rank_main(rank: int, tmp: str, port: int) -> int:
         out["wall_s"] = time.perf_counter() - t_start
         log(f"[train] (j) rank {rank}: started {since_spawn:.1f} s after its spawn (imports), "
             f"{t_go - t_start:.1f} s from its start to the references, "
-            f"{t_trained - t_go:.1f} s training the hierarchical, sync, seq and llama4 legs, "
+            f"{t_trained - t_go:.1f} s training the hierarchical, {', '.join(MESH_FIRST)} legs, "
             f"{check_s:.1f} s holding them to the references, {grok_s:.1f} s on grok, "
             f"{serve_s:.1f} s serving ([lm-mesh])")
         Path(f"{tmp}/rank{rank}.json").write_text(json.dumps(out))

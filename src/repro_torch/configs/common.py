@@ -68,7 +68,7 @@ class Bundle:
         """Mean next-token CE (+ 0.01 x the aux loss) on a ``{'tokens',
         'labels', ...}`` batch, through the hidden-state API and the chunked
         CE, so the full ``[B, S, V]`` logits never exist. Under ``split``
-        (the transformer-backbone families on a mesh) ``params`` are this
+        (on a mesh whose model extent is above 1) ``params`` are this
         rank's model shards, the CE is vocab-parallel, and every rank of
         the axis gets the same loss."""
         extras = {k: batch[k] for k in self.extra_inputs}

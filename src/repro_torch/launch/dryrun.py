@@ -8,14 +8,15 @@ x 16 meshes; :func:`dryrun_lm_cell`) take the reference's choices per cell
 from 1e9 parameters, ``n_micro`` the per-replica batch, the hierarchical
 int8 trainer with ``--hierarchical`` on two pods) and run one rank's call
 on ``meta`` tensors over a :class:`~repro_torch.core.mesh.MeshLayout`:
-the training step (one microbatch; its FLOPs times ``n_micro``) and, in
-hierarchical mode, the sync step, or one prefill or decode call of
-``make_serve_artifacts``. Nothing is allocated and no process group is
-made. The row holds ``rank_bytes`` (the shards a rank holds, and what a
-call gathers: a training step or a serving call of a transformer-backbone
-family its model shards, split over ``model`` as it computes, any other
-call a whole replica), ``collectives`` (what :mod:`~repro_torch.core.comm`
-counts into the rank, by the same rules a world counts them),
+the training step (its FLOPs one microbatch's times ``n_micro``, its
+collectives the microbatch loop's times ``n_micro`` and the step's own
+once: :func:`price_lm`) and, in hierarchical mode, the sync step, or one
+prefill or decode call of ``make_serve_artifacts``. Nothing is allocated
+and no process group is made. The row holds ``rank_bytes`` (the shards a
+rank holds, and what a call gathers: its model shards, split over
+``model`` as it computes), ``collectives`` (what
+:mod:`~repro_torch.core.comm` counts into the rank, by the same rules a
+world counts them),
 ``flops_per_device`` (``torch.utils.flop_counter.FlopCounterMode``),
 ``model_flops_total`` and ``useful_flops_ratio`` as the reference defines
 them, and the H100 roofline (:data:`H100`). XLA's ``memory_analysis``
@@ -567,29 +568,54 @@ def price_lm(bundle, shape: ShapeSpec, layout: MeshLayout, *, fsdp_axis: str | N
              n_micro: int = 1, cache_index: int | None = None, prompt_len: int | None = None,
              count_flops: bool = True) -> dict:
     """One rank's call of ``shape`` priced on ``layout``'s rank: the
-    training step of ``make_train_artifacts`` (one microbatch of one
-    sequence a rank; ``flops_per_device`` is its FLOPs times ``n_micro``,
-    the collectives are the step's), with the sync step priced apart in
-    hierarchical mode, or a prefill or decode call of
-    ``make_serve_artifacts`` (a prompt of ``prompt_len`` tokens, by default
-    the cache's length; decode at ``cache_index``, by default the cache's
-    last position). Returns ``rank_bytes``, ``collectives``,
-    ``flops_per_device`` and, hierarchical, ``sync_step``."""
+    training step of ``make_train_artifacts`` (microbatches of one sequence
+    a rank; ``flops_per_device`` is one microbatch's FLOPs times
+    ``n_micro``), with the sync step priced apart in hierarchical mode, or
+    a prefill or decode call of ``make_serve_artifacts`` (a prompt of
+    ``prompt_len`` tokens, by default the cache's length; decode at
+    ``cache_index``, by default the cache's last position). Returns
+    ``rank_bytes``, ``collectives``, ``flops_per_device`` and,
+    hierarchical, ``sync_step``.
+
+    A training step's ``collectives`` are the step's as it runs them:
+    what the microbatch loop counts (the split's activation sums and
+    gathers, forward and backward) ``n_micro`` times, what the step counts
+    once (the parameters' gathers, the gradients' sums, the clip's norm)
+    once. With ``n_micro`` above 2 the step is priced at two microbatches
+    and at three, and each collective's calls and bytes are ``c2 +
+    (n_micro - 2) * (c3 - c2)``: the loop body times its trip count, as the
+    reference counts a loop (from two microbatches on, the step sums its
+    gradients in the f32 accumulator, not in the parameters' dtype)."""
     out: dict[str, Any] = {}
     if shape.kind == "train":
-        art = make_train_artifacts(bundle, mesh=layout, batch_axes=dp_axes, fsdp_axis=fsdp_axis,
-                                   hier_cfg=hier_cfg, n_micro=1)
-        params = art.shard(art.params_sds, "params")
-        for x in params.parameters():
-            x.requires_grad_()
-        opt = art.shard(art.opt_sds, "opt")
-        # one sequence a rank: the global batch of a microbatch, cut as host_batch cuts it
-        n_shards = layout.extent(dp_axes) * (layout.shape[hier_cfg.pod_axis] if hier_cfg else 1)
-        batch = art.batch_sds(bundle, dataclasses.replace(shape, global_batch=n_shards))
-        batch = shard_state(batch, art.batch_specs, layout)
+        def step_at(micro: int, count: bool):
+            art = make_train_artifacts(bundle, mesh=layout, batch_axes=dp_axes,
+                                       fsdp_axis=fsdp_axis, hier_cfg=hier_cfg, n_micro=micro)
+            params = art.shard(art.params_sds, "params")
+            for x in params.parameters():
+                x.requires_grad_()
+            opt = art.shard(art.opt_sds, "opt")
+            # one sequence a rank a microbatch, cut as host_batch cuts it
+            n_shards = micro * layout.extent(dp_axes) * (
+                layout.shape[hier_cfg.pod_axis] if hier_cfg else 1)
+            batch = art.batch_sds(bundle, dataclasses.replace(shape, global_batch=n_shards))
+            batch = shard_state(batch, art.batch_specs, layout)
+            _, table, flops = _measured(lambda: art.step_fn(params, opt, batch), count)
+            return art, params, opt, _bytes(batch) // micro, table, flops
+
+        micros = [1] if n_micro == 1 else [2] if n_micro == 2 else [2, 3]
+        if count_flops and n_micro > 1:
+            micros = [1] + micros  # one microbatch's FLOPs
+        runs = {m: step_at(m, count_flops and m == 1) for m in micros}
+        art, params, opt, batch_bytes, _, flops = runs[micros[0]]
+        table = runs[min(n_micro, 2)][4]
+        if n_micro > 2:
+            more = runs[3][4]
+            table = {k: {f: table[k][f] + (n_micro - 2) * (v[f] - table[k][f]) if k in table
+                         else (n_micro - 2) * v[f] for f in ("calls", "bytes")}
+                     for k, v in more.items()}
         sync = art.shard(art.sync_sds, "sync") if hier_cfg is not None else None
-        _, table, flops = _measured(lambda: art.step_fn(params, opt, batch), count_flops)
-        held = {"params": _bytes(params), "opt": _bytes(opt), "batch": n_micro * _bytes(batch)}
+        held = {"params": _bytes(params), "opt": _bytes(opt), "batch": n_micro * batch_bytes}
         whole = art.params_sds if hier_cfg is None else art.hier.pod(art.params_sds, 0)
         flops *= n_micro
         if sync is not None:
@@ -623,7 +649,7 @@ def price_lm(bundle, shape: ShapeSpec, layout: MeshLayout, *, fsdp_axis: str | N
             held["enc_out"] = _nbytes(state["enc_out"])
     held["held"] = sum(held.values())
     # a training step or a serving call gathers a rank's model shards (the
-    # split families) or the whole
+    # whole with a model extent of 1)
     held["gathered"] = art.computed_bytes(whole)
     out.update(rank_bytes=held, collectives=table, flops_per_device=flops)
     return out

@@ -101,7 +101,6 @@ class InternVL(jax_layout.Stacked):
                 ) -> torch.Tensor:
         """Project the patch embeddings and overwrite the first
         ``n_patches`` positions of the token embeddings."""
-        split = layers.compute_split(split)
         h = layers.embed_lookup(params.lm.embed, tokens, self.cfg.cdtype, split)
         c = params.connector
         a = F.gelu(layers.dense(c["fc1"], patch_embeds.to(self.cfg.cdtype)), approximate="tanh")

@@ -27,11 +27,9 @@ Serving on a mesh also splits the cache, which stays where its shard lies
 (:class:`TPSplit`'s ``kv``): with the KV heads split, a rank attends with
 its own heads over its own cache shard; with the sequence split, a rank
 attends over the positions it holds and the partial softmax sums are
-merged by log-sum-exp (:func:`gqa_attention` with ``split``). The families
-that keep their weights whole on a mesh (whisper, zamba2's shared block)
-take the same cache split over whole weights: a rank projects its own
-heads from column slices of the weights and the head outputs are gathered
-before the whole output product.
+merged by log-sum-exp (:func:`gqa_attention` with ``split``). Every
+family serves and trains under the compute split: no weight is whole on a
+mesh whose model extent is above 1.
 """
 
 from __future__ import annotations
@@ -93,44 +91,36 @@ class TPSplit:
     """How a rank's share of a model lies over ``axis`` of ``mesh``: the
     compute half (``attn``) and, serving, the cache half (``kv``).
 
-    ``attn`` ``"heads"`` or ``"seq"``: the layers take this rank's model
-    shards of the weights (the stored shard along every dimension the
-    specs split over ``axis``) and split the compute as Megatron does:
-    the products, head-parallel (``"heads"``) or context-parallel
-    (``"seq"``) attention, the vocab-parallel embedding, unembedding and
-    cross entropy, and MoE experts where they are stored, through the
-    collectives of :mod:`~repro_torch.core.comm`. ``attn`` None: the
-    weights are whole on every rank (the families that shard storage
-    only), only the cache splits, and every layer computes whole
-    (:func:`compute_split`).
+    The layers take this rank's model shards of the weights (the stored
+    shard along every dimension the specs split over ``axis``) and split
+    the compute as Megatron does: the products, head-parallel (``attn``
+    ``"heads"``) or context-parallel (``"seq"``) attention, the
+    vocab-parallel embedding, unembedding and cross entropy, MoE experts
+    where they are stored, and an SSM's heads (a family without attention
+    takes ``"heads"``), through the collectives of
+    :mod:`~repro_torch.core.comm`, counted under their names there.
 
     ``kv``: how a serving rank's KV cache lies over ``axis``: ``"heads"``
     (the KV heads split), ``"seq"`` (the sequence split: rank ``i`` of the
-    axis holds positions ``[i L, (i + 1) L)``) or None (no cache split, as
-    in training). Under a compute split attention splits as the cache does.
-    An SSM state's heads lie over ``"model"`` (every model's
-    ``cache_pspecs`` names it), split when its extent is above 1. The
-    cache split's own collectives are counted as ``"gather_heads"`` (head
-    outputs over whole weights) and ``"merge_partials"`` (softmax
-    partials), the compute split's under their ``comm`` names."""
+    axis holds positions ``[i L, (i + 1) L)``) or None (no KV cache split,
+    as in training). Attention splits as the cache does. An SSM state's
+    heads lie over ``"model"`` (every model's ``cache_pspecs`` names it).
+    The sequence split's own collective is counted as
+    ``"merge_partials"`` (softmax partials)."""
 
     mesh: Any
     axis: str = "model"
-    attn: str | None = "heads"
+    attn: str = "heads"
     kv: str | None = None
 
     def __post_init__(self) -> None:
-        if self.attn not in ("heads", "seq", None):
-            raise ValueError(f"unknown attention split {self.attn!r} (heads, seq or None)")
+        if self.attn not in ("heads", "seq"):
+            raise ValueError(f"unknown attention split {self.attn!r} (heads or seq)")
         if self.kv not in ("heads", "seq", None):
             raise ValueError(f"unknown cache split {self.kv!r} (heads, seq or None)")
-        if None not in (self.attn, self.kv) and self.kv != self.attn:
+        if self.kv is not None and self.kv != self.attn:
             raise ValueError(f"attention split {self.attn!r} does not follow the cache's "
                              f"{self.kv!r}")
-
-    def ssm_block(self) -> tuple[int, int]:
-        """``(index, extent)`` of this rank along the SSM heads' axis."""
-        return self.mesh.block("model")
 
     @property
     def index(self) -> tuple[int, int]:
@@ -161,21 +151,12 @@ class TPSplit:
         return comm.max_over(x, self.mesh, self.axis)
 
 
-def compute_split(split: TPSplit | None) -> TPSplit | None:
-    """``split`` where it splits the compute (``attn`` set: the weights are
-    this rank's model shards), else None. The one test of a compute split:
-    every layer that splits its products reads its split through this, so
-    under a cache-only split (whole weights) it computes whole."""
-    return split if split is not None and split.attn is not None else None
-
-
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor, dtype,
                  split: TPSplit | None = None) -> torch.Tensor:
     """``table[tokens]`` in ``dtype``. Under ``split`` ``table`` is this
     rank's block of vocab rows: each rank looks up the tokens it holds,
     zeros elsewhere, and the ranks' rows are summed (exact: one rank holds
     each token, the others add zeros)."""
-    split = compute_split(split)
     if split is None:
         return table[tokens].to(dtype)
     rows = table.shape[0]
@@ -285,10 +266,15 @@ def gelu_mlp_init(d_model: int, d_ff: int, *, generator: torch.Generator | None,
                           "down": dense_init(d_ff, d_model, **kw)})
 
 
-def gelu_mlp(p: nn.ModuleDict, x: torch.Tensor) -> torch.Tensor:
+def gelu_mlp(p: nn.ModuleDict, x: torch.Tensor, split: TPSplit | None = None) -> torch.Tensor:
     """``down(gelu(up(x)))`` with the tanh approximation of GELU:
-    ``jax.nn.gelu``'s default."""
-    return dense(p["down"], F.gelu(dense(p["up"], x), approximate="tanh"))
+    ``jax.nn.gelu``'s default. Under ``split`` up (and its bias) are this
+    rank's columns and down's weight its rows; the partial products are
+    summed and down's bias, whole on every rank, is added once after."""
+    if split is None:
+        return dense(p["down"], F.gelu(dense(p["up"], x), approximate="tanh"))
+    a = F.gelu(dense(p["up"], split.enter(x)), approximate="tanh")
+    return split.sum(a @ p["down"].w.to(a.dtype)) + p["down"].b.to(a.dtype)
 
 
 def sinusoidal_positions(positions: torch.Tensor, d_model: int,
@@ -498,22 +484,15 @@ def gqa_attention(
     take the flash kernel (``use_pallas`` and no cache) or the streaming
     path. Returns (output [B, S, D], updated cache or fresh slices or None).
 
-    With a ``split`` whose ``attn`` is set the weights are this rank's
-    model shards and the heads or the queries are split
-    (:func:`_tp_attention`); ``kv_cache``, if any, is this rank's shard.
-    With whole weights and a cache split (``kv``), ``kv_cache`` is this
-    rank's shard and never leaves it (:func:`_split_attention`).
+    With a ``split`` the weights are this rank's model shards and the
+    heads or the queries are split (:func:`_tp_attention`); ``kv_cache``,
+    if any, is this rank's shard.
     """
-    if compute_split(split) is not None:
+    if split is not None:
         return _tp_attention(p, x, positions, n_heads=n_heads, n_kv=n_kv, d_head=d_head,
                              rope_theta=rope_theta, window=window, use_rope=use_rope,
                              use_pallas=use_pallas, split=split, kv_cache=kv_cache,
                              cache_index=cache_index, cache_mode=cache_mode)
-    if split is not None and split.kv is not None and kv_cache is not None:
-        return _split_attention(
-            p, x, positions, n_heads=n_heads, n_kv=n_kv, d_head=d_head,
-            rope_theta=rope_theta, window=window, kv_cache=kv_cache,
-            cache_index=cache_index, use_rope=use_rope, cache_mode=cache_mode, split=split)
     b, s, _ = x.shape
     q = dense(p["q"], x).reshape(b, s, n_heads, d_head)
     k = dense(p["k"], x).reshape(b, s, n_kv, d_head)
@@ -572,56 +551,6 @@ def _attend(q, k, v, positions, window, kv_cache, cache_index, cache_mode, use_p
     k_valid = (k_pos[0] < k_len).expand(k_pos.shape)
     mask = causal_window_mask(positions, k_pos, k_valid, window)
     return attention_scores(q, k_full, v_full, mask), new_cache
-
-
-def _head_cols(p: Dense, x: torch.Tensor, c0: int, c1: int) -> torch.Tensor:
-    """``dense(p, x)``'s output columns ``[c0, c1)``, from those columns of
-    the weight (and bias) alone."""
-    y = x @ p.w[:, c0:c1].to(x.dtype)
-    if p.b is not None:
-        y = y + p.b[c0:c1].to(x.dtype)
-    return y
-
-
-def _split_attention(p, x, positions, *, n_heads, n_kv, d_head, rope_theta, window,
-                     kv_cache, cache_index, use_rope, cache_mode, split: TPSplit):
-    """:func:`gqa_attention` on a mesh with whole weights, ``kv_cache``
-    this rank's shard (the families outside the compute split, whose
-    caches are written in place).
-
-    * ``heads``: the rank projects q, k and v for its own KV heads and their
-      query heads from column slices of the weights, attends over its own
-      shard as one device would, and the head outputs are gathered over
-      ``split.axis`` in rank order before the whole output product.
-    * ``seq``: :func:`_seq_attend` over the positions the rank holds.
-    """
-    mesh, axis = split.mesh, split.axis
-    r, n = mesh.block(axis)
-    b, s, _ = x.shape
-    if split.kv == "heads":
-        if n_kv % n:
-            raise ValueError(f"{n_kv} KV heads do not divide over {axis} (extent {n})")
-        kv_loc, g = n_kv // n, n_heads // n_kv
-        qw, kw = kv_loc * g * d_head, kv_loc * d_head
-        q = _head_cols(p["q"], x, r * qw, (r + 1) * qw).reshape(b, s, kv_loc * g, d_head)
-        k = _head_cols(p["k"], x, r * kw, (r + 1) * kw).reshape(b, s, kv_loc, d_head)
-        v = _head_cols(p["v"], x, r * kw, (r + 1) * kw).reshape(b, s, kv_loc, d_head)
-        if use_rope:
-            q = rope(q, positions, rope_theta)
-            k = rope(k, positions, rope_theta)
-        out, new_cache = _attend(q, k, v, positions, window, kv_cache, cache_index,
-                                 cache_mode, False)
-        out = comm.all_gather(out, mesh, axis, dim=2, count_as="gather_heads")
-    else:
-        q = dense(p["q"], x).reshape(b, s, n_heads, d_head)
-        k = dense(p["k"], x).reshape(b, s, n_kv, d_head)
-        v = dense(p["v"], x).reshape(b, s, n_kv, d_head)
-        if use_rope:
-            q = rope(q, positions, rope_theta)
-            k = rope(k, positions, rope_theta)
-        out, new_cache = _seq_attend(q, k, v, positions, window, kv_cache, cache_index,
-                                     cache_mode, split)
-    return dense(p["o"], out.reshape(b, s, n_heads * d_head)), new_cache
 
 
 def _seq_attend(q, k, v, positions, window, kv_cache, cache_index, cache_mode,
@@ -770,7 +699,6 @@ def swiglu_init(d_model: int, d_ff: int, *, generator: torch.Generator | None,
 def swiglu(p: nn.ModuleDict, x: torch.Tensor, split: TPSplit | None = None) -> torch.Tensor:
     """``down(silu(gate(x)) * up(x))``; under ``split`` gate and up are this
     rank's columns and down its rows, the partial products summed."""
-    split = compute_split(split)
     if split is not None:
         x = split.enter(x)
     y = dense(p["down"], F.silu(dense(p["gate"], x)) * dense(p["up"], x))
@@ -844,7 +772,6 @@ def chunked_cross_entropy(
         chunk = s
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     remat = torch.is_grad_enabled()
-    split = compute_split(split)
     nll_fn = _chunk_nll if split is None else functools.partial(_chunk_nll_split, split=split)
     for c0 in range(0, s, chunk):
         h_i, y_i = h[:, c0:c0 + chunk], labels[:, c0:c0 + chunk]

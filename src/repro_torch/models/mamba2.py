@@ -11,6 +11,13 @@ Parameters live in :class:`Mamba2Params`, one :class:`Mamba2Layer` a layer
 under ``layers``, named as the JAX dict (whose layer leaves stack ``[n_layers]``).
 Under autograd ``hidden`` checkpoints each layer body as ``cfg.remat`` asks.
 ``param_pspecs`` / ``cache_pspecs`` are the JAX spec trees as tuples.
+
+**On a mesh** (a :class:`~repro_torch.models.layers.TPSplit`) a rank holds
+the stored shards of the specs: a contiguous block of ``in_proj``'s fused
+``[z | xBC | dt]`` columns and of the conv channels, which need not line up
+with its heads, and the ``d_inner`` rows of ``gated_norm`` and
+``out_proj``, which do (:meth:`Mamba2._split_mixer`). The embedding and
+the head are vocab-parallel, as the transformer's.
 """
 
 from __future__ import annotations
@@ -23,7 +30,6 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.core import comm
 from repro_torch.models import jax_layout, layers
 from repro_torch.models.jax_layout import P
 
@@ -178,16 +184,24 @@ class Mamba2(jax_layout.Stacked):
         """Depthwise causal conv over S, seeded by a decode state
         ``[B, d_conv - 1, conv_dim]`` if given. Returns (SiLU of the conv
         output, the new conv state)."""
-        cfg = self.cfg
-        w = p.conv_w.to(xbc.dtype)
-        pad = cfg.d_conv - 1
+        xp = self._conv_input(xbc, conv_state)
+        pad = self.cfg.d_conv - 1
+        return self._conv_window(p.conv_w, p.conv_b, xp), xp[:, xp.shape[1] - pad:]
+
+    def _conv_input(self, xbc: torch.Tensor, conv_state: torch.Tensor | None) -> torch.Tensor:
+        """``xbc`` behind ``d_conv - 1`` positions of history: zeros or the
+        decode state."""
         if conv_state is None:
-            xp = F.pad(xbc, (0, 0, pad, 0))
-        else:
-            xp = torch.cat([conv_state.to(xbc.dtype), xbc], dim=1)
-        s = xbc.shape[1]
-        out = sum(xp[:, i:i + s] * w[i] for i in range(cfg.d_conv)) + p.conv_b.to(xbc.dtype)
-        return F.silu(out), xp[:, xp.shape[1] - pad:]
+            return F.pad(xbc, (0, 0, self.cfg.d_conv - 1, 0))
+        return torch.cat([conv_state.to(xbc.dtype), xbc], dim=1)
+
+    def _conv_window(self, w: torch.Tensor, b: torch.Tensor, xp: torch.Tensor) -> torch.Tensor:
+        """SiLU of the depthwise conv of ``w`` ``[d_conv, C]`` and ``b`` over
+        the padded input ``xp`` ``[B, d_conv - 1 + S, C]``."""
+        k = self.cfg.d_conv
+        s = xp.shape[1] - (k - 1)
+        w = w.to(xp.dtype)
+        return F.silu(sum(xp[:, i:i + s] * w[i] for i in range(k)) + b.to(xp.dtype))
 
     def ssd_chunked(self, p, x, b_mat, c_mat, dt, h0=None):
         """Chunked SSD scan. ``x [B, S, H, P]``, ``b_mat`` / ``c_mat``
@@ -247,13 +261,10 @@ class Mamba2(jax_layout.Stacked):
               split: layers.TPSplit | None = None):
         """One mamba2 block (the caller adds the residual). ``state`` is
         None (full sequence) or ``{"conv", "ssm"}`` (serving). Returns
-        (out ``[B, S, D]``, the new state or None).
-
-        With a ``split`` whose SSM axis has an extent above 1 (serving on a
-        mesh), ``state["ssm"]`` holds this rank's heads only: ``in_proj``
-        and the conv run whole (the conv state is not split), the rank steps
-        its own heads' state (:meth:`_own_heads`), and the heads' ``y`` is
-        gathered over the axis in rank order before the gated norm."""
+        (out ``[B, S, D]``, the new state or None). Under ``split``
+        :meth:`_split_mixer`."""
+        if split is not None:
+            return self._split_mixer(p, u, state, split)
         cfg = self.cfg
         bsz, s, _ = u.shape
         zxbcdt = layers.dense(p.in_proj, u)
@@ -266,11 +277,8 @@ class Mamba2(jax_layout.Stacked):
         c_mat = c_mat.reshape(bsz, s, cfg.n_groups, cfg.d_state)
         dt = F.softplus(dt.float() + p.dt_bias.float())      # [B, S, H]
 
-        if state is not None and split is not None and split.ssm_block()[1] > 1:
-            y, h_last = self._own_heads(p, x, b_mat, c_mat, dt, state["ssm"], split)
-        else:
-            y, h_last = self.ssd_chunked(p, x, b_mat, c_mat, dt,
-                                         h0=None if state is None else state["ssm"])
+        y, h_last = self.ssd_chunked(p, x, b_mat, c_mat, dt,
+                                     h0=None if state is None else state["ssm"])
         y = layers.rms_norm(p.gated_norm, y.reshape(bsz, s, cfg.d_inner) * F.silu(z))
         out = layers.dense(p.out_proj, y)
         if state is None:
@@ -278,27 +286,60 @@ class Mamba2(jax_layout.Stacked):
         return out, {"conv": new_conv.to(state["conv"].dtype),
                      "ssm": h_last.to(state["ssm"].dtype)}
 
-    def _own_heads(self, p, x, b_mat, c_mat, dt, h0, split: layers.TPSplit):
-        """:meth:`ssd_chunked` on this rank's heads (and the B/C groups they
-        read), from its state shard ``h0``: (y of every head, gathered over
-        the SSM axis as ``"gather_heads"``; this rank's last state)."""
-        r, n = split.ssm_block()
-        h, g = self.cfg.n_heads, self.cfg.n_groups
-        if h % n:
-            raise ValueError(f"{h} SSM heads do not divide over model (extent {n})")
-        h_loc, hg = h // n, h // g
+    def own_groups(self, h_loc: int, r: int) -> slice:
+        """The B/C groups read by the ``h_loc`` heads of rank ``r``: whole
+        groups, or the one group they lie in. ``ValueError`` where they
+        straddle groups."""
+        hg = self.cfg.n_heads // self.cfg.n_groups
+        if h_loc % hg == 0:
+            return slice(r * h_loc // hg, (r + 1) * h_loc // hg)
+        if hg % h_loc == 0:
+            return slice(r * h_loc // hg, r * h_loc // hg + 1)
+        raise ValueError(f"SSM heads: {h_loc} a rank straddle the B/C groups of {hg} heads")
+
+    def _split_mixer(self, p, u: torch.Tensor, state: dict | None, split: layers.TPSplit):
+        """:meth:`mixer` on this rank's shards. ``in_proj`` and the conv
+        are computed on the columns and channels the rank stores, and each
+        is gathered whole over the axis (``split_gather``; its gradient is
+        first summed over the ranks, ``split_grad_sum``, since each rank
+        reads other columns of it). The rank then steps its own heads (and
+        the B/C groups they read) from its ``ssm`` state shard; the gated
+        RMSNorm sums its squares over the axis (``partial_sum``) and
+        ``out_proj`` is row-parallel (``partial_sum``). The conv state lies
+        whole on every rank and is updated whole from the whole pre-conv
+        input, so it stays bitwise alike over the axis."""
+        cfg = self.cfg
+        bsz, s, _ = u.shape
+        r, n = split.index
+        di, cd, h, pd = cfg.d_inner, cfg.conv_dim, cfg.n_heads, cfg.headdim
+        h_loc = split.local(h, "SSM heads")
         heads = slice(r * h_loc, (r + 1) * h_loc)
-        if h_loc % hg == 0:      # whole groups
-            groups = slice(r * h_loc // hg, (r + 1) * h_loc // hg)
-        elif hg % h_loc == 0:    # within one group
-            groups = slice(r * h_loc // hg, r * h_loc // hg + 1)
-        else:
-            raise ValueError(f"{h_loc} heads a rank straddle the B/C groups of {hg} heads")
-        own = types.SimpleNamespace(A_log=p.A_log[heads], D=p.D[heads])
-        y, h_last = self.ssd_chunked(own, x[:, :, heads], b_mat[:, :, groups],
-                                     c_mat[:, :, groups], dt[:, :, heads], h0=h0)
-        y = comm.all_gather(y, split.mesh, "model", dim=2, count_as="gather_heads")
-        return y, h_last
+        cols = slice(r * h_loc * pd, (r + 1) * h_loc * pd)   # the heads' d_inner columns
+        zxbcdt = split.enter(split.gather(layers.dense(p.in_proj, split.enter(u)), -1))
+        z, xbc, dt = torch.split(zxbcdt, [di, cd, h], dim=-1)
+        xp = self._conv_input(xbc, None if state is None else state["conv"])
+        c_loc = split.local(cd, "conv channels")
+        conv = self._conv_window(p.conv_w, p.conv_b, xp[..., r * c_loc:(r + 1) * c_loc])
+        xbc = split.enter(split.gather(conv, -1))
+        ng = cfg.n_groups * cfg.d_state
+        groups = self.own_groups(h_loc, r)
+        b_mat = xbc[..., di:di + ng].reshape(bsz, s, cfg.n_groups, cfg.d_state)[:, :, groups]
+        c_mat = xbc[..., di + ng:].reshape(bsz, s, cfg.n_groups, cfg.d_state)[:, :, groups]
+        x = xbc[..., cols].reshape(bsz, s, h_loc, pd)
+        dt = F.softplus(dt[..., heads].float() + split.own(p.dt_bias, 0).float())
+        own = types.SimpleNamespace(A_log=split.own(p.A_log, 0), D=split.own(p.D, 0))
+        y, h_last = self.ssd_chunked(own, x, b_mat, c_mat, dt,
+                                     h0=None if state is None else state["ssm"])
+        # the gated RMSNorm over the whole d_inner: the squares summed over the axis
+        g = (y.reshape(bsz, s, h_loc * pd) * F.silu(z[..., cols])).float()
+        ms = split.enter(split.sum(torch.sum(g * g, dim=-1, keepdim=True))) * (1.0 / di)
+        y = (g * torch.rsqrt(ms + 1e-6) * p.gated_norm.scale.float()).to(u.dtype)
+        out = split.sum(layers.dense(p.out_proj, y))
+        if state is None:
+            return out, None
+        pad = cfg.d_conv - 1
+        return out, {"conv": xp[:, xp.shape[1] - pad:].to(state["conv"].dtype),
+                     "ssm": h_last.to(state["ssm"].dtype)}
 
     def layer(self, p, h: torch.Tensor, state: dict | None = None,
               split: layers.TPSplit | None = None):
@@ -309,18 +350,24 @@ class Mamba2(jax_layout.Stacked):
     # --------------------------------------------------------------- forward
 
     def hidden(self, params: Mamba2Params, tokens: torch.Tensor, *,
-               embeds_override: torch.Tensor | None = None, positions=None):
+               embeds_override: torch.Tensor | None = None, positions=None,
+               split: layers.TPSplit | None = None):
         """Full-sequence forward up to the final norm: (h, aux loss 0). SSMs
-        carry position in their state, so ``positions`` is unused."""
+        carry position in their state, so ``positions`` is unused. Under
+        ``split`` the parameters are this rank's model shards."""
         del positions
-        h = params.embed[tokens].to(self.cfg.cdtype)
         if embeds_override is not None:
             h = embeds_override.to(self.cfg.cdtype)
+        else:
+            h = layers.embed_lookup(params.embed, tokens, self.cfg.cdtype, split)
         for p in params.layers:
-            h = layers.checkpointed(lambda x, p=p: self.layer(p, x)[0], h, self.cfg.remat)
+            h = layers.checkpointed(lambda x, p=p: self.layer(p, x, split=split)[0], h,
+                                    self.cfg.remat)
         return layers.rms_norm(params.final_norm, h), torch.zeros((), device=h.device)
 
     def unembed(self, params: Mamba2Params, h: torch.Tensor) -> torch.Tensor:
+        """The logits; this rank's vocab columns where ``lm_head`` is its
+        model shard."""
         return h @ params.lm_head.to(h.dtype)
 
     def forward(self, params: Mamba2Params, tokens: torch.Tensor, *,
@@ -348,16 +395,18 @@ class Mamba2(jax_layout.Stacked):
                            cache_index: int, *, last_only: bool = False, split=None):
         """Prefill or decode: the state carries all history, so
         ``cache_index`` is unused. Returns (logits, cache updated in place);
-        with a ``split`` the SSM state is this rank's heads."""
+        with a ``split`` the parameters are this rank's model shards, the
+        SSM state its heads, and the logits' vocab columns are gathered."""
         del cache_index
-        h = params.embed[tokens].to(self.cfg.cdtype)
+        h = layers.embed_lookup(params.embed, tokens, self.cfg.cdtype, split)
         for i, p in enumerate(params.layers):
             h, st = self.layer(p, h, {"conv": cache["conv"][i], "ssm": cache["ssm"][i]}, split)
             cache["conv"][i], cache["ssm"][i] = st["conv"], st["ssm"]
         h = layers.rms_norm(params.final_norm, h)
         if last_only:
             h = h[:, -1:]
-        return self.unembed(params, h), cache
+        logits = self.unembed(params, h)
+        return (logits if split is None else split.gather(logits, -1)), cache
 
     # ---------------------------------------------------------------- specs
 

@@ -168,7 +168,6 @@ def moe_apply(p: MoEParams, x: torch.Tensor, cfg: MoEConfig,
     """Returns (output ``[B, S, D]``, the load-balance aux loss
     ``E * sum_e f_e P_e`` over all tokens, f32). Under ``split`` the
     experts' weights are this rank's shards (the module's docstring)."""
-    split = layers.compute_split(split)
     s = x.shape[1]
     e, k = cfg.n_experts, cfg.top_k
     cap = int(max(1, -(-s * k * cfg.capacity_factor // e)))   # ceil, per sequence

@@ -377,9 +377,6 @@ class Transformer(jax_layout.Stacked):
         positions' vocab columns are gathered into whole logits."""
         cfg = self.cfg
         b, s = tokens.shape
-        if split is not None and layers.compute_split(split) is None:
-            raise ValueError("the transformer serves on a mesh under a compute split (attn set); "
-                             "whole weights with a split cache are not its layout")
         if embeds_override is not None:
             h = embeds_override.to(cfg.cdtype)
         else:

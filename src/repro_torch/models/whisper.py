@@ -11,6 +11,14 @@ in the reference. Under autograd the encoder's layer bodies, and the
 decoder's without a cache, are checkpoints as ``cfg.remat`` asks, as the JAX
 bodies are. ``param_pspecs`` / ``cache_pspecs`` are the JAX spec trees as
 tuples.
+
+**On a mesh** (a :class:`~repro_torch.models.layers.TPSplit`) a rank
+computes its share with its model shards: the encoder's self-attention and
+the cross-attention are head-parallel (q, k and v by columns with their
+biases, o by rows, its partial products summed), the decoder's
+self-attention splits as its cache does, the GELU MLPs are Megatron's
+(down's bias added once, after the sum), and the tied embedding is
+vocab-parallel both ways.
 """
 
 from __future__ import annotations
@@ -121,21 +129,31 @@ class Whisper(jax_layout.Stacked):
 
     # ----------------------------------------------------------- components
 
-    def _mha(self, p, q_x, kv_x, mask):
+    def _mha(self, p, q_x, kv_x, mask, split=None):
         """Full multi-head attention with separate query and key-value
-        streams."""
+        streams; under ``split`` head-parallel (this rank's heads, its
+        output product's partials summed)."""
         cfg = self.cfg
         b, sq, _ = q_x.shape
         sk = kv_x.shape[1]
-        q = layers.dense(p["q"], q_x).reshape(b, sq, cfg.n_heads, cfg.d_head)
-        k = layers.dense(p["k"], kv_x).reshape(b, sk, cfg.n_heads, cfg.d_head)
-        v = layers.dense(p["v"], kv_x).reshape(b, sk, cfg.n_heads, cfg.d_head)
+        h = cfg.n_heads
+        if split is not None:
+            h = split.local(h, "heads")
+            same = kv_x is q_x
+            q_x = split.enter(q_x)
+            kv_x = q_x if same else split.enter(kv_x)
+        q = layers.dense(p["q"], q_x).reshape(b, sq, h, cfg.d_head)
+        k = layers.dense(p["k"], kv_x).reshape(b, sk, h, cfg.d_head)
+        v = layers.dense(p["v"], kv_x).reshape(b, sk, h, cfg.d_head)
         out = layers.attention_scores(q, k, v, mask)
-        return layers.dense(p["o"], out.reshape(b, sq, cfg.n_heads * cfg.d_head))
+        out = layers.dense(p["o"], out.reshape(b, sq, h * cfg.d_head))
+        return out if split is None else split.sum(out)
 
-    def encode(self, params: WhisperParams, frames: torch.Tensor) -> torch.Tensor:
+    def encode(self, params: WhisperParams, frames: torch.Tensor,
+               split: layers.TPSplit | None = None) -> torch.Tensor:
         """``frames [B, T_enc, D]`` (the stub frontend's output) -> the
-        encoder output ``[B, T_enc, D]``."""
+        encoder output ``[B, T_enc, D]`` (alike on every rank of a
+        ``split``)."""
         cfg = self.cfg
         b, t, _ = frames.shape
         pos = torch.arange(t, dtype=torch.int32, device=frames.device).expand(b, t)
@@ -144,8 +162,8 @@ class Whisper(jax_layout.Stacked):
 
         def body(p, h):
             x = layers.layer_norm(p["ln1"], h)
-            h = h + self._mha(p["attn"], x, x, full)
-            return h + layers.gelu_mlp(p["mlp"], layers.layer_norm(p["ln2"], h))
+            h = h + self._mha(p["attn"], x, x, full, split)
+            return h + layers.gelu_mlp(p["mlp"], layers.layer_norm(p["ln2"], h), split)
 
         for p in params.enc_layers:
             h = layers.checkpointed(lambda x, p=p: body(p, x), h, cfg.remat)
@@ -158,12 +176,12 @@ class Whisper(jax_layout.Stacked):
         """The decoder up to the final LayerNorm; with a cache, each layer's
         self-attention K/V are written in place at ``cache_index`` (the
         reference's ``inplace`` mode; into this rank's shard with a
-        ``split``). The cross-attention runs whole."""
+        ``split``, under which every layer computes the rank's share)."""
         cfg = self.cfg
         b, s = tokens.shape
         base = cache_index if cache_index is not None else 0
         pos = base + torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
-        h = params.embed[tokens].to(cfg.cdtype)
+        h = layers.embed_lookup(params.embed, tokens, cfg.cdtype, split)
         h = h + layers.sinusoidal_positions(pos, cfg.d_model, cfg.cdtype)
         cross = torch.ones(b, 1, s, enc_out.shape[1], dtype=torch.bool, device=h.device)
 
@@ -173,8 +191,9 @@ class Whisper(jax_layout.Stacked):
                 n_heads=cfg.n_heads, n_kv=cfg.n_heads, d_head=cfg.d_head,
                 use_rope=False, kv_cache=kv, cache_index=cache_index, split=split)
             h = h + attn_out
-            h = h + self._mha(p["cross_attn"], layers.layer_norm(p["ln_x"], h), enc_out, cross)
-            return h + layers.gelu_mlp(p["mlp"], layers.layer_norm(p["ln2"], h)), new_kv
+            h = h + self._mha(p["cross_attn"], layers.layer_norm(p["ln_x"], h), enc_out, cross,
+                              split)
+            return h + layers.gelu_mlp(p["mlp"], layers.layer_norm(p["ln2"], h), split), new_kv
 
         for i, p in enumerate(params.dec_layers):
             if cache is None:
@@ -186,13 +205,15 @@ class Whisper(jax_layout.Stacked):
         return h[:, -1:] if last_only else h
 
     def unembed(self, params: WhisperParams, h: torch.Tensor) -> torch.Tensor:
-        return h @ params.embed.T.to(h.dtype)  # tied
+        """The logits (tied); this rank's vocab columns where ``embed`` is
+        its model shard."""
+        return h @ params.embed.T.to(h.dtype)
 
     def hidden(self, params: WhisperParams, tokens: torch.Tensor, *,
-               frames: torch.Tensor, positions=None):
+               frames: torch.Tensor, positions=None, split: layers.TPSplit | None = None):
         """(the decoder's hidden states after the final LayerNorm, aux 0)."""
         del positions
-        h = self._decoder(params, tokens, self.encode(params, frames))
+        h = self._decoder(params, tokens, self.encode(params, frames, split), split=split)
         return h, torch.zeros((), device=h.device)
 
     # ----------------------------------------------------------- public API
@@ -214,11 +235,13 @@ class Whisper(jax_layout.Stacked):
                            cache_index: int, *, enc_out: torch.Tensor,
                            last_only: bool = False, split=None):
         """Prefill or decode against a precomputed encoder output. Returns
-        (logits, cache updated in place); ``split``: the cache shard on a
-        mesh."""
+        (logits, cache updated in place); with a ``split`` the parameters
+        and the cache are this rank's shards and the logits' vocab columns
+        are gathered."""
         h = self._decoder(params, tokens, enc_out, cache=cache, cache_index=cache_index,
                           last_only=last_only, split=split)
-        return self.unembed(params, h), cache
+        logits = self.unembed(params, h)
+        return (logits if split is None else split.gather(logits, -1)), cache
 
     # ---------------------------------------------------------------- specs
 

@@ -9,6 +9,12 @@ attention passes no ``use_pallas``, so this model launches no kernel, as in
 the reference. Under autograd ``hidden`` checkpoints each mamba layer body
 (not the shared block) as ``cfg.remat`` asks, as the JAX body does.
 ``param_pspecs`` / ``cache_pspecs`` are the JAX spec trees as tuples.
+
+**On a mesh** (a :class:`~repro_torch.models.layers.TPSplit`) the mamba
+layers split as mamba2's do, and the shared block computes this rank's
+share: ``in_proj`` is column-parallel over ``d_model`` and its output, the
+block's residual stream, is gathered whole; attention splits by heads (or
+by positions, as the cache does) and the MLP is Megatron's.
 """
 
 from __future__ import annotations
@@ -132,13 +138,17 @@ class Zamba2(jax_layout.Stacked):
     def _shared_block(self, p: nn.ModuleDict, h, x0, positions, kv_cache=None,
                       cache_index=None, split=None):
         cfg = self.cfg
-        z = layers.dense(p["in_proj"], torch.cat([h, x0], dim=-1))
+        zx = torch.cat([h, x0], dim=-1)
+        if split is None:
+            z = layers.dense(p["in_proj"], zx)
+        else:  # this rank's columns, gathered: the block's residual stream
+            z = split.gather(layers.dense(p["in_proj"], split.enter(zx)), -1)
         attn_out, new_kv = layers.gqa_attention(
             p["attn"], layers.rms_norm(p["ln1"], z), positions,
             n_heads=cfg.n_heads, n_kv=cfg.n_kv, d_head=cfg.d_head,
             kv_cache=kv_cache, cache_index=cache_index, split=split)
         z = z + attn_out
-        z = z + layers.swiglu(p["ffn"], layers.rms_norm(p["ln2"], z))
+        z = z + layers.swiglu(p["ffn"], layers.rms_norm(p["ln2"], z), split)
         return h + z, new_kv
 
     def _mamba_layers(self, params: Zamba2Params):
@@ -146,19 +156,22 @@ class Zamba2(jax_layout.Stacked):
         return list(params.groups) + list(params.tail)
 
     def hidden(self, params: Zamba2Params, tokens: torch.Tensor, *,
-               embeds_override: torch.Tensor | None = None, positions=None):
+               embeds_override: torch.Tensor | None = None, positions=None,
+               split: layers.TPSplit | None = None):
         cfg = self.cfg
         b, s = tokens.shape
-        h = params.embed[tokens].to(cfg.cdtype)
         if embeds_override is not None:
             h = embeds_override.to(cfg.cdtype)
+        else:
+            h = layers.embed_lookup(params.embed, tokens, cfg.cdtype, split)
         x0 = h
         if positions is None:
             positions = torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
         for i, p in enumerate(self._mamba_layers(params)):
             if i < cfg.n_apps * cfg.period and i % cfg.period == 0:
-                h, _ = self._shared_block(params.shared, h, x0, positions)
-            h = layers.checkpointed(lambda x, p=p: self.mamba.layer(p, x)[0], h, cfg.remat)
+                h, _ = self._shared_block(params.shared, h, x0, positions, split=split)
+            h = layers.checkpointed(lambda x, p=p: self.mamba.layer(p, x, split=split)[0], h,
+                                    cfg.remat)
         return layers.rms_norm(params.final_norm, h), torch.zeros((), device=h.device)
 
     def unembed(self, params: Zamba2Params, h: torch.Tensor) -> torch.Tensor:
@@ -191,10 +204,10 @@ class Zamba2(jax_layout.Stacked):
         ``cache_index`` (the reference's ``inplace`` mode); the mamba states
         are replaced. Returns (logits, cache updated in place). With a
         ``split`` (a mesh) the caches are this rank's shards, read and
-        written where they lie."""
+        written where they lie, and the parameters its model shards."""
         cfg = self.cfg
         b, s = tokens.shape
-        h = params.embed[tokens].to(cfg.cdtype)
+        h = layers.embed_lookup(params.embed, tokens, cfg.cdtype, split)
         x0 = h
         positions = cache_index + torch.arange(
             s, dtype=torch.int32, device=tokens.device).expand(b, s)
@@ -212,7 +225,8 @@ class Zamba2(jax_layout.Stacked):
         h = layers.rms_norm(params.final_norm, h)
         if last_only:
             h = h[:, -1:]
-        return self.unembed(params, h), cache
+        logits = self.unembed(params, h)
+        return (logits if split is None else split.gather(logits, -1)), cache
 
     # ---------------------------------------------------------------- specs
 

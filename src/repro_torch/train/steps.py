@@ -27,28 +27,22 @@ runs on the shards. The sum adds the ranks' gradients in f32 in row-major
 order (:func:`~repro_torch.core.comm.sum_in_order`) and the clip takes the
 whole tree's norm.
 
-What a rank gathers and computes depends on the family (:func:`tp_split`):
-
-* **the transformer-backbone families** (``dense``, ``moe`` and the
-  ``vlm``'s backbone and connector) split the compute over ``tp_axis`` as
-  the JAX package's specs split it under GSPMD
-  (:class:`~repro_torch.models.layers.TPSplit`): a leaf is gathered over
-  its spec's entries except ``tp_axis``, so a rank holds its model shard
-  whole and never a replica, and the loss runs under the split (Megatron
-  products, head- or context-parallel attention, the vocab-parallel
-  embedding and cross entropy, experts computed where they are stored).
-  The clip's norm sums the split leaves' squares over ``tp_axis`` and
-  counts each replicated leaf once. A row-split product sums partial
-  products, so the step is within the reference's tolerances of the
-  one-device step, not bitwise; the replicated leaves stay bitwise alike
-  across the model ranks;
-* **mamba2, zamba2 and whisper** (``ssm``, ``hybrid``, ``audio``) shard
-  storage only: their ``in_proj`` column split does not line up with
-  heads, so a step gathers the whole parameters and runs the one-device
-  forward and backward;
-* with a model extent of 1 either way is the same: with one microbatch a
-  rank the step is bitwise the one-device step with ``n_micro`` = the
-  batch axes' extent.
+On a mesh whose ``tp_axis`` extent is above 1 every family splits its
+compute over ``tp_axis`` as the JAX package's specs split it under GSPMD
+(:func:`tp_split`, :class:`~repro_torch.models.layers.TPSplit`): a leaf is
+gathered over its spec's entries except ``tp_axis`` (nothing with FSDP
+off), so a rank holds its model shard whole and never a replica, and the
+loss runs under the split: Megatron products, head- or context-parallel
+attention, the vocab-parallel embedding and cross entropy, experts
+computed where they are stored, an SSM's own heads (mamba2's and zamba2's
+``in_proj`` and conv, whose stored blocks do not line up with the heads,
+are computed on the stored block and gathered). The clip's norm sums the
+split leaves' squares over ``tp_axis`` and counts each replicated leaf
+once. A row-split product sums partial products, so the step is within the
+reference's tolerances of the one-device step, not bitwise; the replicated
+leaves stay bitwise alike across the model ranks. With a model extent of 1
+and one microbatch a rank the step is bitwise the one-device step with
+``n_micro`` = the batch axes' extent.
 
 ``make_serve_artifacts`` gives the prefill and decode callables, with the
 reference's layout choices, spec trees and meta shapes. **Serving on a
@@ -56,38 +50,25 @@ mesh** holds between calls each rank's shards alone: the parameters, its
 slice of the batch (the batch axes: ``("pod", "data")`` or ``("data",)``,
 none for ``long_500k``) and its shards of the serve state; the cache is
 never gathered. Where the KV heads divide the model axis the caches' heads
-split over it, else (and for ``long_500k``) their sequence. What a call
-gathers and computes depends on the family, as in training:
+split over it, else (and for ``long_500k``) their sequence; an SSM state's
+heads split over it. A call gathers each parameter leaf over its spec's
+entries except ``tp_axis`` and computes only the rank's share (the
+training step's layers, under ``torch.no_grad()``), the rank's vocab
+columns of the logits gathered once a call. Attention splits as the cache
+does: with the heads split a rank attends with its own heads over its own
+shard and the output product's partials are summed; with the sequence
+split q, k and v are gathered along their columns, a prompt's queries are
+split by position (computed whole where the prompt does not divide over
+the axis; attended in place over the shard where the model writes its
+cache in place), a decode step attends over the positions each rank holds
+and the softmax partials are merged by log-sum-exp in rank order. An SSM
+layer steps its own heads from its state shard. Every sum adds in f32 in
+rank order, so what every model rank computes alike (norms, routing, the
+merge, the conv state) is bitwise alike across them; the row-split
+products reorder sums, so a call is within the reference's bars of the
+one-device serving of the rank's batch slice, not bitwise.
 
-* **the transformer-backbone families** gather each parameter leaf over
-  its spec's entries except ``tp_axis`` (nothing with FSDP off) and
-  compute only the rank's share (the training step's layers, under
-  ``torch.no_grad()``): the vocab-parallel embedding, the Megatron
-  products, the experts where they are stored, the rank's vocab columns of
-  the logits, gathered once a call. Attention splits as the cache does:
-  with the heads split a rank attends with its own heads over its own
-  shard and the output product's partials are summed; with the sequence
-  split q, k and v are gathered along their columns, a prompt's queries
-  are split by position (computed whole where the prompt does not divide
-  over the axis), a decode step attends over the positions each rank
-  holds and the softmax partials are merged by log-sum-exp in rank order.
-  Every sum adds in f32 in rank order, so what every model rank computes
-  alike (norms, routing, the merge) is bitwise alike across them; the
-  row-split products reorder sums, so a call is within the reference's
-  bars of the one-device serving of the rank's batch slice, not bitwise;
-* **mamba2, zamba2 and whisper** gather the whole parameters a call. An
-  SSM state's heads are split over ``model``: ``in_proj`` and the conv run
-  whole, each rank steps its own heads, and their outputs are gathered
-  before the gated norm. Attention projects the rank's own heads from
-  column slices of the whole weights and gathers the head outputs before
-  the whole output product (or merges the sequence split's partials). A
-  prompt from an empty cache attends over itself whole (``fresh_only``);
-  only the rank's shard of its K/V is stored. The batch split, and the
-  head splits where the per-head products are the one device's, are
-  bitwise the one-device serving of the rank's batch slice; the
-  log-sum-exp merge reorders the softmax sums.
-
-With a model extent of 1 either way is the batch split alone. On a
+With a model extent of 1 a call is the batch split alone. On a
 :class:`~repro_torch.core.mesh.MeshLayout` (meta tensors) the same calls
 are priced by the dry run.
 """
@@ -109,12 +90,8 @@ from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update, globa
 from repro_torch.optim.hierarchical import Hierarchical, HierarchicalConfig
 from repro_torch.optim.tree import map_named, named_leaves
 
-__all__ = ["TrainArtifacts", "make_train_artifacts", "tp_split", "SPLIT_FAMILIES",
-           "shard_state", "gather_state", "ServeArtifacts", "make_serve_artifacts"]
-
-# The families whose training step splits its compute over the model axis
-# (the transformer backbones); the others shard storage only.
-SPLIT_FAMILIES = ("dense", "moe", "vlm")
+__all__ = ["TrainArtifacts", "make_train_artifacts", "tp_split", "shard_state",
+           "gather_state", "ServeArtifacts", "make_serve_artifacts"]
 
 
 def _gather_leaf(x, spec: tuple, mesh):
@@ -150,36 +127,52 @@ def kv_heads(bundle: Bundle) -> int | None:
 def tp_split(bundle: Bundle, mesh, tp_axis: str = "model", *,
              kv: str | None = None) -> layers.TPSplit | None:
     """The compute split of ``bundle`` over ``tp_axis`` of ``mesh``: None
-    without a mesh, with an extent of 1, or for a family outside
-    :data:`SPLIT_FAMILIES`. The attention split is the cache's ``kv``
-    where given (serving), else ``cfg.attn_sharding`` where set, else
-    ``"heads"`` where the extent divides the KV heads and ``"seq"`` where
-    it does not (the JAX dry run's rule, on the mesh's own extent). An
-    extent that does not divide the heads, a product's columns, ``d_ff``,
-    the experts or the vocab raises ``ValueError`` naming it (the sequence
-    is checked at each call)."""
-    if mesh is None or bundle.family not in SPLIT_FAMILIES:
-        return None
-    if mesh.shape.get(tp_axis, 1) == 1:
+    without a mesh or with an extent of 1. The attention split is the
+    cache's ``kv`` where given (serving), else ``cfg.attn_sharding`` where
+    set, else ``"heads"`` where the extent divides the KV heads (or there
+    is no attention) and ``"seq"`` where it does not (the JAX dry run's
+    rule, on the mesh's own extent). An extent that does not divide what a
+    rank's share is cut from raises ``ValueError`` naming it (the sequence
+    is checked at each call): the SSM heads, the B/C groups they read,
+    ``in_proj``'s columns and the conv channels of mamba2 and zamba2's
+    mamba layers; the heads (whisper's, which are all head-parallel but
+    its cached self-attention), the KV heads under ``"heads"``, the query
+    and KV columns, ``d_ff``, the experts, zamba2's shared ``in_proj``
+    columns and the VLM's connector columns; and the vocab."""
+    if mesh is None or mesh.shape.get(tp_axis, 1) == 1:
         return None
     cfg = getattr(bundle.cfg, "backbone", bundle.cfg)
     n = mesh.shape[tp_axis]
-    attn = kv or cfg.attn_sharding or ("heads" if cfg.n_kv % n == 0 else "seq")
+    n_kv = kv_heads(bundle)
+    attn = (kv or getattr(cfg, "attn_sharding", None)
+            or ("heads" if n_kv is None or n_kv % n == 0 else "seq"))
     split = layers.TPSplit(mesh, tp_axis, attn, kv)
-    if attn == "heads":
-        split.local(cfg.n_kv, "KV heads")
-    split.local(cfg.n_heads * cfg.d_head, "query columns")
-    split.local(cfg.n_kv * cfg.d_head, "KV columns")
-    split.local(cfg.vocab, "vocab rows")
-    if cfg.moe is None or cfg.group_size > 1:
+    if bundle.family in ("ssm", "hybrid"):
+        mamba = bundle.model if bundle.family == "ssm" else bundle.model.mamba
+        m = mamba.cfg
+        mamba.own_groups(split.local(m.n_heads, "SSM heads"), 0)
+        split.local(2 * m.d_inner + 2 * m.n_groups * m.d_state + m.n_heads, "in_proj columns")
+        split.local(m.conv_dim, "conv channels")
+    if bundle.family == "audio":
+        split.local(cfg.n_heads, "heads")
+    if n_kv is not None:
+        if attn == "heads":
+            split.local(n_kv, "KV heads")
+        split.local(cfg.n_heads * cfg.d_head, "query columns")
+        split.local(n_kv * cfg.d_head, "KV columns")
+    if bundle.family == "hybrid":
+        split.local(cfg.d_model, "shared in_proj columns")
+    moe = getattr(cfg, "moe", None)
+    if hasattr(cfg, "d_ff") and (moe is None or cfg.group_size > 1):
         split.local(cfg.d_ff, "d_ff columns")
-    if cfg.moe is not None:
-        if cfg.moe.expert_sharding == "ep":
-            split.local(cfg.moe.n_experts, "experts")
-        if cfg.moe.expert_sharding != "ep" or cfg.moe.shared_expert:
-            split.local(cfg.moe.d_ff, "expert d_ff columns")
+    if moe is not None:
+        if moe.expert_sharding == "ep":
+            split.local(moe.n_experts, "experts")
+        if moe.expert_sharding != "ep" or moe.shared_expert:
+            split.local(moe.d_ff, "expert d_ff columns")
     if bundle.family == "vlm":
         split.local(cfg.d_model, "connector fc2 columns")
+    split.local(cfg.vocab, "vocab rows")
     return split
 
 
@@ -372,13 +365,10 @@ def make_train_artifacts(
     axes a batch is split over (the pod's own in hierarchical mode, which
     must not name the pod axis).
 
-    On a mesh the families split differently (the module's docstring):
-    ``dense``, ``moe`` and ``vlm`` compute only this rank's share over
-    ``tp_axis`` (:func:`tp_split`, held in :attr:`TrainArtifacts.split`);
-    ``ssm``, ``hybrid`` and ``audio`` (mamba2, zamba2, whisper) gather
-    every leaf whole and compute the one-device step on the rank's batch
-    slice. That is a rule by family, not a fallback: a split family whose
-    extent does not divide its heads, columns, experts or vocab raises."""
+    On a mesh whose ``tp_axis`` extent is above 1 every family computes
+    only this rank's share over it (:func:`tp_split`, held in
+    :attr:`TrainArtifacts.split`; the module's docstring); an extent that
+    does not divide what a share is cut from raises."""
     opt_cfg = opt_cfg or AdamWConfig(moment_dtype=bundle.moment_dtype)
     model = bundle.model
     p_specs = model.param_pspecs(fsdp=fsdp_axis, tp=tp_axis)
@@ -421,7 +411,8 @@ def make_train_artifacts(
 
     def mesh_step(params, opt_state, batch):
         """``base_step`` on this rank's shards and batch slice: its model
-        shards under a split, else the whole parameters."""
+        shards under a split, else (a model extent of 1) the whole
+        parameters."""
         full = _gather_params(params, gather_p, mesh, True)
         loss, grads = grads_of(full, batch)
         del full
@@ -554,13 +545,11 @@ def make_serve_artifacts(bundle: Bundle, shape: ShapeSpec, mesh=None, *,
     (``host_batch(batch, mesh, art.batch_axes)``), and the serve state
     prefill makes, the caches and ``enc_out`` cut by ``state_specs``. The
     caches are never gathered: each attention layer and SSM layer works
-    where its shard lies. The families of :data:`SPLIT_FAMILIES` gather
-    each parameter over every axis but ``tp_axis`` and compute only the
-    rank's share (:func:`tp_split` with the cache's split, held in
-    :attr:`ServeArtifacts.split`); the others gather the whole parameters
-    and split the cache alone (a :class:`~repro_torch.models.layers.TPSplit`
-    whose ``attn`` is None). The module's docstring says what each computes
-    and how close it comes to one device."""
+    where its shard lies. A call gathers each parameter over every axis
+    but ``tp_axis`` and computes only the rank's share (:func:`tp_split`
+    with the cache's split, held in :attr:`ServeArtifacts.split`). The
+    module's docstring says what it computes and how close it comes to one
+    device."""
     model = bundle.model
     cfg = bundle.cfg
     b, s = shape.global_batch, shape.seq_len
@@ -600,8 +589,6 @@ def make_serve_artifacts(bundle: Bundle, shape: ShapeSpec, mesh=None, *,
             kv = "heads" if head_axis is not None else "seq"
         split = tp_split(bundle, mesh, tp_axis, kv=kv)
         gather_p, model_only = _split_specs(named, tp_axis, split)
-        if split is None and tp_size > 1:  # whole weights, the cache split alone
-            split = layers.TPSplit(mesh, tp_axis, None, kv)
         local_cache = shard_state(state_sds["cache"], cache_specs, mesh)  # meta: shapes only
 
     def whole(params):
@@ -618,7 +605,7 @@ def make_serve_artifacts(bundle: Bundle, shape: ShapeSpec, mesh=None, *,
         params = whole(params)
         kwargs, state = {}, {}
         if is_audio:
-            state["enc_out"] = kwargs["enc_out"] = model.encode(params, batch["frames"])
+            state["enc_out"] = kwargs["enc_out"] = model.encode(params, batch["frames"], split)
         if is_vlm:
             kwargs["patch_embeds"] = batch["patch_embeds"]
         if split is not None:

@@ -20,7 +20,9 @@ what comm counts in gloo CPU worlds.
   call on the two serving meshes, (2, 2) (KV heads over ``model``) and
   (1, 4) (the sequence over ``model``), reduced qwen2, and reduced grok-1
   (MoE) on (2, 2): the compute split's collectives, and no parameter
-  gathered over ``model``.
+  gathered over ``model``. On (2, 2) also a step of two microbatches a
+  rank (reduced zamba2) and of three (reduced qwen2): the microbatch
+  loop's collectives are priced once a microbatch, the step's own once.
 * The CLI prices ``--arch qwen2-0.5b --shape all --mesh both`` on the CPU
   and exits 0: every row OK or SKIP, with the reference's FLOPs.
 """
@@ -174,14 +176,15 @@ def test_the_cli_refuses_an_unknown_shape(capsys):
 # priced against counted, in gloo worlds
 
 
-def _train_calls(mesh, arch, hier: bool):
-    """A training step (and, hierarchical, its sync step) on this rank:
-    what comm counted in each, as the dry run tabulates it."""
+def _train_calls(mesh, arch, hier: bool, n_micro: int = 1):
+    """A training step of ``n_micro`` microbatches of one sequence a rank
+    (and, hierarchical, its sync step) on this rank: what comm counted in
+    each, as the dry run tabulates it."""
     bundle = get_arch(arch, reduced=True, **REMAT.get(arch, {}))
     pod = "pod" if hier else None
     art = make_train_artifacts(bundle, mesh=mesh, batch_axes=("data",),
                                hier_cfg=HierarchicalConfig(sync_every=2, compression="int8")
-                               if hier else None)
+                               if hier else None, n_micro=n_micro)
     params = bundle.model.init_params(torch.Generator().manual_seed(0)).requires_grad_()
     opt = adamw_init(params, AdamWConfig(moment_dtype=bundle.moment_dtype))
     sync = None
@@ -189,7 +192,7 @@ def _train_calls(mesh, arch, hier: bool):
         sync = art.shard(art.hier.init_sync_state(params), "sync")
         params, opt = art.hier.replicate(params), art.hier.replicate(opt)
     params, opt = art.shard(params, "params"), art.shard(opt, "opt")
-    n = mesh.extent(("data",)) * (mesh.shape["pod"] if hier else 1)
+    n = n_micro * mesh.extent(("data",)) * (mesh.shape["pod"] if hier else 1)
     rng = np.random.default_rng(5)
     toks = rng.integers(0, bundle.cfg.vocab, (n, SEQ))
     batch = host_batch({"tokens": toks, "labels": toks}, mesh, ("data",), pod)
@@ -219,9 +222,16 @@ def _serve_calls(mesh, arch, shape):
     return out
 
 
+# key: (arch, microbatches of a step) of the steps a world prices
+TRAIN = {"train": ("qwen2-0.5b", 1), "train_moe": ("grok-1-314b", 1),
+         "train_micro2": ("zamba2-1.2b", 2), "train_micro3": ("qwen2-0.5b", 3)}
+
+
 def data_model_rank(mesh, payload):
     return {"train": _train_calls(mesh, "qwen2-0.5b", False),
             "train_moe": _train_calls(mesh, "grok-1-314b", False),
+            "train_micro2": _train_calls(mesh, "zamba2-1.2b", False, 2),
+            "train_micro3": _train_calls(mesh, "qwen2-0.5b", False, 3),
             "serve": _serve_calls(mesh, "qwen2-0.5b", SERVE["heads"]),
             "serve_moe": _serve_calls(mesh, "grok-1-314b", SERVE["heads"])}
 
@@ -235,11 +245,11 @@ def pod_rank(mesh, payload):
     return {"train": _train_calls(mesh, "qwen2-0.5b", True)}
 
 
-def _price_train(arch, layout, hier):
+def _price_train(arch, layout, hier, n_micro=1):
     return dryrun.price_lm(get_arch(arch, reduced=True, **REMAT.get(arch, {})),
                            ShapeSpec("t", "train", SEQ, 1),
                            layout, hier_cfg=HierarchicalConfig(sync_every=2, compression="int8")
-                           if hier else None, count_flops=False)
+                           if hier else None, n_micro=n_micro, count_flops=False)
 
 
 def _price_serve(arch, layout, shape):
@@ -259,10 +269,10 @@ def test_priced_collectives_equal_the_counted_ones(tmp_path, world):
     ranks = run_world(tmp_path, shape, names, f"test_torch_dryrun_lm:{world}_rank")
     for r, got in enumerate(ranks):
         layout = MeshLayout(shape, names, r)
-        for key, arch in (("train", "qwen2-0.5b"), ("train_moe", "grok-1-314b")):
+        for key, (arch, n_micro) in TRAIN.items():
             if key not in got:
                 continue
-            priced = _price_train(arch, layout, world == "pod")
+            priced = _price_train(arch, layout, world == "pod", n_micro)
             assert priced["collectives"] == got[key]["step"], (world, r, key)
             kinds = {k.split()[0] for k in got[key]["step"]}
             split = {"split_grad_sum", "partial_sum", "split_max"}

@@ -3,11 +3,10 @@ serving of the same batch slice, and the sequence split against JAX.
 
 ``make_serve_artifacts(bundle, shape, mesh)``: a rank holds its parameter
 shards, its slice of the batch and its shards of the cache; a call gathers
-the parameters (the transformer-backbone families over every axis but
-``model``, and compute only the rank's share; the others whole) and
-attends (or steps its SSM heads) where its cache shard lies. Reduced
-configs, weights drawn by the port from seed 0, prompts and the stub
-frontends' inputs from numpy (seed 7), a bf16 cache:
+each parameter over every axis but ``model`` and computes only the rank's
+share, attending (or stepping its SSM heads) where its cache shard lies.
+Reduced configs, weights drawn by the port from seed 0, prompts and the
+stub frontends' inputs from numpy (seed 7), a bf16 cache:
 
 * a ``(data, model)`` = (2, 2) world serves all ten architectures at B 4,
   a cache of 32, a 20-token prompt and 2 decode steps (the batch over
@@ -26,21 +25,23 @@ frontends' inputs from numpy (seed 7), a bf16 cache:
   with the batch over ``("pod", "data")``.
 
 Bars (each case names its reference, the one-device serving of this
-rank's batch slice with the whole parameters): the batch split and the
-SSM, audio and hybrid families' head splits are bitwise (the logits and
-the gathered cache); the sequence split over whole weights, whose
-log-sum-exp merge reorders the softmax sums, is within 5e-4 of the largest
-logit, and its gathered cache bitwise. The compute split's row-split
-products reorder sums too: its prefill logits are within 1e-4 and its
-decode logits within 5e-4 of the largest logit (the reference's bars),
-its cache bitwise or within a bf16 rounding of each leaf's largest. No
-rank holds more than its shard: every cache leaf has its shard's shape,
-and what comm counts in a call is the parameters' gathers (bytes from
-their specs), the head outputs or softmax partials, and the compute
-split's partial sums and gathers (bytes from their shapes), nothing of the
-cache. The (1, 4) qwen2 logits are also held within 5e-4 to JAX's
-``make_serve_artifacts(mesh=...)`` on 4 forced host devices (``Auto``
-axes).
+rank's batch slice with the whole parameters): the batch split alone
+(model extent 1) is bitwise (the logits and the gathered cache); the
+compute split's row-split products reorder sums, so its prefill logits are
+within 1e-4 and its decode logits within 5e-4 of the largest logit (the
+reference's bars), its cache bitwise or within a bf16 rounding of each
+leaf's largest. A prefill that attends over the bf16 cache it has just
+written (zamba2's shared block and whisper's decoder write in place, as
+the reference does) reads K/V whose bf16 rounding a reordered sum can
+flip, as every decode step does: it is held at the serving bar 5e-4 (with
+an f32 cache the same calls are within 1e-4:
+``tests/test_torch_tp_ssm_audio.py``). No rank holds more than its shard: every cache leaf has
+its shard's shape, and what comm counts in a call is the parameters'
+gathers over ``data`` (bytes from their specs) and the compute split's
+partial sums, gathers and softmax partials (bytes from the shapes),
+nothing of the cache and no parameter over ``model``. The (1, 4) qwen2
+logits are also held within 5e-4 to JAX's ``make_serve_artifacts(mesh=...)``
+on 4 forced host devices (``Auto`` axes).
 """
 
 import dataclasses
@@ -120,8 +121,8 @@ def _rank_inputs(bundle, shape, prompt, mesh):
 
 def _computes(art) -> bool:
     """Whether ``art`` splits the compute over ``model`` (its parameters
-    model shards), not the cache alone."""
-    return art.split is not None and art.split.attn is not None
+    model shards): every family does where the model extent is above 1."""
+    return art.split is not None
 
 
 def _param_gather_bytes(art, mesh) -> dict:
@@ -181,41 +182,67 @@ def _tp_bytes(bundle, art, mesh, s: int, b_loc: int, n_patches: int = 0) -> dict
     return out
 
 
-def _split_bytes(bundle, art, mesh, s: int, b_loc: int, n_patches: int = 0) -> dict:
-    """Bytes into a rank of the splits' own collectives in one call of
-    ``s`` positions and ``b_loc`` sequences: under the compute split
-    :func:`_tp_bytes`; else per attention layer, the other ranks' head
-    outputs (``[b, s, H/n, Dh]``) or softmax partials (``[b, Hkv, G, s, Dh
-    + 2]`` f32), and per mamba layer with its heads split, the other
-    ranks' ``y`` (``[b, s, H/n, P]``)."""
-    cfg = bundle.cfg
-    split = art.split
-    if split is None:
+def _attention_bytes(art, mesh, s: int, b_loc: int, item: int, layers: int, heads: int,
+                     kv: int, d_head: int) -> dict:
+    """The sequence split's own bytes in ``layers`` attention layers that
+    attend in place over the cache (zamba2's shared block, whisper's
+    decoder): q, k and v's column gathers and the softmax partials
+    (``[b, Hkv, G, s, Dh + 2]`` f32); none with the heads split."""
+    if art.split.attn != "seq":
         return {}
-    if _computes(art):
+    n = mesh.extent("model")
+    return {("split_gather", ("model",)):
+            layers * (n - 1) * b_loc * s * (heads + 2 * kv) * d_head // n * item,
+            ("merge_partials", ("model",)): layers * (n - 1) * b_loc * heads * s * (d_head + 2) * 4}
+
+
+def _split_bytes(bundle, art, mesh, s: int, b_loc: int, n_patches: int = 0,
+                 prefill: bool = False) -> dict:
+    """Bytes into a rank of the compute split's collectives in one call of
+    ``s`` positions and ``b_loc`` sequences: the transformer backbones'
+    by :func:`_tp_bytes`; for the others the embedding's partial sum
+    ``[b, s, D]`` and the logits' vocab columns of the last position, and
+
+    * per mamba layer (mamba2's, zamba2's) ``in_proj``'s and the conv's
+      column gathers (``[b, s, C / n]``, ``[b, s, conv_dim / n]``), the
+      gated norm's sum of squares (``[b, s, 1]`` f32) and ``out_proj``'s
+      partial sum;
+    * per application of zamba2's shared block its ``in_proj``'s column
+      gather and the attention's and the MLP's partial sums;
+    * per whisper decoder layer the self-attention's, the
+      cross-attention's and the MLP's partial sums, and at prefill per
+      encoder layer the attention's and the MLP's over the frames;
+
+    with the sequence split the attention's own (:func:`_attention_bytes`)."""
+    if art.split is None:
+        return {}
+    if bundle.family in ("dense", "moe", "vlm"):
         return _tp_bytes(bundle, art, mesh, s, b_loc, n_patches)
-    n = mesh.extent(split.axis)
-    item = torch.empty((), dtype=getattr(cfg, "cdtype", torch.float32)).element_size()
+    cfg = bundle.cfg
+    n = mesh.extent("model")
+    item = torch.empty((), dtype=cfg.cdtype).element_size()
+    act = (n - 1) * b_loc * s * cfg.d_model * item
+    sums, gathers = act, (n - 1) * b_loc * cfg.vocab // n * item
     out = {}
     if bundle.family in ("ssm", "hybrid"):
-        mcfg = bundle.model.mamba.cfg if bundle.family == "hybrid" else cfg
-        m = split.ssm_block()[1]
-        if m > 1:
-            per = (m - 1) * b_loc * s * (mcfg.n_heads // m) * mcfg.headdim * item
-            out[("gather_heads", ("model",))] = mcfg.n_layers * per
-    if split.kv is None:
-        return out  # no KV split
-    tcfg = cfg.backbone if hasattr(cfg, "backbone") else cfg
-    n_attn = (cfg.n_apps if bundle.family == "hybrid" else
-              cfg.n_dec_layers if bundle.family == "audio" else tcfg.n_layers)
-    heads, d_head = tcfg.n_heads, tcfg.d_head
-    if split.kv == "heads":
-        per = (n - 1) * b_loc * s * (heads // n) * d_head * item
-        key = ("gather_heads", (split.axis,))
-        out[key] = out.get(key, 0) + n_attn * per
-    else:
-        out[("merge_partials", (split.axis,))] = n_attn * (n - 1) * b_loc * heads * s * (
-            d_head + 2) * 4
+        m = bundle.model.mamba.cfg if bundle.family == "hybrid" else cfg
+        cols = 2 * m.d_inner + 2 * m.n_groups * m.d_state + m.n_heads
+        gathers += m.n_layers * (n - 1) * b_loc * s * (cols + m.conv_dim) // n * item
+        sums += m.n_layers * (act + (n - 1) * b_loc * s * 4)
+    if bundle.family == "hybrid":
+        gathers += cfg.n_apps * (n - 1) * b_loc * s * cfg.d_model // n * item
+        sums += cfg.n_apps * 2 * act
+        out = _attention_bytes(art, mesh, s, b_loc, item, cfg.n_apps, cfg.n_heads, cfg.n_kv,
+                               cfg.d_head)
+    if bundle.family == "audio":
+        sums += cfg.n_dec_layers * 3 * act
+        if prefill:
+            sums += cfg.n_enc_layers * 2 * (n - 1) * b_loc * cfg.n_frames * cfg.d_model * item
+        out = _attention_bytes(art, mesh, s, b_loc, item, cfg.n_dec_layers, cfg.n_heads,
+                               cfg.n_heads, cfg.d_head)
+    key = ("split_gather", ("model",))
+    out[key] = out.get(key, 0) + gathers
+    out[("partial_sum", ("model",))] = sums
     return out
 
 
@@ -232,6 +259,7 @@ def _check_rank(bundle, shape, prompt, mesh) -> dict:
     ref_logits, (ref_first, ref_state), _, _ = _serve(bundle, local, toks, batch)
     whole = named_leaves(art.gather_state(state, axes)["cache"])
     out = {"kv": None if art.split is None else art.split.kv, "computes": _computes(art),
+           "prefill_reads_cache": bundle.family in ("hybrid", "audio"),
            "batch_axes": art.batch_axes, "logits_bitwise": [], "err": []}
     for got, want in zip(logits, ref_logits):
         out["logits_bitwise"].append(torch.equal(got, want))
@@ -264,7 +292,7 @@ def _check_rank(bundle, shape, prompt, mesh) -> dict:
         s = prompt if call == 0 else 1
         want = dict(want_params)
         n_patches = batch["patch_embeds"].shape[1] if call == 0 and "patch_embeds" in batch else 0
-        for k, v in _split_bytes(bundle, art, mesh, s, b_loc, n_patches).items():
+        for k, v in _split_bytes(bundle, art, mesh, s, b_loc, n_patches, call == 0).items():
             want[k] = want.get(k, 0) + v
         out["counts_ok"].append((got == want, got, want))
     return out
@@ -327,18 +355,18 @@ def pod_rank(mesh, payload):
 
 
 def _assert_case(case, name):
-    seq, computes = case["kv"] == "seq", case["computes"]
+    computes = case["computes"]
+    first = BAR if case["prefill_reads_cache"] else PREFILL_BAR
     for i, (ok, err) in enumerate(zip(case["logits_bitwise"], case["err"])):
         if computes:
-            assert err <= (PREFILL_BAR if i == 0 else BAR), (name, i, err)
-        elif seq:
-            assert err <= BAR, (name, i, err)
+            assert err <= (first if i == 0 else BAR), (name, i, err)
         else:
             assert ok, (name, i, err)
-    assert case["cache_bitwise"] or ((seq or computes) and case["cache_close"]), name
+    assert case["cache_bitwise"] or (computes and case["cache_close"]), name
     assert case["cache_shapes_ok"], name
     for ok, got, want in case["counts_ok"]:
         assert ok, (name, got, want)
+        assert not [k for k in got if k[0] == "all_gather" and "model" in k[1]], (name, got)
 
 
 def test_all_families_serve_on_a_data_model_world(tmp_path):

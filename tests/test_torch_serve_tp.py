@@ -33,10 +33,6 @@ counts equals ``dryrun.price_lm``'s price on a ``MeshLayout`` of the same
 rank; every held parameter and cache leaf has its shard's shape; the logits
 and the routing, computed alike on every model rank, are bitwise equal
 across the ranks that differ only along ``model``.
-
-Without a world: under a cache-only split (``attn`` None, whole weights)
-every layer that splits its products computes whole, bitwise the layers
-without a split (``layers.compute_split``).
 """
 
 import dataclasses
@@ -46,7 +42,6 @@ import sys
 import textwrap
 
 import numpy as np
-import pytest
 import torch
 
 from repro_torch.configs.common import ShapeSpec
@@ -54,7 +49,6 @@ from repro_torch.configs.registry import get_arch
 from repro_torch.core import comm
 from repro_torch.core.mesh import MeshLayout
 from repro_torch.launch import dryrun
-from repro_torch.models import layers
 from repro_torch.optim.tree import named_leaves
 from repro_torch.train.steps import make_serve_artifacts
 from test_torch_comm import ROOT, run_world
@@ -278,32 +272,3 @@ def test_compute_split_on_a_one_by_four_world_with_a_prompt_that_divides_or_not(
         assert got["qwen2-seq"]["tables"][0]["split_gather model"]["calls"] == 2 * 4 + 1
         assert got["qwen2-seq-whole"]["tables"][0]["split_gather model"]["calls"] == 2 * 3 + 1
     _assert_model_peers(ranks, ONE_BY_FOUR)
-
-
-@pytest.mark.parametrize("arch", ["qwen2-0.5b", "grok-1-314b", "llama4-maverick-400b-a17b",
-                                  "internvl2-76b"])
-def test_a_cache_only_split_computes_whole(arch):
-    """Under a split whose ``attn`` is None (whole weights, the cache split
-    alone) every layer that splits its products computes whole: the
-    embedding, the connector, attention without a cache, the MLP, the MoE
-    experts and the chunked cross entropy are bitwise those without a
-    split, and touch no mesh (``mesh`` None here)."""
-    bundle = get_arch(arch, reduced=True)
-    params = bundle.model.init_params(torch.Generator().manual_seed(0))
-    rng = np.random.default_rng(7)
-    toks = torch.from_numpy(rng.integers(0, bundle.cfg.vocab, (2, 12)))
-    extra = {name: torch.from_numpy(rng.normal(size=tuple(make(2, 12).shape)).astype(np.float32))
-             for name, make in bundle.extra_inputs.items()}
-    cache_only = layers.TPSplit(None, "model", None, "heads")
-    assert layers.compute_split(cache_only) is None
-    with torch.no_grad():
-        want, want_aux = bundle.model.hidden(params, toks, **extra)
-        got, got_aux = bundle.model.hidden(params, toks, **extra, split=cache_only)
-        assert torch.equal(got, want) and torch.equal(got_aux, want_aux)
-
-        def unembed(h):
-            return bundle.model.unembed(params, h)
-
-        labels = toks.roll(-1, dims=1)
-        assert torch.equal(layers.chunked_cross_entropy(unembed, got, labels, 4, cache_only),
-                           layers.chunked_cross_entropy(unembed, want, labels, 4))

@@ -34,8 +34,9 @@ JAX's sync trainer on a mesh of forced host devices.
   the MoE layer's output bitwise the one-device layer's (the ranks add
   exact zeros).
 * **Refusals**, without a world: a model extent that does not divide the
-  KV heads (head-parallel asked for), the columns, the experts or the
-  sequence raises ``ValueError`` naming it.
+  KV heads (head-parallel asked for), the columns, the experts, the
+  sequence, mamba2's SSM heads or whisper's heads raises ``ValueError``
+  naming it.
 """
 
 import os
@@ -484,6 +485,9 @@ def test_ep_experts_without_a_shared_one_are_bitwise_one_device(tmp_path):
     ("qwen2-0.5b", 3, {}, "query columns: 64 do not divide"),
     ("llama4-maverick-400b-a17b", 8, {}, "experts: 4 do not divide"),
     ("qwen2-0.5b", 32, {"attn_sharding": "seq"}, "sequence positions: 16 do not divide"),
+    ("mamba2-2.7b", 3, {}, "SSM heads: 8 do not divide"),
+    ("zamba2-1.2b", 8, {"attn_sharding": "heads"}, "KV heads: 4 do not divide"),
+    ("whisper-medium", 8, {}, "heads: 4 do not divide"),
 ])
 def test_an_extent_that_does_not_divide_is_refused(arch, extent, overrides, what):
     """No world: the split is chosen when the artifacts are made, and the
