@@ -312,9 +312,12 @@ card from seed 0, f32 products in f32):
     one bf16 rounding, the 99% share and the moments read),
     the leaves replicated over ``model`` bitwise alike on the model ranks,
     every step's bytes in per collective and call equal to the dry run's
-    price; no kernel launch; per rank the state bytes against one
-    replica's, what a step computes on, peak GB, ms per step and sync,
-    bytes in per collective;
+    price, and so are every step's gathered peak (FSDP one unit at a time:
+    ``comm.gathered``) and the gradient accumulator's bytes (the rank's
+    shards); no kernel launch; per rank the state bytes against one
+    replica's, what a step computes on and holds gathered at most, the
+    accumulator, peak GB beside PR 31's (and the steps' own, and the
+    weights' draw), ms per step and sync, bytes in per collective;
     then ``[lm-mesh]``: the same ranks serve (``make_serve_artifacts`` on
     a mesh) in f32 over bf16 weights with a bf16 cache (mamba2's f32),
     every family computing only its share over ``model`` (no parameter
@@ -334,10 +337,12 @@ card from seed 0, f32 products in f32):
     logit, on the rows whose expert choices agree (a routing flip printed,
     failing above a 1e-5 gate margin, and a call with no row left
     failing); per rank the bytes
-    held against one replica's, the parameter bytes a call computes on and
-    gathers, peak GB, ms a prefill and a decode step, and the bytes in per
-    collective and call, each equal to the dry run's price (``price_lm`` on
-    a ``MeshLayout``, run here while the ranks serve); no kernel launch;
+    held against one replica's, the parameter bytes a call computes on,
+    gathers and holds gathered at most, peak GB beside PR 31's, ms a
+    prefill and a decode step, and the bytes in per collective and call,
+    the bytes in and the gathered peak each equal to the dry run's price
+    (``price_lm`` on a ``MeshLayout``, run here while the ranks serve); no
+    kernel launch;
 17. ``[families]`` the six other LM families at their published widths and
    dtypes (bf16), weights drawn on the card from seed 0, each freed before
    the next: llama4-maverick at 2 of its 48 layers (a dense and a
@@ -3726,6 +3731,12 @@ MESH_FIRST = ("sync", "seq", "llama4", "zamba2")  # trained before the checks; g
 MESH_SAMPLE = 4096
 MESH_BAR = 1e-4  # losses and grad norms, relative; a leaf's gradient, of its largest
 MESH_BAR_BF16 = 2.0 ** -8  # the same in bf16 compute: one bf16 rounding
+# Each leg's peak GB a rank (torch.cuda.max_memory_allocated, weights drawn
+# and steps) in PR 31's run of this script, before the FSDP gather point
+# (NVIDIA H100 80GB HBM3, 700 W); each rank's line prints its own beside it.
+PR31_PEAK_GB = {"hier": 7.86, "sync": 3.96, "seq": 3.90, "llama4": 2.62, "zamba2": 6.45,
+                "grok": 17.96}
+PR31_SERVE_PEAK_GB = {"heads": 1.45, "seq": 1.11, "grok": 8.13, "whisper": 0.58, "mamba2": 1.96}
 
 
 # [lm-mesh]: the (j) ranks serve after they train: make_serve_artifacts on a
@@ -3868,7 +3879,7 @@ def _serve_run(mode: str, mesh=None, rows=None) -> dict:
     torch.cuda.synchronize()
     draw_peak = torch.cuda.max_memory_allocated() / 1e9
     torch.cuda.reset_peak_memory_stats()  # from here: serving, the weights in place
-    logits, ms, tables, routes = [], [], [], []
+    logits, ms, tables, routes, gathered = [], [], [], [], []
     state = None
     with _RoutingTap() as tap:
         for call in range(1 + SERVE_STEPS):
@@ -3882,6 +3893,7 @@ def _serve_run(mode: str, mesh=None, rows=None) -> dict:
             torch.cuda.synchronize()
             ms.append(1e3 * (time.perf_counter() - t0))
             tables.append(dryrun._table())
+            gathered.append(comm.gathered["peak"])
             logits.append(out.float().cpu())
             routes.append(tap.take())
 
@@ -3894,6 +3906,7 @@ def _serve_run(mode: str, mesh=None, rows=None) -> dict:
     replica = nbytes(art.params_sds) + nbytes(art.state_sds) + whole_in
     split = art.split
     return dict(logits=logits, ms=ms, tables=tables, routes=routes, held=held, replica=replica,
+                gathered=gathered,
                 computed=art.computed_bytes(art.params_sds), draw_peak=draw_peak,
                 peak=torch.cuda.max_memory_allocated() / 1e9,
                 kv=None if split is None else split.kv)
@@ -3968,6 +3981,7 @@ def _serve_rank(rank: int, meshes: dict, ref) -> dict:
                                  f"model under the compute split: {over_model}")
         out[mode] = dict(errs=errs, bitwise=bitwise, rows=rows, n_rows=got.shape[0], ms=run["ms"],
                          tables=run["tables"], held=run["held"], replica=run["replica"],
+                         gathered=run["gathered"],
                          computed=run["computed"], kv=run["kv"], wall_s=wall,
                          peak=run["peak"], draw_peak=run["draw_peak"], coords=mesh.coords)
         del run
@@ -4011,6 +4025,11 @@ def _serve_report(res: list, priced: dict, ref_s: float) -> None:
                                      f"{bad} differ from the dry run's price: "
                                      f"{got['tables'][bad[0]]} != "
                                      f"{(pre if bad[0] == 0 else dec)['collectives']}")
+            priced_g = [(pre if c == 0 else dec)["rank_bytes"]["gathered"]
+                        for c in range(len(got["gathered"]))]
+            if got["gathered"] != priced_g:
+                raise AssertionError(f"[lm-mesh] {mode} rank {rank}: gathered peaks "
+                                     f"{got['gathered']} B against the dry run's {priced_g} B")
             gathered = [sum(e["bytes"] for k, e in t.items() if k.split()[0] == "all_gather")
                         for t in got["tables"]]
             over_model = [sum(e["bytes"] for k, e in t.items()
@@ -4025,8 +4044,10 @@ def _serve_report(res: list, priced: dict, ref_s: float) -> None:
                 f"{got['held']:,} B against one replica's {got['replica']:,} B; computes on "
                 f"{got['computed']:,} B of parameters, gathers {gathered[0]:,} B of them a "
                 f"prefill and {max(gathered[1:]):,} B a decode step ({over_model[0]:,} / "
-                f"{max(over_model[1:]):,} B over model); peak {got['peak']:.2f} GB serving "
-                f"({got['draw_peak']:.2f} GB drawing the weights"
+                f"{max(over_model[1:]):,} B over model), holds at most {got['gathered'][0]:,} B "
+                f"of them gathered a prefill and {max(got['gathered'][1:]):,} B a decode step "
+                f"(one unit; == the dry run's price); peak {got['peak']:.2f} GB serving (PR 31: "
+                f"{PR31_SERVE_PEAK_GB[mode]} GB; {got['draw_peak']:.2f} GB drawing the weights"
                 f"{' whole, the ranks in turn' if leg.arch == 'grok-1-314b' else ''}); prefill "
                 f"{got['ms'][0]:.1f} ms, decode median "
                 f"{decode_ms:.1f} ms a step ({[round(x, 1) for x in got['ms'][1:]]}); logits "
@@ -4146,6 +4167,10 @@ def _mesh_train(mode: str, mesh=None) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t_setup
+    setup_peak = None
+    if mesh is not None:  # from here the steps' own peak (the caller reads it)
+        setup_peak = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
     ds = SyntheticLM(bundle.cfg.vocab, seq, n_batch, seed=1)
 
     def batch(step):
@@ -4155,6 +4180,7 @@ def _mesh_train(mode: str, mesh=None) -> dict:
         return host_batch(ds.batch(step), mesh, ("data",), pod)
 
     losses, norms, step_ms, sync_ms, tiers, comm_ms, tables = [], [], [], [], [], [], []
+    gathered = []  # each step's peak of the parameter bytes held gathered
     for step in range(steps):
         if mode == "hier" and step == MESH_SYNC_EVERY:
             before = dict(comm.received)
@@ -4168,11 +4194,13 @@ def _mesh_train(mode: str, mesh=None) -> dict:
         b = batch(step)
         before, before_calls = dict(comm.received), dict(comm.calls)
         n_timed = len(comm.times or ())
+        comm.gathered["peak"] = comm.gathered["live"]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         params, opt, m = art.step_fn(params, opt, b)
         torch.cuda.synchronize()
         step_ms.append(1e3 * (time.perf_counter() - t0))
+        gathered.append(comm.gathered["peak"])
         comm_ms.append(1e3 * sum(t for *_, t in (comm.times or ())[n_timed:]))
         tiers.append(("step", {k: v - before.get(k, 0) for k, v in comm.received.items()
                                if v - before.get(k, 0)}))
@@ -4181,7 +4209,8 @@ def _mesh_train(mode: str, mesh=None) -> dict:
         norms.append(m["grad_norm"].detach().float().cpu().reshape(-1))
     return dict(art=art, params=params, opt=opt, sync=sync, losses=losses, norms=norms,
                 step_ms=step_ms, sync_ms=sync_ms, tiers=tiers, comm_ms=comm_ms, tables=tables,
-                setup_s=setup_s)
+                setup_s=setup_s, setup_peak=setup_peak, gathered=gathered,
+                accum=art.accumulator_bytes(params) if mesh is not None else None)
 
 
 def _within_bars(got: dict, want: dict, steps: int, top: float | None = None,
@@ -4276,17 +4305,38 @@ def _split_refs(mode: str, run: dict) -> dict:
 
 
 def _train_priced(mode: str) -> dict:
-    """The dry run's price of a split leg's training step on each rank of
-    its mesh (``price_lm`` on a ``MeshLayout``, meta tensors)."""
+    """The dry run's price of a leg's training step on each rank of its
+    mesh (``price_lm`` on a ``MeshLayout``, meta tensors): the split legs'
+    and the hierarchical leg's (on rank 0: every rank's units and shards
+    are alike)."""
     from repro_torch.configs.common import ShapeSpec
     from repro_torch.core.mesh import MeshLayout
     from repro_torch.launch import dryrun
+    from repro_torch.optim.hierarchical import HierarchicalConfig
 
+    if mode == "hier":
+        (extents, names), seq = MESH_HIER, MESH_SEQ
+        bundle = _bundle("qwen2-0.5b", n_layers=MESH_LAYERS)
+        hier_cfg = HierarchicalConfig(sync_every=MESH_SYNC_EVERY, compression="int8")
+        row = dryrun.price_lm(bundle, ShapeSpec("mesh", "train", seq, 4),
+                              MeshLayout(extents, names, 0), hier_cfg=hier_cfg,
+                              count_flops=False)
+        return {r: row for r in range(MESH_RANKS)}
     (extents, names), _, _, _, seq, _ = MESH_SPLIT[mode]
     bundle = _split_bundle(mode)
     shape = ShapeSpec("mesh", "train", seq, extents[names.index("data")])
-    return {r: dryrun.price_lm(bundle, shape, MeshLayout(extents, names, r),
-                               count_flops=False)["collectives"] for r in range(MESH_RANKS)}
+    return {r: dryrun.price_lm(bundle, shape, MeshLayout(extents, names, r), count_flops=False)
+            for r in range(MESH_RANKS)}
+
+
+def _check_gathered(rank: int, mode: str, got: dict, row: dict) -> None:
+    """A leg's gathered peak in every step and its accumulator's bytes on
+    this rank against the dry run's price (``row``: ``price_lm``'s)."""
+    want = row["rank_bytes"]
+    if set(got["gathered"]) != {want["gathered"]} or got["accum"] != want["grad_accum"]:
+        raise AssertionError(f"(j) {mode} rank {rank}: gathered peaks {got['gathered']} B and "
+                             f"accumulator {got['accum']} B against the dry run's "
+                             f"{want['gathered']} B and {want['grad_accum']} B")
 
 
 def _split_report(res: list, priced: dict) -> None:
@@ -4296,11 +4346,13 @@ def _split_report(res: list, priced: dict) -> None:
     for mode, ((extents, names), arch, *_) in MESH_SPLIT.items():
         for rank, r in enumerate(res):
             got = r["split"][mode]
-            bad = [i for i, t in enumerate(got["tables"]) if t != priced[mode][rank]]
+            want = priced[mode][rank]["collectives"]
+            bad = [i for i, t in enumerate(got["tables"]) if t != want]
             if bad:
                 raise AssertionError(f"(j) {mode} rank {rank}: the collectives of steps {bad} "
                                      f"differ from the dry run's price: {got['tables'][bad[0]]} "
-                                     f"!= {priced[mode][rank]}")
+                                     f"!= {want}")
+            _check_gathered(rank, mode, got, priced[mode][rank])
         peers = {}
         for rank, r in enumerate(res):
             off_model = tuple(v for k, v in sorted(r["split"][mode]["coords"].items())
@@ -4314,10 +4366,14 @@ def _split_report(res: list, priced: dict) -> None:
                     raise AssertionError(f"(j) {mode}: replicated leaves differ across the "
                                          f"model ranks: {diff[:6]}")
             leaves = len(group[0])
+        rb = priced[mode][0]["rank_bytes"]
         log(f"[train] (j) {mode} ({arch} on {dict(zip(names, extents))}): every rank's bytes "
             f"in, each step, collective by collective, == the dry run's price (price_lm on a "
-            f"MeshLayout); its {leaves} leaves replicated over model (the norm scales, a MoE "
-            f"layer's router) bitwise alike on the model ranks; {card_name_power()}")
+            f"MeshLayout), and so are its gathered peak ({rb['gathered']:,} B) and its gradient "
+            f"accumulator ({rb['grad_accum']:,} B: f32 where the step sums over data, else "
+            f"the gradients' dtype); its {leaves} leaves replicated over model "
+            f"(the norm scales, a MoE layer's router) bitwise alike on the model ranks; "
+            f"{card_name_power()}")
 
 
 def phase_train_mesh() -> None:
@@ -4418,7 +4474,7 @@ def phase_train_mesh() -> None:
             # the dry run's prices of the split steps and of [lm-mesh]'s
             # calls, while the ranks run
             t0 = time.perf_counter()
-            train_priced = {mode: _train_priced(mode) for mode in MESH_SPLIT}
+            train_priced = {mode: _train_priced(mode) for mode in ("hier", *MESH_SPLIT)}
             priced = {mode: _serve_priced(mode) for mode in SERVE_MESHES}
             log(f"[lm-mesh] the dry run priced the split steps and the serving legs' calls for the "
                 f"4 ranks here in {time.perf_counter() - t0:.1f} s while the ranks ran")
@@ -4450,6 +4506,12 @@ def phase_train_mesh() -> None:
         f"one card, not a scaling result; {card_name_power()}")
     if slow != want:
         raise AssertionError(f"(j) slow-tier bytes {slow} != the accounting {want}")
+    for rank, r in enumerate(res):
+        _check_gathered(rank, "hier", r, train_priced["hier"][rank])
+    rb = train_priced["hier"][0]["rank_bytes"]
+    log(f"[train] (j) hier: every rank's gathered peak ({rb['gathered']:,} B, one unit) and f32 "
+        f"accumulator ({rb['grad_accum']:,} B, its shards) == the dry run's price (price_lm on "
+        f"a MeshLayout); {card_name_power()}")
     _split_report(res, train_priced)
     _serve_report(res, priced, serve_ref_s)
     log(f"[time] (j) with [lm-mesh] took {time.perf_counter() - t_leg:.1f} s")
@@ -4503,7 +4565,11 @@ def _check_hier(rank, mesh, run, peak, ref, card) -> dict:
     log(f"[train] (j) rank {rank} {mode} on {mesh.shape} at {mesh.coords}: losses "
         f"{[x.tolist() for x in run['losses']]} bitwise the one-device run's, and so are the "
         f"gathered parameters, moments, counts, anchor and residuals; state held {held_b:,} B "
-        f"against one replica's {replica_b:,} B; peak {peak:.2f} GB; set up in "
+        f"against one replica's {replica_b:,} B; peak {max(run['setup_peak'], peak):.2f} GB "
+        f"(PR 31: {PR31_PEAK_GB[mode]} GB), the steps alone {peak:.2f} GB, the weights drawn "
+        f"{run['setup_peak']:.2f} GB; parameters held gathered at most "
+        f"{max(run['gathered']):,} B a step (one unit), f32 gradient accumulator "
+        f"{run['accum']:,} B (its shards); set up in "
         f"{run['setup_s']:.1f} s, gathered and held to the references in {check_s:.1f} s; "
         f"ms/step {[round(x, 1) for x in run['step_ms']]} (in collectives "
         f"{[round(x, 1) for x in run['comm_ms']]}), sync "
@@ -4511,7 +4577,8 @@ def _check_hier(rank, mesh, run, peak, ref, card) -> dict:
         f"sync {syncs[0]} (slow tier {slow:,} B, the accounting (2 - 1) x ({shard_elems:,} "
         f"int8 + 4 x {len(held['params'])} scales) = {accounting:,} B); {card}")
     return dict(slow_bytes=slow, slow_accounting=accounting,
-                hier_fast_per_step=sum(sum(t.values()) for t in fast) // len(fast))
+                hier_fast_per_step=sum(sum(t.values()) for t in fast) // len(fast),
+                gathered=run["gathered"], accum=run["accum"])
 
 
 def _check_split(rank, mode, mesh, run, peak, ref_t, index, card) -> dict:
@@ -4615,11 +4682,15 @@ def _check_split(rank, mode, mesh, run, peak, ref_t, index, card) -> dict:
         f"{len(replicated)} replicated leaves' digests sent for the model peers; parameters "
         f"and moments held {held_b:,} B; a step computes on its model shards, "
         f"{gathered_b:,} B of parameters against a replica's {replica_b:,} B, gathered "
-        f"over data {over_data} B a step; bytes in a step {run['tables'][-1]}; peak "
-        f"{peak:.2f} GB; set up in {run['setup_s']:.1f} s, held to the references in "
-        f"{check_s:.1f} s; ms/step {[round(x, 1) for x in run['step_ms']]} (in collectives "
-        f"{[round(x, 1) for x in run['comm_ms']]}); {card}")
-    return dict(tables=run["tables"], replicated=replicated, coords=mesh.coords)
+        f"over data {over_data} B a step, held gathered at most {max(run['gathered']):,} B a "
+        f"step (one unit); gradient accumulator {run['accum']:,} B (its shards); bytes in "
+        f"a step {run['tables'][-1]}; peak {max(run['setup_peak'], peak):.2f} GB (PR 31: "
+        f"{PR31_PEAK_GB[mode]} GB), the steps alone {peak:.2f} GB, the weights drawn "
+        f"{run['setup_peak']:.2f} GB; set up in {run['setup_s']:.1f} s, held to the "
+        f"references in {check_s:.1f} s; ms/step {[round(x, 1) for x in run['step_ms']]} (in "
+        f"collectives {[round(x, 1) for x in run['comm_ms']]}); {card}")
+    return dict(tables=run["tables"], replicated=replicated, coords=mesh.coords,
+                gathered=run["gathered"], accum=run["accum"])
 
 
 def mesh_rank_main(rank: int, tmp: str, port: int) -> int:

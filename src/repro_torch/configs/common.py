@@ -64,18 +64,24 @@ class Bundle:
     # Optimizer-moment dtype hint (bf16 for the giants of the JAX package).
     moment_dtype: str = "float32"
 
-    def loss(self, params, batch, split: layers.TPSplit | None = None) -> torch.Tensor:
+    def loss(self, params, batch, split: layers.TPSplit | None = None,
+             fsdp: layers.FSDP | None = None) -> torch.Tensor:
         """Mean next-token CE (+ 0.01 x the aux loss) on a ``{'tokens',
         'labels', ...}`` batch, through the hidden-state API and the chunked
         CE, so the full ``[B, S, V]`` logits never exist. Under ``split``
         (on a mesh whose model extent is above 1) ``params`` are this
         rank's model shards, the CE is vocab-parallel, and every rank of
-        the axis gets the same loss."""
+        the axis gets the same loss. ``fsdp`` (on a mesh) gathers each unit
+        where it runs; the head is gathered once for every chunk of the
+        CE."""
         extras = {k: batch[k] for k in self.extra_inputs}
         kw = {} if split is None else {"split": split}
+        if fsdp is not None:
+            kw["fsdp"] = fsdp
         h, aux = self.model.hidden(params, batch["tokens"], **extras, **kw)
+        head = self.model.head(params, fsdp)
         ce = layers.chunked_cross_entropy(
-            lambda hc: self.model.unembed(params, hc), h, batch["labels"], split=split)
+            lambda hc: hc @ head.to(hc.dtype), h, batch["labels"], split=split)
         return ce + 0.01 * aux
 
     def input_specs(self, shape: ShapeSpec) -> dict[str, torch.Tensor]:

@@ -43,11 +43,21 @@ are kept apart from the exchange's own gathers.
 
 **Priced, not run.** Over a :class:`~repro_torch.core.mesh.MeshLayout`
 (the dry run's rank-free mesh) the tensors are on the ``meta`` device:
-:func:`all_gather`, :func:`all_reduce`, :func:`sum_in_order` and
-:func:`broadcast` then call no process group, count ``calls`` and
+:func:`all_gather`, :func:`all_reduce`, :func:`sum_in_order`,
+:func:`reduce_scatter_in_order` and :func:`broadcast` then call no
+process group, count ``calls`` and
 ``received`` by the same rules as on a world, and return meta tensors of
 the shapes a world would give. So a dry run of one rank's step or serving
 call on meta tensors counts what that rank would take in.
+
+**Sharded parameters** (FSDP, :mod:`~repro_torch.models.fsdp`) are
+gathered one unit at a time (``all_gather``); the gradients of the split
+leaves are summed over the batch axes by :func:`reduce_scatter_in_order`
+each microbatch, each rank taking in only the blocks it owns (a leaf a
+rank holds whole, by :func:`sum_in_order` once a step), and the clip's
+norm gathers each split leaf's f32 shard once (``"norm_gather"``).
+:data:`gathered` holds the parameter bytes the gather point holds
+gathered now and their peak since :func:`reset_stats`.
 
 **Collectives that carry gradients** split a training step's compute
 over an axis (Megatron's operators; :class:`~repro_torch.models.layers.TPSplit`
@@ -94,8 +104,10 @@ __all__ = [
     "pack_bits",
     "unpack_bits",
     "all_gather",
+    "gather_blocks",
     "all_reduce",
     "sum_in_order",
+    "reduce_scatter_in_order",
     "broadcast",
     "enter_split",
     "sum_partials",
@@ -115,23 +127,37 @@ __all__ = [
     "calls",
     "received",
     "times",
+    "gathered",
+    "gathered_add",
     "reset_stats",
 ]
 
 calls: collections.Counter = collections.Counter()
 received: collections.Counter = collections.Counter()
 times: list | None = None
+# Bytes of the parameters the FSDP gather point holds gathered on this rank
+# now ("live") and their most since the last reset_stats ("peak").
+gathered: dict = {"live": 0, "peak": 0}
 # Pinned host buffers for the gloo wire, by (role, shape, dtype).
 _pinned: dict = {}
 
 
 def reset_stats(*, timed: bool = False) -> None:
-    """Zero ``calls`` and ``received``; start recording ``times`` when
-    ``timed``, else stop."""
+    """Zero ``calls`` and ``received`` and restart ``gathered``'s peak from
+    what is alive; start recording ``times`` when ``timed``, else stop."""
     global times
     calls.clear()
     received.clear()
+    gathered["peak"] = gathered["live"]
     times = [] if timed else None
+
+
+def gathered_add(nbytes: int) -> None:
+    """``nbytes`` more (or, negative, fewer) gathered parameter bytes alive
+    on this rank (:class:`~repro_torch.models.fsdp.FSDP` counts what it
+    returns until it is freed)."""
+    gathered["live"] += nbytes
+    gathered["peak"] = max(gathered["peak"], gathered["live"])
 
 
 def pack_bits(x: torch.Tensor) -> torch.Tensor:
@@ -223,6 +249,18 @@ def all_gather(x: torch.Tensor, mesh, axes, *, dim: int,
     return g.reshape(*x.shape[:dim], n * x.shape[dim], *x.shape[dim + 1:])
 
 
+def gather_blocks(x: torch.Tensor, mesh, spec: tuple, count_as: str = "all_gather"
+                  ) -> torch.Tensor:
+    """The whole of what this rank's block ``x`` under ``spec`` (one entry a
+    leading dimension) is a block of: an :func:`all_gather` along each
+    dimension whose axes have an extent above 1, counted under
+    ``count_as``; ``x`` itself where there is none."""
+    for d, axes in enumerate(spec):
+        if axes is not None and mesh.extent(axes) > 1:
+            x = all_gather(x, mesh, axes, dim=d, count_as=count_as)
+    return x
+
+
 def all_reduce(x: torch.Tensor, mesh, axes, *, op: str = "sum") -> torch.Tensor:
     """``x`` reduced over the group of ``axes`` (``'sum'`` or ``'max'``); a
     new tensor on ``x``'s device (``jax.lax.psum`` / ``pmax``)."""
@@ -252,6 +290,72 @@ def sum_in_order(x: torch.Tensor, mesh, axes, count_as: str = "sum_in_order") ->
     acc = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
     for part in parts.unbind(0):
         acc.add_(part.float())
+    return acc
+
+
+def _block_at(x: torch.Tensor, spec: tuple, mesh, coords: dict) -> torch.Tensor:
+    """The block of ``x`` under ``spec`` that the rank at ``coords`` owns
+    (:meth:`~repro_torch.core.mesh.MeshLayout.shard` at other coordinates)."""
+    index = []
+    for d, e in enumerate(spec):
+        if e is None:
+            index.append(slice(None))
+            continue
+        i = 0
+        for ax in _key(e):
+            i = i * mesh.shape[ax] + coords[ax]
+        size = x.shape[d] // mesh.extent(e)
+        index.append(slice(i * size, (i + 1) * size))
+    return x[tuple(index)]
+
+
+def _all_to_all(send: torch.Tensor, mesh, axes: tuple, count_as: str) -> torch.Tensor:
+    """``[n, ...]``: block ``j`` of ``send`` goes to group index ``j`` over
+    ``axes``, block ``j`` of the result came from it (``n - 1`` blocks in,
+    counted under ``count_as``)."""
+    n = send.shape[0]
+    nbytes = (n - 1) * send[0].numel() * send.element_size()
+    if send.is_meta:  # priced: no group
+        return _timed(count_as, axes, nbytes, lambda: torch.empty_like(send))
+    group = mesh.group(axes)
+    if _staged(group, send):
+        src = _buffer("a2a_in", send.shape, send.dtype)
+        src.copy_(send)  # waits for the device
+        out = _buffer("a2a_out", send.shape, send.dtype)
+        _timed(count_as, axes, nbytes, lambda: dist.all_to_all_single(out, src, group=group))
+        return out.to(send.device, non_blocking=True)
+    out = torch.empty_like(send)
+    _timed(count_as, axes, nbytes, lambda: dist.all_to_all_single(out, send, group=group))
+    return out
+
+
+def reduce_scatter_in_order(x: torch.Tensor, mesh, axes, spec: tuple,
+                            count_as: str = "reduce_scatter_in_order") -> torch.Tensor:
+    """This rank's block of the f32 sum of the ranks' ``x`` over the group
+    of ``axes``: the block of ``x`` it owns under ``spec`` (whose axes may
+    be fewer than ``axes``, or others: each rank owns the block its own
+    coordinates give), summed from every rank of the group in row-major
+    order onto an f32 zero. Every element is bitwise the one
+    :func:`sum_in_order` gives and :meth:`~repro_torch.core.mesh.MeshLayout.shard`
+    cuts out, but a rank takes in only ``n - 1`` blocks, not ``n - 1``
+    whole payloads: the blocks cross as one all-to-all in ``x``'s dtype,
+    counted under ``count_as``. An extent of 1 is this rank's block, with
+    no collective."""
+    axes = _key(axes)
+    n = mesh.extent(axes)
+    extents = [mesh.shape[a] for a in axes]
+    blocks = []
+    for j in range(n):
+        coords = dict(mesh.coords)
+        coords.update(zip(axes, (int(c) for c in np.unravel_index(j, extents))))
+        blocks.append(_block_at(x, spec, mesh, coords))
+    if n == 1:
+        parts = blocks
+    else:
+        parts = _all_to_all(torch.stack(blocks), mesh, axes, count_as).unbind(0)
+    acc = torch.zeros(blocks[0].shape, dtype=torch.float32, device=x.device)
+    for part in parts:
+        acc.add_(part)  # in f32: the part's dtype is promoted exactly
     return acc
 
 

@@ -13,8 +13,10 @@ collectives the microbatch loop's times ``n_micro`` and the step's own
 once: :func:`price_lm`) and, in hierarchical mode, the sync step, or one
 prefill or decode call of ``make_serve_artifacts``. Nothing is allocated
 and no process group is made. The row holds ``rank_bytes`` (the shards a
-rank holds, and what a call gathers: its model shards, split over
-``model`` as it computes), ``collectives`` (what
+rank holds, a training step's gradient accumulator (``grad_accum``, the
+rank's shards, f32 where it sums: ZeRO-2) among them, and ``gathered``: the most
+parameter bytes the call held gathered at once, as the FSDP gather point
+counts them while it runs, one unit at a time), ``collectives`` (what
 :mod:`~repro_torch.core.comm` counts into the rank, by the same rules a
 world counts them),
 ``flops_per_device`` (``torch.utils.flop_counter.FlopCounterMode``),
@@ -552,15 +554,18 @@ def _dominant(terms: dict) -> str:
 
 def _measured(fn, count_flops: bool):
     """``fn()`` with comm's counters zeroed first, under a FLOP counter:
-    ``(its result, the counted table, the FLOPs)``."""
+    ``(its result, the counted table, the FLOPs, the peak of the gathered
+    parameter bytes)``."""
     from torch.utils.flop_counter import FlopCounterMode
 
     comm.reset_stats()
     if not count_flops:
-        return fn(), _table(), 0
-    with FlopCounterMode(display=False) as counter:
-        out = fn()
-    return out, _table(), counter.get_total_flops()
+        out, flops = fn(), 0
+    else:
+        with FlopCounterMode(display=False) as counter:
+            out = fn()
+        flops = counter.get_total_flops()
+    return out, _table(), flops, comm.gathered["peak"]
 
 
 def price_lm(bundle, shape: ShapeSpec, layout: MeshLayout, *, fsdp_axis: str | None = "data",
@@ -575,7 +580,12 @@ def price_lm(bundle, shape: ShapeSpec, layout: MeshLayout, *, fsdp_axis: str | N
     ``prompt_len`` tokens, by default the cache's length; decode at
     ``cache_index``, by default the cache's last position). Returns
     ``rank_bytes``, ``collectives``, ``flops_per_device`` and,
-    hierarchical, ``sync_step``.
+    hierarchical, ``sync_step``. ``rank_bytes["gathered"]`` is the peak of
+    the parameter bytes the call held gathered (the FSDP gather point's
+    count, :data:`~repro_torch.core.comm.gathered`: its largest unit, as a
+    rank computes on it), and a training step's ``held`` counts its
+    gradient accumulator (``grad_accum``: the rank's shards, 4 bytes an
+    element where the step sums microbatches or batch ranks).
 
     A training step's ``collectives`` are the step's as it runs them:
     what the microbatch loop counts (the split's activation sums and
@@ -600,14 +610,15 @@ def price_lm(bundle, shape: ShapeSpec, layout: MeshLayout, *, fsdp_axis: str | N
                 layout.shape[hier_cfg.pod_axis] if hier_cfg else 1)
             batch = art.batch_sds(bundle, dataclasses.replace(shape, global_batch=n_shards))
             batch = shard_state(batch, art.batch_specs, layout)
-            _, table, flops = _measured(lambda: art.step_fn(params, opt, batch), count)
-            return art, params, opt, _bytes(batch) // micro, table, flops
+            _, table, flops, peak = _measured(lambda: art.step_fn(params, opt, batch), count)
+            return art, params, opt, _bytes(batch) // micro, table, flops, peak
 
         micros = [1] if n_micro == 1 else [2] if n_micro == 2 else [2, 3]
         if count_flops and n_micro > 1:
             micros = [1] + micros  # one microbatch's FLOPs
         runs = {m: step_at(m, count_flops and m == 1) for m in micros}
-        art, params, opt, batch_bytes, _, flops = runs[micros[0]]
+        art, params, opt, batch_bytes, _, flops, _ = runs[micros[0]]
+        gathered = max(run[6] for run in runs.values())
         table = runs[min(n_micro, 2)][4]
         if n_micro > 2:
             more = runs[3][4]
@@ -615,42 +626,39 @@ def price_lm(bundle, shape: ShapeSpec, layout: MeshLayout, *, fsdp_axis: str | N
                          else (n_micro - 2) * v[f] for f in ("calls", "bytes")}
                      for k, v in more.items()}
         sync = art.shard(art.sync_sds, "sync") if hier_cfg is not None else None
-        held = {"params": _bytes(params), "opt": _bytes(opt), "batch": n_micro * batch_bytes}
-        whole = art.params_sds if hier_cfg is None else art.hier.pod(art.params_sds, 0)
+        held = {"params": _bytes(params), "opt": _bytes(opt), "batch": n_micro * batch_bytes,
+                "grad_accum": art.accumulator_bytes(params)}
         flops *= n_micro
         if sync is not None:
             held["sync"] = _bytes(sync)
-            _, sync_table, _ = _measured(lambda: art.sync_fn(params, sync), False)
+            _, sync_table, _, _ = _measured(lambda: art.sync_fn(params, sync), False)
             out["sync_step"] = {"collectives": sync_table,
                                 "bytes": sum(e["bytes"] for e in sync_table.values())}
     else:
         art = make_serve_artifacts(bundle, shape, layout, fsdp_axis=fsdp_axis)
         params = art.shard(art.params_sds)
-        whole = art.params_sds
         if shape.kind == "prefill":
             specs = bundle.input_specs(dataclasses.replace(
                 shape, seq_len=prompt_len or shape.seq_len))
             del specs["labels"]
             batch = {k: layout.shard(v, (art.batch_axes,) + (None,) * (v.dim() - 1), k).clone()
                      for k, v in specs.items()}
-            (_, state), table, flops = _measured(lambda: art.prefill_fn(params, batch),
-                                                 count_flops)
+            (_, state), table, flops, gathered = _measured(
+                lambda: art.prefill_fn(params, batch), count_flops)
         else:
             state = shard_state(art.state_sds, art.state_specs, layout)
             batch = {"tokens": layout.shard(
                 torch.empty((shape.global_batch, 1), dtype=torch.long, device="meta"),
                 art.token_spec, "tokens")}
             index = shape.seq_len - 1 if cache_index is None else cache_index
-            _, table, flops = _measured(
+            _, table, flops, gathered = _measured(
                 lambda: art.decode_fn(params, state, batch["tokens"], index), count_flops)
         held = {"params": _bytes(params), "cache": _bytes(state["cache"]),
                 "batch": _bytes(batch)}
         if "enc_out" in state:
             held["enc_out"] = _nbytes(state["enc_out"])
     held["held"] = sum(held.values())
-    # a training step or a serving call gathers a rank's model shards (the
-    # whole with a model extent of 1)
-    held["gathered"] = art.computed_bytes(whole)
+    held["gathered"] = gathered
     out.update(rank_bytes=held, collectives=table, flops_per_device=flops)
     return out
 
@@ -704,9 +712,10 @@ def dryrun_lm_cell(arch_id: str, shape_name: str, multi_pod: bool, hierarchical:
 
 
 def record_hbm(row: dict, budget_gib: float | None) -> dict:
-    """An LM row's modelled bytes a rank (held and gathered, activations
-    not priced) beside ``budget_gib``: recorded, not gated (the reference
-    gates its SNN rows only)."""
+    """An LM row's modelled bytes a rank (held, the gradient accumulator
+    included, and the peak gathered; activations not priced) beside
+    ``budget_gib``: recorded, not gated (the reference gates its SNN rows
+    only)."""
     if row.get("status") == "OK":
         rb = row["rank_bytes"]
         row["hbm_gib_modelled"] = round((rb["held"] + rb["gathered"]) / 2**30, 3)

@@ -97,12 +97,13 @@ class InternVL(jax_layout.Stacked):
                            "fc2": layers.dense_init(d, d, **kw)}))
 
     def _splice(self, params: InternVLParams, tokens: torch.Tensor,
-                patch_embeds: torch.Tensor, split: layers.TPSplit | None = None
-                ) -> torch.Tensor:
+                patch_embeds: torch.Tensor, split: layers.TPSplit | None = None,
+                fsdp: layers.FSDP | None = None) -> torch.Tensor:
         """Project the patch embeddings and overwrite the first
         ``n_patches`` positions of the token embeddings."""
-        h = layers.embed_lookup(params.lm.embed, tokens, self.cfg.cdtype, split)
-        c = params.connector
+        h = layers.embed_lookup(layers.unit(params.lm.embed, fsdp), tokens, self.cfg.cdtype,
+                                split)
+        c = layers.unit(params.connector, fsdp)
         a = F.gelu(layers.dense(c["fc1"], patch_embeds.to(self.cfg.cdtype)), approximate="tanh")
         if split is None:
             img = layers.dense(c["fc2"], a)
@@ -113,13 +114,17 @@ class InternVL(jax_layout.Stacked):
 
     def hidden(self, params: InternVLParams, tokens: torch.Tensor, *,
                patch_embeds: torch.Tensor, positions=None,
-               split: layers.TPSplit | None = None):
-        h0 = self._splice(params, tokens, patch_embeds, split)
+               split: layers.TPSplit | None = None, fsdp: layers.FSDP | None = None):
+        h0 = self._splice(params, tokens, patch_embeds, split, fsdp)
         return self.lm.hidden(params.lm, tokens, embeds_override=h0, positions=positions,
-                              split=split)
+                              split=split, fsdp=fsdp)
 
-    def unembed(self, params: InternVLParams, h: torch.Tensor) -> torch.Tensor:
-        return self.lm.unembed(params.lm, h)
+    def head(self, params: InternVLParams, fsdp: layers.FSDP | None = None) -> torch.Tensor:
+        return self.lm.head(params.lm, fsdp)
+
+    def unembed(self, params: InternVLParams, h: torch.Tensor,
+                fsdp: layers.FSDP | None = None) -> torch.Tensor:
+        return self.lm.unembed(params.lm, h, fsdp)
 
     def forward(self, params: InternVLParams, tokens: torch.Tensor, *,
                 patch_embeds: torch.Tensor, positions=None):
@@ -131,13 +136,15 @@ class InternVL(jax_layout.Stacked):
 
     def forward_with_cache(self, params: InternVLParams, tokens: torch.Tensor, cache: dict,
                            cache_index: int, *, patch_embeds: torch.Tensor | None = None,
-                           last_only: bool = False, split=None):
+                           last_only: bool = False, split=None, fsdp=None):
         """Prefill may carry image tokens (``patch_embeds``); decode steps
         never do. ``split``: the compute and cache split on a mesh (the
-        connector's included)."""
-        h0 = None if patch_embeds is None else self._splice(params, tokens, patch_embeds, split)
+        connector's included); ``fsdp`` gathers each unit where it runs."""
+        h0 = None if patch_embeds is None else self._splice(params, tokens, patch_embeds, split,
+                                                             fsdp)
         return self.lm.forward_with_cache(params.lm, tokens, cache, cache_index,
-                                          last_only=last_only, embeds_override=h0, split=split)
+                                          last_only=last_only, embeds_override=h0, split=split,
+                                          fsdp=fsdp)
 
     # ---------------------------------------------------------------- specs
 

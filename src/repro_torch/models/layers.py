@@ -23,6 +23,11 @@ whole K and V, its output gathered along the sequence), the pins the JAX
 (:func:`~repro_torch.core.comm.enter_split` and its kin); serving runs
 them under ``torch.no_grad()``, their forward alone.
 
+On a mesh the weights are also sharded over the FSDP axes: each model
+calls :func:`unit` where a unit (a layer, the embedding, the head, a final
+norm) runs, inside the function a checkpoint wraps, and the unit is
+gathered there alone (:mod:`~repro_torch.models.fsdp`).
+
 Serving on a mesh also splits the cache, which stays where its shard lies
 (:class:`TPSplit`'s ``kv``): with the KV heads split, a rank attends with
 its own heads over its own cache shard; with the sequence split, a rank
@@ -46,9 +51,12 @@ from torch import nn
 
 from repro_torch.core import comm
 from repro_torch.kernels import ops
+from repro_torch.models.fsdp import FSDP, unit
 
 __all__ = [
     "TPSplit",
+    "FSDP",
+    "unit",
     "embed_lookup",
     "write_positions",
     "Dense",

@@ -351,24 +351,33 @@ class Mamba2(jax_layout.Stacked):
 
     def hidden(self, params: Mamba2Params, tokens: torch.Tensor, *,
                embeds_override: torch.Tensor | None = None, positions=None,
-               split: layers.TPSplit | None = None):
+               split: layers.TPSplit | None = None, fsdp: layers.FSDP | None = None):
         """Full-sequence forward up to the final norm: (h, aux loss 0). SSMs
         carry position in their state, so ``positions`` is unused. Under
-        ``split`` the parameters are this rank's model shards."""
+        ``split`` the parameters are this rank's model shards; ``fsdp`` (on
+        a mesh) gathers each unit where it runs."""
         del positions
         if embeds_override is not None:
             h = embeds_override.to(self.cfg.cdtype)
         else:
-            h = layers.embed_lookup(params.embed, tokens, self.cfg.cdtype, split)
+            h = layers.embed_lookup(layers.unit(params.embed, fsdp), tokens, self.cfg.cdtype,
+                                    split)
         for p in params.layers:
-            h = layers.checkpointed(lambda x, p=p: self.layer(p, x, split=split)[0], h,
-                                    self.cfg.remat)
-        return layers.rms_norm(params.final_norm, h), torch.zeros((), device=h.device)
+            h = layers.checkpointed(
+                lambda x, p=p: self.layer(layers.unit(p, fsdp), x, split=split)[0], h,
+                self.cfg.remat)
+        return (layers.rms_norm(layers.unit(params.final_norm, fsdp), h),
+                torch.zeros((), device=h.device))
 
-    def unembed(self, params: Mamba2Params, h: torch.Tensor) -> torch.Tensor:
+    def head(self, params: Mamba2Params, fsdp: layers.FSDP | None = None) -> torch.Tensor:
+        """``lm_head`` ``[D, V]``, gathered by ``fsdp`` on a mesh."""
+        return layers.unit(params.lm_head, fsdp)
+
+    def unembed(self, params: Mamba2Params, h: torch.Tensor,
+                fsdp: layers.FSDP | None = None) -> torch.Tensor:
         """The logits; this rank's vocab columns where ``lm_head`` is its
         model shard."""
-        return h @ params.lm_head.to(h.dtype)
+        return h @ self.head(params, fsdp).to(h.dtype)
 
     def forward(self, params: Mamba2Params, tokens: torch.Tensor, *,
                 embeds_override: torch.Tensor | None = None, positions=None):
@@ -392,20 +401,23 @@ class Mamba2(jax_layout.Stacked):
         }
 
     def forward_with_cache(self, params: Mamba2Params, tokens: torch.Tensor, cache: dict,
-                           cache_index: int, *, last_only: bool = False, split=None):
+                           cache_index: int, *, last_only: bool = False, split=None,
+                           fsdp: layers.FSDP | None = None):
         """Prefill or decode: the state carries all history, so
         ``cache_index`` is unused. Returns (logits, cache updated in place);
         with a ``split`` the parameters are this rank's model shards, the
-        SSM state its heads, and the logits' vocab columns are gathered."""
+        SSM state its heads, and the logits' vocab columns are gathered;
+        ``fsdp`` gathers each unit where it runs."""
         del cache_index
-        h = layers.embed_lookup(params.embed, tokens, self.cfg.cdtype, split)
+        h = layers.embed_lookup(layers.unit(params.embed, fsdp), tokens, self.cfg.cdtype, split)
         for i, p in enumerate(params.layers):
-            h, st = self.layer(p, h, {"conv": cache["conv"][i], "ssm": cache["ssm"][i]}, split)
+            h, st = self.layer(layers.unit(p, fsdp), h,
+                               {"conv": cache["conv"][i], "ssm": cache["ssm"][i]}, split)
             cache["conv"][i], cache["ssm"][i] = st["conv"], st["ssm"]
-        h = layers.rms_norm(params.final_norm, h)
+        h = layers.rms_norm(layers.unit(params.final_norm, fsdp), h)
         if last_only:
             h = h[:, -1:]
-        logits = self.unembed(params, h)
+        logits = self.unembed(params, h, fsdp)
         return (logits if split is None else split.gather(logits, -1)), cache
 
     # ---------------------------------------------------------------- specs

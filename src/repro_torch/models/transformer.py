@@ -249,9 +249,10 @@ class Transformer(jax_layout.Stacked):
             return layers.rms_norm(sub[which], x)
         return layers.nonparam_layer_norm(x)
 
-    def _final_norm(self, params: TransformerParams, h: torch.Tensor) -> torch.Tensor:
+    def _final_norm(self, params: TransformerParams, h: torch.Tensor,
+                    fsdp: layers.FSDP | None = None) -> torch.Tensor:
         if self.cfg.norm == "rms":
-            return layers.rms_norm(params.final_norm, h)
+            return layers.rms_norm(layers.unit(params.final_norm, fsdp), h)
         return layers.nonparam_layer_norm(h)
 
     # ------------------------------------------------------------- layers
@@ -277,11 +278,12 @@ class Transformer(jax_layout.Stacked):
         return h + y, aux, kv_i
 
     def _layers(self, params, h, positions, *, cache=None, cache_index=None,
-                cache_mode="inplace", split=None):
+                cache_mode="inplace", split=None, fsdp=None):
         """Every layer in order: (h, the summed MoE aux loss, and with a cache
         each layer's new K/V: fresh slices, or the whole updated cache in
         ``inplace`` mode). Without a cache and under autograd, each layer is
-        a checkpoint as ``cfg.remat`` asks."""
+        a checkpoint as ``cfg.remat`` asks. On a mesh each layer is
+        gathered by ``fsdp`` where it runs, inside its checkpoint."""
         cfg = self.cfg
         g = cfg.group_size
         windows, thetas = cfg.window_array(), cfg.theta_array()
@@ -292,8 +294,8 @@ class Transformer(jax_layout.Stacked):
             theta, window = thetas[i // g, i % g], int(windows[i // g, i % g])
             if remat != "none":
                 h, aux_i = torch.utils.checkpoint.checkpoint(
-                    lambda x, sub=sub, theta=theta, window=window:
-                        self._layer(sub, x, positions, theta, window, split=split)[:2],
+                    lambda x, sub=sub, theta=theta, window=window: self._layer(
+                        layers.unit(sub, fsdp), x, positions, theta, window, split=split)[:2],
                     h, use_reentrant=False, **_REMAT[remat])
                 aux = aux if aux_i is None else aux + aux_i
                 continue
@@ -301,8 +303,8 @@ class Transformer(jax_layout.Stacked):
             if cache is not None:
                 c = cache[f"sub_{i % g}"]
                 kv = (c["k"][i // g], c["v"][i // g])
-            h, aux_i, kv_i = self._layer(sub, h, positions, theta, window, kv, cache_index,
-                                         cache_mode, split)
+            h, aux_i, kv_i = self._layer(layers.unit(sub, fsdp), h, positions, theta, window,
+                                         kv, cache_index, cache_mode, split)
             aux = aux if aux_i is None else aux + aux_i
             new_kv.append(kv_i)
         return h, aux, new_kv
@@ -310,35 +312,44 @@ class Transformer(jax_layout.Stacked):
     # --------------------------------------------------------------- forward
 
     def _embed(self, params: TransformerParams, tokens: torch.Tensor,
-               split: layers.TPSplit | None = None) -> torch.Tensor:
-        h = layers.embed_lookup(params.embed, tokens, self.cfg.cdtype, split)
+               split: layers.TPSplit | None = None,
+               fsdp: layers.FSDP | None = None) -> torch.Tensor:
+        h = layers.embed_lookup(layers.unit(params.embed, fsdp), tokens, self.cfg.cdtype, split)
         if self.cfg.embed_scale:
             h = h * math.sqrt(self.cfg.d_model)
         return h
 
-    def unembed(self, params: TransformerParams, h: torch.Tensor) -> torch.Tensor:
+    def head(self, params: TransformerParams, fsdp: layers.FSDP | None = None) -> torch.Tensor:
+        """The unembedding ``[D, V]`` (the embedding's transpose where
+        tied), gathered by ``fsdp`` on a mesh; this rank's vocab columns
+        where ``params`` are its model shards."""
+        if self.cfg.tie_embeddings:
+            return layers.unit(params.embed, fsdp).T
+        return layers.unit(params.lm_head, fsdp)
+
+    def unembed(self, params: TransformerParams, h: torch.Tensor,
+                fsdp: layers.FSDP | None = None) -> torch.Tensor:
         """The logits; this rank's vocab columns where ``params`` are its
         model shards (the embedding's rows or the head's columns)."""
-        if self.cfg.tie_embeddings:
-            return h @ params.embed.T.to(h.dtype)
-        return h @ params.lm_head.to(h.dtype)
+        return h @ self.head(params, fsdp).to(h.dtype)
 
     def hidden(self, params: TransformerParams, tokens: torch.Tensor, *,
                embeds_override: torch.Tensor | None = None,
                positions: torch.Tensor | None = None,
-               split: layers.TPSplit | None = None):
+               split: layers.TPSplit | None = None, fsdp: layers.FSDP | None = None):
         """Full-sequence forward up to the final norm. ``embeds_override``
         ``[B, S, D]`` replaces the token embeddings (the VLM's spliced
-        input). Returns (h [B, S, D], MoE aux loss; 0 for dense layers)."""
+        input). Returns (h [B, S, D], MoE aux loss; 0 for dense layers).
+        ``fsdp``: on a mesh, the gather point of each unit."""
         b, s = tokens.shape
         if embeds_override is not None:
             h = embeds_override.to(self.cfg.cdtype)
         else:
-            h = self._embed(params, tokens, split)
+            h = self._embed(params, tokens, split, fsdp)
         if positions is None:
             positions = torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
-        h, aux, _ = self._layers(params, h, positions, split=split)
-        return self._final_norm(params, h), aux
+        h, aux, _ = self._layers(params, h, positions, split=split, fsdp=fsdp)
+        return self._final_norm(params, h, fsdp), aux
 
     def forward(self, params: TransformerParams, tokens: torch.Tensor, *,
                 embeds_override: torch.Tensor | None = None,
@@ -363,7 +374,8 @@ class Transformer(jax_layout.Stacked):
     def forward_with_cache(self, params: TransformerParams, tokens: torch.Tensor,
                            cache: dict, cache_index: int, *, last_only: bool = False,
                            embeds_override: torch.Tensor | None = None,
-                           split: layers.TPSplit | None = None):
+                           split: layers.TPSplit | None = None,
+                           fsdp: layers.FSDP | None = None):
         """Prefill (``S`` > 1) or decode (``S`` = 1) against ``cache``.
 
         Returns (logits, cache). The cache is updated in place: the fresh
@@ -374,13 +386,14 @@ class Transformer(jax_layout.Stacked):
         parameters are this rank's model shards and the cache its shard:
         each layer computes its share and attends where the cache lies, only
         the positions or heads it holds are written, and the last
-        positions' vocab columns are gathered into whole logits."""
+        positions' vocab columns are gathered into whole logits; ``fsdp``
+        gathers each unit where it runs."""
         cfg = self.cfg
         b, s = tokens.shape
         if embeds_override is not None:
             h = embeds_override.to(cfg.cdtype)
         else:
-            h = self._embed(params, tokens, split)
+            h = self._embed(params, tokens, split, fsdp)
         positions = cache_index + torch.arange(
             s, dtype=torch.int32, device=tokens.device).expand(b, s)
         if s > 1:
@@ -390,7 +403,8 @@ class Transformer(jax_layout.Stacked):
         else:
             cache_mode = "append_slice"
         h, _, new_kv = self._layers(params, h, positions, cache=cache,
-                                    cache_index=cache_index, cache_mode=cache_mode, split=split)
+                                    cache_index=cache_index, cache_mode=cache_mode, split=split,
+                                    fsdp=fsdp)
         g = cfg.group_size
         for i in range(g):
             for j, name in enumerate(("k", "v")):
@@ -402,10 +416,10 @@ class Transformer(jax_layout.Stacked):
                     layers.write_positions(buf, fresh.to(buf.dtype), cache_index, 2, split)
                 else:
                     buf[:, :, cache_index:cache_index + s] = fresh.to(buf.dtype)
-        h = self._final_norm(params, h)
+        h = self._final_norm(params, h, fsdp)
         if last_only:
             h = h[:, -1:]
-        logits = self.unembed(params, h)
+        logits = self.unembed(params, h, fsdp)
         return (logits if split is None else split.gather(logits, -1)), cache
 
     # -------------------------------------------------------------- specs

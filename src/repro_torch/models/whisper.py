@@ -150,10 +150,11 @@ class Whisper(jax_layout.Stacked):
         return out if split is None else split.sum(out)
 
     def encode(self, params: WhisperParams, frames: torch.Tensor,
-               split: layers.TPSplit | None = None) -> torch.Tensor:
+               split: layers.TPSplit | None = None,
+               fsdp: layers.FSDP | None = None) -> torch.Tensor:
         """``frames [B, T_enc, D]`` (the stub frontend's output) -> the
         encoder output ``[B, T_enc, D]`` (alike on every rank of a
-        ``split``)."""
+        ``split``); ``fsdp`` gathers each layer inside its body."""
         cfg = self.cfg
         b, t, _ = frames.shape
         pos = torch.arange(t, dtype=torch.int32, device=frames.device).expand(b, t)
@@ -166,13 +167,13 @@ class Whisper(jax_layout.Stacked):
             return h + layers.gelu_mlp(p["mlp"], layers.layer_norm(p["ln2"], h), split)
 
         for p in params.enc_layers:
-            h = layers.checkpointed(lambda x, p=p: body(p, x), h, cfg.remat)
-        return layers.layer_norm(params.enc_final_ln, h)
+            h = layers.checkpointed(lambda x, p=p: body(layers.unit(p, fsdp), x), h, cfg.remat)
+        return layers.layer_norm(layers.unit(params.enc_final_ln, fsdp), h)
 
     # --------------------------------------------------------------- decoder
 
     def _decoder(self, params: WhisperParams, tokens, enc_out, *, cache=None,
-                 cache_index=None, last_only: bool = False, split=None):
+                 cache_index=None, last_only: bool = False, split=None, fsdp=None):
         """The decoder up to the final LayerNorm; with a cache, each layer's
         self-attention K/V are written in place at ``cache_index`` (the
         reference's ``inplace`` mode; into this rank's shard with a
@@ -181,7 +182,7 @@ class Whisper(jax_layout.Stacked):
         b, s = tokens.shape
         base = cache_index if cache_index is not None else 0
         pos = base + torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
-        h = layers.embed_lookup(params.embed, tokens, cfg.cdtype, split)
+        h = layers.embed_lookup(layers.unit(params.embed, fsdp), tokens, cfg.cdtype, split)
         h = h + layers.sinusoidal_positions(pos, cfg.d_model, cfg.cdtype)
         cross = torch.ones(b, 1, s, enc_out.shape[1], dtype=torch.bool, device=h.device)
 
@@ -197,23 +198,32 @@ class Whisper(jax_layout.Stacked):
 
         for i, p in enumerate(params.dec_layers):
             if cache is None:
-                h = layers.checkpointed(lambda x, p=p: body(p, x)[0], h, cfg.remat)
+                h = layers.checkpointed(lambda x, p=p: body(layers.unit(p, fsdp), x)[0], h,
+                                        cfg.remat)
             else:
-                h, new_kv = body(p, h, (cache["k"][i], cache["v"][i]))
+                h, new_kv = body(layers.unit(p, fsdp), h, (cache["k"][i], cache["v"][i]))
                 cache["k"][i], cache["v"][i] = new_kv
-        h = layers.layer_norm(params.dec_final_ln, h)
+        h = layers.layer_norm(layers.unit(params.dec_final_ln, fsdp), h)
         return h[:, -1:] if last_only else h
 
-    def unembed(self, params: WhisperParams, h: torch.Tensor) -> torch.Tensor:
+    def head(self, params: WhisperParams, fsdp: layers.FSDP | None = None) -> torch.Tensor:
+        """The unembedding ``[D, V]``: the tied embedding's transpose,
+        gathered by ``fsdp`` on a mesh."""
+        return layers.unit(params.embed, fsdp).T
+
+    def unembed(self, params: WhisperParams, h: torch.Tensor,
+                fsdp: layers.FSDP | None = None) -> torch.Tensor:
         """The logits (tied); this rank's vocab columns where ``embed`` is
         its model shard."""
-        return h @ params.embed.T.to(h.dtype)
+        return h @ self.head(params, fsdp).to(h.dtype)
 
     def hidden(self, params: WhisperParams, tokens: torch.Tensor, *,
-               frames: torch.Tensor, positions=None, split: layers.TPSplit | None = None):
+               frames: torch.Tensor, positions=None, split: layers.TPSplit | None = None,
+               fsdp: layers.FSDP | None = None):
         """(the decoder's hidden states after the final LayerNorm, aux 0)."""
         del positions
-        h = self._decoder(params, tokens, self.encode(params, frames, split), split=split)
+        h = self._decoder(params, tokens, self.encode(params, frames, split, fsdp), split=split,
+                          fsdp=fsdp)
         return h, torch.zeros((), device=h.device)
 
     # ----------------------------------------------------------- public API
@@ -233,14 +243,14 @@ class Whisper(jax_layout.Stacked):
 
     def forward_with_cache(self, params: WhisperParams, tokens: torch.Tensor, cache: dict,
                            cache_index: int, *, enc_out: torch.Tensor,
-                           last_only: bool = False, split=None):
+                           last_only: bool = False, split=None, fsdp=None):
         """Prefill or decode against a precomputed encoder output. Returns
         (logits, cache updated in place); with a ``split`` the parameters
         and the cache are this rank's shards and the logits' vocab columns
-        are gathered."""
+        are gathered; ``fsdp`` gathers each unit where it runs."""
         h = self._decoder(params, tokens, enc_out, cache=cache, cache_index=cache_index,
-                          last_only=last_only, split=split)
-        logits = self.unembed(params, h)
+                          last_only=last_only, split=split, fsdp=fsdp)
+        logits = self.unembed(params, h, fsdp)
         return (logits if split is None else split.gather(logits, -1)), cache
 
     # ---------------------------------------------------------------- specs

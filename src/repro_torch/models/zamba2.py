@@ -157,25 +157,33 @@ class Zamba2(jax_layout.Stacked):
 
     def hidden(self, params: Zamba2Params, tokens: torch.Tensor, *,
                embeds_override: torch.Tensor | None = None, positions=None,
-               split: layers.TPSplit | None = None):
+               split: layers.TPSplit | None = None, fsdp: layers.FSDP | None = None):
         cfg = self.cfg
         b, s = tokens.shape
         if embeds_override is not None:
             h = embeds_override.to(cfg.cdtype)
         else:
-            h = layers.embed_lookup(params.embed, tokens, cfg.cdtype, split)
+            h = layers.embed_lookup(layers.unit(params.embed, fsdp), tokens, cfg.cdtype, split)
         x0 = h
         if positions is None:
             positions = torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
         for i, p in enumerate(self._mamba_layers(params)):
             if i < cfg.n_apps * cfg.period and i % cfg.period == 0:
-                h, _ = self._shared_block(params.shared, h, x0, positions, split=split)
-            h = layers.checkpointed(lambda x, p=p: self.mamba.layer(p, x, split=split)[0], h,
-                                    cfg.remat)
-        return layers.rms_norm(params.final_norm, h), torch.zeros((), device=h.device)
+                h, _ = self._shared_block(layers.unit(params.shared, fsdp), h, x0, positions,
+                                          split=split)
+            h = layers.checkpointed(
+                lambda x, p=p: self.mamba.layer(layers.unit(p, fsdp), x, split=split)[0], h,
+                cfg.remat)
+        return (layers.rms_norm(layers.unit(params.final_norm, fsdp), h),
+                torch.zeros((), device=h.device))
 
-    def unembed(self, params: Zamba2Params, h: torch.Tensor) -> torch.Tensor:
-        return h @ params.lm_head.to(h.dtype)
+    def head(self, params: Zamba2Params, fsdp: layers.FSDP | None = None) -> torch.Tensor:
+        """``lm_head`` ``[D, V]``, gathered by ``fsdp`` on a mesh."""
+        return layers.unit(params.lm_head, fsdp)
+
+    def unembed(self, params: Zamba2Params, h: torch.Tensor,
+                fsdp: layers.FSDP | None = None) -> torch.Tensor:
+        return h @ self.head(params, fsdp).to(h.dtype)
 
     def forward(self, params: Zamba2Params, tokens: torch.Tensor, *,
                 embeds_override: torch.Tensor | None = None, positions=None):
@@ -199,15 +207,17 @@ class Zamba2(jax_layout.Stacked):
         }
 
     def forward_with_cache(self, params: Zamba2Params, tokens: torch.Tensor, cache: dict,
-                           cache_index: int, *, last_only: bool = False, split=None):
+                           cache_index: int, *, last_only: bool = False, split=None,
+                           fsdp: layers.FSDP | None = None):
         """Prefill or decode. The shared block writes its K/V in place at
         ``cache_index`` (the reference's ``inplace`` mode); the mamba states
         are replaced. Returns (logits, cache updated in place). With a
         ``split`` (a mesh) the caches are this rank's shards, read and
-        written where they lie, and the parameters its model shards."""
+        written where they lie, and the parameters its model shards;
+        ``fsdp`` gathers each unit where it runs."""
         cfg = self.cfg
         b, s = tokens.shape
-        h = layers.embed_lookup(params.embed, tokens, cfg.cdtype, split)
+        h = layers.embed_lookup(layers.unit(params.embed, fsdp), tokens, cfg.cdtype, split)
         x0 = h
         positions = cache_index + torch.arange(
             s, dtype=torch.int32, device=tokens.device).expand(b, s)
@@ -215,17 +225,17 @@ class Zamba2(jax_layout.Stacked):
             if i < cfg.n_apps * cfg.period and i % cfg.period == 0:
                 a = i // cfg.period
                 h, (ck, cv) = self._shared_block(
-                    params.shared, h, x0, positions,
+                    layers.unit(params.shared, fsdp), h, x0, positions,
                     kv_cache=(cache["attn_k"][a], cache["attn_v"][a]), cache_index=cache_index,
                     split=split)
                 cache["attn_k"][a], cache["attn_v"][a] = ck, cv
-            h, st = self.mamba.layer(p, h, {"conv": cache["conv"][i], "ssm": cache["ssm"][i]},
-                                     split)
+            h, st = self.mamba.layer(layers.unit(p, fsdp), h,
+                                     {"conv": cache["conv"][i], "ssm": cache["ssm"][i]}, split)
             cache["conv"][i], cache["ssm"][i] = st["conv"], st["ssm"]
-        h = layers.rms_norm(params.final_norm, h)
+        h = layers.rms_norm(layers.unit(params.final_norm, fsdp), h)
         if last_only:
             h = h[:, -1:]
-        logits = self.unembed(params, h)
+        logits = self.unembed(params, h, fsdp)
         return (logits if split is None else split.gather(logits, -1)), cache
 
     # ---------------------------------------------------------------- specs

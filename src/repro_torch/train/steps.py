@@ -21,18 +21,25 @@ place (the JAX step donates them) and returns them.
 the training state is held as this rank's shard, cut by its spec
 (:meth:`TrainArtifacts.shard`; :func:`shard_state` / :func:`gather_state`
 carry whole JAX-layout trees). A step runs the forward and backward on this
-rank's slice of the batch (:func:`~repro_torch.data.pipeline.host_batch`),
-sums the gradients over the batch axes, cuts them to the shard, and AdamW
-runs on the shards. The sum adds the ranks' gradients in f32 in row-major
-order (:func:`~repro_torch.core.comm.sum_in_order`) and the clip takes the
-whole tree's norm.
+rank's slice of the batch (:func:`~repro_torch.data.pipeline.host_batch`)
+one unit at a time, as the JAX layouts do under GSPMD
+(:class:`~repro_torch.models.layers.FSDP`): each layer, the embedding, the
+head and a final norm are gathered over the FSDP axes where they run
+(inside the layer's checkpoint, so the backward gathers them again), and
+each unit's gradient is summed over the batch axes straight into an f32
+accumulator of this rank's shards (ZeRO-2), the ranks' slices added in f32
+in row-major order (:func:`~repro_torch.core.comm.reduce_scatter_in_order`,
+bitwise :func:`~repro_torch.core.comm.sum_in_order` cut to the shard). No
+rank holds more than one unit gathered, nor a full-size gradient. The clip
+takes the whole tree's norm, each leaf's f32 shard gathered in turn
+(``norm_gather``), and AdamW runs on the shards.
 
 On a mesh whose ``tp_axis`` extent is above 1 every family splits its
 compute over ``tp_axis`` as the JAX package's specs split it under GSPMD
 (:func:`tp_split`, :class:`~repro_torch.models.layers.TPSplit`): a leaf is
 gathered over its spec's entries except ``tp_axis`` (nothing with FSDP
-off), so a rank holds its model shard whole and never a replica, and the
-loss runs under the split: Megatron products, head- or context-parallel
+off), so a rank holds a unit's model shard whole and never a replica, and
+the loss runs under the split: Megatron products, head- or context-parallel
 attention, the vocab-parallel embedding and cross entropy, experts
 computed where they are stored, an SSM's own heads (mamba2's and zamba2's
 ``in_proj`` and conv, whose stored blocks do not line up with the heads,
@@ -51,9 +58,10 @@ slice of the batch (the batch axes: ``("pod", "data")`` or ``("data",)``,
 none for ``long_500k``) and its shards of the serve state; the cache is
 never gathered. Where the KV heads divide the model axis the caches' heads
 split over it, else (and for ``long_500k``) their sequence; an SSM state's
-heads split over it. A call gathers each parameter leaf over its spec's
-entries except ``tp_axis`` and computes only the rank's share (the
-training step's layers, under ``torch.no_grad()``), the rank's vocab
+heads split over it. A call gathers each unit where it runs, as a step
+does, over its spec's entries except ``tp_axis`` (a tied embedding at both
+its uses), and computes only the rank's share (the training step's
+layers, under ``torch.no_grad()``), the rank's vocab
 columns of the logits gathered once a call. Attention splits as the cache
 does: with the heads split a rank attends with its own heads over its own
 shard and the output product's partials are summed; with the sequence
@@ -86,29 +94,12 @@ from repro_torch.configs.common import Bundle, ShapeSpec
 from repro_torch.core import comm
 from repro_torch.models import layers
 from repro_torch.models.jax_layout import P
-from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update, global_norm
+from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
 from repro_torch.optim.hierarchical import Hierarchical, HierarchicalConfig
 from repro_torch.optim.tree import map_named, named_leaves
 
 __all__ = ["TrainArtifacts", "make_train_artifacts", "tp_split", "shard_state",
            "gather_state", "ServeArtifacts", "make_serve_artifacts"]
-
-
-def _gather_leaf(x, spec: tuple, mesh):
-    """The whole leaf from this rank's shard ``x`` under ``spec``: an
-    all-gather along each split dimension (counted as ``all_gather``)."""
-    for d, axes in enumerate(spec):
-        if axes is not None and mesh.extent(axes) > 1:
-            x = comm.all_gather(x, mesh, axes, dim=d)
-    return x
-
-
-@torch.no_grad()
-def _gather_params(params, named: dict, mesh, requires_grad: bool):
-    """The whole parameter module from this rank's shards (``named``: the
-    port-layout specs by leaf name)."""
-    return map_named(lambda n, x: _gather_leaf(x.detach(), named[n], mesh), params,
-                     requires_grad=requires_grad)
 
 
 def kv_heads(bundle: Bundle) -> int | None:
@@ -208,12 +199,14 @@ def _split_specs(named: dict, axis: str, split) -> tuple[dict, dict]:
             {n: _only(s, axis) for n, s in named.items()})
 
 
-def _split_norm(grads: dict, model_only: dict, mesh, axis: str) -> torch.Tensor:
-    """The whole tree's gradient norm from this rank's model shards: the
-    split leaves' sums of squares summed over ``axis`` (in rank order,
-    one collective), each replicated leaf counted once."""
-    sq = [torch.sum(torch.square(g.float())) for g in grads.values()]
-    split_ix = [i for i, n in enumerate(grads) if any(e is not None for e in model_only[n])]
+def _norm(names: list, sq: list, model_only: dict, mesh, axis: str) -> torch.Tensor:
+    """The whole tree's gradient norm from each leaf's sum of squares
+    ``sq`` (``global_norm``'s), of this rank's model shards under a split
+    (``model_only`` not empty): the split leaves' sums summed over
+    ``axis`` (in rank order, one collective), each replicated leaf counted
+    once."""
+    split_ix = [i for i, n in enumerate(names)
+                if any(e is not None for e in model_only.get(n, ()))]
     if split_ix:
         summed = comm.sum_in_order(torch.stack([sq[i] for i in split_ix]), mesh, axis)
         for j, i in enumerate(split_ix):
@@ -251,8 +244,8 @@ def gather_state(shards: Any, specs: Any, mesh) -> Any:
 
     def whole(x, spec):
         if isinstance(x, np.ndarray):
-            return _gather_leaf(torch.from_numpy(x), spec, mesh).numpy()
-        return _gather_leaf(x, spec, mesh)
+            return comm.gather_blocks(torch.from_numpy(x), mesh, spec).numpy()
+        return comm.gather_blocks(x, mesh, spec)
     return _tree_map(whole, shards, specs)
 
 
@@ -278,12 +271,23 @@ class TrainArtifacts:
     named_specs: dict = dataclasses.field(default_factory=dict)  # part -> {leaf name: spec}
     split: Any = None             # layers.TPSplit of the step, or None
     model_specs: dict = dataclasses.field(default_factory=dict)  # leaf name -> tp entries
+    batch_axes: tuple = ("data",)  # on a mesh: the axes a step's gradients are summed over
+    n_micro: int = 1
 
     def computed_bytes(self, params: Any) -> int:
         """Bytes of ``params`` (a whole parameter module, one pod's) as a
-        step gathers them on this rank: the model shards under a split,
-        else the whole."""
+        step computes on them on this rank, one unit at a time: the model
+        shards under a split, else the whole."""
         return _computed_bytes(params, self.model_specs, self.mesh)
+
+    def accumulator_bytes(self, params: Any) -> int:
+        """Bytes of the gradient accumulator a step on ``params`` holds (on
+        a mesh this rank's shards, as the step holds it: ZeRO-2): f32 where
+        it sums microbatches or batch ranks, else the gradients' own
+        dtype."""
+        d = 1 if self.mesh is None else self.mesh.extent(self.batch_axes)
+        return sum(x.numel() * (4 if self.n_micro * d > 1 else x.element_size())
+                   for x in named_leaves(params).values())
 
     def batch_sds(self, bundle: Bundle, shape: ShapeSpec, mesh=None) -> dict:
         """Meta tensors of a global batch of ``shape``, with the pod axis
@@ -316,7 +320,7 @@ class TrainArtifacts:
         specs = self.named_specs[part]
         if axes is not None:
             specs = {n: _over(spec, axes) for n, spec in specs.items()}
-        return map_named(lambda n, x: _gather_leaf(x.detach(), specs[n], self.mesh), shards)
+        return map_named(lambda n, x: comm.gather_blocks(x.detach(), self.mesh, specs[n]), shards)
 
 
 def _computed_bytes(params: Any, model_specs: dict, mesh) -> int:
@@ -376,22 +380,30 @@ def make_train_artifacts(
     split = tp_split(bundle, mesh, tp_axis)
     loss_fn = bundle.loss if split is None else functools.partial(bundle.loss, split=split)
 
-    def grads_of(params, batch):
+    def trainable(params) -> dict:
         named = named_leaves(params)
-        leaves = list(named.values())
         frozen = [n for n, p in named.items() if not p.requires_grad]
         if frozen:
             raise ValueError(f"training needs trainable parameters (params.requires_grad_()); "
                              f"{len(frozen)} are frozen, e.g. {frozen[0]}")
+        return named
+
+    def microbatches(batch):
+        if n_micro == 1:
+            return [batch]
+        return [{k: v.reshape((n_micro, v.shape[0] // n_micro) + tuple(v.shape[1:]))[i]
+                 for k, v in batch.items()} for i in range(n_micro)]
+
+    def grads_of(params, batch):
+        named = trainable(params)
+        leaves = list(named.values())
         if n_micro == 1:
             loss = loss_fn(params, batch)
             grads = torch.autograd.grad(loss, leaves)
             return loss.detach(), dict(zip(named, grads))
         loss_sum = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
         g_sum = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in leaves]
-        for i in range(n_micro):
-            mb = {k: v.reshape((n_micro, v.shape[0] // n_micro) + tuple(v.shape[1:]))[i]
-                  for k, v in batch.items()}
+        for mb in microbatches(batch):
             loss = loss_fn(params, mb)
             g = torch.autograd.grad(loss, leaves)
             torch._foreach_add_(g_sum, [x.float() for x in g])
@@ -410,21 +422,34 @@ def make_train_artifacts(
     gather_p, model_only = _split_specs(named_p, tp_axis, split)
 
     def mesh_step(params, opt_state, batch):
-        """``base_step`` on this rank's shards and batch slice: its model
-        shards under a split, else (a model extent of 1) the whole
-        parameters."""
-        full = _gather_params(params, gather_p, mesh, True)
-        loss, grads = grads_of(full, batch)
-        del full
+        """``base_step`` on this rank's shards and batch slice, one unit at
+        a time (:class:`~repro_torch.models.layers.FSDP`): each
+        microbatch's forward gathers a unit where it runs, and its backward
+        adds each unit's gradient, summed over the batch axes, into the
+        f32 accumulator of this rank's shards (ZeRO-2), which AdamW then
+        reads."""
+        trainable(params)
         d = mesh.extent(batch_axes)
-        if d > 1:
-            # the batch's other slices, added in the one-device trainer's order
-            grads = {n: comm.sum_in_order(g, mesh, batch_axes) for n, g in grads.items()}
-            torch._foreach_mul_(list(grads.values()), 1.0 / d)
+        fsdp = layers.FSDP(mesh, gather_p, params, batch_axes, micro=n_micro)
+        losses = []
+        for mb in microbatches(batch):
+            with fsdp.recording():
+                loss = loss_fn(params, mb, fsdp=fsdp)
+            loss.backward()
+            fsdp.flush()
+            losses.append(loss.detach())
+        loss = losses[0]
+        if n_micro > 1:  # summed as grads_of sums it
+            loss = torch.zeros((), dtype=torch.float32, device=loss.device)
+            for x in losses:
+                loss = loss + x
+            loss = loss * (1.0 / n_micro)
+        if d > 1:  # the batch's other slices, added in the one-device trainer's order
             loss = comm.sum_in_order(loss, mesh, batch_axes) * (1.0 / d)
-        gnorm = (global_norm(grads) if split is None
-                 else _split_norm(grads, model_only, mesh, tp_axis))
-        grads = {n: mesh.shard(g, gather_p[n], n) for n, g in grads.items()}
+        grads = fsdp.finish()
+        if n_micro * d > 1:
+            torch._foreach_mul_(list(grads.values()), 1.0 / (n_micro * d))
+        gnorm = _norm(list(grads), fsdp.grad_squares(), model_only, mesh, tp_axis)
         params, opt_state, metrics = adamw_update(grads, opt_state, params, opt_cfg,
                                                   grad_norm=gnorm)
         return params, opt_state, {"loss": loss, **metrics}
@@ -438,7 +463,8 @@ def make_train_artifacts(
         return TrainArtifacts(
             step_fn=step, sync_fn=None, params_sds=params_sds, opt_sds=opt_sds,
             batch_specs=b_specs, params_specs=p_specs, opt_specs=o_specs, mesh=mesh,
-            named_specs=_named_specs(named_p, P()), split=split, model_specs=model_only)
+            named_specs=_named_specs(named_p, P()), split=split, model_specs=model_only,
+            batch_axes=batch_axes, n_micro=n_micro)
 
     pod = hier_cfg.pod_axis
     if mesh is not None:
@@ -465,7 +491,8 @@ def make_train_artifacts(
                      for k, v in probe.items()},
         params_specs=pp_specs, opt_specs={"m": pp_specs, "v": pp_specs, "count": P(pod)},
         sync_sds=hier.init_sync_state(params_sds), sync_specs=sync_specs, hier=hier,
-        mesh=mesh, named_specs=named, split=split, model_specs=model_only)
+        mesh=mesh, named_specs=named, split=split, model_specs=model_only,
+        batch_axes=batch_axes, n_micro=n_micro)
 
 
 def _named_specs(params: dict, count: tuple) -> dict:
@@ -498,8 +525,8 @@ class ServeArtifacts:
 
     def computed_bytes(self, params: Any) -> int:
         """Bytes of ``params`` (a whole parameter module) as a call
-        gathers them on this rank: the model shards under a compute split,
-        else the whole."""
+        computes on them on this rank, one unit at a time: the model shards
+        under a compute split, else the whole."""
         return _computed_bytes(params, self.model_specs, self.mesh)
 
     def shard(self, params: Any) -> Any:
@@ -545,8 +572,9 @@ def make_serve_artifacts(bundle: Bundle, shape: ShapeSpec, mesh=None, *,
     (``host_batch(batch, mesh, art.batch_axes)``), and the serve state
     prefill makes, the caches and ``enc_out`` cut by ``state_specs``. The
     caches are never gathered: each attention layer and SSM layer works
-    where its shard lies. A call gathers each parameter over every axis
-    but ``tp_axis`` and computes only the rank's share (:func:`tp_split`
+    where its shard lies. A call gathers each unit over every axis but
+    ``tp_axis`` where it runs (:class:`~repro_torch.models.layers.FSDP`)
+    and computes only the rank's share (:func:`tp_split`
     with the cache's split, held in :attr:`ServeArtifacts.split`). The
     module's docstring says what it computes and how close it comes to one
     device."""
@@ -591,8 +619,11 @@ def make_serve_artifacts(bundle: Bundle, shape: ShapeSpec, mesh=None, *,
         gather_p, model_only = _split_specs(named, tp_axis, split)
         local_cache = shard_state(state_sds["cache"], cache_specs, mesh)  # meta: shapes only
 
-    def whole(params):
-        return params if mesh is None else _gather_params(params, gather_p, mesh, False)
+    def gather_point(params, kwargs: dict):
+        """On a mesh, ``kwargs["fsdp"]``: this call's gather point."""
+        if mesh is not None:
+            kwargs["fsdp"] = layers.FSDP(mesh, gather_p, params)
+        return kwargs.get("fsdp")
 
     @torch.no_grad()
     def prefill(params, batch):
@@ -602,10 +633,11 @@ def make_serve_artifacts(bundle: Bundle, shape: ShapeSpec, mesh=None, *,
         else:  # this rank's shards, made where they stay
             cache = _tree_map(lambda x, _: torch.zeros(x.shape, dtype=x.dtype, device=device),
                               local_cache, cache_specs)
-        params = whole(params)
         kwargs, state = {}, {}
+        fsdp = gather_point(params, kwargs)
         if is_audio:
-            state["enc_out"] = kwargs["enc_out"] = model.encode(params, batch["frames"], split)
+            state["enc_out"] = kwargs["enc_out"] = model.encode(params, batch["frames"], split,
+                                                                fsdp)
         if is_vlm:
             kwargs["patch_embeds"] = batch["patch_embeds"]
         if split is not None:
@@ -617,9 +649,10 @@ def make_serve_artifacts(bundle: Bundle, shape: ShapeSpec, mesh=None, *,
     @torch.no_grad()
     def decode(params, serve_state, tokens, cache_index):
         kwargs = {"enc_out": serve_state["enc_out"]} if is_audio else {}
+        gather_point(params, kwargs)
         if split is not None:
             kwargs["split"] = split
-        logits, cache = model.forward_with_cache(whole(params), tokens, serve_state["cache"],
+        logits, cache = model.forward_with_cache(params, tokens, serve_state["cache"],
                                                  cache_index, **kwargs)
         return logits, {**serve_state, "cache": cache}
 

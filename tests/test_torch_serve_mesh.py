@@ -3,8 +3,9 @@ serving of the same batch slice, and the sequence split against JAX.
 
 ``make_serve_artifacts(bundle, shape, mesh)``: a rank holds its parameter
 shards, its slice of the batch and its shards of the cache; a call gathers
-each parameter over every axis but ``model`` and computes only the rank's
-share, attending (or stepping its SSM heads) where its cache shard lies.
+each unit (a layer, the embedding, the head) over every axis but ``model``
+where it runs and computes only the rank's share, attending (or stepping
+its SSM heads) where its cache shard lies.
 Reduced configs, weights drawn by the port from seed 0, prompts and the
 stub frontends' inputs from numpy (seed 7), a bf16 cache:
 
@@ -37,7 +38,8 @@ flip, as every decode step does: it is held at the serving bar 5e-4 (with
 an f32 cache the same calls are within 1e-4:
 ``tests/test_torch_tp_ssm_audio.py``). No rank holds more than its shard: every cache leaf has
 its shard's shape, and what comm counts in a call is the parameters'
-gathers over ``data`` (bytes from their specs) and the compute split's
+gathers over ``data`` (bytes from their specs, a tied embedding's at both
+its uses) and the compute split's
 partial sums, gathers and softmax partials (bytes from the shapes),
 nothing of the cache and no parameter over ``model``. The (1, 4) qwen2
 logits are also held within 5e-4 to JAX's ``make_serve_artifacts(mesh=...)``
@@ -125,28 +127,49 @@ def _computes(art) -> bool:
     return art.split is not None
 
 
-def _param_gather_bytes(art, mesh) -> dict:
-    """Bytes into a rank as ``_gather_leaf`` gathers the parameters, from
-    their specs and shapes alone: one gather a split dimension, in order,
-    each of ``extent - 1`` times what has been gathered so far; under the
-    compute split none over ``model``."""
+def _param_gather_bytes(art, mesh, bundle, prefill: bool) -> dict:
+    """Bytes into a rank as the FSDP gather point gathers the parameters
+    in a prefill (``prefill``) or a decode call, from their specs and
+    shapes alone: one gather a split dimension, in order, each of ``extent
+    - 1`` times what has been gathered so far; under the compute split none
+    over ``model``. Each unit is gathered where it runs: once a call, a
+    tied embedding (no ``lm_head`` beside it) at both of its uses (the
+    lookup and the unembedding), zamba2's shared block at each of its
+    applications, and the VLM's connector and the audio encoder by a
+    prefill alone (a decode step carries no image and reads the encoder's
+    output from the serve state)."""
     out = {}
-    for name, x in named_leaves(art.params_sds).items():
-        spec = art.named_specs[name]
-        size = x.numel() * x.element_size()
-        for axes in spec:
-            if axes is not None:
-                size //= mesh.extent(axes)
-        for axes in spec:
-            if _computes(art) and axes is not None and "model" in (
-                    (axes,) if isinstance(axes, str) else axes):
-                continue
-            n = 1 if axes is None else mesh.extent(axes)
-            if n > 1:
-                key = ("all_gather", (axes,) if isinstance(axes, str) else tuple(axes))
-                out[key] = out.get(key, 0) + (n - 1) * size
-                size *= n
+    names = named_leaves(art.params_sds)
+    for name, x in names.items():
+        uses = 1
+        if name.endswith("embed") and name[:-5] + "lm_head" not in names:
+            uses = 2
+        elif name.startswith("shared."):
+            uses = bundle.cfg.n_apps
+        elif name.startswith(("connector.", "enc_layers.", "enc_final_ln.")):
+            uses = int(prefill)
+        for _ in range(uses):
+            _leaf_gather_bytes(out, art, mesh, name, x)
     return out
+
+
+def _leaf_gather_bytes(out: dict, art, mesh, name: str, x) -> None:
+    """:func:`_param_gather_bytes` of one gather of leaf ``name``, added
+    to ``out``."""
+    spec = art.named_specs[name]
+    size = x.numel() * x.element_size()
+    for axes in spec:
+        if axes is not None:
+            size //= mesh.extent(axes)
+    for axes in spec:
+        if _computes(art) and axes is not None and "model" in (
+                (axes,) if isinstance(axes, str) else axes):
+            continue
+        n = 1 if axes is None else mesh.extent(axes)
+        if n > 1:
+            key = ("all_gather", (axes,) if isinstance(axes, str) else tuple(axes))
+            out[key] = out.get(key, 0) + (n - 1) * size
+            size *= n
 
 
 def _tp_bytes(bundle, art, mesh, s: int, b_loc: int, n_patches: int = 0) -> dict:
@@ -286,11 +309,10 @@ def _check_rank(bundle, shape, prompt, mesh) -> dict:
     # what comm counted: the parameters' gathers and the splits' own
     # collectives, by formulas of their shapes; the cache moves nowhere
     b_loc = logits[0].shape[0]
-    want_params = _param_gather_bytes(art, mesh)
     out["counts_ok"] = []
     for call, got in enumerate(counted):
         s = prompt if call == 0 else 1
-        want = dict(want_params)
+        want = _param_gather_bytes(art, mesh, bundle, call == 0)
         n_patches = batch["patch_embeds"].shape[1] if call == 0 and "patch_embeds" in batch else 0
         for k, v in _split_bytes(bundle, art, mesh, s, b_loc, n_patches, call == 0).items():
             want[k] = want.get(k, 0) + v

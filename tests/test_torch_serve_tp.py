@@ -133,10 +133,13 @@ def _case(mesh, arch, shape, prompt) -> dict:
         named_leaves(state["cache"]).values(), named_leaves(art.state_sds["cache"]).values(),
         named_leaves_specs(art.state_specs["cache"])))
     # the parameters' gathers: the model shards' over data, from the specs
-    gathers = {f"{op} {','.join(axes)}": n for (op, axes), n in
-               _param_gather_bytes(art, mesh).items()}
+    # (a prefill's, then a decode step's)
+    gathers, decode_gathers = ({f"{op} {','.join(axes)}": n for (op, axes), n in
+                                _param_gather_bytes(art, mesh, bundle, prefill).items()}
+                               for prefill in (True, False))
     gathers_ok = all({k: v["bytes"] for k, v in t.items() if k.startswith("all_gather ")}
-                     == gathers for t in tables)
+                     == (gathers if call == 0 else decode_gathers)
+                     for call, t in enumerate(tables))
     return {"attn": art.split.attn, "kv": art.split.kv, "errs": errs, "flips": flips,
             "tables": tables, "priced": priced, "shapes_ok": shapes_ok,
             "gathers_ok": gathers_ok, "gathers": gathers,
