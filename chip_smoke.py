@@ -187,10 +187,14 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    them, and one profiled window of ``pallas`` and of ``event``;
 8d. ``[dryrun]`` the dry-run tooling: (a) ``python -m
    repro_torch.launch.dryrun --arch mam-snn --snn-schedule
-   conventional,structure_aware --mesh both --build-rss`` on the card (the
-   production MAM priced on 16 x 16 and 2 x 16 x 16 ranks from meta-device
-   shapes, the HBM gate at the card's memory, the build peaks measured with
-   ``torch.cuda.max_memory_allocated``), exit 0 and every row OK; (b) the
+   conventional,structure_aware --mesh both --build-rss --hbm-gib 0`` on
+   the card (the production MAM priced on 16 x 16 and 2 x 16 x 16 ranks
+   from meta-device shapes: a rank's tables and state, and one window run
+   on meta tensors for its transient; the default onehot cells recorded,
+   the build peaks measured with ``torch.cuda.max_memory_allocated``),
+   and meanwhile the structure-aware ``event`` cells priced in the script's
+   own process with the HBM gate at the card's memory on the peak: exit 0
+   and every row OK; (b) the
    width bounds of ``network_sds`` held against the tables instantiated on
    the card at [dist] (a)'s spec and cut (4 x 130,000, K 3000/3000, 2 groups
    x 2 lanes: ``shard_inter_tables(mode='group', subgroup=2)`` and
@@ -204,6 +208,15 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    exit 0, every row OK or SKIP, per row the bytes a rank holds and
    gathers, the roofline terms and, hierarchical, the sync step's bytes
    against the sync trainer's per step; a ``[time]`` line of the wait;
+   (e) a priced call held to the card, folded into legs that run anyway:
+   one window of each [dist] (a) run on each rank, each step of the
+   [train] (j) legs and the [lm-mesh] prefill and first decode on each
+   rank, ``torch.cuda.max_memory_allocated()`` during the call less the
+   bytes allocated before it beside the dry run's transient of the same
+   rank's call on a ``MeshLayout`` of the same extents; the price may be
+   under the measurement by at most the larger of 10% and 128 MiB; the
+   last step of a (j) leg of more than one step runs under the live-bytes
+   tracker on cuda, whose count is logged beside its rise;
 9. the port on the card against the port on the CPU at the quickstart size
    (4 x 256 neurons, K 32/32), bitwise over 10 windows (40 for LIF, which
    first spikes in window 18 at this size), ``overflow`` included:
@@ -1666,6 +1679,32 @@ def phase_mam() -> dict:
     return launches
 
 
+# [dryrun] (e): a priced call held to the card. The dry run's transient of
+# a call (LiveBytes over the same rank's call on meta tensors) against
+# torch.cuda.max_memory_allocated() during the call on the card, less the
+# bytes allocated before it. The price may fall short of the measurement by
+# at most the larger of 10% of it and 128 MiB: what the tracker cannot see
+# (the caching allocator's rounding of each block to 512 B, cuBLAS's
+# workspace on a handle's first use, a library's internal buffers).
+PRICE_BAR_FRAC = 0.10
+PRICE_BAR_BYTES = 128 * 2**20
+
+
+def price_check(label: str, measured: int, priced: int) -> str:
+    """[dryrun] (e)'s line for one call: ``measured`` bytes (the card's
+    rise) beside the ``priced`` transient; raises where the price is under
+    the measurement by more than the bar."""
+    bar = max(PRICE_BAR_FRAC * measured, PRICE_BAR_BYTES)
+    line = (f"[dryrun] (e) {label}: on the card {measured:,} B (max_memory_allocated during "
+            f"the call less the bytes allocated before it), priced {priced:,} B (the dry "
+            f"run's transient of the same rank's call on a MeshLayout), price - measured "
+            f"{priced - measured:+,} B (bar: under by at most {bar:,.0f} B)")
+    if measured - priced > bar:
+        raise AssertionError(line + ": the price is under the card's measurement by more than "
+                             "the bar")
+    return line
+
+
 # [dryrun] (d): the LM cells, priced on the host's CPU in a process of their
 # own while the LM phases use the card; read at the end of the run.
 DRYRUN_LM_ARGS = ["--arch", "qwen2-0.5b,grok-1-314b", "--shape", "all", "--mesh", "both",
@@ -1753,7 +1792,11 @@ def phase_dryrun_lm() -> None:
 
 def phase_dryrun() -> None:
     """``[dryrun]``: (a) ``python -m repro_torch.launch.dryrun`` on both
-    schedules and meshes with ``--build-rss`` on the card, every row OK; (b)
+    meshes on the card, the default onehot cells of both schedules with
+    ``--build-rss``, recorded (``--hbm-gib 0``), and meanwhile in this
+    process the structure-aware ``event`` cells (``dryrun_snn_cell``)
+    gated at the card's memory: every row OK, each cell's held, transient
+    and peak bytes logged; (b)
     the width bounds held against tables instantiated at [dist] (a)'s spec
     and cut (4 x 130,000, K 3000/3000, 2 groups x 2 lanes); (c)
     ``construction_cost_model``'s bytes for that cut beside the peak of one
@@ -1773,27 +1816,55 @@ def phase_dryrun() -> None:
     card = card_name_power()
     env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
     tmp = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    # The default onehot cells on both schedules recorded (--hbm-gib 0: the
+    # one-hot deposit's working set does not fit a card), through the CLI
+    # with --build-rss; meanwhile, here, the structure-aware event cells (the
+    # production delivery) gated at the card's memory. A conventional event
+    # rank holds every area's outgoing intra tables (468 GiB): it fits no
+    # card, transient or not.
+    t0 = time.perf_counter()
     try:
         out = os.path.join(tmp, "rows.json")
-        t0 = time.perf_counter()
-        run = subprocess.run(
+        run = subprocess.Popen(
             [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "mam-snn",
-             "--snn-schedule", "conventional,structure_aware", "--mesh", "both",
-             "--build-rss", "--out", out],
-            capture_output=True, text=True, timeout=600, env=env)
-        for ln in run.stdout.splitlines():
+             "--snn-schedule", "conventional,structure_aware", "--mesh", "both", "--hbm-gib",
+             "0", "--build-rss", "--out", out],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+        try:
+            budget = torch.cuda.mem_get_info()[1] / 2**30
+            event = [dryrun.enforce_hbm_budget(
+                dryrun.dryrun_snn_cell("structure_aware", multi_pod, backend="event"), budget)
+                for multi_pod in (False, True)]
+            stdout, stderr = run.communicate(timeout=600)
+        finally:
+            if run.poll() is None:
+                run.kill()
+                run.wait()
+        for ln in stdout.splitlines():
             if ln.strip():
-                log(f"[dryrun] (a) {ln.strip()}")
+                log(f"[dryrun] (a) onehot {ln.strip()}")
         if run.returncode != 0:
-            log(run.stderr[-4000:])
-            raise AssertionError(f"[dryrun] the dry run exited {run.returncode}")
-        rows = json.loads(Path(out).read_text())
+            log(stderr[-4000:])
+            raise AssertionError(f"[dryrun] (a) the onehot dry run exited {run.returncode}")
+        rows = {"onehot": json.loads(Path(out).read_text()), "event": event}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    if len(rows) != 7 or any(r["status"] != "OK" for r in rows):
-        raise AssertionError(f"[dryrun] rows not all OK: {[r['status'] for r in rows]}")
-    log(f"[dryrun] (a) exit 0 in {time.perf_counter() - t0:.1f} s, {len(rows)} rows OK, HBM "
-        f"budget {rows[-1]['hbm_gib_budget']:.2f} GiB a rank (the card's memory) ({card})")
+    for name, n_rows in (("onehot", 7), ("event", 2)):
+        if len(rows[name]) != n_rows or any(r["status"] != "OK" for r in rows[name]):
+            raise AssertionError(f"[dryrun] (a) {name} rows not all OK: "
+                                 f"{[r['status'] for r in rows[name]]}")
+    for name, cells in rows.items():
+        for r in cells:
+            if "wire_bytes_window" in r:
+                rb = r["rank_bytes"]
+                log(f"[dryrun] (a) {name} [{r['mesh']}] {r['shape']}: a rank holds "
+                    f"{rb['total']:,} B (tables {rb['tables']:,}, state {rb['state']:,}), a "
+                    f"window's transient {rb['transient']:,} B (output {rb['output']:,}), peak "
+                    f"{rb['peak']:,} B = {rb['peak'] / 2**30:.2f} GiB "
+                    f"({'gated' if name == 'event' else 'recorded, not gated'})")
+    log(f"[dryrun] (a) exit 0 in {time.perf_counter() - t0:.1f} s, {len(rows['onehot'])} onehot "
+        f"rows OK (recorded), {len(rows['event'])} event rows OK within the card's memory, "
+        f"{budget:.2f} GiB a rank ({card})")
 
     # (b) The width bounds against tables instantiated on the card.
     spec = mam_benchmark_spec(n_areas=4, n_per_area=130_000, k_intra=3000, k_inter=3000)
@@ -3880,10 +3951,20 @@ def _serve_run(mode: str, mesh=None, rows=None) -> dict:
     draw_peak = torch.cuda.max_memory_allocated() / 1e9
     torch.cuda.reset_peak_memory_stats()  # from here: serving, the weights in place
     logits, ms, tables, routes, gathered = [], [], [], [], []
+    # [dryrun] (e): the prefill's and the first decode's rise on the card
+    # (the call's peak less what was allocated before it), and the serving
+    # peak across the per-call resets
+    call_mem, hwm = [], 0
     state = None
     with _RoutingTap() as tap:
         for call in range(1 + SERVE_STEPS):
             comm.reset_stats()
+            measure = mesh is not None and call < 2
+            if measure:
+                torch.cuda.synchronize()
+                hwm = max(hwm, torch.cuda.max_memory_allocated())
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             if call == 0:
                 out, state = art.prefill_fn(params, {"tokens": toks[:, :leg.prompt], **extra})
@@ -3892,6 +3973,8 @@ def _serve_run(mode: str, mesh=None, rows=None) -> dict:
                 out, state = art.decode_fn(params, state, toks[:, i:i + 1], i)
             torch.cuda.synchronize()
             ms.append(1e3 * (time.perf_counter() - t0))
+            if measure:
+                call_mem.append(torch.cuda.max_memory_allocated() - base)
             tables.append(dryrun._table())
             gathered.append(comm.gathered["peak"])
             logits.append(out.float().cpu())
@@ -3908,14 +3991,16 @@ def _serve_run(mode: str, mesh=None, rows=None) -> dict:
     return dict(logits=logits, ms=ms, tables=tables, routes=routes, held=held, replica=replica,
                 gathered=gathered,
                 computed=art.computed_bytes(art.params_sds), draw_peak=draw_peak,
-                peak=torch.cuda.max_memory_allocated() / 1e9,
+                peak=max(hwm, torch.cuda.max_memory_allocated()) / 1e9, call_mem=call_mem,
                 kv=None if split is None else split.kv)
 
 
 def _serve_priced(mode: str) -> dict:
     """The dry run's price of [lm-mesh]'s prefill and decode calls of
     ``mode`` on each rank of its mesh (``price_lm`` on a ``MeshLayout``,
-    meta tensors, no FLOP count)."""
+    meta tensors, no FLOP count, the leg's cache dtype)."""
+    import torch
+
     from repro_torch.core.mesh import MeshLayout
     from repro_torch.launch import dryrun
 
@@ -3925,7 +4010,7 @@ def _serve_priced(mode: str) -> dict:
     out = {}
     for r in range(MESH_RANKS):
         layout = MeshLayout(leg.extents, leg.names, r)
-        kw = dict(fsdp_axis=None, count_flops=False)
+        kw = dict(fsdp_axis=None, cache_dtype=getattr(torch, leg.cache_dtype), count_flops=False)
         out[r] = (dryrun.price_lm(bundle, prefill, layout, prompt_len=leg.prompt, **kw),
                   dryrun.price_lm(bundle, decode, layout, cache_index=leg.prompt, **kw))
     return out
@@ -3983,7 +4068,8 @@ def _serve_rank(rank: int, meshes: dict, ref) -> dict:
                          tables=run["tables"], held=run["held"], replica=run["replica"],
                          gathered=run["gathered"],
                          computed=run["computed"], kv=run["kv"], wall_s=wall,
-                         peak=run["peak"], draw_peak=run["draw_peak"], coords=mesh.coords)
+                         peak=run["peak"], draw_peak=run["draw_peak"], coords=mesh.coords,
+                         call_mem=run["call_mem"])
         del run
     if dict(cuda.launches) != before:
         raise AssertionError(f"[lm-mesh] rank {rank} launched a kernel: {dict(cuda.launches)}")
@@ -4025,6 +4111,10 @@ def _serve_report(res: list, priced: dict, ref_s: float) -> None:
                                      f"{bad} differ from the dry run's price: "
                                      f"{got['tables'][bad[0]]} != "
                                      f"{(pre if bad[0] == 0 else dec)['collectives']}")
+            for call, (row, measured) in enumerate(zip((pre, dec), got["call_mem"])):
+                log(price_check(f"[lm-mesh] {mode} rank {rank} "
+                                f"{'prefill' if call == 0 else 'decode'}", measured,
+                                row["rank_bytes"]["transient"]) + f"; {card}")
             priced_g = [(pre if c == 0 else dec)["rank_bytes"]["gathered"]
                         for c in range(len(got["gathered"]))]
             if got["gathered"] != priced_g:
@@ -4141,10 +4231,13 @@ def _mesh_train(mode: str, mesh=None) -> dict:
     says): weights from seed 0, batches from ``SyntheticLM`` (seed 1);
     returns the state, losses, grad norms, timings and each step's
     collectives."""
+    import contextlib
+
     import torch
 
     from repro_torch.core import comm
     from repro_torch.data.pipeline import SyntheticLM, host_batch
+    from repro_torch.launch.memory import LiveBytes
     from repro_torch.optim.adamw import adamw_init
 
     t_setup = time.perf_counter()
@@ -4181,6 +4274,11 @@ def _mesh_train(mode: str, mesh=None) -> dict:
 
     losses, norms, step_ms, sync_ms, tiers, comm_ms, tables = [], [], [], [], [], [], []
     gathered = []  # each step's peak of the parameter bytes held gathered
+    # [dryrun] (e): each step's rise on the card (its peak less what was
+    # allocated before it), and the steps' peak across the per-step resets;
+    # a leg of more than one step takes its last under the live-bytes
+    # tracker (on cuda), to read what the trace itself holds
+    step_mem, hwm, traced = [], 0, None
     for step in range(steps):
         if mode == "hier" and step == MESH_SYNC_EVERY:
             before = dict(comm.received)
@@ -4196,10 +4294,20 @@ def _mesh_train(mode: str, mesh=None) -> dict:
         n_timed = len(comm.times or ())
         comm.gathered["peak"] = comm.gathered["live"]
         torch.cuda.synchronize()
+        if mesh is not None:
+            hwm = max(hwm, torch.cuda.max_memory_allocated())
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        trace = mesh is not None and steps > 1 and step == steps - 1
         t0 = time.perf_counter()
-        params, opt, m = art.step_fn(params, opt, b)
+        with LiveBytes("cuda") if trace else contextlib.nullcontext() as live:
+            params, opt, m = art.step_fn(params, opt, b)
         torch.cuda.synchronize()
         step_ms.append(1e3 * (time.perf_counter() - t0))
+        if mesh is not None:
+            step_mem.append(torch.cuda.max_memory_allocated() - base)
+        if trace:
+            traced = live.transient
         gathered.append(comm.gathered["peak"])
         comm_ms.append(1e3 * sum(t for *_, t in (comm.times or ())[n_timed:]))
         tiers.append(("step", {k: v - before.get(k, 0) for k, v in comm.received.items()
@@ -4210,7 +4318,9 @@ def _mesh_train(mode: str, mesh=None) -> dict:
     return dict(art=art, params=params, opt=opt, sync=sync, losses=losses, norms=norms,
                 step_ms=step_ms, sync_ms=sync_ms, tiers=tiers, comm_ms=comm_ms, tables=tables,
                 setup_s=setup_s, setup_peak=setup_peak, gathered=gathered,
-                accum=art.accumulator_bytes(params) if mesh is not None else None)
+                accum=art.accumulator_bytes(params) if mesh is not None else None,
+                step_mem=step_mem, traced=traced,
+                steps_peak=max(hwm, torch.cuda.max_memory_allocated()))
 
 
 def _within_bars(got: dict, want: dict, steps: int, top: float | None = None,
@@ -4331,12 +4441,23 @@ def _train_priced(mode: str) -> dict:
 
 def _check_gathered(rank: int, mode: str, got: dict, row: dict) -> None:
     """A leg's gathered peak in every step and its accumulator's bytes on
-    this rank against the dry run's price (``row``: ``price_lm``'s)."""
+    this rank against the dry run's price (``row``: ``price_lm``'s), and
+    ([dryrun] (e)) each step's rise on the card against its priced
+    transient."""
     want = row["rank_bytes"]
     if set(got["gathered"]) != {want["gathered"]} or got["accum"] != want["grad_accum"]:
         raise AssertionError(f"(j) {mode} rank {rank}: gathered peaks {got['gathered']} B and "
                              f"accumulator {got['accum']} B against the dry run's "
                              f"{want['gathered']} B and {want['grad_accum']} B")
+    card = card_name_power()
+    last = len(got["step_mem"]) - 1
+    for step, measured in enumerate(got["step_mem"]):
+        traced = ""
+        if step == last and got["traced"] is not None:
+            traced = (f"; this step ran under the live-bytes tracker on cuda, which counted "
+                      f"{got['traced']:,} B")
+        log(price_check(f"[train] (j) {mode} rank {rank} step {step}", measured,
+                        want["transient"]) + f"{traced}; {card}")
 
 
 def _split_report(res: list, priced: dict) -> None:
@@ -4578,7 +4699,8 @@ def _check_hier(rank, mesh, run, peak, ref, card) -> dict:
         f"int8 + 4 x {len(held['params'])} scales) = {accounting:,} B); {card}")
     return dict(slow_bytes=slow, slow_accounting=accounting,
                 hier_fast_per_step=sum(sum(t.values()) for t in fast) // len(fast),
-                gathered=run["gathered"], accum=run["accum"])
+                gathered=run["gathered"], accum=run["accum"], step_mem=run["step_mem"],
+                traced=run["traced"])
 
 
 def _check_split(rank, mode, mesh, run, peak, ref_t, index, card) -> dict:
@@ -4690,7 +4812,8 @@ def _check_split(rank, mode, mesh, run, peak, ref_t, index, card) -> dict:
         f"references in {check_s:.1f} s; ms/step {[round(x, 1) for x in run['step_ms']]} (in "
         f"collectives {[round(x, 1) for x in run['comm_ms']]}); {card}")
     return dict(tables=run["tables"], replicated=replicated, coords=mesh.coords,
-                gathered=run["gathered"], accum=run["accum"])
+                gathered=run["gathered"], accum=run["accum"], step_mem=run["step_mem"],
+                traced=run["traced"])
 
 
 def mesh_rank_main(rank: int, tmp: str, port: int) -> int:
@@ -4728,7 +4851,7 @@ def mesh_rank_main(rank: int, tmp: str, port: int) -> int:
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
             run = _mesh_train(mode, mesh_of(shape))
-            return run, torch.cuda.max_memory_allocated() / 1e9
+            return run, max(run["steps_peak"], torch.cuda.max_memory_allocated()) / 1e9
 
         runs = {"hier": train("hier", MESH_HIER)}
         for mode in MESH_FIRST:
@@ -5415,6 +5538,7 @@ def _dist_a(r) -> None:
         st = r.run(name, eng, key, windows, expect=expect, static=not kw)
         r.log(f"(a) {key}: peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB over build "
               f"and run; {int(eng.gather_state(st).spike_count.sum())} spikes")
+        r.log(_window_price(r.mesh, spec, cfg, f"[dist] (a) {key}", lambda: eng.window(st)))
         r.profile(f"(a) {key}", lambda: eng.window(st))
         if model == "lif":
             # Kernel 1 at this rank's shard shape: [A_loc, n_loc] state.
@@ -5432,6 +5556,36 @@ def _dist_a(r) -> None:
         del eng, st
         gc.collect()
         torch.cuda.empty_cache()
+
+
+def _window_price(mesh, spec, cfg, label: str, window) -> str:
+    """[dryrun] (e) on this [dist] rank: one ``window()`` of its engine,
+    its rise on the card, against ``price_window`` of the same rank over a
+    ``MeshLayout`` of the mesh's extents, on the meta network the sharded
+    build cuts (``network_sds`` at the same cut, no incoming inter table)."""
+    import torch
+
+    from repro_torch.core import connectivity
+    from repro_torch.core.mesh import MeshLayout
+    from repro_torch.launch import dryrun
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = window()
+    torch.cuda.synchronize()
+    measured = torch.cuda.max_memory_allocated() - base
+    del out
+    gsz = mesh.shape[mesh.axis_names[-1]]
+    sub = gsz if cfg.subgroup_inter_tables and gsz > 1 else 1
+    net = connectivity.network_sds(spec, size_multiple=1, outgoing=True,
+                                   inter_shards=mesh.size // gsz, inter_shard_mode="group",
+                                   subgroup=sub)
+    net = dataclasses.replace(net, **{f: getattr(net, f).new_empty((0, 0, net.k_inter))
+                                      for f in ("src_inter", "w_inter", "delay_inter")})
+    priced = dryrun.price_window(net, spec, MeshLayout(mesh.extents, mesh.axis_names, mesh.rank),
+                                 dataclasses.replace(cfg, sharded_build=False))
+    return price_check(f"{label} one window", measured, priced["transient"])
 
 
 def _dist_b(r) -> None:

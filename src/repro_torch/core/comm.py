@@ -44,11 +44,13 @@ are kept apart from the exchange's own gathers.
 **Priced, not run.** Over a :class:`~repro_torch.core.mesh.MeshLayout`
 (the dry run's rank-free mesh) the tensors are on the ``meta`` device:
 :func:`all_gather`, :func:`all_reduce`, :func:`sum_in_order`,
-:func:`reduce_scatter_in_order` and :func:`broadcast` then call no
-process group, count ``calls`` and
-``received`` by the same rules as on a world, and return meta tensors of
-the shapes a world would give. So a dry run of one rank's step or serving
-call on meta tensors counts what that rank would take in.
+:func:`reduce_scatter_in_order`, :func:`broadcast` and :func:`ppermute`
+then call no process group, count ``calls`` and ``received`` by the same
+rules as on a world, and return meta tensors of the shapes a world would
+give; :func:`count_max` returns its reduced count as a meta tensor, which
+has no value: the ladder it sizes takes its top rung. So a dry run of one
+rank's step, serving call or simulation window on meta tensors counts
+what that rank would take in.
 
 **Sharded parameters** (FSDP, :mod:`~repro_torch.models.fsdp`) are
 gathered one unit at a time (``all_gather``); the gradients of the split
@@ -553,7 +555,8 @@ def ppermute(x: torch.Tensor, mesh, axes, pairs, *, fill=0) -> torch.Tensor:
 
     The sends and receives go point to point on the world group, with
     global ranks, all posted in one ``batch_isend_irecv``; over gloo a
-    device tensor is staged through pinned host buffers."""
+    device tensor is staged through pinned host buffers. Meta tensors are
+    priced (no group; see the module docstring)."""
     axes = _key(axes)
     g = _group_index(mesh, axes)
     sends = [dst for src, dst in pairs if src == g]
@@ -562,6 +565,10 @@ def ppermute(x: torch.Tensor, mesh, axes, pairs, *, fill=0) -> torch.Tensor:
         raise ValueError(f"group {g} receives from {recvs}: ppermute pairs need one source "
                          f"a destination")
     x = x.contiguous()
+    inbound = sum(1 for s in recvs if s != g)
+    if x.is_meta:  # priced: no group
+        return _timed("ppermute", axes, inbound * x.numel() * x.element_size(),
+                      lambda: torch.empty_like(x))
     staged = _staged(dist.group.WORLD, x)
     if staged:
         src = _buffer("ppermute_in", x.shape, x.dtype)
@@ -580,7 +587,6 @@ def ppermute(x: torch.Tensor, mesh, axes, pairs, *, fill=0) -> torch.Tensor:
         for work in dist.batch_isend_irecv(ops) if ops else ():
             work.wait()
 
-    inbound = sum(1 for s in recvs if s != g)
     _timed("ppermute", axes, inbound * x.numel() * x.element_size(), run)
     return out.to(x.device, non_blocking=True) if staged else out
 
@@ -595,7 +601,7 @@ def warm_point_to_point(mesh) -> None:
     """Under ``nccl``, one barrier of the whole world, so that the world's
     communicator exists before the first ``ppermute`` round that leaves a
     rank out (a no-op under gloo)."""
-    if dist.get_backend(dist.group.WORLD) == "nccl":
+    if mesh.device.type != "meta" and dist.get_backend(dist.group.WORLD) == "nccl":
         dist.barrier(device_ids=[mesh.device.index])
 
 
@@ -608,12 +614,17 @@ def exchange_bytes(shape_local: tuple[int, ...], n_gather_devices: int,
     return n_elems * (n_gather_devices - 1) * dtype_bytes
 
 
-def count_max(count, mesh, axes) -> int:
+def count_max(count, mesh, axes) -> int | torch.Tensor:
     """Phase 1 of the adaptive two-phase exchange: the maximum of every
     rank's count over ``axes``, as a host int. Every rank gets the same
     number, so every rank picks the same ladder rung and ships packets of
     one size. Reading a device count waits for the device: the protocol's
-    one synchronisation."""
+    one synchronisation. A ``meta`` count (a dry run) is priced as the
+    same reduction and comes back as a 0-d meta tensor: it has no value to
+    read, and the ladder functions take their top rung for it (the hard
+    cap, every neuron firing)."""
+    if isinstance(count, torch.Tensor) and count.is_meta:
+        return all_reduce(count.to(torch.int64).reshape(1), mesh, axes, op="max")[0]
     group = mesh.group(_key(axes))
     if dist.get_backend(group) == "nccl":
         x = torch.as_tensor(count, dtype=torch.int64, device=mesh.device).reshape(1)

@@ -303,9 +303,10 @@ def _build_view(spec, mesh, config, *, seed, size_multiple, incoming: bool) -> N
 
 def _aligned(x: torch.Tensor) -> torch.Tensor:
     """``x`` contiguous and 32-byte aligned (the event kernel reads 8
-    entries at once), copied only where it is not."""
+    entries at once), copied only where it is not (a meta tensor has no
+    address: never)."""
     x = x.contiguous()
-    return x if x.data_ptr() % 32 == 0 else x.clone()
+    return x if x.is_meta or x.data_ptr() % 32 == 0 else x.clone()
 
 
 def _receive_tables(tgt, w, d, c: _Cut, n_pad: int, *, intra: bool,
@@ -320,6 +321,11 @@ def _receive_tables(tgt, w, d, c: _Cut, n_pad: int, *, intra: bool,
     global ids. The mapping keeps the order of a row's targets. With
     ``inplace`` the targets are mapped in ``tgt`` itself (a table the
     engine owns), so no second copy is made.
+
+    On ``meta`` tables (a dry run) nothing can be read, so nothing is
+    compacted: the inbound slices hold only the rank's targets and keep
+    their width as they would; a replicated layout keeps its full width, an
+    upper bound on the compacted one.
     """
     chunk = connectivity_lib.CHUNK_ROWS
 
@@ -340,7 +346,8 @@ def _receive_tables(tgt, w, d, c: _Cut, n_pad: int, *, intra: bool,
     for r0 in range(0, tgt.shape[0], chunk):
         r1 = min(tgt.shape[0], r0 + chunk)
         chunk_map, keep = local(r0, r1, tgt[r0:r1])
-        foreign = foreign or bool(((tgt[r0:r1] >= 0) & ~keep).any())
+        if not tgt.is_meta:
+            foreign = foreign or bool(((tgt[r0:r1] >= 0) & ~keep).any())
         mapped[r0:r1] = chunk_map
     if foreign:
         # A replicated layout: this rank's synapses move to the front of

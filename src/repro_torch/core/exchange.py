@@ -663,10 +663,16 @@ class RoutedExchange(DenseMeshExchange):
         gwire, _ = self._assemble(block, gids, rung_dev)
         shipped += float(self.n_dev * (self.gsz - 1) * d_win * _I32_BYTES) * rung_dev
         # Every rank holds the same table, so every rank picks the same rungs.
-        cg = counts_all.cpu().numpy().astype(np.int64).reshape(d_win, self.n_groups, -1)
+        # A dry run's meta table has no counts to read: every edge takes its
+        # bound, the ladder's top (the size the JAX package compiles for).
+        cg = (None if counts_all.is_meta else
+              counts_all.cpu().numpy().astype(np.int64).reshape(d_win, self.n_groups, -1))
         for rnd in self.routing.rounds:
-            need = int((cg * self._round_masks[rnd.offset][None]).sum(axis=-1).max())
-            rung = kops.ladder_rung(self.ladder_edge, need)
+            if cg is None:
+                rung = self.ladder_edge[-1]
+            else:
+                need = int((cg * self._round_masks[rnd.offset][None]).sum(axis=-1).max())
+                rung = kops.ladder_rung(self.ladder_edge, need)
             pkt, _ = self._edge_packet(rnd, gwire, rung)
             on_round(pkt)
             if rnd.offset:

@@ -36,6 +36,10 @@ __all__ = [
     "superstep_lif_cuda",
     "superstep_iaf_plain",
     "superstep_iaf_cuda",
+    "superstep_lif_meta",
+    "superstep_iaf_meta",
+    "lif_allocations",
+    "iaf_allocations",
 ]
 
 _M32 = 0xFFFFFFFF
@@ -157,6 +161,61 @@ _F32, _I32, _BOOL = (torch.float32,), (torch.int32,), (torch.bool,)
 _DELAYS = (torch.int8, torch.int32)
 
 
+def lif_allocations(v, i_syn, refrac, d_win: int) -> dict:
+    """What :func:`superstep_lif_cuda` allocates for a launch: the new
+    ``v``, ``i_syn``, ``refrac`` and ``spikes [D, A, n]``, and the scratch:
+    D spike bitmasks, each padded to 128 bytes (``masks``, ``stride``
+    int32 words apart), and D x A per-area "spiked this cycle" flags with
+    the grid barrier's arrival counter (``sync``, zeroed)."""
+    a, n = v.shape
+    dev = v.device
+    n_words = -(-a * n // 32)
+    stride = -(-n_words // 32) * 32
+    return dict(v=torch.empty_like(v), i_syn=torch.empty_like(i_syn),
+                refrac=torch.empty_like(refrac),
+                spikes=torch.empty((d_win, a, n), dtype=torch.bool, device=dev),
+                masks=torch.empty(d_win * stride, dtype=torch.int32, device=dev),
+                sync=torch.zeros(d_win * a + 1, dtype=torch.int32, device=dev),
+                stride=stride)
+
+
+def iaf_allocations(countdown, d_win: int) -> dict:
+    """What :func:`superstep_iaf_cuda` allocates for a launch: the new
+    ``countdown`` and ``spikes [D, A, n]``, and the scratch: each source's
+    D-bit ``pattern`` and the bitmask of sources that spiked in the window
+    (``any_mask``, in whole 16-byte units)."""
+    a, n = countdown.shape
+    dev = countdown.device
+    return dict(countdown=torch.empty_like(countdown),
+                spikes=torch.empty((d_win, a, n), dtype=torch.bool, device=dev),
+                pattern=torch.empty(a * n, dtype=torch.int32, device=dev),
+                any_mask=torch.empty(-(-a * n // 128) * 4, dtype=torch.int32, device=dev))
+
+
+def superstep_lif_meta(
+    v, i_syn, refrac, fut, drive_p, gids, alive, src, w, delay, t0,
+    *, d_win: int, steps_lo: int, r_span: int, **params,
+):
+    """A launch priced on ``meta`` tensors: :func:`lif_allocations`, no
+    arithmetic; returns what the kernel's wrapper returns."""
+    _check("superstep_lif", v, fut, src, w, delay,
+           d_win=d_win, steps_lo=steps_lo, r_span=r_span)
+    out = lif_allocations(v, i_syn, refrac, d_win)
+    return out["v"], out["i_syn"], out["refrac"], fut, out["spikes"]
+
+
+def superstep_iaf_meta(
+    countdown, fut, interval, alive, src, w, delay,
+    *, d_win: int, steps_lo: int, r_span: int,
+):
+    """A launch priced on ``meta`` tensors: :func:`iaf_allocations`, no
+    arithmetic; returns what the kernel's wrapper returns."""
+    _check("superstep_iaf", countdown, fut, src, w, delay,
+           d_win=d_win, steps_lo=steps_lo, r_span=r_span)
+    out = iaf_allocations(countdown, d_win)
+    return out["countdown"], fut, out["spikes"]
+
+
 def superstep_lif_cuda(
     v, i_syn, refrac, fut, drive_p, gids, alive, src, w, delay, t0,
     *, d_win: int, steps_lo: int, r_span: int,
@@ -184,14 +243,9 @@ def superstep_lif_cuda(
                              f"v {tuple(v.shape)}")
     a, n = v.shape
     k = src.shape[-1]
-    v_o, i_o, r_o = torch.empty_like(v), torch.empty_like(i_syn), torch.empty_like(refrac)
-    spikes = torch.empty((d_win, a, n), dtype=torch.bool, device=dev)
-    # Scratch: D spike bitmasks, each padded to 128 bytes; D x A per-area
-    # "spiked this cycle" flags and the grid barrier's arrival counter (zeroed).
-    n_words = -(-a * n // 32)
-    stride = -(-n_words // 32) * 32
-    masks = torch.empty(d_win * stride, dtype=torch.int32, device=dev)
-    sync = torch.zeros(d_win * a + 1, dtype=torch.int32, device=dev)
+    out = lif_allocations(v, i_syn, refrac, d_win)
+    v_o, i_o, r_o, spikes = out["v"], out["i_syn"], out["refrac"], out["spikes"]
+    masks, sync, stride = out["masks"], out["sync"], out["stride"]
     lib = cuda.library("superstep_lif")
     with torch.cuda.device(dev):
         err = lib.superstep_lif_launch(
@@ -237,12 +291,9 @@ def superstep_iaf_cuda(
         raise ValueError(f"superstep_iaf kernel: {a * n} neurons; the kernel indexes "
                          f"sources in 31 bits")
     k = src.shape[-1]
-    cd_o = torch.empty_like(countdown)
-    spikes = torch.empty((d_win, a, n), dtype=torch.bool, device=dev)
-    # Scratch: each source's D-bit pattern, and the bitmask of sources that
-    # spiked in the window, in whole 16-byte units.
-    pattern = torch.empty(a * n, dtype=torch.int32, device=dev)
-    any_mask = torch.empty(-(-a * n // 128) * 4, dtype=torch.int32, device=dev)
+    out = iaf_allocations(countdown, d_win)
+    cd_o, spikes, pattern, any_mask = (out[f] for f in ("countdown", "spikes", "pattern",
+                                                         "any_mask"))
     lib = cuda.library("superstep_iaf")
     with torch.cuda.device(dev):
         err = lib.superstep_iaf_launch(

@@ -45,8 +45,8 @@ import torch
 
 from repro_torch.kernels import cuda
 
-__all__ = ["event_deliver_plain", "event_deliver_cuda", "event_deliver_forced", "slice_rows",
-           "red_probe"]
+__all__ = ["event_deliver_plain", "event_deliver_cuda", "event_deliver_meta",
+           "event_deliver_forced", "slice_rows", "red_probe", "scratch_numel"]
 
 # Packet entries per chunk of the plain version, times K_out: bounds its
 # int64/f32 temporaries (~40 B per gathered synapse).
@@ -110,6 +110,27 @@ def event_deliver_plain(ring, ids, tgt, w, d, t0: int, *, rows_per_area: int | N
     return ring
 
 
+def scratch_numel(ring, ids, tgt) -> int:
+    """The int64 entries of the kernel's scratch a launch needs: two
+    counters and one cursor per packet entry; 0 where nothing is launched
+    (an empty packet, no synapses or no slots)."""
+    rows, s_max = ids.shape
+    if rows * s_max == 0 or tgt.shape[1] == 0 or ring.shape[1] == 0:
+        return 0
+    return 2 + rows * s_max
+
+
+def event_deliver_meta(ring, ids, tgt, w, d, t0: int, *, rows_per_area: int | None = None):
+    """A launch priced on ``meta`` tensors: the scratch the launch needs
+    (:func:`scratch_numel`; the card keeps it between launches, see
+    ``_scratch``), no arithmetic; returns ``ring``."""
+    _layout(ring, ids, tgt, w, d, rows_per_area)
+    numel = scratch_numel(ring, ids, tgt)
+    if numel:
+        torch.empty(numel, dtype=torch.int64, device=ring.device)
+    return ring
+
+
 def event_deliver_cuda(ring, ids, tgt, w, d, t0: int, *, rows_per_area: int | None = None):
     """Launch the CUDA scatter (``csrc/event_deliver.cu``); updates ``ring``
     in place and returns it.
@@ -163,12 +184,13 @@ def _launch(lib, ring, ids, tgt, w, d, t0, rows_per_area) -> bool:
                              f"boundary (the kernel reads 8 entries at once)")
     rows, s_max = ids.shape
     r, k = ring.shape[1], tgt.shape[1]
-    if rows * s_max == 0 or k == 0 or r == 0:
+    numel = scratch_numel(ring, ids, tgt)
+    if not numel:
         return False
     fn = lib.event_deliver_i8_launch if d.dtype == torch.int8 else lib.event_deliver_i32_launch
     with torch.cuda.device(ring.device):
         stream = torch.cuda.current_stream(ring.device).cuda_stream
-        scratch = _scratch(ring.device, stream, 2 + rows * s_max)
+        scratch = _scratch(ring.device, stream, numel)
         err = fn(ids.data_ptr(), tgt.data_ptr(), w.data_ptr(), d.data_ptr(),
                  ring.data_ptr(), scratch.data_ptr(), rows, s_max, k, r,
                  int(t0) % max(r, 1), n_src, n_tgt, int(rows_per_area or 0), stream)

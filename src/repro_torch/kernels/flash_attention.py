@@ -24,7 +24,8 @@ import torch
 
 from repro_torch.kernels import cuda
 
-__all__ = ["BQ", "BK", "HEAD_DIMS", "flash_attention_plain", "flash_attention_cuda"]
+__all__ = ["BQ", "BK", "HEAD_DIMS", "flash_attention_plain", "flash_attention_cuda",
+           "flash_attention_meta", "allocations"]
 
 BQ = 512   # query rows per block of the Pallas grid
 BK = 512   # key rows per block
@@ -83,6 +84,19 @@ def flash_attention_plain(q, k, v, window, k_len, *, bq: int = BQ, bk: int = BK)
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dh).to(q.dtype)
 
 
+def allocations(q) -> torch.Tensor:
+    """What the kernel's wrapper allocates for a launch: the output, q's
+    shape and dtype."""
+    return torch.empty_like(q)
+
+
+def flash_attention_meta(q, k, v, window, k_len):
+    """A launch priced on ``meta`` tensors: the kernel's :func:`allocations`,
+    no arithmetic."""
+    _check_shapes(q, k, v, BQ, BK)
+    return allocations(q)
+
+
 def flash_attention_cuda(q, k, v, window, k_len):
     """Launch the CUDA kernel on contiguous CUDA tensors of one dtype
     (float32: CUDA cores; bfloat16: tensor cores, 16-byte aligned) with
@@ -103,7 +117,7 @@ def flash_attention_cuda(q, k, v, window, k_len):
         raise ValueError(f"flash_attention kernel: head dim {dh} not in {HEAD_DIMS}")
     sk, hkv = k.shape[1], k.shape[2]
     lib = cuda.library("flash_attention")
-    out = torch.empty_like(q)
+    out = allocations(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_launch(

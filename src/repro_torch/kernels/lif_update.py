@@ -21,7 +21,7 @@ import torch
 
 from repro_torch.kernels import cuda
 
-__all__ = ["f32", "lif_update_plain", "lif_update_cuda"]
+__all__ = ["f32", "lif_update_plain", "lif_update_cuda", "lif_update_meta", "allocations"]
 
 
 def f32(x: float) -> float:
@@ -56,6 +56,19 @@ def lif_update_plain(
     return v_out, i_new, refrac_out, spikes
 
 
+def allocations(v, i_syn, refrac, alive) -> tuple[torch.Tensor, ...]:
+    """What the kernel's wrapper allocates for a launch: the new ``(v',
+    i_syn', refrac', spikes)``, on the inputs' device."""
+    return (torch.empty_like(v), torch.empty_like(i_syn), torch.empty_like(refrac),
+            torch.empty_like(alive))
+
+
+def lif_update_meta(v, i_syn, refrac, i_in, alive, **params):
+    """A launch priced on ``meta`` tensors: the kernel's :func:`allocations`,
+    no arithmetic."""
+    return allocations(v, i_syn, refrac, alive)
+
+
 def lif_update_cuda(
     v, i_syn, refrac, i_in, alive,
     *, p11: float, p21: float, p22: float,
@@ -75,8 +88,7 @@ def lif_update_cuda(
                 f"tensor of shape {tuple(v.shape)}, got {x.dtype} "
                 f"{tuple(x.shape)} on {x.device}")
     lib = cuda.library("lif_update")
-    v_o, i_o = torch.empty_like(v), torch.empty_like(i_syn)
-    r_o, s_o = torch.empty_like(refrac), torch.empty_like(alive)
+    v_o, i_o, r_o, s_o = allocations(v, i_syn, refrac, alive)
     with torch.cuda.device(v.device):
         stream = torch.cuda.current_stream(v.device).cuda_stream
         err = lib.lif_update_launch(

@@ -6,8 +6,12 @@ Port of ``repro.kernels.ops`` (``lif_update``, ``spike_deliver``,
 adaptive ladder's ``bucket_index``, ``ladder_rung``, ``ladder_switch``) and
 of the call of ``flash_attention_pallas`` in ``repro.models.layers``. A
 tensor on the CPU goes to the kernel's plain PyTorch version, a CUDA tensor
-to the CUDA kernel, and any other device raises: there is no silent
-fallback from the kernel to the plain version. Unlike the JAX wrappers
+to the CUDA kernel, a ``meta`` tensor (the dry run's pricing) to the
+kernel's meta rule, and any other device raises: there is no silent
+fallback from the kernel to the plain version. A meta rule allocates what
+the kernel's CUDA wrapper allocates for a launch (outputs and scratch, from
+the one helper both call) and computes nothing: on the card the plain
+version never runs, so its temporaries are not priced. Unlike the JAX wrappers
 these pad nothing and do not widen int8 delays: the kernels mask their own
 ragged edge and read int8 as stored.
 """
@@ -31,12 +35,14 @@ __all__ = [
 ]
 
 
-def _pick(x: torch.Tensor, plain, kernel):
+def _pick(x: torch.Tensor, plain, kernel, meta):
     if x.device.type == "cpu":
         return plain
     if x.device.type == "cuda":
         return kernel
-    raise ValueError(f"no kernel for device {x.device} (expected cpu or cuda)")
+    if x.device.type == "meta":
+        return meta
+    raise ValueError(f"no kernel for device {x.device} (expected cpu, cuda or meta)")
 
 
 def _first_true(mask: torch.Tensor, size: int):
@@ -95,8 +101,12 @@ def bucket_index(ladder, need) -> int:
 
     A count landing exactly on a rung selects that rung, one past it the
     next. ``need`` may be a device scalar: reading it waits for the device
-    (one sync per call).
+    (one sync per call). A ``meta`` count (a dry run) has no value: it
+    takes the top rung, the size the JAX package compiles its largest
+    branch for.
     """
+    if isinstance(need, torch.Tensor) and need.is_meta:
+        return len(ladder) - 1
     return min(bisect.bisect_left(ladder, int(need)), len(ladder) - 1)
 
 
@@ -120,7 +130,7 @@ def lif_update(
     *, p11, p21, p22, v_th, v_reset, t_ref_steps,
 ):
     """Fused LIF step over state of any shape; see :mod:`.lif_update`."""
-    fn = _pick(v, _lif.lif_update_plain, _lif.lif_update_cuda)
+    fn = _pick(v, _lif.lif_update_plain, _lif.lif_update_cuda, _lif.lif_update_meta)
     return fn(v, i_syn, refrac, i_in, alive, p11=p11, p21=p21, p22=p22,
               v_th=v_th, v_reset=v_reset, t_ref_steps=t_ref_steps)
 
@@ -130,7 +140,8 @@ def spike_deliver(
     rows_per_area: int | None = None, src_stride: int = 0,
 ):
     """Delay-resolved contributions ``[N, r_span]``; see :mod:`.spike_deliver`."""
-    fn = _pick(src, _dlv.spike_deliver_plain, _dlv.spike_deliver_cuda)
+    fn = _pick(src, _dlv.spike_deliver_plain, _dlv.spike_deliver_cuda,
+               _dlv.spike_deliver_meta)
     return fn(spikes, src, w, delay, steps_lo=steps_lo, r_span=r_span,
               rows_per_area=rows_per_area, src_stride=src_stride)
 
@@ -165,7 +176,8 @@ def event_deliver_block(
     ``(s, i)`` deposits its synapses at slots ``(t0 + s + d) % R``. With
     ``rows_per_area=n`` row ``a`` is instead area ``a``'s packet of cycle
     ``t0`` over per-area tables; see :mod:`.event_deliver`. Returns ``ring``."""
-    fn = _pick(tgt_out, _evt.event_deliver_plain, _evt.event_deliver_cuda)
+    fn = _pick(tgt_out, _evt.event_deliver_plain, _evt.event_deliver_cuda,
+               _evt.event_deliver_meta)
     return fn(ring, ids, tgt_out, w_out, d_out, t0, rows_per_area=rows_per_area)
 
 
@@ -194,7 +206,7 @@ def superstep_lif(
     engine's block layout ``[D, A, n]`` bool (the JAX wrapper returns
     ``[A, D, n]`` int8). ``fut`` is updated in place.
     """
-    fn = _pick(v, _cyc.superstep_lif_plain, _cyc.superstep_lif_cuda)
+    fn = _pick(v, _cyc.superstep_lif_plain, _cyc.superstep_lif_cuda, _cyc.superstep_lif_meta)
     return fn(v, i_syn, refrac, fut, drive_p, gids, alive, src, w, delay, t0,
               d_win=d_win, steps_lo=steps_lo, r_span=r_span, p11=p11, p21=p21,
               p22=p22, v_th=v_th, v_reset=v_reset, t_ref_steps=t_ref_steps,
@@ -207,7 +219,8 @@ def superstep_iaf(
 ):
     """Fused ignore-and-fire window; returns ``(countdown, fut, spikes)``
     with the spikes as ``[D, A, n]`` bool. See :func:`superstep_lif`."""
-    fn = _pick(countdown, _cyc.superstep_iaf_plain, _cyc.superstep_iaf_cuda)
+    fn = _pick(countdown, _cyc.superstep_iaf_plain, _cyc.superstep_iaf_cuda,
+               _cyc.superstep_iaf_meta)
     return fn(countdown, fut, interval, alive, src, w, delay,
               d_win=d_win, steps_lo=steps_lo, r_span=r_span)
 
@@ -227,5 +240,5 @@ def flash_attention(q, k, v, window, k_len):
             "JAX Pallas kernel cannot be differentiated either; train with "
             "use_pallas_attention=False (the streaming path) or run under "
             "torch.no_grad() / torch.inference_mode()")
-    fn = _pick(q, _fa.flash_attention_plain, _fa.flash_attention_cuda)
+    fn = _pick(q, _fa.flash_attention_plain, _fa.flash_attention_cuda, _fa.flash_attention_meta)
     return fn(q, k, v, window, k_len)

@@ -18,7 +18,7 @@ import torch
 
 from repro_torch.kernels import cuda
 
-__all__ = ["spike_deliver_plain", "spike_deliver_cuda"]
+__all__ = ["spike_deliver_plain", "spike_deliver_cuda", "spike_deliver_meta", "allocations"]
 
 # Rows per chunk of the plain version: bounds its int64/f32 temporaries
 # (~20 B per synapse) at full size.
@@ -60,6 +60,31 @@ def spike_deliver_plain(
     return out
 
 
+def allocations(spikes, src, r_span: int) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """What the kernel's wrapper allocates for a launch: the ``[N, r_span]``
+    f32 output and the scratch for the kernel's bitmask of nonzero spikes
+    (one bit per source, in whole 16-byte units; None where nothing is
+    launched: no rows, slots or synapses)."""
+    n, k = src.shape
+    out = torch.empty((n, r_span), dtype=torch.float32, device=src.device)
+    if n == 0 or r_span == 0 or k == 0:
+        return out, None
+    return out, torch.empty(-(-spikes.numel() // 128) * 4, dtype=torch.int32,
+                            device=src.device)
+
+
+def spike_deliver_meta(
+    spikes, src, w, delay, *, steps_lo: int, r_span: int,
+    rows_per_area: int | None = None, src_stride: int = 0,
+):
+    """A launch priced on ``meta`` tensors: the kernel's :func:`allocations`,
+    no arithmetic; returns the output."""
+    _check_shapes(spikes, src, w, delay, rows_per_area)
+    out, mask = allocations(spikes, src, r_span)
+    del mask
+    return out
+
+
 def spike_deliver_cuda(
     spikes, src, w, delay, *, steps_lo: int, r_span: int,
     rows_per_area: int | None = None, src_stride: int = 0,
@@ -81,18 +106,12 @@ def spike_deliver_cuda(
     if r_span > 1024:
         raise ValueError(f"spike_deliver kernel: r_span={r_span} exceeds 1024 "
                          "(each warp's accumulators live in shared memory)")
-    out = torch.empty((n, r_span), dtype=torch.float32, device=src.device)
-    if n == 0 or r_span == 0:
-        return out
-    if k == 0:
+    out, mask = allocations(spikes, src, r_span)
+    if mask is None:  # no rows or slots (nothing to write), or no synapses
         return out.zero_()
     lib = cuda.library("spike_deliver")
     fn = (lib.spike_deliver_i8_launch if delay.dtype == torch.int8
           else lib.spike_deliver_i32_launch)
-    # Scratch for the kernel's bitmask of nonzero spikes: one bit per source,
-    # in whole 16-byte units.
-    mask = torch.empty(-(-spikes.numel() // 128) * 4, dtype=torch.int32,
-                       device=src.device)
     with torch.cuda.device(src.device):
         stream = torch.cuda.current_stream(src.device).cuda_stream
         err = fn(spikes.data_ptr(), spikes.numel(), mask.data_ptr(),

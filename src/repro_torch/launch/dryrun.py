@@ -21,9 +21,14 @@ counts them while it runs, one unit at a time), ``collectives`` (what
 world counts them),
 ``flops_per_device`` (``torch.utils.flop_counter.FlopCounterMode``),
 ``model_flops_total`` and ``useful_flops_ratio`` as the reference defines
-them, and the H100 roofline (:data:`H100`). XLA's ``memory_analysis``
-temp bytes and its HLO statistics have no counterpart: activations are not
-priced, and the HBM figure is recorded, not gated.
+them, and the H100 roofline (:data:`H100`). The call runs under the
+live-bytes tracker (:class:`~repro_torch.launch.memory.LiveBytes`, in the
+FLOP counter's pass), the counterpart of XLA's ``memory_analysis``:
+``rank_bytes["transient"]`` (the most the call created and held at once:
+activations, saved tensors, gathered units, the accumulator),
+``["output"]`` and ``["peak"]`` (held at entry plus transient), recorded
+as ``hbm_gib_modelled``, not gated, as the reference records it. Its HLO
+statistics have no counterpart (no HLO).
 
 **The paper's workload** (``--arch mam-snn``, the default): the production
 MAM (4.2 M neurons, ~25 G synapses) on 16 x 16 or 2 x 16 x 16 ranks does not
@@ -38,18 +43,22 @@ is made and nothing is allocated. A cell's row holds, per schedule and mesh:
 * ``wire_bytes_window``: the mesh-total bytes a window puts on the wire, as
   the engine's ``wire_bytes`` reports them (static, and the adaptive
   two-phase model);
-* ``rank_bytes``: one rank's table slices and state, from the meta shapes
-  cut as :mod:`repro_torch.core.dist_engine` cuts them, held to the HBM
-  budget (``--hbm-gib``; by default the card's own memory).
+* ``rank_bytes``: one rank's table slices and state (``total``), from the
+  meta shapes cut as :mod:`repro_torch.core.dist_engine` cuts them; one
+  window of that rank's engine run on the meta network under the
+  live-bytes tracker (``transient``, ``output``; every size a run reads
+  from the device at its static bound); and ``peak``, the two summed,
+  held to the HBM budget (``--hbm-gib``; by default the card's own
+  memory), as the reference gates XLA's argument + temp + output bytes.
 
 Beside the cells: the width bounds held against tables instantiated at a
 small size (:func:`verify_inter_table_bounds`), the construction model
 (:func:`construction_cost_row`) and, with ``--build-rss``, the measured
 peaks of the host and the sharded build (:func:`measure_build_rss`).
 
-The reference's XLA readings of these cells (``memory_analysis`` temp
-bytes, ``cost_analysis`` FLOPs, the compiled HLO's collectives) and its TPU
-roofline have no counterpart here.
+The reference's other XLA readings of these cells (``cost_analysis``
+FLOPs, the compiled HLO's statistics and collectives) and its TPU roofline
+have no counterpart here.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch mam-snn \\
         --snn-schedule conventional,structure_aware --mesh both --out rows.json
@@ -86,6 +95,7 @@ from repro_torch.core.mesh import MeshLayout
 from repro_torch.configs.common import SHAPES, ShapeSpec
 from repro_torch.configs.registry import arch_skips, get_arch, list_archs
 from repro_torch.device import resolve_device
+from repro_torch.launch.memory import LiveBytes
 from repro_torch.optim.hierarchical import HierarchicalConfig
 from repro_torch.optim.tree import named_leaves
 from repro_torch.train.steps import (kv_heads, make_serve_artifacts, make_train_artifacts,
@@ -107,6 +117,7 @@ __all__ = [
     "construction_cost_row",
     "measure_build_rss",
     "dryrun_snn_cell",
+    "price_window",
     "main",
 ]
 
@@ -138,8 +149,10 @@ def production_layout(multi_pod: bool) -> MeshLayout:
 
 
 def modelled_hbm_gib(row: dict) -> float:
-    """One rank's priced bytes (GiB): its table slices and its state."""
-    return row.get("rank_bytes", {}).get("total", 0) / 2**30
+    """One rank's priced bytes (GiB): its table slices and its state, plus
+    a window's transient (``rank_bytes["peak"]``), as the reference sums
+    XLA's argument, temp and output bytes."""
+    return row.get("rank_bytes", {}).get("peak", 0) / 2**30
 
 
 def enforce_hbm_budget(row: dict, budget_gib: float | None) -> dict:
@@ -368,6 +381,20 @@ def _rank_bytes(net, layout: MeshLayout, schedule: str, neuron_model: str) -> di
     return dict(tables=tables, state=state, total=tables + state)
 
 
+def price_window(net, spec, layout: MeshLayout, cfg: EngineConfig) -> dict:
+    """The live bytes of one window of ``layout``'s rank: its engine built
+    over the layout on ``net`` (a meta network: nothing is allocated, no
+    process group is made), its state from ``init``, and one ``window``
+    run under :class:`~repro_torch.launch.memory.LiveBytes`. Every size a
+    run reads from the device takes its static bound (a ladder its top
+    rung, a routed edge its bound), the size the reference compiles for.
+    Returns ``{"transient", "output"}`` bytes."""
+    engine = dist_engine_lib._make_dist_engine(net, spec, layout, cfg)
+    state = engine.init()
+    _, _, _, _, live = _measured(lambda: engine.window(state), False)
+    return live
+
+
 def dryrun_snn_cell(
     schedule: str,
     multi_pod: bool,
@@ -388,7 +415,10 @@ def dryrun_snn_cell(
     ``shard_tables`` / ``subgroup_tables`` / ``adaptive`` the table layout
     and the two-phase exchange, as in ``EngineConfig``. The row carries
     ``inter_tables`` (receive tables, replicated against sharded),
-    ``wire_bytes_window`` (the engine's ``wire_bytes``) and ``rank_bytes``.
+    ``wire_bytes_window`` (the engine's ``wire_bytes``) and ``rank_bytes``:
+    the rank's tables and state (``total``), one window of rank 0's engine
+    run on the meta network (:func:`price_window`: ``transient``,
+    ``output``) and ``peak``, the two summed, which the HBM gate holds.
     """
     label = "_".join(x for x in (schedule, backend, exchange) if x)
     if not shard_tables:
@@ -460,7 +490,9 @@ def dryrun_snn_cell(
     wire["adaptive"] = exchange_lib.adaptive_wire_bytes(
         net, schedule=schedule, n_groups=n_groups, routing=routing, **wire_kw)
     wire["adaptive_on"] = adaptive
-    row["rank_bytes"] = _rank_bytes(net, layout, schedule, cfg.neuron_model)
+    rb = row["rank_bytes"] = _rank_bytes(net, layout, schedule, cfg.neuron_model)
+    rb.update(price_window(net, spec, layout, cfg))
+    rb["peak"] = rb["total"] + rb["transient"]
     row["status"] = "OK"
     row["n_neurons"] = spec.n_total
     row["n_synapses_per_neuron"] = spec.k_total
@@ -553,32 +585,37 @@ def _dominant(terms: dict) -> str:
 
 
 def _measured(fn, count_flops: bool):
-    """``fn()`` with comm's counters zeroed first, under a FLOP counter:
-    ``(its result, the counted table, the FLOPs, the peak of the gathered
-    parameter bytes)``."""
+    """``fn()`` with comm's counters zeroed first, under a FLOP counter and
+    the live-bytes tracker on ``meta``: ``(its result, the counted
+    table, the FLOPs, the peak of the gathered parameter bytes, the
+    tracker's {"transient", "output"} bytes)``."""
     from torch.utils.flop_counter import FlopCounterMode
 
     comm.reset_stats()
     if not count_flops:
-        out, flops = fn(), 0
+        with LiveBytes("meta") as live:
+            out = fn()
+        flops = 0
     else:
-        with FlopCounterMode(display=False) as counter:
+        with FlopCounterMode(display=False) as counter, LiveBytes("meta") as live:
             out = fn()
         flops = counter.get_total_flops()
-    return out, _table(), flops, comm.gathered["peak"]
+    return (out, _table(), flops, comm.gathered["peak"],
+            {"transient": live.transient, "output": live.output})
 
 
 def price_lm(bundle, shape: ShapeSpec, layout: MeshLayout, *, fsdp_axis: str | None = "data",
              dp_axes: tuple[str, ...] = ("data",), hier_cfg: HierarchicalConfig | None = None,
              n_micro: int = 1, cache_index: int | None = None, prompt_len: int | None = None,
-             count_flops: bool = True) -> dict:
+             cache_dtype=torch.bfloat16, count_flops: bool = True) -> dict:
     """One rank's call of ``shape`` priced on ``layout``'s rank: the
     training step of ``make_train_artifacts`` (microbatches of one sequence
     a rank; ``flops_per_device`` is one microbatch's FLOPs times
     ``n_micro``), with the sync step priced apart in hierarchical mode, or
     a prefill or decode call of ``make_serve_artifacts`` (a prompt of
     ``prompt_len`` tokens, by default the cache's length; decode at
-    ``cache_index``, by default the cache's last position). Returns
+    ``cache_index``, by default the cache's last position; the cache of
+    ``cache_dtype``, as ``make_serve_artifacts`` takes it). Returns
     ``rank_bytes``, ``collectives``, ``flops_per_device`` and,
     hierarchical, ``sync_step``. ``rank_bytes["gathered"]`` is the peak of
     the parameter bytes the call held gathered (the FSDP gather point's
@@ -586,6 +623,17 @@ def price_lm(bundle, shape: ShapeSpec, layout: MeshLayout, *, fsdp_axis: str | N
     rank computes on it), and a training step's ``held`` counts its
     gradient accumulator (``grad_accum``: the rank's shards, 4 bytes an
     element where the step sums microbatches or batch ranks).
+
+    Each call runs under :class:`~repro_torch.launch.memory.LiveBytes`, in
+    the same pass as the FLOP counter: ``rank_bytes["transient"]`` is the
+    most bytes the call created and held at once (activations, the saved
+    tensors of the backward, the gathered units, the accumulator, the
+    optimizer's temporaries, a prefill's cache: XLA's temp and output
+    bytes), the largest over the microbatch counts priced and, in
+    hierarchical mode, the sync step; ``["output"]`` what that call left
+    alive when it returned; ``["peak"]`` the bytes alive at entry (``held``
+    less what the call makes itself: the accumulator, a prefill's cache)
+    plus ``transient``.
 
     A training step's ``collectives`` are the step's as it runs them:
     what the microbatch loop counts (the split's activation sums and
@@ -610,15 +658,17 @@ def price_lm(bundle, shape: ShapeSpec, layout: MeshLayout, *, fsdp_axis: str | N
                 layout.shape[hier_cfg.pod_axis] if hier_cfg else 1)
             batch = art.batch_sds(bundle, dataclasses.replace(shape, global_batch=n_shards))
             batch = shard_state(batch, art.batch_specs, layout)
-            _, table, flops, peak = _measured(lambda: art.step_fn(params, opt, batch), count)
-            return art, params, opt, _bytes(batch) // micro, table, flops, peak
+            _, table, flops, peak, live = _measured(lambda: art.step_fn(params, opt, batch),
+                                                    count)
+            return art, params, opt, _bytes(batch) // micro, table, flops, peak, live
 
         micros = [1] if n_micro == 1 else [2] if n_micro == 2 else [2, 3]
         if count_flops and n_micro > 1:
             micros = [1] + micros  # one microbatch's FLOPs
         runs = {m: step_at(m, count_flops and m == 1) for m in micros}
-        art, params, opt, batch_bytes, _, flops, _ = runs[micros[0]]
+        art, params, opt, batch_bytes, _, flops, _, _ = runs[micros[0]]
         gathered = max(run[6] for run in runs.values())
+        lives = [run[7] for run in runs.values()]
         table = runs[min(n_micro, 2)][4]
         if n_micro > 2:
             more = runs[3][4]
@@ -631,11 +681,15 @@ def price_lm(bundle, shape: ShapeSpec, layout: MeshLayout, *, fsdp_axis: str | N
         flops *= n_micro
         if sync is not None:
             held["sync"] = _bytes(sync)
-            _, sync_table, _, _ = _measured(lambda: art.sync_fn(params, sync), False)
+            _, sync_table, _, _, live = _measured(lambda: art.sync_fn(params, sync), False)
+            lives.append(live)
             out["sync_step"] = {"collectives": sync_table,
                                 "bytes": sum(e["bytes"] for e in sync_table.values())}
+        # The step makes its accumulator itself: it is in the transient.
+        created = held["grad_accum"]
     else:
-        art = make_serve_artifacts(bundle, shape, layout, fsdp_axis=fsdp_axis)
+        art = make_serve_artifacts(bundle, shape, layout, fsdp_axis=fsdp_axis,
+                                   cache_dtype=cache_dtype)
         params = art.shard(art.params_sds)
         if shape.kind == "prefill":
             specs = bundle.input_specs(dataclasses.replace(
@@ -643,7 +697,7 @@ def price_lm(bundle, shape: ShapeSpec, layout: MeshLayout, *, fsdp_axis: str | N
             del specs["labels"]
             batch = {k: layout.shard(v, (art.batch_axes,) + (None,) * (v.dim() - 1), k).clone()
                      for k, v in specs.items()}
-            (_, state), table, flops, gathered = _measured(
+            (_, state), table, flops, gathered, live = _measured(
                 lambda: art.prefill_fn(params, batch), count_flops)
         else:
             state = shard_state(art.state_sds, art.state_specs, layout)
@@ -651,14 +705,21 @@ def price_lm(bundle, shape: ShapeSpec, layout: MeshLayout, *, fsdp_axis: str | N
                 torch.empty((shape.global_batch, 1), dtype=torch.long, device="meta"),
                 art.token_spec, "tokens")}
             index = shape.seq_len - 1 if cache_index is None else cache_index
-            _, table, flops, gathered = _measured(
+            _, table, flops, gathered, live = _measured(
                 lambda: art.decode_fn(params, state, batch["tokens"], index), count_flops)
+        lives = [live]
         held = {"params": _bytes(params), "cache": _bytes(state["cache"]),
                 "batch": _bytes(batch)}
         if "enc_out" in state:
             held["enc_out"] = _nbytes(state["enc_out"])
+        # A prefill makes the cache (and an encoder's output) it returns: they
+        # are in its transient.
+        created = held["cache"] + held.get("enc_out", 0) if shape.kind == "prefill" else 0
     held["held"] = sum(held.values())
     held["gathered"] = gathered
+    worst = max(lives, key=lambda live: live["transient"])
+    held["transient"], held["output"] = worst["transient"], worst["output"]
+    held["peak"] = held["held"] - created + held["transient"]
     out.update(rank_bytes=held, collectives=table, flops_per_device=flops)
     return out
 
@@ -706,19 +767,17 @@ def dryrun_lm_cell(arch_id: str, shape_name: str, multi_pod: bool, hierarchical:
     row["model_flops_total"] = mf = model_flops(bundle, shape)
     total = row["flops_per_device"] * layout.size
     row["useful_flops_ratio"] = mf / total if total else 0.0
-    row["not_priced"] = ("activations (the reference's XLA memory_analysis temp bytes and "
-                         "its HLO statistics have no counterpart)")
+    row["not_priced"] = "the reference's HLO statistics (no HLO: no counterpart)"
     return row
 
 
 def record_hbm(row: dict, budget_gib: float | None) -> dict:
-    """An LM row's modelled bytes a rank (held, the gradient accumulator
-    included, and the peak gathered; activations not priced) beside
-    ``budget_gib``: recorded, not gated (the reference gates its SNN rows
-    only)."""
+    """An LM row's modelled bytes a rank (``rank_bytes["peak"]``: what the
+    rank holds at entry plus the call's transient, the gathered units and
+    the activations among them) beside ``budget_gib``: recorded, not gated
+    (the reference gates its SNN rows only)."""
     if row.get("status") == "OK":
-        rb = row["rank_bytes"]
-        row["hbm_gib_modelled"] = round((rb["held"] + rb["gathered"]) / 2**30, 3)
+        row["hbm_gib_modelled"] = round(row["rank_bytes"]["peak"] / 2**30, 3)
         row["hbm_gib_budget"] = budget_gib
     return row
 
@@ -859,6 +918,7 @@ def _print_row(row: dict) -> None:
         rb, terms = row["rank_bytes"], row["roofline"]
         wire = sum(e["bytes"] for e in row["collectives"].values())
         line = (f"OK held={rb['held'] / 2**30:.2f}GiB gathered={rb['gathered'] / 2**30:.2f}GiB "
+                f"transient={rb['transient'] / 2**30:.2f}GiB peak={rb['peak'] / 2**30:.2f}GiB "
                 f"wire={wire:,}B flops/dev={row['flops_per_device']:.3e} "
                 f"useful={row['useful_flops_ratio']:.3f} roofline compute="
                 f"{terms['compute_s']:.3e}s memory={terms['memory_s']:.3e}s collective="
@@ -881,6 +941,7 @@ def _print_row(row: dict) -> None:
                       f"sharded={tb['sharded'] / 2**30:.1f}GiB ({tb['reduction']:.1f}x)")
         print(base + f"OK rank={rb['total'] / 2**30:7.2f}GiB (tables "
               f"{rb['tables'] / 2**30:.2f}, state {rb['state'] / 2**30:.2f}) "
+              f"transient={rb['transient'] / 2**30:.2f}GiB peak={rb['peak'] / 2**30:.2f}GiB "
               f"wire={wire['total_bytes']:,}B/window "
               f"(adaptive {wire['adaptive']['total_bytes_expected']:,})" + tables)
 

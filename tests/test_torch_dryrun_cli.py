@@ -29,17 +29,22 @@ def test_cli_exits_nonzero_on_a_failing_hbm_gate(tmp_path):
     out = tmp_path / "rows.json"
     run = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--device", "cpu",
-         "--hbm-gib", "0.5", "--mesh", "single", "--snn-schedule",
+         "--hbm-gib", "2", "--mesh", "single", "--snn-schedule",
          "structure_aware", "--out", str(out)],
         capture_output=True, text=True, timeout=300,
         env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
     assert run.returncode == 1, run.stdout + run.stderr
     rows = json.loads(out.read_text())
     assert [r["status"] for r in rows[:2]] == ["OK", "OK"]
-    assert rows[2]["status"].startswith("FAIL(HBM: modelled 1.26 GiB/rank exceeds")
+    # The gate holds the priced peak (tables and state, 1.26 GiB, plus a
+    # window's transient: the one-hot deposit's), not the held bytes alone.
+    peak = rows[2]["rank_bytes"]["peak"] / 2**30
+    assert rows[2]["rank_bytes"]["total"] / 2**30 < 2 < peak
+    assert rows[2]["status"].startswith(f"FAIL(HBM: modelled {peak:.2f} GiB/rank exceeds")
     assert "1 FAIL" in run.stdout
     # The same cells within budget pass.
-    assert dryrun.main(["--device", "cpu", "--hbm-gib", "2", "--mesh", "single"]) == 0
+    budget = str(int(peak) + 1)
+    assert dryrun.main(["--device", "cpu", "--hbm-gib", budget, "--mesh", "single"]) == 0
 
 
 def test_cli_refusals(capsys):

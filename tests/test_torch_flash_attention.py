@@ -8,6 +8,7 @@ bar: one bf16 ulp of the larger value + 2e-5, per element.
 """
 
 import math
+from types import SimpleNamespace
 
 import jax.numpy as jnp
 import numpy as np
@@ -79,8 +80,13 @@ def test_ops_takes_the_plain_version_on_the_cpu_and_refuses_other_devices():
     got = ops.flash_attention(q, k, v, 0, 64)
     assert torch.equal(got, flash_attention_plain(q, k, v, 0, 64))
     assert cuda.launches == before
+    # meta tensors (the dry run) take the kernel's meta rule: its output, no launch
+    priced = ops.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"), 0, 64)
+    assert priced.is_meta and priced.shape == q.shape and priced.dtype == q.dtype
+    assert cuda.launches == before
     with pytest.raises(ValueError, match="no kernel for device"):
-        ops.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"), 0, 64)
+        ops.flash_attention(SimpleNamespace(device=torch.device("xpu"), requires_grad=False),
+                            k, v, 0, 64)
 
 
 def test_bf16_inputs_are_computed_in_f32_and_cast_once():

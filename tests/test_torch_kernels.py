@@ -7,6 +7,8 @@ jitted reference's two FMAs in float64, and delivery weights lie on the 1/256
 grid, so every sum is exact in any order.
 """
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 
@@ -123,11 +125,17 @@ def test_plain_deliver_row_chunks(monkeypatch):
 
 
 def test_dispatch_raises_off_cpu_and_cuda():
-    """Tensors on a device with no kernel raise; the CUDA wrappers refuse CPU
-    tensors instead of falling back to the plain version."""
+    """Tensors on a device with no kernel raise (meta tensors, the dry run's,
+    take the kernel's meta rule); the CUDA wrappers refuse CPU tensors
+    instead of falling back to the plain version."""
     v = torch.zeros(8, device="meta")
+    out = tops.lif_update(v, v, v.int(), v, v.bool(), **LIF_KW)
+    assert [(x.device.type, x.dtype) for x in out] == [
+        ("meta", torch.float32), ("meta", torch.float32), ("meta", torch.int32),
+        ("meta", torch.bool)]
     with pytest.raises(ValueError, match="no kernel for device"):
-        tops.lif_update(v, v, v.int(), v, v.bool(), **LIF_KW)
+        tops.lif_update(SimpleNamespace(device=torch.device("xpu")), v, v.int(), v, v.bool(),
+                        **LIF_KW)
     xs = as_torch(*lif_inputs(1, 8))
     with pytest.raises(ValueError, match="CUDA"):
         tlif.lif_update_cuda(*xs, **LIF_KW)
