@@ -294,8 +294,12 @@ card from seed 0, f32 products in f32):
     checkpoint bitwise, its layer leaves stacked as in the JAX CLI; (i)
     ``train.pipeline.pipeline_apply`` on four gloo ranks sharing the card
     (``--pipe-rank``): qwen2-0.5b as published, 4 stages of 6 layers, each
-    rank holding its stage alone, 4 microbatches of B 1 x S 4096, every
-    rank's outputs bitwise the 24 layers run in sequence here; (j) the
+    rank holding its stage alone, 4 microbatches of B 1 x S 4096, under
+    grad with each layer a checkpoint as ``remat`` asks, and the GPipe
+    backward of one f32 loss (the outputs' inner product with a seeded
+    tensor): every rank's outputs bitwise the 24 layers run in sequence
+    here, its stage's gradients and the microbatches' (on every rank)
+    within 1e-4 of each leaf's largest of the one-device gradient; (j) the
     trainers on a process mesh, four gloo ranks of this script sharing the
     card (``--mesh-rank``), one world and a process mesh for each shape,
     the state held as each rank's shards: the hierarchical int8 trainer on
@@ -3384,6 +3388,8 @@ WHISPER_DECODER_SEQ = 448  # whisper-medium's decoder length
 PIPE_STAGES = 4           # (i): qwen2-0.5b's 24 layers in 4 stages of 6
 PIPE_MICRO = 4            # microbatches of B 1 x S 4096
 PIPE_TIMEOUT_S = 300
+PIPE_PROBE_SEED = 7       # the loss's fixed tensor
+PIPE_GRAD_BAR = 1e-4      # of a leaf's largest |g| (tests/test_torch_train.py's bar)
 
 
 def _published_remat(arch) -> str:
@@ -3617,48 +3623,103 @@ def phase_train_cli_family() -> None:
 
 
 def _pipe_stage_fn(model, cfg, first: int, positions):
-    """Stage function of (i): layers ``first``... of qwen2-0.5b on ``h``."""
+    """Stage function of (i): layers ``first``... of qwen2-0.5b on ``h``,
+    each under grad a checkpoint as ``cfg.remat`` asks, as
+    ``Transformer._layers`` runs them."""
+    import torch
+
+    from repro_torch.models.transformer import _REMAT
+
     thetas, windows = cfg.theta_array(), cfg.window_array()
     g = cfg.group_size
 
     def stage(layers_, h):
         for j, sub in enumerate(layers_):
             i = first + j
-            h = model._layer(sub, h, positions, thetas[i // g, i % g],
-                             int(windows[i // g, i % g]))[0]
+
+            def layer(x, sub=sub, theta=thetas[i // g, i % g], window=int(windows[i // g, i % g])):
+                return model._layer(sub, x, positions, theta, window)[0]
+
+            if cfg.remat != "none" and torch.is_grad_enabled():
+                h = torch.utils.checkpoint.checkpoint(layer, h, use_reentrant=False,
+                                                      **_REMAT[cfg.remat])
+            else:
+                h = layer(h)
         return h
 
     return stage
+
+
+def _pipe_loss(out, probe):
+    """(i)'s loss, the same on every rank: the outputs' inner product with
+    ``probe``, in f32."""
+    return (out.float() * probe).sum()
+
+
+def _pipe_reference(model, cfg, params, x, probe, positions):
+    """The one-device gradient of (i)'s loss: the 24 layers in sequence, one
+    microbatch at a time, the last first (the order in which the
+    pipeline's backward, as the reference's scan, sums a stage's
+    gradients). Returns the outputs, the microbatches' gradient, every
+    layer leaf's gradient in ``params.layers.parameters()`` order (on the
+    host) and the forward and backward ms."""
+    import torch
+
+    stage = _pipe_stage_fn(model, cfg, 0, positions)
+    params.layers.requires_grad_()
+    leaves = list(params.layers.parameters())
+    outs, g_x, g_w = [None] * len(x), [None] * len(x), None
+    fwd_ms = bwd_ms = 0.0
+    for m in reversed(range(len(x))):
+        xm = x[m].detach().requires_grad_()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = stage(params.layers, xm)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        grads = torch.autograd.grad(_pipe_loss(y, probe[m]), [xm, *leaves])
+        torch.cuda.synchronize()
+        fwd_ms += 1e3 * (t1 - t0)
+        bwd_ms += 1e3 * (time.perf_counter() - t1)
+        outs[m], g_x[m] = y.detach(), grads[0]
+        g_w = list(grads[1:]) if g_w is None else [a + b for a, b in zip(g_w, grads[1:])]
+    params.layers.requires_grad_(False)
+    return (torch.stack(outs), torch.stack(g_x), [g.cpu() for g in g_w], fwd_ms, bwd_ms)
 
 
 def phase_train_pipeline() -> None:
     """(i) ``train.pipeline.pipeline_apply`` run by four gloo ranks on the
     card (processes of this script, ``--pipe-rank``): qwen2-0.5b as
     published (bf16) cut into 4 stages of 6 layers, each rank holding only
-    its stage, on 4 microbatches of B 1 x S 4096 (the token embeddings);
-    every rank's outputs against the 24 layers run in sequence here."""
+    its stage, on 4 microbatches of B 1 x S 4096 (the token embeddings),
+    under grad, each layer a checkpoint as ``remat`` asks; every rank
+    takes the same f32 loss's backward. Every rank's outputs against the
+    24 layers run in sequence here, its stage's gradients and the
+    microbatches' against the one-device gradient of the same loss
+    (:func:`_pipe_reference`), computed here first."""
     import socket
     import tempfile
 
     import torch
 
+    t_phase = time.perf_counter()
     bundle, params = _lm("qwen2-0.5b")
     cfg, model = bundle.cfg, bundle.model
     per = cfg.n_layers // PIPE_STAGES
     positions = torch.arange(TRAIN_SEQ, dtype=torch.int32, device="cuda").expand(1, TRAIN_SEQ)
-    with torch.inference_mode():
+    with torch.no_grad():
         x = model._embed(params, _tokens(cfg.vocab, PIPE_MICRO, TRAIN_SEQ))[:, None]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ref = torch.stack([_pipe_stage_fn(model, cfg, 0, positions)(params.layers, xm)
-                           for xm in x])
-        torch.cuda.synchronize()
-        seq_ms = 1e3 * (time.perf_counter() - t0)
+    gen = torch.Generator(device="cuda").manual_seed(PIPE_PROBE_SEED)
+    probe = torch.randn(x.shape, generator=gen, device="cuda", dtype=torch.float32)
+    ref, ref_gx, ref_gw, ref_fwd_ms, ref_bwd_ms = _pipe_reference(
+        model, cfg, params, x, probe, positions)
+    n_leaves = len(ref_gw) // cfg.n_layers  # the layers are alike
     with tempfile.TemporaryDirectory() as tmp:
         torch.save(x.cpu(), f"{tmp}/x.pt")
+        torch.save(probe.cpu(), f"{tmp}/probe.pt")
         for s in range(PIPE_STAGES):
             torch.save(params.layers[s * per:(s + 1) * per].cpu(), f"{tmp}/stage{s}.pt")
-        del params
+        del params, x, probe
         torch.cuda.empty_cache()
         with socket.socket() as sock:
             sock.bind(("127.0.0.1", 0))
@@ -3678,24 +3739,57 @@ def phase_train_pipeline() -> None:
                 if p.poll() is None:
                     p.kill()
                     p.wait()
+        ranks_s = time.perf_counter() - t0
         for rank in range(PIPE_STAGES):
             for line in Path(f"{tmp}/rank{rank}.log").read_text().splitlines():
                 log(line if line.startswith("[train]") else f"[train] (i) rank {rank}| {line}")
         rcs = [p.returncode for p in procs]
         if any(rcs):
             raise AssertionError(f"(i) a pipeline rank failed: exit codes {rcs}")
-        outs = [torch.load(f"{tmp}/out{r}.pt") for r in range(PIPE_STAGES)]
-    ref = ref.cpu()
-    diffs = [max_abs_err(o, ref) for o in outs]
-    same = all(bitwise_equal(o, ref) for o in outs)
+        got = [torch.load(f"{tmp}/grad{r}.pt") for r in range(PIPE_STAGES)]
+        peaks = [json.loads(Path(f"{tmp}/stats{r}.json").read_text())["peak"]
+                 for r in range(PIPE_STAGES)]
+    out_same = [bitwise_equal(g["out"].cuda(), ref) for g in got]
+    out_diff = max(max_abs_err(g["out"].cuda(), ref) for g in got)
+    gx_scale = float(ref_gx.double().abs().max())
+    gx_err = [max_abs_err(g["gx"].cuda(), ref_gx) / gx_scale for g in got]
+    gx_same = [bitwise_equal(g["gx"].cuda(), ref_gx) for g in got]
+    gx_alike = all(bitwise_equal(g["gx"], got[0]["gx"]) for g in got)
+    gw_err, gw_same, worst = [], [], None
+    for r, g in enumerate(got):
+        want = ref_gw[r * per * n_leaves:(r + 1) * per * n_leaves]
+        if len(g["gw"]) != len(want):
+            raise AssertionError(f"(i) rank {r}: {len(g['gw'])} stage gradients, "
+                                 f"{len(want)} leaves")
+        errs = []
+        for j, (a, b) in enumerate(zip(g["gw"], want)):
+            b = b.cuda()
+            errs.append(max_abs_err(a.cuda(), b) / max(float(b.double().abs().max()), 1e-30))
+            if worst is None or errs[-1] > worst[0]:
+                worst = (errs[-1], r, j)
+        gw_err.append(max(errs))
+        gw_same.append(all(bitwise_equal(a.cuda(), b.cuda()) for a, b in zip(g["gw"], want)))
+    card = torch.cuda.get_device_properties(0).total_memory
     log(f"[train] (i) pipeline_apply, qwen2-0.5b {cfg.param_dtype} in {PIPE_STAGES} stages of "
         f"{per} layers on {PIPE_STAGES} gloo ranks sharing the card, {PIPE_MICRO} microbatches "
-        f"of B 1 x S {TRAIN_SEQ}: every rank's outputs {'bitwise' if same else 'NOT bitwise'} "
-        f"the {cfg.n_layers} layers in sequence (largest difference {max(diffs):.3g}); ranks "
-        f"exited {rcs} after {time.perf_counter() - t0:.1f} s; the sequence here "
-        f"{seq_ms:.1f} ms; {card_name_power()}")
-    if not same:
-        raise AssertionError(f"(i) pipeline outputs differ from the sequence: {diffs}")
+        f"of B 1 x S {TRAIN_SEQ}, under grad (remat {cfg.remat!r}): every rank's outputs "
+        f"{'bitwise' if all(out_same) else 'NOT bitwise'} the {cfg.n_layers} layers in sequence "
+        f"(largest difference {out_diff:.3g}); ranks exited {rcs} after {ranks_s:.1f} s; the "
+        f"sequence here (one device, a microbatch at a time) forward {ref_fwd_ms:.1f} ms, "
+        f"backward {ref_bwd_ms:.1f} ms; {card_name_power()}")
+    log(f"[train] (i) gradients against the one-device gradient, of each leaf's largest |g| "
+        f"(bar {PIPE_GRAD_BAR:g}): stage leaves by rank {[f'{e:.3g}' for e in gw_err]}, "
+        f"bitwise {gw_same} (worst: rank {worst[1]} leaf {worst[2]}); the microbatches' by rank "
+        f"{[f'{e:.3g}' for e in gx_err]}, bitwise {gx_same}, alike on every rank: {gx_alike}")
+    log(f"[train] (i) peak GB by rank {[round(p / 1e9, 2) for p in peaks]}, "
+        f"{sum(peaks) / 1e9:.2f} together against the card's {card / 1e9:.2f}; "
+        f"(i) in {time.perf_counter() - t_phase:.1f} s; "
+        f"{card_name_power()}")
+    if not all(out_same):
+        raise AssertionError(f"(i) pipeline outputs differ from the sequence: {out_diff}")
+    if max(gw_err) > PIPE_GRAD_BAR or max(gx_err) > PIPE_GRAD_BAR or not gx_alike:
+        raise AssertionError(f"(i) pipeline gradients off the one-device gradient: stage "
+                             f"{gw_err}, microbatches {gx_err}, alike {gx_alike}")
 
 
 def pipe_rank_main(rank: int, tmp: str, port: int) -> int:
@@ -3717,24 +3811,49 @@ def pipe_rank_main(rank: int, tmp: str, port: int) -> int:
         bundle = _bundle("qwen2-0.5b")
         per = bundle.cfg.n_layers // PIPE_STAGES
         stage = torch.load(f"{tmp}/stage{rank}.pt", weights_only=False).to(mesh.device)
-        x = torch.load(f"{tmp}/x.pt").to(mesh.device)
+        stage.requires_grad_()
+        x = torch.load(f"{tmp}/x.pt").to(mesh.device).requires_grad_()
+        probe = torch.load(f"{tmp}/probe.pt").to(mesh.device)
         positions = torch.arange(TRAIN_SEQ, dtype=torch.int32,
                                  device=mesh.device).expand(1, TRAIN_SEQ)
         fn = _pipe_stage_fn(bundle.model, bundle.cfg, rank * per, positions)
+        # One microbatch through the stage and back first, on every rank at
+        # once: the first checkpointed layer's one-time costs (imports,
+        # cuBLAS's handle) would otherwise fall on the pipeline's steps, one
+        # stage after another.
+        t0 = time.perf_counter()
+        xw = x[0].detach().requires_grad_()
+        torch.autograd.grad(fn(stage, xw).float().sum(), [xw, *stage.parameters()])
+        del xw
+        torch.cuda.synchronize()
+        warm_ms = 1e3 * (time.perf_counter() - t0)
         comm.reset_stats()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
         dist.barrier()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with torch.inference_mode():
-            out = pipeline_apply(fn, stage, x, mesh)
+        out = pipeline_apply(fn, stage, x, mesh)
         torch.cuda.synchronize()
-        ms = 1e3 * (time.perf_counter() - t0)
-        torch.save(out.cpu(), f"{tmp}/out{rank}.pt")
-        held = sum(p.numel() for p in stage.parameters())
+        t1 = time.perf_counter()
+        fwd = (dict(comm.calls), dict(comm.received))
+        _pipe_loss(out, probe).backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        peak = torch.cuda.max_memory_allocated()
+        torch.save({"out": out.detach().cpu(), "gx": x.grad.cpu(),
+                    "gw": [p.grad.cpu() for p in stage.parameters()]}, f"{tmp}/grad{rank}.pt")
+        Path(f"{tmp}/stats{rank}.json").write_text(json.dumps({"peak": peak}))
+        n = sum(p.numel() for p in stage.parameters())
+        steps = PIPE_MICRO + PIPE_STAGES - 1
         log(f"[train] (i) rank {rank}: stage {rank} (layers {rank * per}-"
-            f"{rank * per + per - 1}, {held / 1e6:.1f} M parameters), "
-            f"{PIPE_MICRO + PIPE_STAGES - 1} steps in {ms:.1f} ms, collectives "
-            f"{dict(comm.calls)}, bytes in {dict(comm.received)}")
+            f"{rank * per + per - 1}, {n / 1e6:.1f} M parameters), a microbatch through the "
+            f"stage and back first in {warm_ms:.1f} ms, forward {steps} steps in "
+            f"{1e3 * (t1 - t0):.1f} ms, collectives {fwd[0]}, bytes in {fwd[1]}; backward "
+            f"{steps} steps in {1e3 * (t2 - t1):.1f} ms, collectives "
+            f"{ {k: v for k, v in comm.calls.items() if k not in fwd[0]} }, bytes in "
+            f"{ {k: v for k, v in comm.received.items() if k not in fwd[1]} }; held "
+            f"{held / 1e9:.2f} GB at entry, peak {peak / 1e9:.2f} GB; {card_name_power()}")
     finally:
         dist.destroy_process_group()
     return 0

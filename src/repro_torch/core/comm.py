@@ -76,7 +76,13 @@ forward's transpose needs, counted under its own name:
 * :func:`own_slice`: the rank's own slice along a dimension; the backward
   gathers (``"slice_grad_gather"``);
 * :func:`max_over`: a max over the axis that carries no gradient
-  (``"split_max"``).
+  (``"split_max"``);
+* :func:`~repro_torch.train.pipeline.pipeline_apply` (GPipe over ``pipe``):
+  its backward sends each step's input cotangent to the stage before by a
+  :func:`ppermute` of the reverse pairs (``"ppermute_grad"``), and
+  :func:`broadcast` s the microbatches' gradient from stage 0
+  (``"broadcast_grad"``); its output's broadcast transposes to the last
+  stage's own cotangent, with no collective.
 
 Every sum adds the ranks' values in f32 in rank order onto an f32 zero, as
 :func:`sum_in_order` does, and casts to the input's dtype: every rank of
@@ -361,20 +367,21 @@ def reduce_scatter_in_order(x: torch.Tensor, mesh, axes, spec: tuple,
     return acc
 
 
-def broadcast(x: torch.Tensor, mesh, axes, *, src: int) -> torch.Tensor:
+def broadcast(x: torch.Tensor, mesh, axes, *, src: int,
+              count_as: str = "broadcast") -> torch.Tensor:
     """The ``x`` of the rank at group index ``src`` over ``axes`` (row-major)
     on every rank of the group: a new tensor on ``x``'s device, bitwise the
     source's (where the reference takes a ``psum`` of the source's value
-    and zeros elsewhere)."""
+    and zeros elsewhere); counted under ``count_as``."""
     axes = _key(axes)
     if x.is_meta:  # priced: no group
         nbytes = 0 if _group_index(mesh, axes) == src else x.numel() * x.element_size()
-        return _timed("broadcast", axes, nbytes, lambda: x.detach().clone())
+        return _timed(count_as, axes, nbytes, lambda: x.detach().clone())
     group = mesh.group(axes)
     staged = _staged(group, x)
     buf = x.detach().to("cpu", copy=True) if staged else x.detach().clone()
     nbytes = 0 if _group_index(mesh, axes) == src else buf.numel() * buf.element_size()
-    _timed("broadcast", axes, nbytes,
+    _timed(count_as, axes, nbytes,
            lambda: dist.broadcast(buf, src=_rank_at(mesh, axes, src), group=group))
     return buf.to(x.device, non_blocking=True) if staged else buf
 
@@ -545,13 +552,15 @@ def _rank_at(mesh, axes: tuple, h: int) -> int:
                                     [mesh.shape[a] for a in mesh.axis_names]))
 
 
-def ppermute(x: torch.Tensor, mesh, axes, pairs, *, fill=0) -> torch.Tensor:
+def ppermute(x: torch.Tensor, mesh, axes, pairs, *, fill=0,
+             count_as: str = "ppermute") -> torch.Tensor:
     """``jax.lax.ppermute`` over ``axes``: for every ``(src, dst)`` of
     ``pairs`` (group indices, row-major over ``axes``), the rank of group
     ``src`` sends its ``x`` to the rank of group ``dst`` at its own
     coordinates off ``axes``. Returns what arrived; a rank that no pair
     sends to gets ``x``'s shape filled with ``fill`` (``jax.lax.ppermute``
-    gives zeros there).
+    gives zeros there). Counted under ``count_as``, which also names the
+    pinned host buffers it stages through.
 
     The sends and receives go point to point on the world group, with
     global ranks, all posted in one ``batch_isend_irecv``; over gloo a
@@ -567,13 +576,13 @@ def ppermute(x: torch.Tensor, mesh, axes, pairs, *, fill=0) -> torch.Tensor:
     x = x.contiguous()
     inbound = sum(1 for s in recvs if s != g)
     if x.is_meta:  # priced: no group
-        return _timed("ppermute", axes, inbound * x.numel() * x.element_size(),
+        return _timed(count_as, axes, inbound * x.numel() * x.element_size(),
                       lambda: torch.empty_like(x))
     staged = _staged(dist.group.WORLD, x)
     if staged:
-        src = _buffer("ppermute_in", x.shape, x.dtype)
+        src = _buffer(f"{count_as}_in", x.shape, x.dtype)
         src.copy_(x)  # waits for the device
-        out = _buffer("ppermute_out", x.shape, x.dtype)
+        out = _buffer(f"{count_as}_out", x.shape, x.dtype)
     else:
         src, out = x, torch.empty_like(x)
     if recvs and recvs[0] == g:
@@ -587,7 +596,7 @@ def ppermute(x: torch.Tensor, mesh, axes, pairs, *, fill=0) -> torch.Tensor:
         for work in dist.batch_isend_irecv(ops) if ops else ():
             work.wait()
 
-    _timed("ppermute", axes, inbound * x.numel() * x.element_size(), run)
+    _timed(count_as, axes, inbound * x.numel() * x.element_size(), run)
     return out.to(x.device, non_blocking=True) if staged else out
 
 
